@@ -1,0 +1,28 @@
+"""Config schema and the model presets that serving uses."""
+
+from __future__ import annotations
+
+import pathlib
+
+import yaml
+
+from photon_tpu_torch.config.schema import (  # noqa: F401
+    Config,
+    ModelConfig,
+    PhotonConfig,
+    ServeConfig,
+)
+
+_PRESET_DIR = pathlib.Path(__file__).parent / "presets"
+
+
+def list_presets() -> list[str]:
+    return sorted(p.stem for p in _PRESET_DIR.glob("*.yaml"))
+
+
+def load_preset(name: str) -> Config:
+    """A model preset (e.g. ``mpt-125m``) over the serving defaults."""
+    path = _PRESET_DIR / f"{name}.yaml"
+    if not path.exists():
+        raise ValueError(f"unknown preset {name!r}; available: {list_presets()}")
+    return Config.from_dict(yaml.safe_load(path.read_text())).validate()
