@@ -1,19 +1,33 @@
 #!/usr/bin/env python3
-"""Drive photon_tpu_torch's serving path on one NVIDIA GPU, end to end.
+"""Drive photon_tpu_torch's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
-   the build of every kernel from ``photon_tpu_torch/ops/csrc/`` (nvcc,
-   ``sm_90a``);
+   the build of every kernel from ``photon_tpu_torch/ops/csrc/`` (one
+   nvcc per source, all started together, ``sm_90a``);
 2. kernels: each kernel against its plain PyTorch version on the card,
-   fp32 and bf16, at the shapes the serving step gives it; times of the
-   kernel, the plain version and one PyTorch library call, and the least
-   time the card could take (bytes over 3.35 TB/s, flops over the peak
-   for the dtype);
-3. engine: full-width mpt-125m (random weights from seed 0, bf16) in a
+   fp32 and bf16, at the shapes the serving step (K4) and the training
+   step (K1 forward, K2 dQ, K3 dK/dV) give it; times of the kernel, the
+   plain version and one PyTorch library call, and the least time the
+   card could take (bytes over 3.35 TB/s, flops over the peak for the
+   dtype); K3 gives the same bits twice;
+3. training: full-width mpt-125m (random weights from seed 0, bf16
+   compute, fp32 masters, ADOPT, chunked CE) in a ``Trainer`` on
+   ``cuda``, global batch 32 in 2 microbatches of 16 at seq 2048: 4 steps
+   on one repeated batch (step 0 applies no update, then the loss falls),
+   K1/K2/K3 launched exactly ``n_layers x n_micro`` times per step,
+   tokens/s, MFU, step time, peak memory and a ``torch.profiler`` step;
+   one step's loss, grad norm and per-parameter gradients agree with the
+   plain dense attention (``attn_impl: xla``), and a planted fault (the
+   kernels' causal offset shifted by one tile, patched in from outside
+   the package) must break that gate;
+4. entry point: ``photon_tpu_torch.centralized.main`` in process, 3 steps
+   on synthetic data at full width, then again to step 5, resuming from
+   its checkpoint;
+5. engine: full-width mpt-125m (random weights from seed 0, bf16) in a
    ``PagedEngine`` with ``attention_impl="ragged"`` and one with
    ``"gather"``, stepped through the same mixed chunked-prefill schedule:
    per-step logits and greedy tokens agree, and the kernel's launch count
@@ -21,14 +35,14 @@ Phases (any failure exits non-zero):
    step with a prompt chunk. A third engine, whose every kernel call reads
    the trash block in place of each row's last live block, must fail the
    same logit gate (so the gate is shown to catch a dropped key block);
-4. server: those weights written as a round checkpoint, served by
+6. server: those weights written as a round checkpoint, served by
    ``python -m photon_tpu_torch.serve`` on an ephemeral port; 8 concurrent
    ``/generate`` requests (one streaming, one split into chunks by the
    prefill budget), a repeated greedy prompt, ``/healthz``, then SIGTERM
    and a clean exit. The server's own launch count (read on ``/healthz``)
    must equal ``n_layers`` × (steps + chunk steps).
 
-Between 3 and 4, a ``torch.profiler`` window over steady decode steps
+Between 5 and 6, a ``torch.profiler`` window over steady decode steps
 reports the step's wall time, the device's busy time by kernel and its
 idle share (1 - busy / the unprofiled step's wall time).
 
@@ -43,6 +57,7 @@ from __future__ import annotations
 import concurrent.futures
 import http.client
 import json
+import math
 import pathlib
 import shutil
 import signal
@@ -222,7 +237,395 @@ def kernel_phase(torch, rpa, alibi_slopes, np):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: engine
+# phase 2b: the flash-attention kernels (K1, K2, K3)
+# ---------------------------------------------------------------------------
+
+#: kernel vs plain version, relative L2. fp32: summation order only
+#: (forward 1e-5; backward 1e-4, its dS and dK/dV sums run over up to 2048
+#: terms); bf16: the reference harness's gates (bench.py)
+FLASH_FWD_GATE = {"float32": 1e-5, "bfloat16": 2e-2}
+FLASH_BWD_GATE = {"float32": 1e-4, "bfloat16": 4e-2}
+#: wrapper -> (the TPU kernel it replaces, its CUDA kernels' name prefix:
+#: ``<prefix>_kernel`` on CUDA cores for fp32, ``<prefix>_mma_kernel`` for bf16)
+FLASH_KERNELS = {
+    "flash_fwd": ("photon_tpu/ops/flash_attention.py:93", "::fwd_"),
+    "flash_bwd_dq": ("photon_tpu/ops/flash_attention.py:231", "::bwd_dq_"),
+    "flash_bwd_dkv": ("photon_tpu/ops/flash_attention.py:280", "::bwd_dkv_"),
+}
+
+
+def _flash_work(b, s_q, s_k, h, n_kv, d, causal, elem):
+    """Bytes each kernel must move (inputs read once, outputs written once)
+    and the flops of the visible (query, key) pairs: 2 products of 2·D
+    flops per pair in K1, 3 in K2, 4 in K3."""
+    if causal:
+        pairs = sum(min(s_k, max(0, q + (s_k - s_q) + 1)) for q in range(s_q))
+    else:
+        pairs = s_q * s_k
+    pairs *= b * h
+    qb, kb = b * s_q * h * d * elem, b * s_k * n_kv * d * elem
+    rows = b * h * s_q * 4  # one fp32 LSE or Delta per query row
+    return {
+        "flash_fwd": (qb + 2 * kb + qb + rows, 4.0 * pairs * d),
+        "flash_bwd_dq": (qb + 2 * kb + qb + 2 * rows + qb, 6.0 * pairs * d),
+        "flash_bwd_dkv": (qb + 2 * kb + qb + 2 * rows + 2 * kb, 8.0 * pairs * d),
+    }
+
+
+def flash_kernel_phase(torch, fa, alibi_slopes, np):
+    """K1–K3 against their plain versions at the training step's shapes;
+    returns the per-case records and the main-path entry of each kernel."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
+    cases = [
+        # name, B, S, H, H_kv, D, alibi, main path
+        ("mpt125m_train", 16, 2048, 12, 12, 64, False, True),
+        ("llama1b_train", 4, 2048, 16, 4, 128, False, False),
+        ("mpt125m_alibi", 4, 1024, 12, 12, 64, True, False),
+        ("ragged_s1000", 2, 1000, 12, 12, 64, False, False),
+    ]
+    records, main = [], {}
+    for name, b, s, h, n_kv, d, alibi, on_path in cases:
+        slopes = alibi_slopes(h, dev) if alibi else None
+        kw = dict(causal=True, slopes=slopes)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            if n_kv == h:  # the views of one fused QKV projection, as in training
+                qkv = torch.randn((b, s, 3 * h * d), device=dev, generator=gen).to(dtype)
+                q, k, v = (x.reshape(b, s, h, d) for x in qkv.chunk(3, dim=-1))
+            else:
+                q = torch.randn((b, s, h, d), device=dev, generator=gen).to(dtype)
+                k, v = (torch.randn((b, s, n_kv, d), device=dev, generator=gen).to(dtype)
+                        for _ in range(2))
+            do = torch.randn((b, s, h, d), device=dev, generator=gen).to(dtype)
+            o, lse = fa.flash_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, **kw)
+            delta = fa.attention_delta(o_ref, do)
+            dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw)
+            torch.cuda.synchronize()
+            dq_ref = fa.flash_bwd_dq_reference(q, k, v, do, lse_ref, delta, **kw)
+            dk_ref, dv_ref = fa.flash_bwd_dkv_reference(q, k, v, do, lse_ref, delta, **kw)
+            errs = {
+                "flash_fwd": [(o, o_ref), (lse, lse_ref)],
+                "flash_bwd_dq": [(dq, dq_ref)],
+                "flash_bwd_dkv": [(dk, dk_ref), (dv, dv_ref)],
+            }
+            rec = {"case": name, "dtype": dname, "B": b, "S": s, "H": h, "H_kv": n_kv, "D": d,
+                   "alibi": alibi, "causal": True}
+            for kname, pairs in errs.items():
+                gate = (FLASH_FWD_GATE if kname == "flash_fwd" else FLASH_BWD_GATE)[dname]
+                rel = max(_rel_l2(x.float(), r.float()) for x, r in pairs)
+                max_abs = max(float((x.float() - r.float()).abs().max()) for x, r in pairs)
+                finite = all(bool(torch.isfinite(x).all()) for x, _ in pairs)
+                if not finite or rel > gate:
+                    fail(f"{kname} {name} {dname}: rel L2 {rel:.3e} > {gate}")
+                rec[kname] = {"rel_l2": rel, "max_abs_err": max_abs, "gate": gate}
+            del errs, o_ref, lse_ref, dq_ref, dk_ref, dv_ref
+            if dtype == torch.bfloat16:
+                delta = fa.attention_delta(o, do)
+                first = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+                again = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+                if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                    fail(f"flash_bwd_dkv {name}: two launches gave different bits")
+                rec["flash_bwd_dkv"]["same_bits_twice"] = True
+                del first, again
+                timed = {
+                    "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                                  lambda: fa.flash_fwd_reference(q, k, v, **kw)),
+                    "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                                     lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                                       **kw)),
+                    "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                                      lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                                         **kw)),
+                }
+                # yardstick only: SDPA forward, and its backward (fwd+bwd - fwd)
+                qs, ks, vs = (x.transpose(1, 2).detach() for x in (q, k, v))
+                mask = None
+                if alibi:
+                    pos = torch.arange(s, device=dev)
+                    dist = (pos[:, None] - pos[None, :]).float()
+                    mask = (-slopes[:, None, None] * dist).masked_fill(dist < 0, float("-inf"))
+                    mask = mask.to(dtype)[None]
+                sdpa_kw = dict(attn_mask=mask, is_causal=mask is None, enable_gqa=n_kv != h)
+                lib_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, **sdpa_kw), flush)
+                qg, kg, vg = (x.clone().requires_grad_(True) for x in (qs, ks, vs))
+                dos = do.transpose(1, 2)
+
+                def fwd_bwd():
+                    out = F.scaled_dot_product_attention(qg, kg, vg, **sdpa_kw)
+                    torch.autograd.grad(out, (qg, kg, vg), dos)
+
+                lib_bwd = max(_time_ms(torch, fwd_bwd, flush) - lib_fwd, 0.0)
+                work = _flash_work(b, s, s, h, n_kv, d, True, q.element_size())
+                for kname, (kern, plain) in timed.items():
+                    nbytes, flops = work[kname]
+                    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+                    t_o = flops / PEAK_FLOPS[dname] * 1e3
+                    rec[kname].update(
+                        kernel_ms=_time_ms(torch, kern, flush),
+                        plain_ms=_time_ms(torch, plain, flush),
+                        library_ms={"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd}.get(kname),
+                        bytes=nbytes, flops=flops, bound_ms=max(t_b, t_o),
+                        bound_by="bytes" if t_b >= t_o else "operations")
+                    if on_path:
+                        r = rec[kname]
+                        main[kname] = {
+                            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                            "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+                            "bound_by": r["bound_by"], "max_abs_err": r["max_abs_err"],
+                            "shape": f"{name}: B={b} S={s} H={h}/{n_kv} D={d} causal bf16",
+                        }
+                del qg, kg, vg, qs, ks, vs, timed
+            records.append(rec)
+            log("flash_case " + json.dumps(rec))
+            del q, k, v, do, o, lse, dq, dk, dv, delta
+            torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return records, main
+
+
+# ---------------------------------------------------------------------------
+# phase 3: training
+# ---------------------------------------------------------------------------
+
+#: kernel path vs the plain dense path (attn_impl xla) over one step from
+#: the same params and batch: loss and grad_norm relative difference, and
+#: the largest per-parameter gradient relative L2 (bf16 compute, 12 layers)
+TRAIN_GRAD_GATE = 5e-2
+
+
+def train_config():
+    from photon_tpu_torch.config import load_preset
+
+    cfg = load_preset("mpt-125m")  # full width: d768, 12 layers, 12 heads, seq 2048
+    cfg.run_uuid = "chip-smoke-train"
+    cfg.train.global_batch_size = 32  # the recipe's 256, cut for time: 2 microbatches of 16
+    cfg.train.device_microbatch_size = 16
+    return cfg.validate()
+
+
+def _grads_of(torch, cfg, params, tokens):
+    """One step's loss, grad norm and gradients (the train step without the
+    optimizer), averaged over the config's microbatches."""
+    from photon_tpu_torch.codec.params import flatten
+    from photon_tpu_torch.models.mpt import MPTModel
+    from photon_tpu_torch.optim.build import global_norm
+    from photon_tpu_torch.train.train_step import make_loss_fn
+
+    loss_fn = make_loss_fn(MPTModel(cfg.model), cfg.train.loss_chunk_tokens)
+    flat = flatten(params)
+    for p in flat.values():
+        p.requires_grad_(True)
+    n = cfg.train.global_batch_size // cfg.train.device_microbatch_size
+    loss_sum, grads = 0.0, None
+    for mb in tokens.reshape(n, -1, tokens.shape[1]):
+        loss = loss_fn(params, mb)
+        g = torch.autograd.grad(loss, list(flat.values()))
+        loss_sum += float(loss.detach())
+        grads = [x.float() for x in g] if grads is None else [a + x for a, x in zip(grads, g)]
+    grads = [g / n for g in grads]
+    return loss_sum / n, float(global_norm(grads)), dict(zip(flat, grads))
+
+
+def _shifted_offset_fault(fa):
+    """A planted fault, patched in from outside the package: the kernels'
+    causal diagonal moved back by one 64-row tile (each query loses its
+    64 most recent keys; the first 64 rows see none)."""
+    def faulty(q, k, v, *, causal=True, alibi=False):
+        return fa.FlashAttention.apply(q, k, v, None, causal, k.shape[1] - q.shape[1] - 64, None)
+
+    return faulty
+
+
+def training_phase(torch, fa, np):
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_tpu_torch.models.mpt import init_params
+    from photon_tpu_torch.train.trainer import Trainer
+    from photon_tpu_torch.utils.profiling import model_flops_per_token
+
+    cfg = train_config()
+    L = cfg.model.n_layers
+    params = init_params(cfg.model, seed=0, device="cuda")
+    trainer = Trainer(copy.deepcopy(cfg), params=params, device="cuda")
+    n_micro = trainer._n_micro
+    rng = np.random.default_rng(0)
+    batch = rng.integers(0, cfg.model.vocab_size,
+                         (cfg.train.global_batch_size, cfg.model.max_seq_len)).astype(np.int32)
+    tokens_per_step = batch.size
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa.launches:  # the counted run starts here
+        fa.launches[key] = 0
+    steps, walls = [], []
+    for i in range(4):
+        before = dict(fa.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_batch(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        m = {k: float(v) for k, v in m.items()}
+        grew = {k: fa.launches[k] - before[k] for k in before}
+        if any(v != L * n_micro for v in grew.values()):
+            fail(f"train step {i}: kernel launches {grew}, want {L * n_micro} each")
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"train step {i}: metrics not finite: {m}")
+        steps.append(m)
+        log(f"train_step {i}: " + json.dumps(dict(m, wall_s=walls[-1])))
+    launches = dict(fa.launches)  # the counted run ends here
+    loss = [s_["loss"] for s_ in steps]
+    if abs(loss[1] - loss[0]) > 1e-6 * abs(loss[0]):
+        fail(f"ADOPT step 0 applied an update: losses {loss[:2]}")
+    if not (loss[2] < loss[1] and loss[3] < loss[2]):
+        fail(f"the loss does not fall after step 0: {loss}")
+    peak_mem = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(walls[1:])
+    tps = tokens_per_step / step_s
+    fpt = model_flops_per_token(cfg.model)
+
+    # where a step's time goes: one more step under the profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_batch(batch)
+        torch.cuda.synchronize()
+    kern_ms, n_launch = {}, 0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            kern_ms[e.key] = kern_ms.get(e.key, 0.0) + (getattr(e, "self_device_time_total", 0.0)
+                                                        or 0.0) / 1e3
+            n_launch += e.count
+    busy = sum(kern_ms.values())
+    flash_ms = {k: sum(v for n, v in kern_ms.items() if tag in n)
+                for k, (_, tag) in FLASH_KERNELS.items()}
+    top = sorted(kern_ms.items(), key=lambda kv: -kv[1])[:10]
+    rec = {
+        "config": "mpt-125m full width (d768, 12 L, 12 H, seq 2048, vocab 50368), bf16 compute, "
+                  "fp32 masters, ADOPT lr 6e-4 cosine warmup, clip 1.0, chunked CE 2048",
+        "global_batch": cfg.train.global_batch_size, "microbatch": cfg.train.device_microbatch_size,
+        "n_micro": n_micro, "tokens_per_step": tokens_per_step,
+        "losses": loss, "metrics_by_step": steps, "step_wall_s": walls,
+        "step_s_median_after_first": step_s, "tokens_per_s": tps,
+        "flops_per_token": fpt, "mfu": tps * fpt / PEAK_FLOPS["bfloat16"],
+        "max_memory_allocated_gb": peak_mem / 1e9,
+        "launches": launches, "launches_per_step": {k: L * n_micro for k in launches},
+        "profiled_step": {
+            "device_busy_ms": busy if busy > 0 else "not measured",
+            "device_idle_share": (1 - busy / (step_s * 1e3)) if busy > 0 else "not measured",
+            "flash_kernel_ms": flash_ms,
+            "flash_share_of_busy": (sum(flash_ms.values()) / busy) if busy > 0 else None,
+            "kernel_launches": n_launch,
+            "top_kernels_ms": [[k[:80], v] for k, v in top],
+        },
+    }
+    log("train_phase " + json.dumps({k: v for k, v in rec.items() if k != "metrics_by_step"}))
+
+    # one step from the same params and batch: kernels vs the plain dense path
+    del trainer
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(batch).long().cuda()
+    saved = dict(fa.launches)
+    ref_cfg = copy.deepcopy(cfg)
+    ref_cfg.model.attn_impl, ref_cfg.model.remat = "xla", True  # dense scores: recompute per block
+    ref = _grads_of(torch, ref_cfg, params, tokens)
+    sound = _grads_of(torch, cfg, params, tokens)
+    sound_attn = fa.flash_attention
+    fa.flash_attention = _shifted_offset_fault(fa)
+    try:
+        faulty = _grads_of(torch, cfg, params, tokens)
+    finally:
+        fa.flash_attention = sound_attn
+    for key in fa.launches:  # the comparisons are not the main path
+        fa.launches[key] = saved[key]
+
+    def compare(run):
+        loss_d = abs(run[0] - ref[0]) / abs(ref[0])
+        norm_d = abs(run[1] - ref[1]) / abs(ref[1])
+        per = {n: _rel_l2(run[2][n], ref[2][n]) for n in ref[2]}
+        return {"loss_rel_diff": loss_d, "grad_norm_rel_diff": norm_d,
+                "max_param_grad_rel_l2": max(per.values()), "param_grad_rel_l2": per}
+
+    cmp_sound, cmp_fault = compare(sound), compare(faulty)
+    worst = lambda c: max(c["loss_rel_diff"], c["grad_norm_rel_diff"],  # noqa: E731
+                          c["max_param_grad_rel_l2"])
+    rec["vs_plain"] = {"gate": TRAIN_GRAD_GATE, "sound": cmp_sound, "planted_fault": cmp_fault,
+                       "loss_kernel": sound[0], "loss_plain": ref[0], "loss_fault": faulty[0]}
+    log("train_vs_plain " + json.dumps(rec["vs_plain"]))
+    if worst(cmp_sound) > TRAIN_GRAD_GATE:
+        fail(f"kernel vs plain training step: {worst(cmp_sound):.3e} > {TRAIN_GRAD_GATE}")
+    if worst(cmp_fault) <= TRAIN_GRAD_GATE:
+        fail(f"the training gate {TRAIN_GRAD_GATE} misses a causal offset shifted by one tile "
+             f"(reading {worst(cmp_fault):.3e})")
+    del params, ref, sound, faulty, tokens
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the training entry point
+# ---------------------------------------------------------------------------
+
+def entry_phase(torch, fa):
+    """``python -m photon_tpu_torch.centralized`` in process at full width:
+    3 steps with a checkpoint per step, then a second run to step 5 that
+    must resume from step 3 (params, optimizer state, loader position)."""
+    import contextlib
+    import io
+
+    from photon_tpu_torch import centralized
+    from photon_tpu_torch.checkpoint import ClientCheckpointManager, FileStore
+
+    work = ROOT / ".chip_smoke" / "central"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = train_config()
+    cfg.photon.save_path = str(work)
+    cfg.dataset.synthetic = True
+    cfg.train.eval_batches = 2
+    cfg.to_yaml(work / "in.yaml")
+    args = ["--config", str(work / "in.yaml"), "--device", "cuda"]
+    runs = []
+    for steps in (3, 5):
+        for key in fa.launches:
+            fa.launches[key] = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            centralized.main(args + ["--steps", str(steps)])
+        lines = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
+        runs.append({"steps": steps, "wall_s": time.perf_counter() - t0, "lines": lines,
+                     "launches": dict(fa.launches)})
+    L = cfg.model.n_layers
+    first, second = runs
+    steps_logged = [x["step"] for x in first["lines"]], [x["step"] for x in second["lines"]]
+    if steps_logged != ([1, 2, 3], [4, 5]):
+        fail(f"entry point: steps logged {steps_logged}, want [1, 2, 3] then [4, 5] (resumed)")
+    for run, n in zip(runs, (3, 2)):
+        want = {"flash_fwd": L * (2 * n + cfg.train.eval_batches),
+                "flash_bwd_dq": L * 2 * n, "flash_bwd_dkv": L * 2 * n}
+        if run["launches"] != want:
+            fail(f"entry point launched {run['launches']}, want {want}")
+        if not all(math.isfinite(x["loss"]) for x in run["lines"]):
+            fail(f"entry point: loss not finite: {run['lines']}")
+    ckpt = ClientCheckpointManager(FileStore(work / "store"), cfg.run_uuid)
+    state = ckpt.load(-1, 5)[3]
+    if state["step"] != 5 or state["loader"]["sample_in_epoch"] != 5 * cfg.train.global_batch_size:
+        fail(f"entry point: checkpoint at step 5 holds {state}")
+    rec = {"runs": runs, "checkpoint_steps": ckpt.steps(-1), "resumed_state": state}
+    log("entry_phase " + json.dumps(rec))
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 5: engine
 # ---------------------------------------------------------------------------
 
 def serve_config(preset: str = "mpt-125m"):
@@ -430,7 +833,7 @@ def profile_phase(torch, np, params, cfg):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: server
+# phase 6: server
 # ---------------------------------------------------------------------------
 
 def _request(port, path, body=None, timeout=600):
@@ -559,6 +962,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from photon_tpu_torch.ops import _build
+        from photon_tpu_torch.ops import flash_attention as fa
         from photon_tpu_torch.ops import ragged_paged_attention as rpa
     except ImportError as e:
         print(f"chip_smoke: photon_tpu_torch is not beside this script ({e})", file=sys.stderr)
@@ -568,7 +972,7 @@ def main() -> int:
     from photon_tpu_torch.models.mpt import init_params
     from photon_tpu_torch.ops.attention import alibi_slopes
 
-    # fp32 matmuls stay full fp32 (the fp32 kernel gate compares against them)
+    # fp32 matmuls stay full fp32 (the fp32 kernel gates compare against them)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
@@ -579,12 +983,23 @@ def main() -> int:
            "device": torch.cuda.get_device_name(0),
            "capability": list(torch.cuda.get_device_capability(0)), "nvidia_smi": smi}
     t0 = time.perf_counter()
-    _build.load("ragged_paged_attention.cu")
+    sources = ("ragged_paged_attention.cu", "flash_attention.cu")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        list(pool.map(_build.build, sources))
+    for src in sources:
+        _build.load(src)
     env["build_s"] = time.perf_counter() - t0
     env["nvcc_s"] = _build.build_seconds
     log("env " + json.dumps(env))
 
     kernel_records, main = kernel_phase(torch, rpa, alibi_slopes, np)
+    flash_records, flash_main = flash_kernel_phase(torch, fa, alibi_slopes, np)
+    t0 = time.perf_counter()
+    train = training_phase(torch, fa, np)
+    train["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    entry = entry_phase(torch, fa)
+    entry["phase_s"] = time.perf_counter() - t0
 
     cfg = serve_config()
     params = init_params(cfg.model, seed=0, device="cuda")
@@ -606,11 +1021,26 @@ def main() -> int:
         "library_ms": main["library_ms"],
         "shapes": main["shapes"],
         "engine_phase_launches": engine["launches"],
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "photon_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": FLASH_KERNELS[name][0],
+        "launches": train["launches"][name],
+        "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+        "shapes": [rec["shape"]],
+        "entry_phase_launches": entry["runs"][0]["launches"][name],
+    } for name, rec in flash_main.items()]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
-        "env": env, "kernel_cases": kernel_records, "engine": engine, "profile": profile, "server": server,
+        "env": env, "kernel_cases": kernel_records, "flash_cases": flash_records,
+        "train": train, "entry": entry, "engine": engine, "profile": profile, "server": server,
         "kernels": kernels["kernels"], "total_s": time.perf_counter() - t_all,
     }, indent=1))
     log(f"total {time.perf_counter() - t_all:.1f}s")

@@ -1,11 +1,12 @@
-"""photon-tpu's serving path in PyTorch, with hand-written CUDA kernels.
+"""photon-tpu's serving and training paths in PyTorch, with hand-written
+CUDA kernels.
 
 The package mirrors ``photon_tpu``'s module names (``config/``,
-``checkpoint/``, ``codec/``, ``models/decode.py``, ``ops/``, ``serve/``)
-so each module's counterpart is easy to find. It imports ``torch``,
-numpy, PyYAML (``config/`` reads the resolved YAML configs that
-``photon_tpu`` writes) and the standard library only: nothing of JAX and
-nothing of the ``photon_tpu`` package.
+``checkpoint/``, ``codec/``, ``data/``, ``models/``, ``ops/``, ``optim/``,
+``train/``, ``serve/``, ``centralized.py``) so each module's counterpart is
+easy to find. It imports ``torch``, numpy, PyYAML (``config/`` reads the
+resolved YAML configs that ``photon_tpu`` writes) and the standard library
+only: nothing of JAX and nothing of the ``photon_tpu`` package.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper runs its plain PyTorch version.

@@ -1,12 +1,15 @@
-"""Array-list (de)serialization for checkpoints (same ``.npz`` layout as
-``photon_tpu/checkpoint/serialization.py``): arrays under indexed keys
-``arr_000000..`` plus a ``__names__`` manifest, because npz key order is
-alphabetical and payload order is load-bearing."""
+"""Array-list and state blob (de)serialization for checkpoints (the same
+formats as ``photon_tpu/checkpoint/serialization.py``): ``.npz`` with the
+arrays under indexed keys ``arr_000000..`` plus a ``__names__`` manifest,
+because npz key order is alphabetical and payload order is load-bearing;
+small control state (steps, loader positions) as a pickled dict."""
 
 from __future__ import annotations
 
 import io
 import json
+import pickle
+from typing import Any
 
 import numpy as np
 
@@ -29,3 +32,11 @@ def npz_to_arrays(data: bytes) -> tuple[ParamsMetadata, list[np.ndarray]]:
         names = tuple(json.loads(bytes(z["__names__"]).decode()))
         arrays = [z[f"arr_{i:06d}"] for i in range(len(names))]
     return ParamsMetadata.from_ndarrays(names, arrays), arrays
+
+
+def state_to_bytes(state: dict[str, Any]) -> bytes:
+    return pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def bytes_to_state(data: bytes) -> dict[str, Any]:
+    return pickle.loads(data)

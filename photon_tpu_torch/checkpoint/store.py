@@ -1,4 +1,4 @@
-"""Filesystem object store: the read path serving needs, plus an atomic put.
+"""Filesystem object store: atomic put, get, list and delete.
 
 The port's copy of ``photon_tpu/checkpoint/store.py:FileStore``: keys are
 ``/``-separated paths under a root directory; writes go to a temp file
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import os
 import pathlib
+import shutil
 
 
 class FileStore:
@@ -35,6 +36,14 @@ class FileStore:
 
     def get(self, key: str) -> bytes:
         return self._path(key).read_bytes()
+
+    def delete(self, key: str) -> None:
+        """Remove an object, or every object under a prefix."""
+        p = self._path(key)
+        if p.is_file():
+            p.unlink()
+        elif p.is_dir():
+            shutil.rmtree(p)
 
     def exists(self, key: str) -> bool:
         return self._path(key).is_file()

@@ -1,4 +1,4 @@
-"""Config schema and the model presets that serving uses."""
+"""Config schema and the model presets (mpt-125m, llama-1b)."""
 
 from __future__ import annotations
 
@@ -8,9 +8,14 @@ import yaml
 
 from photon_tpu_torch.config.schema import (  # noqa: F401
     Config,
+    DatasetConfig,
+    MeshConfig,
     ModelConfig,
+    OptimizerConfig,
     PhotonConfig,
+    SchedulerConfig,
     ServeConfig,
+    TrainConfig,
 )
 
 _PRESET_DIR = pathlib.Path(__file__).parent / "presets"
@@ -21,7 +26,8 @@ def list_presets() -> list[str]:
 
 
 def load_preset(name: str) -> Config:
-    """A model preset (e.g. ``mpt-125m``) over the serving defaults."""
+    """A preset (e.g. ``mpt-125m``): its model, optimizer, scheduler and
+    train sections over the defaults."""
     path = _PRESET_DIR / f"{name}.yaml"
     if not path.exists():
         raise ValueError(f"unknown preset {name!r}; available: {list_presets()}")

@@ -1,16 +1,20 @@
-"""The port's own copy of the config fields that serving reads.
+"""The port's own copy of the config fields that serving and training read.
 
-``ModelConfig`` and ``ServeConfig`` carry the same fields, names and
-defaults as ``photon_tpu/config/schema.py``, so a resolved YAML written by
-the JAX package loads here unchanged. :class:`Config` reads ``model``,
-``photon.serve``, ``photon.save_path``, ``photon.adapters.enabled`` and
-``run_uuid`` and ignores every other section (training, federation,
-telemetry): serving has no use for them.
+``ModelConfig``, ``ServeConfig``, ``OptimizerConfig``, ``SchedulerConfig``,
+``MeshConfig``, ``TrainConfig`` and ``DatasetConfig`` carry the same
+fields, names and defaults as ``photon_tpu/config/schema.py``, so a
+resolved YAML written by the JAX package loads here unchanged.
+:class:`Config` reads those sections, ``seed``, ``wandb_project``,
+``run_uuid`` and the ``photon`` keys below, and ignores every other
+section (federation, telemetry): nothing here uses them yet.
 
 :meth:`Config.validate` raises ``NotImplementedError`` for the features
-this package does not serve yet (MoE, adapters, speculative decoding, the
-prefix cache, hot-swap, the fleet router), so such a config fails at
-start-up instead of being served without them.
+this package does not port yet, so such a config fails at start-up
+instead of running without them: MoE, LoRA adapters, speculative
+decoding, the prefix cache, hot-swap and the fleet router everywhere; and
+for training (``validate(serving=False)``, the default) a mesh of more
+than one device, ring attention, ``device_microbatch_size: auto`` and the
+mesh autotuner.
 """
 
 from __future__ import annotations
@@ -114,33 +118,118 @@ class ServeConfig:
 
 
 @dataclass
+class OptimizerConfig:
+    """Client-side optimizer (same fields as the JAX package)."""
+
+    name: str = "adopt"  # adopt | adamw
+    lr: float = 6.0e-4
+    betas: tuple[float, float] = (0.9, 0.9999)
+    eps: float = 1.0e-6
+    weight_decay: float = 0.0
+    grad_clip_norm: float = 1.0
+    freeze_patterns: list = field(default_factory=list)  # param-name regexes
+
+
+@dataclass
+class SchedulerConfig:
+    """Cosine-with-warmup learning-rate schedule."""
+
+    name: str = "cosine_with_warmup"
+    t_warmup: int = 100  # batches
+    t_max: int = 4800  # batches; total schedule horizon
+    alpha_f: float = 0.1  # final LR multiplier
+
+
+@dataclass
+class MeshConfig:
+    """The JAX package's device mesh; the port trains on one device, so
+    every axis must be 1."""
+
+    data: int = 1
+    fsdp: int = 1
+    tensor: int = 1
+    sequence: int = 1
+    pipe: int = 1
+    expert: int = 1
+    surplus_devices: str = "warn"
+
+    @property
+    def size(self) -> int:
+        return self.data * self.fsdp * self.tensor * self.sequence * self.pipe * self.expert
+
+
+@dataclass
+class TrainConfig:
+    """Per-client training loop (same fields as the JAX package)."""
+
+    global_batch_size: int = 256
+    device_microbatch_size: int | str = 8  # "auto" is not ported
+    auto_microbatch_cap: int = 0
+    loss_chunk_tokens: int = 2048  # 0 = materialize the full logits
+    seed: int = 17
+    eval_interval: int = 0  # mid-training eval every N steps (0 = off)
+    eval_batches: int = 8
+    log_interval: int = 10
+
+
+@dataclass
+class DatasetConfig:
+    """Sharded (PTS) dataset (same fields as the JAX package)."""
+
+    local_path: str = ""
+    split_train: str = "train"
+    split_eval: str = "val"
+    shuffle: bool = True
+    shuffle_seed: int = 17
+    n_streams: int = 0
+    synthetic: bool = False
+
+
+@dataclass
 class PhotonConfig:
     serve: ServeConfig = field(default_factory=ServeConfig)
     save_path: str = "/tmp/photon_tpu"
     adapters_enabled: bool = False
+    checkpoint: bool = True
+    keep_checkpoints: int = 3
+    mesh_autotune: bool = False
 
 
 @dataclass
 class Config:
     run_uuid: str = "dev"
+    seed: int = 17
+    wandb_project: str | None = None
     model: ModelConfig = field(default_factory=ModelConfig)
     photon: PhotonConfig = field(default_factory=PhotonConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
 
     # -- (de)serialization ----------------------------------------------
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "Config":
-        """Read the sections serving needs from a (JAX-written) resolved
-        config dict; other sections are ignored."""
+        """Read the sections this package uses from a (JAX-written)
+        resolved config dict; other sections are ignored."""
         d = d or {}
         ph = d.get("photon") or {}
+        base = PhotonConfig()
         return cls(
             run_uuid=str(d.get("run_uuid", "dev")),
+            seed=int(d.get("seed", 17)),
+            wandb_project=d.get("wandb_project"),
             model=_build(ModelConfig, d.get("model") or {}),
             photon=PhotonConfig(
                 serve=_build(ServeConfig, ph.get("serve") or {}),
-                save_path=str(ph.get("save_path", "/tmp/photon_tpu")),
+                save_path=str(ph.get("save_path", base.save_path)),
                 adapters_enabled=bool((ph.get("adapters") or {}).get("enabled", False)),
+                checkpoint=bool(ph.get("checkpoint", base.checkpoint)),
+                keep_checkpoints=int(ph.get("keep_checkpoints", base.keep_checkpoints)),
+                mesh_autotune=bool(ph.get("mesh_autotune", base.mesh_autotune)),
             ),
+            **{name: _build(sec, d.get(name) or {}) for name, sec in _SECTIONS.items()},
         )
 
     @classmethod
@@ -150,14 +239,21 @@ class Config:
     def to_dict(self) -> dict[str, Any]:
         """The same nesting as the JAX package's resolved config, so either
         package can read the file back."""
+        ph = self.photon
         return {
             "run_uuid": self.run_uuid,
+            "seed": self.seed,
+            "wandb_project": self.wandb_project,
             "model": _plain(dataclasses.asdict(self.model)),
             "photon": {
-                "serve": _plain(dataclasses.asdict(self.photon.serve)),
-                "save_path": self.photon.save_path,
-                "adapters": {"enabled": self.photon.adapters_enabled},
+                "serve": _plain(dataclasses.asdict(ph.serve)),
+                "save_path": ph.save_path,
+                "adapters": {"enabled": ph.adapters_enabled},
+                "checkpoint": ph.checkpoint,
+                "keep_checkpoints": ph.keep_checkpoints,
+                "mesh_autotune": ph.mesh_autotune,
             },
+            **{name: _plain(dataclasses.asdict(getattr(self, name))) for name in _SECTIONS},
         }
 
     def to_yaml(self, path: str | pathlib.Path) -> None:
@@ -166,9 +262,11 @@ class Config:
         p.write_text(yaml.safe_dump(self.to_dict(), sort_keys=False))
 
     # -- validation -------------------------------------------------------
-    def validate(self, device: Any = None) -> "Config":
-        """Check the serving fields; ``device`` (when given) is what the
-        ragged walk (``attention_impl`` auto or ragged) is checked against."""
+    def validate(self, device: Any = None, *, serving: bool = False) -> "Config":
+        """Check the fields; ``device`` (when given) is what the ragged walk
+        (``attention_impl`` auto or ragged) is checked against. With
+        ``serving=True`` the training sections are not checked: a server
+        loads weights whichever mesh trained them."""
         m = self.model
         if m.alibi and m.learned_pos_emb:
             raise ValueError("alibi and learned_pos_emb are mutually exclusive")
@@ -188,6 +286,12 @@ class Config:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
         if m.rope and m.d_head % 2:
             raise ValueError("rope needs an even d_head")
+        if m.lora_rank > 0:
+            raise NotImplementedError("LoRA adapters (model.lora_rank > 0) are not ported yet")
+        if m.attn_impl not in ("pallas", "xla", "ring"):
+            raise ValueError(f"bad model.attn_impl {m.attn_impl!r}")
+        if not serving:
+            self._validate_training()
         srv = self.photon.serve
         if srv.n_slots < 1 or srv.block_size < 1:
             raise ValueError(
@@ -232,6 +336,35 @@ class Config:
         return self
 
 
+    def _validate_training(self) -> None:
+        m, tr, ph = self.model, self.train, self.photon
+        if m.resid_pdrop != 0.0:
+            raise ValueError("resid_pdrop > 0 is not implemented (dropout-free pretraining)")
+        if m.attn_impl == "ring":
+            raise NotImplementedError("attn_impl 'ring' needs a multi-device mesh; not ported yet")
+        if self.mesh.size != 1:
+            raise NotImplementedError(
+                f"a mesh of {self.mesh.size} devices: photon_tpu_torch trains on one device"
+            )
+        if ph.mesh_autotune:
+            raise NotImplementedError("photon.mesh_autotune is not ported yet")
+        micro = tr.device_microbatch_size
+        if isinstance(micro, str):
+            if micro == "auto":
+                raise NotImplementedError("device_microbatch_size 'auto' is not ported yet")
+            raise ValueError(f"device_microbatch_size must be an int or 'auto', got {micro!r}")
+        if micro < 1 or tr.global_batch_size < 1:
+            raise ValueError("global_batch_size and device_microbatch_size must be >= 1")
+        if tr.global_batch_size % micro:
+            raise ValueError("global_batch_size must be divisible by device_microbatch_size")
+        if tr.loss_chunk_tokens < 0:
+            raise ValueError("train.loss_chunk_tokens must be >= 0")
+        if self.optimizer.name not in ("adopt", "adamw"):
+            raise ValueError(f"unknown optimizer {self.optimizer.name!r}")
+        if self.scheduler.name != "cosine_with_warmup":
+            raise ValueError(f"unknown scheduler {self.scheduler.name!r}")
+
+
 def _check_ragged_device(device: Any) -> None:
     """The ragged walk on a CUDA device runs the kernel, which is built for
     ``sm_90a`` only. On the CPU it runs the kernel's plain version, which
@@ -256,6 +389,10 @@ def _plain(d: dict) -> dict:
     return {k: list(v) if isinstance(v, tuple) else v for k, v in d.items()}
 
 
+_SECTIONS = {"optimizer": OptimizerConfig, "scheduler": SchedulerConfig, "mesh": MeshConfig,
+             "train": TrainConfig, "dataset": DatasetConfig}
+
+
 def _build(cls: type, d: dict[str, Any]) -> Any:
     hints = typing.get_type_hints(cls)
     names = {f.name for f in dataclasses.fields(cls)}
@@ -263,7 +400,8 @@ def _build(cls: type, d: dict[str, Any]) -> Any:
     for name, value in d.items():
         if name not in names:
             raise ValueError(f"unknown config key {cls.__name__}.{name}")
-        if hints.get(name) is tuple and isinstance(value, list):
+        hint = hints.get(name)
+        if (hint is tuple or typing.get_origin(hint) is tuple) and isinstance(value, list):
             value = tuple(value)
         kwargs[name] = value
     return cls(**kwargs)

@@ -1,8 +1,9 @@
-"""Per-layer helpers of the decoder, in torch.
+"""Per-layer helpers of the decoder, in torch, shared by serving and training.
 
 The port of the helpers ``photon_tpu/serve/cache.py`` imports from
 ``photon_tpu/models/decode.py``: norms in fp32, RoPE at explicit
 positions, dense projections, the MLP, the embedding and the logits.
+``models/mpt.py``'s training forward runs the same helpers.
 ``prefill``, ``decode_step`` and ``generate`` wait for the decode slice.
 
 Dtypes follow the JAX functions: activations run in the compute dtype,
@@ -32,9 +33,10 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def compute_params(params: dict, cfg: ModelConfig,
                    device: torch.device) -> dict:
-    """The serving copy of ``params`` on ``device``: dense kernels and
+    """The compute copy of ``params`` on ``device``: dense kernels and
     biases, embeddings and the head in the compute dtype; norm scales and
-    biases stay fp32 (the JAX norms multiply in fp32)."""
+    biases stay fp32 (the JAX norms multiply in fp32). Serving makes it once
+    at load; training makes it in every forward, inside autograd."""
     compute = torch_dtype(cfg.compute_dtype)
 
     def walk(node: dict, in_norm: bool) -> dict:
@@ -61,16 +63,14 @@ def layer_params(params: dict, layer: int) -> dict:
 
 def _norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None,
           kind: str, eps: float) -> torch.Tensor:
+    """fp32 LayerNorm (scale-only when ``bias`` is None) or RMSNorm, cast
+    back to ``x``'s dtype: one fused kernel each way on the card."""
     x32 = x.float()
+    shape = (x.shape[-1],)
     if kind == "rmsnorm":
-        y = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+        y = F.rms_norm(x32, shape, scale, eps)
     else:
-        mu = x32.mean(-1, keepdim=True)
-        var = (x32 - mu).square().mean(-1, keepdim=True)
-        y = (x32 - mu) * torch.rsqrt(var + eps)
-    y = y * scale
-    if bias is not None:
-        y = y + bias
+        y = F.layer_norm(x32, shape, scale, bias, eps)
     return y.to(x.dtype)
 
 

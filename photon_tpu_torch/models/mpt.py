@@ -1,20 +1,40 @@
-"""The MPT/llama parameter tree, built in torch.
+"""The MPT/llama decoder in torch: the training forward over the JAX tree.
 
-Only what serving needs from ``photon_tpu/models/mpt.py``: the names and
-shapes of its parameter tree (:func:`param_shapes`) and a seeded
-:func:`init_params` that fills the same tree with random weights. The
-model forward waits for the training slice; serving runs the per-layer
-helpers of ``models/decode.py`` instead.
-
+The port of ``photon_tpu/models/mpt.py``: the names and shapes of its
+parameter tree (:func:`param_shapes`), a seeded :func:`init_params`, and
+:class:`MPTModel`/:class:`MPTBlock`, the forward that training runs.
 Layout, as in the JAX package: flat ``/``-joined names, layers stacked on
-a leading ``[n_layers]`` axis, dense kernels ``[in, out]``.
+a leading ``[n_layers]`` axis, dense kernels ``[in, out]``, fp32 masters.
+
+:class:`MPTModel` is a module without parameters of its own: like
+``MPTModel.apply`` it takes the parameter tree with the tokens, so the
+trainer, the optimizer and the checkpoint codec all work on the one tree.
+Each forward casts the masters to ``compute_dtype`` inside autograd (the
+gradients land in fp32 on the masters), unbinds the stacked layers once,
+and loops over them; ``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``). The layer math is ``models/decode.py``'s,
+shared with serving: norms in fp32 and cast back, dense products in the
+compute dtype, logits in ``logits_dtype``. The JAX package's sharding
+hints have no counterpart on one device.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from photon_tpu_torch.codec.params import flatten
 from photon_tpu_torch.config.schema import ModelConfig
+from photon_tpu_torch.models.decode import (
+    _dense,
+    _embed,
+    _logits,
+    _mlp,
+    _norm,
+    _qkv,
+    _rope_at,
+    compute_params,
+)
 
 
 def _norm_shapes(cfg: ModelConfig, prefix: str, lead: tuple) -> dict:
@@ -85,3 +105,65 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             w = torch.randn(shape, generator=gen, device=device)
             flat[name] = w.mul_(_init_std(cfg, name))
     return unflatten(flat)
+
+
+class MPTBlock(torch.nn.Module):
+    """One pre-norm decoder block over one layer's slice of the tree."""
+
+    def __init__(self, cfg: ModelConfig) -> None:
+        super().__init__()
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor, lp: dict) -> torch.Tensor:
+        from photon_tpu_torch.ops.attention import multihead_attention
+
+        cfg = self.cfg
+        h = _norm(x, lp["ln_1"]["scale"], lp["ln_1"].get("bias"), cfg.norm, cfg.norm_eps)
+        q, k, v = _qkv(lp, h, cfg)  # a fused wqkv gives strided views: the kernels read them
+        if cfg.rope:  # before any kv repeat, at positions 0 .. S-1
+            pos = torch.arange(x.shape[1], device=x.device)[None]
+            q, k = _rope_at(q, pos, cfg.rope_theta), _rope_at(k, pos, cfg.rope_theta)
+        o = multihead_attention(q, k, v, impl=cfg.attn_impl, causal=True, alibi=cfg.alibi)
+        x = x + _dense(lp, "out_proj", o.reshape(x.shape))
+        return _mlp(lp, x, cfg)
+
+
+def _layers(blocks: dict) -> list[dict]:
+    """The stacked ``blocks/block`` subtree as one dict per layer; each
+    stacked tensor is unbound once, so its backward is one stack."""
+
+    def unbind(node: dict) -> dict:
+        return {k: unbind(v) if isinstance(v, dict) else v.unbind(0) for k, v in node.items()}
+
+    def pick(node: dict, i: int) -> dict:
+        return {k: pick(v, i) if isinstance(v, dict) else v[i] for k, v in node.items()}
+
+    tree = unbind(blocks)
+    n_layers = len(next(iter(flatten(tree).values())))
+    return [pick(tree, i) for i in range(n_layers)]
+
+
+class MPTModel(torch.nn.Module):
+    """Decoder-only LM: ``model(params, tokens [B, S])`` → logits
+    ``[B, S, vocab]`` in ``logits_dtype``, or with ``return_hidden=True``
+    the ``[B, S, d_model]`` hidden states after the final norm (the loss
+    then computes logits chunk by chunk)."""
+
+    def __init__(self, cfg: ModelConfig) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.block = MPTBlock(cfg)
+
+    def forward(self, params: dict, tokens: torch.Tensor,
+                return_hidden: bool = False) -> torch.Tensor:
+        cfg = self.cfg
+        cp = compute_params(params, cfg, tokens.device)  # casts inside autograd
+        x = _embed(cp, tokens, torch.arange(tokens.shape[1], device=tokens.device)[None], cfg)
+        for lp in _layers(cp["blocks"]["block"]):
+            if cfg.remat:
+                x = checkpoint(self.block, x, lp, use_reentrant=False)
+            else:
+                x = self.block(x, lp)
+        if return_hidden:
+            return _norm(x, cp["ln_f"]["scale"], cp["ln_f"].get("bias"), cfg.norm, cfg.norm_eps)
+        return _logits(cp, x, cfg)

@@ -69,7 +69,7 @@ def main(argv: list[str] | None = None) -> None:
         sc.host = args.host
     if args.port is not None:
         sc.port = args.port
-    cfg.validate(args.device)
+    cfg.validate(args.device, serving=True)
 
     store = FileStore(args.store) if args.store else FileStore(cfg.photon.save_path + "/store")
     engine = PagedEngine.from_checkpoint(cfg, store=store, resume_round=args.round,

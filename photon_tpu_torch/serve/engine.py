@@ -71,7 +71,7 @@ class PagedEngine:
                  loaded_round: int | None = None,
                  device: str | torch.device | None = None) -> None:
         self.device = resolve_device(device)
-        cfg.validate(self.device)
+        cfg.validate(self.device, serving=True)
         self.cfg = cfg
         self.mc: ModelConfig = cfg.model
         sc = cfg.photon.serve

@@ -485,7 +485,8 @@ def test_port_imports_no_jax_or_reference_package():
 
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, photon_tpu_torch.serve.engine, photon_tpu_torch.serve.frontend, "
-            "photon_tpu_torch.serve.__main__; "
+            "photon_tpu_torch.serve.__main__, photon_tpu_torch.centralized, "
+            "photon_tpu_torch.train.trainer, photon_tpu_torch.ops.flash_attention; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'photon_tpu')))")
     out = subprocess.run([sys.executable, "-S", "-c", code], cwd=ROOT, capture_output=True,
