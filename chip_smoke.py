@@ -7,13 +7,18 @@ Phases (any failure exits non-zero):
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every kernel from ``photon_tpu_torch/ops/csrc/`` (one
-   nvcc per source, all started together, ``sm_90a``);
+   nvcc per source, all started together, ``sm_90a``); ptxas's registers,
+   shared memory and spills per kernel, and the count of ``HGMMA``
+   (wgmma), ``UTMALDG`` (TMA loads) and ``LDGSTS`` (cp.async) in each
+   kernel's SASS (``cuobjdump``): the bf16 K1 must hold ``HGMMA`` and
+   ``UTMALDG``;
 2. kernels: each kernel against its plain PyTorch version on the card,
    fp32 and bf16, at the shapes the serving step (K4) and the training
    step (K1 forward, K2 dQ, K3 dK/dV) give it; times of the kernel, the
    plain version and one PyTorch library call, and the least time the
    card could take (bytes over 3.35 TB/s, flops over the peak for the
-   dtype); K3 gives the same bits twice;
+   dtype); K3 and K4 give the same bits twice; K4's decode must run as a
+   split-K kernel and its merge (kernel names from ``torch.profiler``);
 3. training: full-width mpt-125m (random weights from seed 0, bf16
    compute, fp32 masters, ADOPT, chunked CE) in a ``Trainer`` on
    ``cuda``, global batch 32 in 2 microbatches of 16 at seq 2048: 4 steps
@@ -89,17 +94,75 @@ def fail(msg: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 1: what the build made
+# ---------------------------------------------------------------------------
+
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")  # wgmma, TMA loads, cp.async
+
+
+def _demangle(names: list[str]) -> dict[str, str]:
+    filt = shutil.which("c++filt")
+    if filt is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True)
+    plain = out.stdout.splitlines()
+    return dict(zip(names, plain)) if len(plain) == len(names) else {n: n for n in names}
+
+
+def build_report(_build, sources) -> dict:
+    """Per kernel: ptxas's registers, spills and static shared memory (from
+    ``-Xptxas -v``) and the count of each of ``SASS_OPS`` in its SASS
+    (``cuobjdump -sass`` of the built library). Fails unless the bf16 K1
+    (``fwd_wgmma_kernel``) is built from wgmma and TMA loads."""
+    import re
+
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        import triton  # noqa: F401  (its package carries the toolkit's binaries)
+
+        tool = pathlib.Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+    kernels = {}
+    for src in sources:
+        for block in _build.build_log.get(src, "").split("Compiling entry function")[1:]:
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            smem = re.search(r"(\d+) bytes smem", block)
+            kernels[block.split("'")[1]] = {
+                "source": src, "registers": int(regs.group(1)) if regs else None,
+                "spill_store_bytes": int(spill.group(1)) if spill else None,
+                "static_smem_bytes": int(smem.group(1)) if smem else 0}
+        sass = subprocess.run([str(tool), "-sass", str(_build.library_path(src))],
+                              capture_output=True, text=True, check=True).stdout
+        for chunk in sass.split("Function : ")[1:]:
+            name = chunk.split()[0]
+            counts = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in SASS_OPS}
+            kernels.setdefault(name, {"source": src}).update(counts)
+    plain = _demangle(list(kernels))
+    report = {plain[k][:120]: v for k, v in kernels.items()}
+    k1 = {k: v for k, v in report.items() if "fwd_wgmma_kernel" in k}
+    if not k1 or any(not v.get("HGMMA") or not v.get("UTMALDG") for v in k1.values()):
+        fail(f"the bf16 K1 kernel is not built from HGMMA and UTMALDG: {k1}")
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernels
 # ---------------------------------------------------------------------------
 
-def _time_ms(torch, fn, flush, reps=15, warm=3) -> float:
+def _time_ms(torch, fn, flush, reps=15, warm=3, host=False) -> float:
     """Median over ``reps`` single launches, each after a write that
-    evicts the 50 MB L2 (a serving step finds the pool cold)."""
+    evicts the 50 MB L2 (a serving step finds the pool cold). A ~0.5 ms
+    device sleep follows the write, so the card is still busy while the
+    host enqueues ``fn`` and the events time the device's work alone;
+    ``host=True`` drops the sleep, and a wrapper whose host time exceeds
+    the write's then adds that time too."""
     for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if not host:
+            torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -108,6 +171,19 @@ def _time_ms(torch, fn, flush, reps=15, warm=3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _kernel_names(torch, fn) -> list[str]:
+    """The device kernels one call of ``fn`` launches (``torch.profiler``;
+    empty if the profiler sees no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:90] for e in prof.key_averages()
+                   if (getattr(e, "self_device_time_total", 0.0) or 0.0) > 0})
 
 
 def _bound(pos, n_ctx, bs, h, n_kv, d, elem):
@@ -187,12 +263,27 @@ def kernel_phase(torch, rpa, alibi_slopes, np):
             max_abs = float(diff.abs().max())
             if not torch.isfinite(out).all() or rel > KERNEL_GATE[dname]:
                 fail(f"kernel {name} {dname}: rel L2 {rel:.3e} > {KERNEL_GATE[dname]}")
+            regime = rpa.regime(t, h // n_kv, dtype)
             rec = {"case": name, "dtype": dname, "B": b, "T": t, "H": h, "H_kv": n_kv,
                    "Dh": d, "n_ctx": n_ctx, "block_size": bs, "rel_l2": rel,
-                   "max_abs_err": max_abs, "gate": KERNEL_GATE[dname]}
+                   "max_abs_err": max_abs, "gate": KERNEL_GATE[dname], "regime": regime,
+                   "n_split": rpa.split_plan(n_ctx * bs)[0] if regime == "split" else None}
+            again = rpa.ragged_paged_attention(q, kp, vp, layer, rows, pos, slopes=slopes)
+            if not torch.equal(out, again):
+                fail(f"kernel {name} {dname}: two launches gave different bits")
+            rec["same_bits_twice"] = True
+            names = _kernel_names(torch, lambda: rpa.ragged_paged_attention(
+                q, kp, vp, layer, rows, pos, slopes=slopes))
+            want = {"split": ("rpa_split_kernel", "rpa_combine_kernel"),
+                    "chunk": ("rpa_chunk_kernel",)}[regime]
+            if names and not all(any(w in n for n in names) for w in want):
+                fail(f"kernel {name} {dname}: the {regime} regime launched {names}")
+            rec["device_kernels"] = names or "not measured"
             if dtype == torch.bfloat16 or name.startswith(("mpt125m_decode", "mpt125m_chunk")):
-                rec["kernel_ms"] = _time_ms(torch, lambda: rpa.ragged_paged_attention(
-                    q, kp, vp, layer, rows, pos, slopes=slopes), flush)
+                call = lambda: rpa.ragged_paged_attention(q, kp, vp, layer, rows, pos,  # noqa: E731
+                                                           slopes=slopes)
+                rec["kernel_ms"] = _time_ms(torch, call, flush)
+                rec["kernel_ms_with_host"] = _time_ms(torch, call, flush, host=True)
                 rec["plain_ms"] = _time_ms(torch, lambda: rpa.ragged_reference_attention(
                     q, *rpa.live_view(kp, vp, layer, rows), pos, slopes=slopes), flush)
                 # yardstick only: SDPA over the pre-gathered live view
@@ -246,7 +337,8 @@ def kernel_phase(torch, rpa, alibi_slopes, np):
 FLASH_FWD_GATE = {"float32": 1e-5, "bfloat16": 2e-2}
 FLASH_BWD_GATE = {"float32": 1e-4, "bfloat16": 4e-2}
 #: wrapper -> (the TPU kernel it replaces, its CUDA kernels' name prefix:
-#: ``<prefix>_kernel`` on CUDA cores for fp32, ``<prefix>_mma_kernel`` for bf16)
+#: ``<prefix>_kernel`` on CUDA cores for fp32; for bf16 ``fwd_wgmma_kernel``,
+#: ``bwd_dq_mma_kernel`` and ``bwd_dkv_mma_kernel``)
 FLASH_KERNELS = {
     "flash_fwd": ("photon_tpu/ops/flash_attention.py:93", "::fwd_"),
     "flash_bwd_dq": ("photon_tpu/ops/flash_attention.py:231", "::bwd_dq_"),
@@ -821,7 +913,7 @@ def profile_phase(torch, np, params, cfg):
            # busy is kernel time (the profiler does not stretch it); the wall
            # under the profiler is, so the share is of the unprofiled step
            "device_idle_share": (1 - busy / step_ms) if busy > 0 else "not measured",
-           "rpa_kernel_ms_per_step": sum(v for k, v in kernels.items() if "rpa_kernel" in k),
+           "rpa_kernel_ms_per_step": sum(v for k, v in kernels.items() if "::rpa_" in k),
            "kernel_launches_per_step": sum(
                e.count for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")) / n,
@@ -991,6 +1083,9 @@ def main() -> int:
     env["build_s"] = time.perf_counter() - t0
     env["nvcc_s"] = _build.build_seconds
     log("env " + json.dumps(env))
+    built = build_report(_build, sources)
+    for name, rec in built.items():
+        log("kernel_build " + json.dumps(dict(rec, kernel=name)))
 
     kernel_records, main = kernel_phase(torch, rpa, alibi_slopes, np)
     flash_records, flash_main = flash_kernel_phase(torch, fa, alibi_slopes, np)
@@ -1039,7 +1134,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
-        "env": env, "kernel_cases": kernel_records, "flash_cases": flash_records,
+        "env": env, "kernel_build": built, "kernel_cases": kernel_records, "flash_cases": flash_records,
         "train": train, "entry": entry, "engine": engine, "profile": profile, "server": server,
         "kernels": kernels["kernels"], "total_s": time.perf_counter() - t_all,
     }, indent=1))

@@ -22,13 +22,17 @@ import time
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "build"
+#: ``-Xptxas -v``: ptxas reports each kernel's registers, shared memory and
+#: spills (kept in ``build_log``)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 #: seconds each library took to build in this process (0.0 = found built)
 build_seconds: dict[str, float] = {}
+#: the compiler's report for each library built in this process
+build_log: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -64,6 +68,7 @@ def build(source: str) -> pathlib.Path:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
     build_seconds[source] = time.perf_counter() - t0
+    build_log[source] = proc.stdout + proc.stderr
     return out
 
 

@@ -2,9 +2,10 @@
 // entry points.
 //
 // Replaces the three TPU kernels of photon_tpu/ops/flash_attention.py:
-//   K1 _fwd_kernel     (:93,  launched by _fwd at :207)  -> fwd_kernel
-//   K2 _bwd_dq_kernel  (:231, launched by _bwd at :365)  -> bwd_dq_kernel
-//   K3 _bwd_dkv_kernel (:280, launched by _bwd at :392)  -> bwd_dkv_kernel
+//   K1 _fwd_kernel     (:93,  launched by _fwd at :207)  -> fwd_wgmma_kernel (bf16),
+//                                                           fwd_kernel (fp32)
+//   K2 _bwd_dq_kernel  (:231, launched by _bwd at :365)  -> bwd_dq_mma_kernel, bwd_dq_kernel
+//   K3 _bwd_dkv_kernel (:280, launched by _bwd at :392)  -> bwd_dkv_mma_kernel, bwd_dkv_kernel
 // Each computes what its TPU kernel computes (FlashAttention-2):
 //   K1: O = softmax(Q K^T * scale + bias, masked) V as an online softmax over
 //       key tiles, plus the row log-sum-exp LSE = m + log(l);
@@ -28,27 +29,57 @@
 //
 // What bounds them: at the training shape (B=16, S=2048, H=12, D=64, causal,
 // bf16) each kernel is bound by operations (~100-200 GFLOP against ~0.2 GB
-// of operands), so bf16 runs on tensor cores: every tile product is an
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate), 4 warps a CTA, each owning
-// 16 rows of a 64 x 64 tile, with scores and probabilities kept in
-// registers in the accumulator layout, which is also the next product's A
-// layout. fp32 inputs (the fp32 gates) run on CUDA cores: 64 x 64 tiles in
-// fp32 shared memory, 256 threads, each owning a 4 x 4 block of a tile
-// product fed by 16-byte shared-memory loads. Both stop the causal loops at
-// the diagonal tile, so the masked half of the work is skipped. wgmma, TMA
-// and a producer warp are later work.
+// of operands), so bf16 runs on tensor cores.
+//   * K1 (fwd_wgmma_kernel) is built the way Hopper reaches its tensor-core
+//     rate: a CTA of two consumer warpgroups (64 query rows each, 128 in
+//     all) and one producer warp (its warpgroup's registers lowered by
+//     setmaxnreg and handed to the consumers). The producer loads Q once
+//     and then K and V tiles of 128 keys by TMA into a ring of stages in
+//     shared memory (4 at D=64, 2 at D=128; 128-byte swizzle, full and
+//     empty mbarriers per stage). Each consumer computes S = Q K^T with
+//     wgmma from shared memory (Q and K both K-major), the online softmax in
+//     registers with scale * log2(e) folded into the one fma that feeds
+//     each exp2 (on unmasked tiles), and O += P V
+//     with wgmma taking P from registers (rounded to V's dtype, as the TPU
+//     kernel does) and V from shared memory as an MN-major operand (the
+//     transpose bit: V is never transposed by hand). The two consumers take
+//     turns to issue their products (ping-pong), so that one's softmax runs
+//     while the other's products hold the tensor cores. Only tiles that cross
+//     the diagonal, the ragged end or a ring offset are masked. The CTAs are
+//     persistent (one an SM) and take (q tile, batch, head) items round
+//     robin, with Q double-buffered so that the next item's loads overlap
+//     this one's epilogue; items come in chunks of heads whose K and V fit in
+//     L2 together, the longest causal q tiles first within a chunk.
+//   * K2 and K3 are mma.sync.m16n8k16 kernels (bf16 in, fp32 accumulate), 4
+//     warps a CTA, each owning 16 rows of a 64 x 64 tile, with scores and
+//     probabilities kept in registers in the accumulator layout, which is
+//     also the next product's A layout. Their redesign on wgmma is later
+//     work.
+// fp32 inputs (the fp32 gates) run on CUDA cores: 64 x 64 tiles in fp32
+// shared memory, 256 threads, each owning a 4 x 4 block of a tile product
+// fed by 16-byte shared-memory loads. All stop the causal loops at the
+// diagonal tile, so the masked half of the work is skipped.
 //
 // Layout: q/k/v are [B, S, H, D] tensors addressed through their batch,
 // sequence and head strides (the dim axis is dense), so the q/k/v views of
-// a fused QKV projection are read without a copy. O, dO, dQ, dK, dV are
-// dense [B, S, H, D]; LSE and Delta are fp32 [B, H, S_q]. D is 64 or 128.
+// a fused QKV projection are read without a copy; K1's TMA tensor maps are
+// encoded over those strides, which TMA wants 16-byte aligned (the wrapper
+// checks). O, dO, dQ, dK, dV are dense [B, S, H, D]; LSE and Delta are fp32
+// [B, H, S_q], in natural-log units. D is 64 or 128.
+//
+// The tensor maps are encoded with the driver's cuTensorMapEncodeTiled,
+// reached through the runtime (cudaGetDriverEntryPoint), so the library
+// needs no -lcuda.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libphoton_flash.so flash_attention.cu
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -191,10 +222,11 @@ __device__ __forceinline__ float score(const Args& a, float dot, float slope, in
   return ok ? s : kNegInf;
 }
 
-// One past the last key any query of the tile starting at q0 can see.
-__device__ __forceinline__ int kv_end(const Args& a, int q0) {
+// One past the last key any query of the tile of `rows` rows starting at q0
+// can see.
+__device__ __forceinline__ int kv_end(const Args& a, int q0, int rows = kTile) {
   if (!a.causal) return a.S_k;
-  const int q_last = min(q0 + kTile, a.S_q) - 1;
+  const int q_last = min(q0 + rows, a.S_q) - 1;
   return max(0, min(a.S_k, q_last + a.offset + 1));
 }
 
@@ -453,7 +485,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on tensor cores: the same three kernels with every tile product as
+// bf16 K2 and K3 on tensor cores: every tile product as
 // mma.sync.m16n8k16 (bf16 operands, fp32 accumulation). 4 warps a CTA, each
 // owning 16 of the 64 rows of its tile; scores, probabilities and gradients
 // stay in registers in the mma accumulator layout, which is also the layout
@@ -557,22 +589,19 @@ __device__ __forceinline__ void mma_tn_step(float acc[D / 8][4], const uint32_t 
   }
 }
 
-// Rows r (acc[.][0..1]) and r + 8 (acc[.][2..3]) of a 16 x D accumulator,
-// scaled by 1 / den, into a dense bf16 [.., row_stride] output.
+// Rows r (acc[.][0..1]) and r + 8 (acc[.][2..3]) of a 16 x D accumulator
+// into a dense bf16 [.., row_stride] output.
 template <int D>
 __device__ __forceinline__ void store_acc(bf16* dst, int64_t row_stride, int r, int n_valid,
-                                          int t, const float acc[D / 8][4], float den0,
-                                          float den1) {
+                                          int t, const float acc[D / 8][4]) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = r + 8 * half;
     if (row >= n_valid) continue;
-    const float den = half ? den1 : den0;
     bf16* p = dst + (int64_t)row * row_stride + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(p + n * 8) =
-          pack2(acc[n][2 * half] / den, acc[n][2 * half + 1] / den);
+      *reinterpret_cast<uint32_t*>(p + n * 8) = pack2(acc[n][2 * half], acc[n][2 * half + 1]);
   }
 }
 
@@ -586,86 +615,509 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// K1 on tensor cores. grid (ceil(S_q / 64), H, B).
+// ---------------------------------------------------------------------------
+// K1 for bf16 on Hopper: wgmma + TMA, a producer warp (in a warpgroup of
+// its own, for setmaxnreg) and two consumer warpgroups. A work item is 128
+// query rows of one (batch, head); persistent CTAs, one an SM, take the
+// items in the order fwd_work gives.
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 64;                // query rows of a consumer warpgroup
+constexpr int kFwdRows = 2 * kWgRows;      // query rows of a CTA
+constexpr int kFwdKeys = 128;              // keys of a K/V tile
+constexpr int kWgThreads = 128;            // threads of a warpgroup
+constexpr int kFwdThreads = 3 * kWgThreads;  // two consumer warpgroups + the producer warpgroup
+constexpr int kPanel = 64;                 // bf16 columns in one 128-byte swizzled row
+constexpr int kSwRow = 128;                // bytes of a swizzled row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) fwd_mma_kernel(const Args a) {
-  constexpr int kLd = D + 8;
-  extern __shared__ float4 smem4[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem4);
-  bf16* k_s = q_s + kTile * kLd;
-  bf16* vt_s = k_s + kTile * kLd;  // [D][key]
+struct FwdCfg {
+  static constexpr int kPanels = D / kPanel;      // TMA boxes per row
+  static constexpr int kStages = D == 64 ? 4 : 2;  // K/V ring depth
+  static constexpr int kQPanel = kFwdRows * kSwRow;
+  static constexpr int kKvPanel = kFwdKeys * kSwRow;
+  static constexpr int kQBytes = kPanels * kQPanel;
+  static constexpr int kKvBytes = kPanels * kKvPanel;  // one K or one V tile
+  // two Q buffers, the K/V ring, 1024 bytes to align the tiles (128-byte
+  // swizzle atoms), barriers
+  static constexpr int kSmem = 2 * kQBytes + 2 * kStages * kKvBytes + 1024 + 256;
+};
 
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (a.H / a.H_kv);
-  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  const float slope = a.slopes != nullptr ? a.slopes[h] : 0.f;
-  const int r0 = q0 + w * 16 + g;  // this thread's rows: r0 and r0 + 8
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  load_bf16<D, false>(q_s, qp, a.q_ss, q0, a.S_q);
-  float o[D / 8][4] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
 
-  const int end = kv_end(a, q0);
-  for (int k0 = 0; k0 < end; k0 += kTile) {
-    __syncthreads();
-    load_bf16<D, false>(k_s, kp, a.k_ss, k0, a.S_k);
-    load_bf16<D, true>(vt_s, vp, a.v_ss, k0, a.S_k);
-    __syncthreads();
-    float s[8][4] = {};
-    mma_nt<D>(s, q_s, w * 16, k_s, g, t);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = score(a, s[n][e], slope, r0 + 8 * (e >> 1), k0 + n * 8 + 2 * t + (e & 1));
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f}, m_new[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m_new[i] = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = expf(m[i] - m_new[i]);
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float mn = m_new[e >> 1];
-        // a row with no visible key yet keeps m at NEG_INF: force p to 0
-        s[n][e] = (mn > 0.5f * kNegInf) ? expf(s[n][e] - mn) : 0.f;
-        sum[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
-      m[i] = m_new[i];
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t pa[4];
-      acc_to_a(pa, s, j);  // P rounded to V's dtype, as the TPU kernel does
-      mma_tn_step<D>(o, pa, vt_s, j, g, t);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the barrier's phase differs from `parity`. A wait that lasts
+// seconds is a bug; trap (a launch error) rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((spin & 1023) == 0) {
+      const uint64_t now = global_ns();
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 4000000000ull) __trap();
     }
   }
-  const float den0 = l[0] == 0.f ? 1.f : l[0], den1 = l[1] == 0.f ? 1.f : l[1];
-  bf16* op = static_cast<bf16*>(a.o) + (((int64_t)b * a.S_q + q0) * a.H + h) * D;
-  store_acc<D>(op, (int64_t)a.H * D, w * 16 + g, a.S_q - q0, t, o, den0, den1);
-  if (t == 0) {
-    const int64_t base = ((int64_t)b * a.H + h) * a.S_q;
-    if (r0 < a.S_q) a.lse[base + r0] = m[0] + logf(den0);
-    if (r0 + 8 < a.S_q) a.lse[base + r0 + 8] = m[1] + logf(den1);
+}
+
+// One TMA box of a 4-D map (dim 0 is D; dims 1-3 hold S, H and B in the
+// order of their strides, given by `pm`: S at dim pm & 3, H at (pm >> 2) & 3).
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int h, int b, int pm) {
+  const int ps = pm & 3, ph = (pm >> 2) & 3;
+  const int c1 = ps == 1 ? row : ph == 1 ? h : b;
+  const int c2 = ps == 2 ? row : ph == 2 ? h : b;
+  const int c3 = ps == 3 ? row : ph == 3 ? h : b;
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile (1024-byte
+// aligned atoms of 8 rows x 128 bytes): the stride between 8-row groups is
+// 1024 bytes. The leading offset is unused by every product here (each
+// reads one atom column), and set to the same value.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accumulator accesses across a wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D8(i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128, fp32) (+)= A (64 x 16, smem, K-major) B (16 x 128, smem, K-major)
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, registers) B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t a[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_D8
+
+// K1's work items are (q tile, batch, head). They are ordered in chunks of
+// `group_bh` (batch, head) pairs whose K and V fit in L2 together; within a
+// chunk, the longest causal q tiles come first. Persistent CTAs take the
+// items round robin, so one item's epilogue overlaps the next one's loads.
+__device__ __forceinline__ void fwd_work(int w, int n_qt, int n_bh, int group_bh, int& qt,
+                                         int& bh) {
+  const int per_chunk = n_qt * group_bh;
+  const int chunk = w / per_chunk;
+  const int r = w - chunk * per_chunk;
+  const int gc = min(group_bh, n_bh - chunk * group_bh);
+  qt = n_qt - 1 - r / gc;
+  bh = chunk * group_bh + r % gc;
+}
+
+// 2^x on the MUFU unit (flushes denormal results to 0: a probability below
+// 2^-126 of the row's largest adds nothing in fp32)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A wgmma accumulator (m64nN) gives thread (warp w, lane = 4 g + t) of the
+// warpgroup, for each 8-column chunk n, rows 16 w + g (entries 4n, 4n+1)
+// and 16 w + g + 8 (4n+2, 4n+3) at columns 8n + 2t, 8n + 2t + 1: the
+// mma.sync layout, so the S chunks 2j and 2j+1 are k-step j's A fragment.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map, const Args a, const int perm,
+                     const int group_bh) {
+  using C = FwdCfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;  // two Q buffers
+  const uint32_t k_s = q_s + 2 * C::kQBytes;             // stage s at + s * kKvBytes
+  const uint32_t v_s = k_s + C::kStages * C::kKvBytes;
+  // barriers: full[kStages], empty[kStages], q_full[2], q_empty[2], turn[2]
+  const uint32_t bar = v_s + C::kStages * C::kKvBytes;
+  const uint32_t q_full = bar + 16 * C::kStages, q_empty = q_full + 16, turn = q_empty + 16;
+
+  const int n_bh = a.B * a.H;
+  const int n_qt = (a.S_q + kFwdRows - 1) / kFwdRows;
+  const int n_work = n_qt * n_bh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(bar + 8 * s, 1);                  // full: the producer's expect_tx
+      mbar_init(bar + 8 * (C::kStages + s), 8);   // empty: one arrival per consumer warp
+    }
+    for (int j = 0; j < 2; ++j) {
+      mbar_init(q_full + 8 * j, 1);
+      mbar_init(q_empty + 8 * j, 8);
+      mbar_init(turn + 8 * j, kWgThreads);  // every thread of the other warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer warpgroup: it gives its registers to the consumers (ptxas
+    // budgets 168 a thread for 384 threads; 4 warps x (168 - 24) = 8 warps x
+    // (240 - 168), so both requests are met), and one thread of its first
+    // warp issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == 8 && lane == 0) {
+      int it = 0;  // K/V tiles issued so far: the ring position
+      for (int w = blockIdx.x, j = 0; w < n_work; w += gridDim.x, ++j) {
+        int qt, bh;
+        fwd_work(w, n_qt, n_bh, group_bh, qt, bh);
+        const int h = bh % a.H, b = bh / a.H, kvh = h / (a.H / a.H_kv);
+        const int q0 = qt * kFwdRows;
+        const uint32_t qb = q_s + (j & 1) * C::kQBytes, qf = q_full + 8 * (j & 1);
+        mbar_wait(q_empty + 8 * (j & 1), ((j >> 1) & 1) ^ 1);
+        mbar_expect_tx(qf, C::kQBytes);
+#pragma unroll
+        for (int p = 0; p < C::kPanels; ++p)
+          tma_load(qb + p * C::kQPanel, &q_map, qf, p * kPanel, q0, h, b, perm & 15);
+        const int n_tiles = (kv_end(a, q0, kFwdRows) + kFwdKeys - 1) / kFwdKeys;
+        for (int i = 0; i < n_tiles; ++i, ++it) {
+          const int s = it % C::kStages;
+          mbar_wait(bar + 8 * (C::kStages + s), ((it / C::kStages) & 1) ^ 1);
+          const uint32_t full = bar + 8 * s;
+          mbar_expect_tx(full, 2 * C::kKvBytes);
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p) {
+            const uint32_t off = s * C::kKvBytes + p * C::kKvPanel;
+            tma_load(k_s + off, &k_map, full, p * kPanel, i * kFwdKeys, kvh, b, (perm >> 4) & 15);
+            tma_load(v_s + off, &v_map, full, p * kPanel, i * kFwdKeys, kvh, b, (perm >> 8) & 15);
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows wq0 .. wq0 + 63 of each item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4;
+    const float c2 = a.scale * kLog2e;  // scores in log2 units: one exp2 per score
+    const bool alibi = a.slopes != nullptr;
+    // The two warpgroups take turns to issue their products (ping-pong): a
+    // turn covers P V of one tile and Q K^T of the next, so one warpgroup's
+    // softmax runs while the other's products hold the tensor cores. Every
+    // thread passes the turn, so no branch sits inside a wgmma stage; tiles
+    // a warpgroup skips still take and pass their turns, to keep the count.
+    uint32_t n_turns = 0;
+    auto take_turn = [&]() { mbar_wait(turn + 8 * wg, n_turns++ & 1); };
+    auto pass_turn = [&]() { mbar_arrive(turn + 8 * (wg ^ 1)); };
+    if (wg == 1) pass_turn();  // warpgroup 0 goes first
+    int it = 0;
+    for (int wi = blockIdx.x, j = 0; wi < n_work; wi += gridDim.x, ++j) {
+      int qt, bh;
+      fwd_work(wi, n_qt, n_bh, group_bh, qt, bh);
+      const int h = bh % a.H, b = bh / a.H;
+      const int q0 = qt * kFwdRows;
+      const int n_tiles = (kv_end(a, q0, kFwdRows) + kFwdKeys - 1) / kFwdKeys;
+      const int wq0 = q0 + wg * kWgRows;
+      const int wg_end = wq0 < a.S_q ? kv_end(a, wq0, kWgRows) : 0;
+      const int r0 = wq0 + w * 16 + g;  // this thread's rows: r0 and r0 + 8
+      const float sl2 = alibi ? a.slopes[h] * kLog2e : 0.f;
+      const uint32_t qb = q_s + (j & 1) * C::kQBytes;
+      float o[C::kPanels][32];
+#pragma unroll
+      for (int p = 0; p < C::kPanels; ++p)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's columns only
+
+      mbar_wait(q_full + 8 * (j & 1), (j >> 1) & 1);
+      for (int i = 0; i < n_tiles; ++i, ++it) {
+        const int s = it % C::kStages;
+        const int k0 = i * kFwdKeys;
+        mbar_wait(bar + 8 * s, (it / C::kStages) & 1);
+        if (i == 0) take_turn();
+        if (k0 < wg_end) {
+          float sc[64];
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t col = (kk % 4) * 32;
+            wgmma_qk(sc, sw128_desc(qb + (kk / 4) * C::kQPanel + wg * kWgRows * kSwRow + col),
+                     sw128_desc(k_s + s * C::kKvBytes + (kk / 4) * C::kKvPanel + col), kk > 0);
+          }
+          wg_commit();
+          pass_turn();
+          wg_wait0();
+          fence_regs(sc);
+
+          // scaled, biased logits in log2 units; the mask only on tiles that
+          // cross the diagonal, the ragged end or a ring offset, as one
+          // compare against each row's last visible key (no per-score branch)
+          const bool edge =
+              (a.causal && k0 + kFwdKeys - 1 > wq0 + a.offset) || k0 + kFwdKeys > a.S_k;
+          float mx[2] = {kNegInf, kNegInf};
+          float ks = 1.f;  // the exp's factor on sc: c2 where the scores stay unscaled
+          if (!edge && !alibi && c2 > 0.f) {
+#pragma unroll
+            for (int x = 0; x < 64; ++x) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], sc[x]);
+            mx[0] *= c2;  // the scaled maximum, as c2 > 0
+            mx[1] *= c2;
+            ks = c2;
+          } else {
+            int last[2];
+            float base[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int qp = r0 + 8 * r + a.offset;
+              last[r] = a.causal ? min(qp, a.S_k - 1) : a.S_k - 1;
+              base[r] = (float)(qp - k0 - 2 * t);  // ALiBi distance of this thread's column 0
+            }
+#pragma unroll
+            for (int n = 0; n < 16; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1, c = n * 8 + (e & 1);  // column within the thread's keys
+                float x = sc[4 * n + e] * c2;
+                if (alibi) x = fmaf(sl2, (float)c - base[r], x);  // -slope (qp + offset - kp)
+                x = k0 + 2 * t + c > last[r] ? kNegInf : x;
+                sc[4 * n + e] = x;
+                mx[r] = fmaxf(mx[r], x);
+              }
+          }
+          float alpha[2], m_new[2], m_use[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            m_new[r] = fmaxf(m[r], quad_max(mx[r]));
+            alpha[r] = fast_exp2(m[r] - m_new[r]);
+            // a row with no visible key yet keeps m at NEG_INF; its scores are
+            // all NEG_INF, so exp2 against 0 gives p = 0, as the TPU kernel forces
+            m_use[r] = m_new[r] > 0.5f * kNegInf ? m_new[r] : 0.f;
+          }
+          float sum[2] = {0.f, 0.f};
+#pragma unroll
+          for (int x = 0; x < 64; ++x) {
+            const float p = fast_exp2(fmaf(sc[x], ks, -m_use[(x >> 1) & 1]));
+            sc[x] = p;
+            sum[(x >> 1) & 1] += p;
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            l[r] = l[r] * alpha[r] + sum[r];
+            m[r] = m_new[r];
+          }
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p)
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+              o[p][4 * n + 0] *= alpha[0];
+              o[p][4 * n + 1] *= alpha[0];
+              o[p][4 * n + 2] *= alpha[1];
+              o[p][4 * n + 3] *= alpha[1];
+            }
+          // P rounded to V's dtype, as the TPU kernel does, as A fragments
+          uint32_t pa[8][4];
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            pa[jj][0] = pack2(sc[8 * jj + 0], sc[8 * jj + 1]);
+            pa[jj][1] = pack2(sc[8 * jj + 2], sc[8 * jj + 3]);
+            pa[jj][2] = pack2(sc[8 * jj + 4], sc[8 * jj + 5]);
+            pa[jj][3] = pack2(sc[8 * jj + 6], sc[8 * jj + 7]);
+          }
+          take_turn();
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p) fence_regs(o[p]);
+          wg_fence();
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int p = 0; p < C::kPanels; ++p)
+              wgmma_pv(o[p], pa[jj],
+                       sw128_desc(v_s + s * C::kKvBytes + p * C::kKvPanel + jj * 16 * kSwRow));
+          wg_commit();
+          wg_wait0();
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p) fence_regs(o[p]);
+        } else {
+          pass_turn();
+          take_turn();
+        }
+        if (i == n_tiles - 1) pass_turn();  // the turn holds on to the next tile's Q K^T
+        if (lane == 0) mbar_arrive(bar + 8 * (C::kStages + s));  // this warp is done with stage s
+      }
+      if (lane == 0) mbar_arrive(q_empty + 8 * (j & 1));  // and with this item's Q
+
+      float den[2], inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float lr = quad_sum(l[r]);
+        den[r] = lr == 0.f ? 1.f : lr;  // a row that saw no key writes 0
+        inv[r] = __frcp_rn(den[r]);
+      }
+      bf16* op = static_cast<bf16*>(a.o) + ((int64_t)b * a.S_q * a.H + h) * D;
+      const int64_t row_stride = (int64_t)a.H * D;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half;
+        if (row >= a.S_q) continue;
+        bf16* dst = op + (int64_t)row * row_stride + 2 * t;
+#pragma unroll
+        for (int p = 0; p < C::kPanels; ++p)
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            *reinterpret_cast<uint32_t*>(dst + p * kPanel + n * 8) = pack2(
+                o[p][4 * n + 2 * half] * inv[half], o[p][4 * n + 2 * half + 1] * inv[half]);
+        if (t == 0) {
+          // natural-log units, as K2 and K3 read it: m is in log2 units
+          const float mr = m[half];
+          a.lse[((int64_t)b * a.H + h) * a.S_q + row] =
+              mr > 0.5f * kNegInf ? mr * kLn2 + logf(den[half]) : kNegInf;
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, reached through the runtime.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D bf16 map over a [B, S, H, D] tensor with the given element strides,
+// boxes of 64 columns x `rows` rows, 128-byte swizzle, zeros past the end.
+// Dims 1-3 take S, H and B in the order of their strides; *pm says where S
+// and H went (as tma_load reads it).
+int make_map(CUtensorMap* map, int* pm, const void* base, int d, int s, int h, int b, int64_t ss,
+             int64_t sh, int64_t sb, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  struct Dim { cuuint64_t n; int64_t stride; int which; } dim[3] = {{(cuuint64_t)s, ss, 0},
+                                                                    {(cuuint64_t)h, sh, 1},
+                                                                    {(cuuint64_t)b, sb, 2}};
+  for (int i = 1; i < 3; ++i)  // insertion sort by stride, stable
+    for (int j = i; j > 0 && dim[j].stride < dim[j - 1].stride; --j) {
+      const Dim x = dim[j];
+      dim[j] = dim[j - 1];
+      dim[j - 1] = x;
+    }
+  cuuint64_t dims[4] = {(cuuint64_t)d, dim[0].n, dim[1].n, dim[2].n};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {(cuuint32_t)kPanel, 1, 1, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  *pm = 0;
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = (cuuint64_t)dim[i].stride * 2;
+    if (dim[i].which == 0) {
+      box[i + 1] = (cuuint32_t)rows;
+      *pm |= i + 1;
+    } else if (dim[i].which == 1) {
+      *pm |= (i + 1) << 2;
+    }
+  }
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch_fwd_wgmma(const Args& a, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  int pq, pk, pv, err;
+  if ((err = make_map(&qm, &pq, a.q, D, a.S_q, a.H, a.B, a.q_ss, a.q_sh, a.q_sb, kFwdRows))) return err;
+  if ((err = make_map(&km, &pk, a.k, D, a.S_k, a.H_kv, a.B, a.k_ss, a.k_sh, a.k_sb, kFwdKeys))) return err;
+  if ((err = make_map(&vm, &pv, a.v, D, a.S_k, a.H_kv, a.B, a.v_ss, a.v_sh, a.v_sb, kFwdKeys))) return err;
+  const int smem = FwdCfg<D>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(fwd_wgmma_kernel<D>),
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  // (batch, head) pairs per L2 chunk: their K and V take at most 16 MiB
+  const int64_t kv_bytes = (int64_t)a.S_k * D * 2 * 2;
+  const int group_bh = (int)std::max<int64_t>(1, std::min<int64_t>((16ll << 20) / kv_bytes, a.B * a.H));
+  const int n_work = (a.S_q + kFwdRows - 1) / kFwdRows * a.B * a.H;
+  int dev = 0, n_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  fwd_wgmma_kernel<D><<<std::min(n_work, n_sm), kFwdThreads, smem, stream>>>(
+      qm, km, vm, a, pq | pk << 4 | pv << 8, group_bh);
+  return (int)cudaGetLastError();
 }
 
 // K2 on tensor cores. grid (ceil(S_q / 64), H, B).
@@ -729,7 +1181,7 @@ __global__ void __launch_bounds__(kMmaThreads) bwd_dq_mma_kernel(const Args a) {
     }
   }
   bf16* dqp = static_cast<bf16*>(a.dq) + (((int64_t)b * a.S_q + q0) * a.H + h) * D;
-  store_acc<D>(dqp, (int64_t)a.H * D, w * 16 + g, a.S_q - q0, t, dq, 1.f, 1.f);
+  store_acc<D>(dqp, (int64_t)a.H * D, w * 16 + g, a.S_q - q0, t, dq);
 }
 
 // K3 on tensor cores. grid (ceil(S_k / 64), H_kv, B). P and dS enter their
@@ -810,24 +1262,22 @@ __global__ void __launch_bounds__(kMmaThreads) bwd_dkv_mma_kernel(const Args a) 
     }
   }
   const int64_t off = (((int64_t)b * a.S_k + k0) * a.H_kv + kvh) * D;
-  store_acc<D>(static_cast<bf16*>(a.dk) + off, (int64_t)a.H_kv * D, w * 16 + g, a.S_k - k0, t,
-               dk, 1.f, 1.f);
-  store_acc<D>(static_cast<bf16*>(a.dv) + off, (int64_t)a.H_kv * D, w * 16 + g, a.S_k - k0, t,
-               dv, 1.f, 1.f);
+  store_acc<D>(static_cast<bf16*>(a.dk) + off, (int64_t)a.H_kv * D, w * 16 + g, a.S_k - k0, t, dk);
+  store_acc<D>(static_cast<bf16*>(a.dv) + off, (int64_t)a.H_kv * D, w * 16 + g, a.S_k - k0, t, dv);
 }
 
 constexpr int mma_smem_bytes(int which, int D) {
   // bf16 tiles: row-major [64][D + 8], transposed [D][kLdt]; K3 adds fp32 LSE/Delta
-  return which == 0 ? (2 * kTile * (D + 8) + D * kLdt) * 2
-       : which == 1 ? (4 * kTile * (D + 8) + D * kLdt) * 2
+  return which == 1 ? (4 * kTile * (D + 8) + D * kLdt) * 2
                     : (4 * kTile * (D + 8) + 2 * D * kLdt) * 2 + 2 * kTile * 4;
 }
 
+// bf16: K1 on wgmma + TMA, K2 and K3 on mma.sync
 template <int D>
 int launch_mma(int which, const Args& a, cudaStream_t stream) {
+  if (which == 0) return launch_fwd_wgmma<D>(a, stream);
   const int smem = mma_smem_bytes(which, D);
-  void (*kernel)(const Args) = which == 0 ? fwd_mma_kernel<D>
-                             : which == 1 ? bwd_dq_mma_kernel<D> : bwd_dkv_mma_kernel<D>;
+  void (*kernel)(const Args) = which == 1 ? bwd_dq_mma_kernel<D> : bwd_dkv_mma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

@@ -176,6 +176,23 @@ def test_wrapper_checks_raise():
         fa._launch("flash_fwd", odd, odd[:, :, :2], odd[:, :, :2], **kw)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layout_check_takes_fused_views_and_refuses_what_tma_cannot_read(dtype):
+    """K1 reads bf16 q/k/v by TMA over their own strides: the views of a
+    fused QKV projection pass as they are; a head stride or a base that is
+    not a multiple of 16 bytes raises (the kernels never copy)."""
+    b, s, h, d = 2, 8, 4, 64
+    qkv = torch.zeros(b, s, 3 * h * d, dtype=dtype)
+    q, k, v = (x.reshape(b, s, h, d) for x in qkv.chunk(3, dim=-1))
+    fa._check_layout(q, k, v)
+    padded = torch.zeros(b, s, h, d + 2, dtype=dtype)[..., :d]  # head stride d + 2
+    with pytest.raises(ValueError, match="TMA"):
+        fa._check_layout(padded, k, v)
+    off = torch.zeros(b * s * h * d + 2, dtype=dtype)[2:].view(b, s, h, d)  # base 4 or 8 bytes off
+    with pytest.raises(ValueError, match="TMA"):
+        fa._check_layout(q, off, v)
+
+
 def test_unsupported_attention_impls_refused():
     q, k, v, _ = _t(*_inputs(b=1, s_q=8, s_k=8, h=2, n_kv=2, d=64))
     with pytest.raises(NotImplementedError):

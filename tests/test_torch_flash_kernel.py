@@ -123,3 +123,32 @@ def test_kernel_refuses_an_unsupported_head_dim(cuda):
     q, k, v, _ = _inputs(cuda, torch.bfloat16, b=1, s_q=64, s_k=64, h=2, n_kv=2, d=64)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_fwd(q[..., :32], k[..., :32], v[..., :32])
+
+
+@pytest.mark.cuda
+def test_forward_at_training_length_on_fused_views(cuda):
+    """bf16 K1 at S = 2048, D = 64 on the strided q/k/v views of one fused
+    projection (as training feeds it): 16 q tiles of 128 rows, 16 key tiles."""
+    q, k, v, _ = _inputs(cuda, torch.bfloat16, b=2, s_q=2048, s_k=2048, h=4, n_kv=4, d=64,
+                         fused=True)
+    assert q.stride(1) == 3 * 4 * 64
+    o, lse = fa.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v)
+    assert torch.isfinite(o).all() and _rel(o, o_ref) <= FWD_GATE[torch.bfloat16]
+    assert _rel(lse, lse_ref) <= FWD_GATE[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["row_stride", "base"])
+def test_forward_refuses_views_that_break_tma(cuda, bad):
+    q, k, v, _ = _inputs(cuda, torch.bfloat16, b=1, s_q=128, s_k=128, h=2, n_kv=2, d=64)
+    if bad == "row_stride":  # a head stride of 68 elements: 136 bytes
+        q = torch.zeros((1, 128, 2, 68), dtype=torch.bfloat16, device=cuda)[..., :64]
+    else:  # a base 8 bytes off a 16-byte boundary
+        flat = torch.zeros(128 * 2 * 64 + 4, dtype=torch.bfloat16, device=cuda)
+        q = flat[4:].view(1, 128, 2, 64)
+    before = fa.launches["flash_fwd"]
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_fwd(q, k, v)
+    assert fa.launches["flash_fwd"] == before

@@ -90,3 +90,82 @@ def test_kernel_row_that_sees_no_key_is_zero(cuda):
     out = rpa.ragged_paged_attention(*args, 0, torch.from_numpy(c["rows"]).to(cuda),
                                      torch.from_numpy(c["pos"]).to(cuda))
     assert torch.isfinite(out).all() and bool((out[0, 1] == 0).all())
+
+
+def _engine_decode(seed, dtype, dev, positions, *, h=12, n_kv=12, dh=64, n_layers=2):
+    """Decode at the engine's full width: n_ctx = 128 blocks of 16 tokens,
+    slots of very different lengths, distinct blocks per slot and the trash
+    block past each slot's end (as the allocator leaves them)."""
+    rng = np.random.default_rng(seed)
+    b, bs, n_ctx = len(positions), 16, 128
+    nb = b * n_ctx + 1
+    rows = np.full((b, n_ctx), nb - 1, np.int32)
+    perm = rng.permutation(nb - 1)
+    for i, p in enumerate(positions):
+        need = min(n_ctx, max(p, 0) // bs + 1)
+        rows[i, :need] = perm[i * n_ctx: i * n_ctx + need]
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    q = t(b, 1, h, dh)
+    kp, vp = t(nb, n_layers, bs, n_kv, dh), t(nb, n_layers, bs, n_kv, dh)
+    pos = torch.tensor(np.array(positions, np.int32)[:, None], device=dev)
+    return q, kp, vp, torch.from_numpy(rows).to(dev), pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(12, 12, 64), (16, 4, 128)], ids=["mha_d64", "gqa_d128"])
+def test_split_decode_spans_many_splits(cuda, dtype, heads):
+    h, n_kv, dh = heads
+    positions = [2047, 1999, 1024, 700, 255, 256, 17, 0]
+    q, kp, vp, rows, pos = _engine_decode(31, dtype, cuda, positions, h=h, n_kv=n_kv, dh=dh)
+    assert rpa.regime(1, h // n_kv, dtype) == "split" and rpa.split_plan(128 * 16)[0] == 8
+    before = rpa.launches
+    out = rpa.ragged_paged_attention(q, kp, vp, 1, rows, pos)
+    torch.cuda.synchronize()
+    assert rpa.launches == before + 1  # the split and its merge count once
+    ref = rpa.ragged_reference_attention(q, *rpa.live_view(kp, vp, 1, rows), pos)
+    assert _rel(out.float().cpu(), ref.float().cpu()) <= KERNEL_GATES[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_slot_with_no_visible_key(cuda, dtype):
+    q, kp, vp, rows, pos = _engine_decode(37, dtype, cuda, [1500, -1, 40, 2047])
+    out = rpa.ragged_paged_attention(q, kp, vp, 0, rows, pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and bool((out[1] == 0).all())
+    ref = rpa.ragged_reference_attention(q, *rpa.live_view(kp, vp, 0, rows), pos)
+    assert _rel(out.float().cpu(), ref.float().cpu()) <= KERNEL_GATES[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 512], ids=["split_decode", "chunk"])
+def test_kernel_gives_the_same_bits_twice(cuda, t):
+    if t == 1:
+        q, kp, vp, rows, pos = _engine_decode(41, torch.bfloat16, cuda, [2047, 900, 300, 1])
+    else:
+        c = _case(43, b=1, t=t, h=12, n_kv=12, dh=64, bs=16, nb=129, n_ctx=128)
+        c["pos"] = np.arange(1024, 1024 + t, dtype=np.int32)[None]
+        q, kp, vp = (torch.from_numpy(c[k]).to(cuda, torch.bfloat16) for k in ("q", "kp", "vp"))
+        rows, pos = torch.from_numpy(c["rows"]).to(cuda), torch.from_numpy(c["pos"]).to(cuda)
+    first = rpa.ragged_paged_attention(q, kp, vp, 0, rows, pos)
+    second = rpa.ragged_paged_attention(q, kp, vp, 0, rows, pos)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("alibi", [False, True])
+def test_chunk_of_512_tokens(cuda, dtype, alibi):
+    c = _case(47, b=1, t=512, h=12, n_kv=12, dh=64, bs=16, nb=129, n_ctx=128, n_layers=2)
+    c["pos"] = np.arange(1024, 1536, dtype=np.int32)[None]
+    q, kp, vp = (torch.from_numpy(c[k]).to(cuda, dtype) for k in ("q", "kp", "vp"))
+    rows, pos = torch.from_numpy(c["rows"]).to(cuda), torch.from_numpy(c["pos"]).to(cuda)
+    slopes = alibi_slopes(12, cuda) if alibi else None
+    out = rpa.ragged_paged_attention(q, kp, vp, 1, rows, pos, slopes=slopes)
+    torch.cuda.synchronize()
+    ref = rpa.ragged_reference_attention(q, *rpa.live_view(kp, vp, 1, rows), pos, slopes=slopes)
+    assert _rel(out.float().cpu(), ref.float().cpu()) <= KERNEL_GATES[dtype]
