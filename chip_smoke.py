@@ -10,15 +10,16 @@ Phases (any failure exits non-zero):
    nvcc per source, all started together, ``sm_90a``); ptxas's registers,
    shared memory and spills per kernel, and the count of ``HGMMA``
    (wgmma), ``UTMALDG`` (TMA loads) and ``LDGSTS`` (cp.async) in each
-   kernel's SASS (``cuobjdump``): the bf16 K1 must hold ``HGMMA`` and
-   ``UTMALDG``;
+   kernel's SASS (``cuobjdump``): the bf16 K1, K2 and K3 must each hold
+   ``HGMMA`` and ``UTMALDG``; ptxas's notes of wgmma it had to serialize;
 2. kernels: each kernel against its plain PyTorch version on the card,
    fp32 and bf16, at the shapes the serving step (K4) and the training
    step (K1 forward, K2 dQ, K3 dK/dV) give it; times of the kernel, the
    plain version and one PyTorch library call, and the least time the
    card could take (bytes over 3.35 TB/s, flops over the peak for the
-   dtype); K3 and K4 give the same bits twice; K4's decode must run as a
-   split-K kernel and its merge (kernel names from ``torch.profiler``);
+   dtype); K2, K3 and K4 give the same bits twice; K4's decode must run
+   as a split-K kernel and its merge (kernel names from
+   ``torch.profiler``); K2 + K3 together against SDPA's backward;
 3. training: full-width mpt-125m (random weights from seed 0, bf16
    compute, fp32 masters, ADOPT, chunked CE) in a ``Trainer`` on
    ``cuda``, global batch 32 in 2 microbatches of 16 at seq 2048: 4 steps
@@ -98,6 +99,9 @@ def fail(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")  # wgmma, TMA loads, cp.async
+#: the bf16 flash kernels (K1, K2, K3), each of which must be built from
+#: wgmma and TMA loads
+WGMMA_KERNELS = ("fwd_wgmma_kernel", "bwd_dq_wgmma_kernel", "bwd_dkv_wgmma_kernel")
 
 
 def _demangle(names: list[str]) -> dict[str, str]:
@@ -112,8 +116,8 @@ def _demangle(names: list[str]) -> dict[str, str]:
 def build_report(_build, sources) -> dict:
     """Per kernel: ptxas's registers, spills and static shared memory (from
     ``-Xptxas -v``) and the count of each of ``SASS_OPS`` in its SASS
-    (``cuobjdump -sass`` of the built library). Fails unless the bf16 K1
-    (``fwd_wgmma_kernel``) is built from wgmma and TMA loads."""
+    (``cuobjdump -sass`` of the built library). Fails unless each of
+    ``WGMMA_KERNELS`` is built from wgmma and TMA loads at both head dims."""
     import re
 
     tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
@@ -139,9 +143,11 @@ def build_report(_build, sources) -> dict:
             kernels.setdefault(name, {"source": src}).update(counts)
     plain = _demangle(list(kernels))
     report = {plain[k][:120]: v for k, v in kernels.items()}
-    k1 = {k: v for k, v in report.items() if "fwd_wgmma_kernel" in k}
-    if not k1 or any(not v.get("HGMMA") or not v.get("UTMALDG") for v in k1.values()):
-        fail(f"the bf16 K1 kernel is not built from HGMMA and UTMALDG: {k1}")
+    for kernel in WGMMA_KERNELS:
+        built = {k: v for k, v in report.items() if kernel in k}
+        if len(built) != 2 or any(not v.get("HGMMA") or not v.get("UTMALDG")
+                                  for v in built.values()):
+            fail(f"{kernel} is not built from HGMMA and UTMALDG at D=64 and 128: {built}")
     return report
 
 
@@ -337,8 +343,9 @@ def kernel_phase(torch, rpa, alibi_slopes, np):
 FLASH_FWD_GATE = {"float32": 1e-5, "bfloat16": 2e-2}
 FLASH_BWD_GATE = {"float32": 1e-4, "bfloat16": 4e-2}
 #: wrapper -> (the TPU kernel it replaces, its CUDA kernels' name prefix:
-#: ``<prefix>_kernel`` on CUDA cores for fp32; for bf16 ``fwd_wgmma_kernel``,
-#: ``bwd_dq_mma_kernel`` and ``bwd_dkv_mma_kernel``)
+#: ``<prefix>_kernel`` on CUDA cores for fp32, ``<prefix>_wgmma_kernel`` on
+#: wgmma + TMA for bf16: ``fwd_wgmma_kernel``, ``bwd_dq_wgmma_kernel`` and
+#: ``bwd_dkv_wgmma_kernel``)
 FLASH_KERNELS = {
     "flash_fwd": ("photon_tpu/ops/flash_attention.py:93", "::fwd_"),
     "flash_bwd_dq": ("photon_tpu/ops/flash_attention.py:231", "::bwd_dq_"),
@@ -420,12 +427,15 @@ def flash_kernel_phase(torch, fa, alibi_slopes, np):
             del errs, o_ref, lse_ref, dq_ref, dk_ref, dv_ref
             if dtype == torch.bfloat16:
                 delta = fa.attention_delta(o, do)
-                first = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-                again = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-                if not all(torch.equal(x, y) for x, y in zip(first, again)):
-                    fail(f"flash_bwd_dkv {name}: two launches gave different bits")
-                rec["flash_bwd_dkv"]["same_bits_twice"] = True
-                del first, again
+                for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+                    first, again = (getattr(fa, kname)(q, k, v, do, lse, delta, **kw)
+                                    for _ in range(2))
+                    if kname == "flash_bwd_dq":
+                        first, again = (first,), (again,)
+                    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                        fail(f"{kname} {name}: two launches gave different bits")
+                    rec[kname]["same_bits_twice"] = True
+                    del first, again
                 timed = {
                     "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
                                   lambda: fa.flash_fwd_reference(q, k, v, **kw)),
@@ -474,6 +484,11 @@ def flash_kernel_phase(torch, fa, alibi_slopes, np):
                             "bound_by": r["bound_by"], "max_abs_err": r["max_abs_err"],
                             "shape": f"{name}: B={b} S={s} H={h}/{n_kv} D={d} causal bf16",
                         }
+                # K2 + K3 do what SDPA's backward does (dq, dk and dv)
+                both = rec["flash_bwd_dq"]["kernel_ms"] + rec["flash_bwd_dkv"]["kernel_ms"]
+                rec["bwd_vs_library"] = {"k2_plus_k3_ms": both, "sdpa_bwd_ms": lib_bwd,
+                                         "ratio": both / lib_bwd if lib_bwd > 0 else None}
+                log(f"flash_bwd_vs_sdpa {name}: " + json.dumps(rec["bwd_vs_library"]))
                 del qg, kg, vg, qs, ks, vs, timed
             records.append(rec)
             log("flash_case " + json.dumps(rec))
@@ -1082,6 +1097,9 @@ def main() -> int:
         _build.load(src)
     env["build_s"] = time.perf_counter() - t0
     env["nvcc_s"] = _build.build_seconds
+    env["ptxas_performance_notes"] = {  # wgmma that ptxas had to serialize
+        src: [x.strip() for x in _build.build_log.get(src, "").splitlines()
+              if "Performance Loss" in x or "serialized" in x] for src in sources}
     log("env " + json.dumps(env))
     built = build_report(_build, sources)
     for name, rec in built.items():

@@ -4,8 +4,10 @@
 // Replaces the three TPU kernels of photon_tpu/ops/flash_attention.py:
 //   K1 _fwd_kernel     (:93,  launched by _fwd at :207)  -> fwd_wgmma_kernel (bf16),
 //                                                           fwd_kernel (fp32)
-//   K2 _bwd_dq_kernel  (:231, launched by _bwd at :365)  -> bwd_dq_mma_kernel, bwd_dq_kernel
-//   K3 _bwd_dkv_kernel (:280, launched by _bwd at :392)  -> bwd_dkv_mma_kernel, bwd_dkv_kernel
+//   K2 _bwd_dq_kernel  (:231, launched by _bwd at :365)  -> bwd_dq_wgmma_kernel (bf16),
+//                                                           bwd_dq_kernel (fp32)
+//   K3 _bwd_dkv_kernel (:280, launched by _bwd at :392)  -> bwd_dkv_wgmma_kernel (bf16),
+//                                                           bwd_dkv_kernel (fp32)
 // Each computes what its TPU kernel computes (FlashAttention-2):
 //   K1: O = softmax(Q K^T * scale + bias, masked) V as an online softmax over
 //       key tiles, plus the row log-sum-exp LSE = m + log(l);
@@ -50,11 +52,31 @@
 //     robin, with Q double-buffered so that the next item's loads overlap
 //     this one's epilogue; items come in chunks of heads whose K and V fit in
 //     L2 together, the longest causal q tiles first within a chunk.
-//   * K2 and K3 are mma.sync.m16n8k16 kernels (bf16 in, fp32 accumulate), 4
-//     warps a CTA, each owning 16 rows of a 64 x 64 tile, with scores and
-//     probabilities kept in registers in the accumulator layout, which is
-//     also the next product's A layout. Their redesign on wgmma is later
-//     work.
+//   * K2 (bwd_dq_wgmma_kernel) is K1's design over the same work items (128
+//     query rows of one (batch, head), longest causal q tiles first): the
+//     producer loads the item's Q and dO once (double-buffered), then K and
+//     V tiles (128 keys at D=64, 64 at D=128) through the ring; each
+//     consumer warpgroup computes S = Q K^T and dP = dO V^T from shared
+//     memory, P and dS in registers (LSE read in log2 units, so one fma
+//     feeds each exp2), and dQ += dS K with dS from registers (rounded to
+//     K's dtype) and K as an MN-major operand: no transposed copy of K.
+//   * K3 (bwd_dkv_wgmma_kernel) makes the key tile the M dimension, so no
+//     operand is transposed by hand: a work item is 128 keys of one
+//     (batch, kv head), 64 to a consumer warpgroup, with K and V loaded
+//     once (double-buffered). The producer streams (Q, dO) tiles of 128
+//     query rows (64 at D=128) through the ring, starting at the first q tile that sees the
+//     item's keys and sweeping the group's q heads in JAX's order, with the
+//     tile's LSE and Delta copied 4 bytes at a time by cp.async (their rows
+//     need not be 16-byte aligned). Each consumer computes S^T = K Q^T and
+//     dP^T = V dO^T from shared memory, P^T and dS^T in registers (LSE and
+//     Delta by column), and dV += P^T dO, dK += dS^T Q with dO and Q as
+//     MN-major operands. P^T and dS^T enter as a bf16 pair hi + lo, so they
+//     keep ~16 bits as the TPU kernel's fp32 does, at 1.5x the products.
+//     Items come lowest k tile first (under causality they sweep the most
+//     q tiles). One CTA owns each item: the same bits on every run.
+//     Both take K1's register balance, its turns between the two consumer
+//     warpgroups (a turn covers one tile's last product and the next tile's
+//     first two) and its masking rule.
 // fp32 inputs (the fp32 gates) run on CUDA cores: 64 x 64 tiles in fp32
 // shared memory, 256 threads, each owning a 4 x 4 block of a tile product
 // fed by 16-byte shared-memory loads. All stop the causal loops at the
@@ -62,10 +84,11 @@
 //
 // Layout: q/k/v are [B, S, H, D] tensors addressed through their batch,
 // sequence and head strides (the dim axis is dense), so the q/k/v views of
-// a fused QKV projection are read without a copy; K1's TMA tensor maps are
-// encoded over those strides, which TMA wants 16-byte aligned (the wrapper
-// checks). O, dO, dQ, dK, dV are dense [B, S, H, D]; LSE and Delta are fp32
-// [B, H, S_q], in natural-log units. D is 64 or 128.
+// a fused QKV projection are read without a copy; the bf16 kernels' TMA
+// tensor maps are encoded over those strides (and over dO), which TMA wants
+// 16-byte aligned (the wrapper checks). O, dO, dQ, dK, dV are dense [B, S,
+// H, D]; LSE and Delta are fp32 [B, H, S_q], in natural-log units, read
+// from any offset. D is 64 or 128.
 //
 // The tensor maps are encoded with the driver's cuTensorMapEncodeTiled,
 // reached through the runtime (cudaGetDriverEntryPoint), so the library
@@ -485,124 +508,19 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 K2 and K3 on tensor cores: every tile product as
-// mma.sync.m16n8k16 (bf16 operands, fp32 accumulation). 4 warps a CTA, each
-// owning 16 of the 64 rows of its tile; scores, probabilities and gradients
-// stay in registers in the mma accumulator layout, which is also the layout
-// of the next product's A operand (FlashAttention-2's register reuse), so
-// only the tiles read from device memory pass through shared memory.
-// Thread (g = lane / 4, t = lane % 4) holds, for an accumulator of 16 rows x
-// 8 columns, rows g and g + 8 at columns 2t and 2t + 1.
+// bf16 on Hopper: wgmma + TMA. A wgmma accumulator (m64nN) gives thread (warp
+// w, lane = 4 g + t) of the warpgroup, for each 8-column chunk n, rows 16 w +
+// g (entries 4n, 4n+1) and 16 w + g + 8 (4n+2, 4n+3) at columns 8n + 2t, 8n +
+// 2t + 1: the layout of mma.sync's accumulator, so the chunks 2j and 2j+1 of
+// a product are k-step j's A fragment of the next one (FlashAttention-2's
+// register reuse).
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;
-constexpr int kLdt = kTile + 8;  // bf16 row length of a transposed tile
-
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// c += A (16 x 16, row) * B (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Rows row0 .. row0+63 of a [S, D] bf16 slice into dst[64][D + 8]
-// (zeros past n_valid); with kT, transposed into dst[D][kLdt].
-template <int D, bool kT>
-__device__ __forceinline__ void load_bf16(bf16* dst, const bf16* src, int64_t row_stride,
-                                          int row0, int n_valid) {
-  constexpr int kPerRow = D / 8;
-  for (int i = threadIdx.x; i < kTile * kPerRow; i += kMmaThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_valid)
-      raw = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * row_stride + c);
-    if (kT) {
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-      for (int x = 0; x < 8; ++x) dst[(c + x) * kLdt + r] = e[x];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = raw;
-    }
-  }
-}
-
-// acc[n] (16 x 64 in 8-column tiles) += A B^T over all of D, for A rows
-// r0 .. r0+15 of a row-major [64][D + 8] tile and B a row-major [64][D + 8]
-// tile: acc[r][j] = sum_d A[r][d] * B[j][d]
-template <int D>
-__device__ __forceinline__ void mma_nt(float acc[8][4], const bf16* a, int r0, const bf16* b,
-                                       int g, int t) {
-  constexpr int kLd = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* ar = a + (r0 + g) * kLd + kk * 16 + 2 * t;
-    const uint32_t af[4] = {ld32(ar), ld32(ar + 8 * kLd), ld32(ar + 8), ld32(ar + 8 * kLd + 8)};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const bf16* br = b + (n * 8 + g) * kLd + kk * 16 + 2 * t;
-      mma16816(acc[n], af, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
-// The A fragment of k-step j (columns 16j .. 16j+15) of a 16 x 64
-// accumulator, rounded to bf16; with kLo, the rounding error of that
-// (x - bf16(x)) rounded in turn, so that hi + lo carries ~16 bits
-template <bool kLo = false>
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float x[8][4], int j) {
-  float v[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float y = x[2 * j + (i >> 2)][i & 3];
-    v[i] = kLo ? y - round_to<bf16>(y) : y;
-  }
-  a[0] = pack2(v[0], v[1]);
-  a[1] = pack2(v[2], v[3]);
-  a[2] = pack2(v[4], v[5]);
-  a[3] = pack2(v[6], v[7]);
-}
-
-// acc[n] (16 x D) += A (16 x 64, k-step fragments) * B, B given transposed
-// as bt[D][kLdt]: acc[r][d] = sum_x A[r][x] * bt[d][x]
-template <int D>
-__device__ __forceinline__ void mma_tn_step(float acc[D / 8][4], const uint32_t a[4],
-                                            const bf16* bt, int j, int g, int t) {
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const bf16* row = bt + (n * 8 + g) * kLdt + j * 16 + 2 * t;
-    mma16816(acc[n], a, ld32(row), ld32(row + 8));
-  }
-}
-
-// Rows r (acc[.][0..1]) and r + 8 (acc[.][2..3]) of a 16 x D accumulator
-// into a dense bf16 [.., row_stride] output.
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* dst, int64_t row_stride, int r, int n_valid,
-                                          int t, const float acc[D / 8][4]) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r + 8 * half;
-    if (row >= n_valid) continue;
-    bf16* p = dst + (int64_t)row * row_stride + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(p + n * 8) = pack2(acc[n][2 * half], acc[n][2 * half + 1]);
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -734,7 +652,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
       "+f"(d[i + 6]), "+f"(d[i + 7])
 
 // d (64 x 128, fp32) (+)= A (64 x 16, smem, K-major) B (16 x 128, smem, K-major)
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -747,8 +665,20 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// the same at n64: d (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64), both from smem
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // d (64 x 64, fp32) += A (64 x 16, registers) B (16 x 64, smem, MN-major)
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t a[4], uint64_t db) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t a[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -775,6 +705,19 @@ __device__ __forceinline__ void fwd_work(int w, int n_qt, int n_bh, int group_bh
   bh = chunk * group_bh + r % gc;
 }
 
+// The two consumer warpgroups take turns to issue their products
+// (ping-pong) through the pair of barriers at `bar`, each of which counts
+// the other warpgroup's 128 threads. Warpgroup 1 passes first, so 0 goes
+// first; every thread takes and passes each turn, so no branch sits
+// inside a wgmma stage, and each warpgroup takes the same number of turns.
+struct Turns {
+  uint32_t bar;
+  int wg;
+  uint32_t n = 0;  // turns taken: the parity of the next
+  __device__ __forceinline__ void take() { mbar_wait(bar + 8 * wg, n++ & 1); }
+  __device__ __forceinline__ void pass() { mbar_arrive(bar + 8 * (wg ^ 1)); }
+};
+
 // 2^x on the MUFU unit (flushes denormal results to 0: a probability below
 // 2^-126 of the row's largest adds nothing in fp32)
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -783,10 +726,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// A wgmma accumulator (m64nN) gives thread (warp w, lane = 4 g + t) of the
-// warpgroup, for each 8-column chunk n, rows 16 w + g (entries 4n, 4n+1)
-// and 16 w + g + 8 (4n+2, 4n+3) at columns 8n + 2t, 8n + 2t + 1: the
-// mma.sync layout, so the S chunks 2j and 2j+1 are k-step j's A fragment.
 template <int D>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -866,10 +805,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     // softmax runs while the other's products hold the tensor cores. Every
     // thread passes the turn, so no branch sits inside a wgmma stage; tiles
     // a warpgroup skips still take and pass their turns, to keep the count.
-    uint32_t n_turns = 0;
-    auto take_turn = [&]() { mbar_wait(turn + 8 * wg, n_turns++ & 1); };
-    auto pass_turn = [&]() { mbar_arrive(turn + 8 * (wg ^ 1)); };
-    if (wg == 1) pass_turn();  // warpgroup 0 goes first
+    Turns turns{turn, wg};
+    if (wg == 1) turns.pass();  // warpgroup 0 goes first
     int it = 0;
     for (int wi = blockIdx.x, j = 0; wi < n_work; wi += gridDim.x, ++j) {
       int qt, bh;
@@ -894,18 +831,18 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         const int s = it % C::kStages;
         const int k0 = i * kFwdKeys;
         mbar_wait(bar + 8 * s, (it / C::kStages) & 1);
-        if (i == 0) take_turn();
+        if (i == 0) turns.take();
         if (k0 < wg_end) {
           float sc[64];
           wg_fence();
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk) {
             const uint32_t col = (kk % 4) * 32;
-            wgmma_qk(sc, sw128_desc(qb + (kk / 4) * C::kQPanel + wg * kWgRows * kSwRow + col),
+            wgmma_ss(sc, sw128_desc(qb + (kk / 4) * C::kQPanel + wg * kWgRows * kSwRow + col),
                      sw128_desc(k_s + s * C::kKvBytes + (kk / 4) * C::kKvPanel + col), kk > 0);
           }
           wg_commit();
-          pass_turn();
+          turns.pass();
           wg_wait0();
           fence_regs(sc);
 
@@ -982,7 +919,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
             pa[jj][2] = pack2(sc[8 * jj + 4], sc[8 * jj + 5]);
             pa[jj][3] = pack2(sc[8 * jj + 6], sc[8 * jj + 7]);
           }
-          take_turn();
+          turns.take();
 #pragma unroll
           for (int p = 0; p < C::kPanels; ++p) fence_regs(o[p]);
           wg_fence();
@@ -990,17 +927,17 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
           for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
             for (int p = 0; p < C::kPanels; ++p)
-              wgmma_pv(o[p], pa[jj],
+              wgmma_rs(o[p], pa[jj],
                        sw128_desc(v_s + s * C::kKvBytes + p * C::kKvPanel + jj * 16 * kSwRow));
           wg_commit();
           wg_wait0();
 #pragma unroll
           for (int p = 0; p < C::kPanels; ++p) fence_regs(o[p]);
         } else {
-          pass_turn();
-          take_turn();
+          turns.pass();
+          turns.take();
         }
-        if (i == n_tiles - 1) pass_turn();  // the turn holds on to the next tile's Q K^T
+        if (i == n_tiles - 1) turns.pass();  // the turn holds on to the next tile's Q K^T
         if (lane == 0) mbar_arrive(bar + 8 * (C::kStages + s));  // this warp is done with stage s
       }
       if (lane == 0) mbar_arrive(q_empty + 8 * (j & 1));  // and with this item's Q
@@ -1096,195 +1033,637 @@ int make_map(CUtensorMap* map, int* pm, const void* base, int d, int s, int h, i
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D>
-int launch_fwd_wgmma(const Args& a, cudaStream_t stream) {
-  CUtensorMap qm, km, vm;
-  int pq, pk, pv, err;
-  if ((err = make_map(&qm, &pq, a.q, D, a.S_q, a.H, a.B, a.q_ss, a.q_sh, a.q_sb, kFwdRows))) return err;
-  if ((err = make_map(&km, &pk, a.k, D, a.S_k, a.H_kv, a.B, a.k_ss, a.k_sh, a.k_sb, kFwdKeys))) return err;
-  if ((err = make_map(&vm, &pv, a.v, D, a.S_k, a.H_kv, a.B, a.v_ss, a.v_sh, a.v_sb, kFwdKeys))) return err;
-  const int smem = FwdCfg<D>::kSmem;
-  cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(fwd_wgmma_kernel<D>),
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// The maps of q, k and v, with boxes of q_rows and kv_rows rows, and (when
+// do_map is given) of the dense dO with boxes of q_rows rows; *perm packs
+// where S and H went in each, 4 bits a map in that order.
+int make_maps(const Args& a, int d, int q_rows, int kv_rows, CUtensorMap* q_map,
+              CUtensorMap* k_map, CUtensorMap* v_map, CUtensorMap* do_map, int* perm) {
+  int pq, pk, pv, pd = 0, err;
+  if ((err = make_map(q_map, &pq, a.q, d, a.S_q, a.H, a.B, a.q_ss, a.q_sh, a.q_sb, q_rows))) return err;
+  if ((err = make_map(k_map, &pk, a.k, d, a.S_k, a.H_kv, a.B, a.k_ss, a.k_sh, a.k_sb, kv_rows))) return err;
+  if ((err = make_map(v_map, &pv, a.v, d, a.S_k, a.H_kv, a.B, a.v_ss, a.v_sh, a.v_sb, kv_rows))) return err;
+  if (do_map != nullptr &&
+      (err = make_map(do_map, &pd, a.dout, d, a.S_q, a.H, a.B, (int64_t)a.H * d, d,
+                      (int64_t)a.S_q * a.H * d, q_rows)))
+    return err;
+  *perm = pq | pk << 4 | pv << 8 | pd << 12;
+  return 0;
+}
+
+// What a persistent launch needs: the kernel's dynamic shared memory asked
+// for, and its grid, one CTA an SM (at most one a work item).
+int persistent_setup(const void* kernel, int smem, int n_work, int* ctas) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  // (batch, head) pairs per L2 chunk: their K and V take at most 16 MiB
-  const int64_t kv_bytes = (int64_t)a.S_k * D * 2 * 2;
-  const int group_bh = (int)std::max<int64_t>(1, std::min<int64_t>((16ll << 20) / kv_bytes, a.B * a.H));
-  const int n_work = (a.S_q + kFwdRows - 1) / kFwdRows * a.B * a.H;
   int dev = 0, n_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   if ((e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)e;
-  fwd_wgmma_kernel<D><<<std::min(n_work, n_sm), kFwdThreads, smem, stream>>>(
-      qm, km, vm, a, pq | pk << 4 | pv << 8, group_bh);
+  *ctas = std::min(n_work, n_sm);
+  return 0;
+}
+
+// (batch, head) pairs per L2 chunk of the work order, when the operands each
+// pair's items share take `bytes`: at most 16 MiB of them a chunk
+int l2_chunk(int64_t bytes, int n_pairs) {
+  return (int)std::max<int64_t>(1, std::min<int64_t>((16ll << 20) / bytes, n_pairs));
+}
+
+template <int D>
+int launch_fwd_wgmma(const Args& a, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  int perm, ctas, err;
+  if ((err = make_maps(a, D, kFwdRows, kFwdKeys, &qm, &km, &vm, nullptr, &perm))) return err;
+  const int n_work = (a.S_q + kFwdRows - 1) / kFwdRows * a.B * a.H;
+  if ((err = persistent_setup(reinterpret_cast<const void*>(fwd_wgmma_kernel<D>), FwdCfg<D>::kSmem,
+                              n_work, &ctas)))
+    return err;
+  fwd_wgmma_kernel<D><<<ctas, kFwdThreads, FwdCfg<D>::kSmem, stream>>>(
+      qm, km, vm, a, perm, l2_chunk((int64_t)a.S_k * D * 2 * 2, a.B * a.H));  // K and V
   return (int)cudaGetLastError();
 }
 
-// K2 on tensor cores. grid (ceil(S_q / 64), H, B).
+// ---------------------------------------------------------------------------
+// K2 and K3 for bf16 on Hopper, on K1's machinery: TMA loads into rings of
+// mbarrier-guarded stages, a producer warpgroup (one warp issues, its
+// registers handed to the consumers by setmaxnreg), two consumer warpgroups
+// of 64 rows each taking turns on the tensor cores, persistent CTAs. No
+// operand is transposed by hand: where a product contracts over a tile's
+// rows (dS K in K2; P^T dO and dS^T Q in K3), wgmma reads the tile as an
+// MN-major B operand (the transpose bit), as K1 reads V.
+// ---------------------------------------------------------------------------
+
+// K2: a work item is 128 query rows of one (batch, head), as in K1; K and V
+// stream through the ring in tiles of kKeys keys.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) bwd_dq_mma_kernel(const Args a) {
-  constexpr int kLd = D + 8;
-  extern __shared__ float4 smem4[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem4);
-  bf16* do_s = q_s + kTile * kLd;
-  bf16* k_s = do_s + kTile * kLd;
-  bf16* v_s = k_s + kTile * kLd;
-  bf16* kt_s = v_s + kTile * kLd;  // [D][key]
+struct DqCfg {
+  static constexpr int kPanels = D / kPanel;
+  static constexpr int kKeys = D == 64 ? 128 : 64;   // at D=128 dQ's 64 registers leave less room
+  static constexpr int kStages = D == 64 ? 4 : 3;    // K/V ring depth
+  static constexpr int kQPanel = kFwdRows * kSwRow;
+  static constexpr int kQBytes = kPanels * kQPanel;  // one Q or one dO tile
+  static constexpr int kKvPanel = kKeys * kSwRow;
+  static constexpr int kKvBytes = kPanels * kKvPanel;  // one K or one V tile
+  // two (Q, dO) buffers, the K/V ring, alignment, barriers
+  static constexpr int kSmem = 4 * kQBytes + 2 * kStages * kKvBytes + 1024 + 256;
+};
 
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (a.H / a.H_kv);
-  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  const bf16* dop = static_cast<const bf16*>(a.dout) + ((int64_t)b * a.S_q * a.H + h) * D;
-  const float slope = a.slopes != nullptr ? a.slopes[h] : 0.f;
-  const int r0 = q0 + w * 16 + g;
-  const int64_t base = ((int64_t)b * a.H + h) * a.S_q;
-  float lse[2], dl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool in = r0 + 8 * i < a.S_q;
-    lse[i] = in ? a.lse[base + r0 + 8 * i] : kNegInf;
-    dl[i] = in ? a.delta[base + r0 + 8 * i] : 0.f;
-  }
+// K3: a work item is 128 keys of one (batch, kv head); (Q, dO) tiles of kRows
+// query rows stream through the ring with their rows' LSE and Delta.
+template <int D>
+struct DkvCfg {
+  static constexpr int kPanels = D / kPanel;
+  // query rows of a Q/dO tile: at D=128, dK and dV hold 128 fp32 registers
+  // a thread, which leaves room for S^T and dP^T of 64 rows only
+  static constexpr int kRows = D == 64 ? 128 : 64;
+  static constexpr int kStages = D == 64 ? 4 : 2;    // Q/dO ring depth
+  static constexpr int kKvPanel = kFwdKeys * kSwRow;
+  static constexpr int kKvBytes = kPanels * kKvPanel;  // one K or one V tile of an item
+  static constexpr int kQPanel = kRows * kSwRow;
+  static constexpr int kQBytes = kPanels * kQPanel;    // one Q or one dO tile
+  // two (K, V) buffers, the Q/dO ring, alignment, the ring's LSE and Delta, barriers
+  static constexpr int kSmem =
+      4 * kKvBytes + 2 * kStages * kQBytes + 1024 + 2 * kStages * kRows * 4 + 256;
+};
 
-  load_bf16<D, false>(q_s, qp, a.q_ss, q0, a.S_q);
-  load_bf16<D, false>(do_s, dop, (int64_t)a.H * D, q0, a.S_q);
-  float dq[D / 8][4] = {};
-
-  const int end = kv_end(a, q0);
-  for (int k0 = 0; k0 < end; k0 += kTile) {
-    __syncthreads();
-    load_bf16<D, false>(k_s, kp, a.k_ss, k0, a.S_k);
-    load_bf16<D, false>(v_s, vp, a.v_ss, k0, a.S_k);
-    load_bf16<D, true>(kt_s, kp, a.k_ss, k0, a.S_k);
-    __syncthreads();
-    float s[8][4] = {}, dp[8][4] = {};
-    mma_nt<D>(s, q_s, w * 16, k_s, g, t);
-    mma_nt<D>(dp, do_s, w * 16, v_s, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const float x = score(a, s[n][e], slope, r0 + 8 * i, k0 + n * 8 + 2 * t + (e & 1));
-        // guard fully-masked rows (lse == NEG_INF): exp(s - lse) would be 1
-        const float p = (lse[i] > 0.5f * kNegInf) ? expf(x - lse[i]) : 0.f;
-        s[n][e] = p * (dp[n][e] - dl[i]) * a.scale;
-      }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t da[4];
-      acc_to_a(da, s, j);  // dS rounded to K's dtype, as the TPU kernel does
-      mma_tn_step<D>(dq, da, kt_s, j, g, t);
-    }
-  }
-  bf16* dqp = static_cast<bf16*>(a.dq) + (((int64_t)b * a.S_q + q0) * a.H + h) * D;
-  store_acc<D>(dqp, (int64_t)a.H * D, w * 16 + g, a.S_q - q0, t, dq);
+// 4 bytes from global to shared memory by cp.async; with n == 0 nothing is
+// read and the 4 bytes are zeros. LSE and Delta rows start anywhere (S_q
+// need not be a multiple of 4), which TMA's 16-byte rule would refuse.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
 }
 
-// K3 on tensor cores. grid (ceil(S_k / 64), H_kv, B). P and dS enter their
-// products as a bf16 pair hi + lo (hi = bf16(x), lo = bf16(x - hi)): the
-// TPU kernel keeps them in fp32, and the pair carries ~16 bits of mantissa.
+// arrive on `bar` once this thread's earlier cp.async copies have landed
+// (the arrival is counted in the barrier's expected count: noinc)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// A row's LSE in log2 units, as P = exp2(S * scale * log2(e) + bias - LSE2)
+// reads it. A row that saw no key (LSE == NEG_INF) gets +1e30, so its p is
+// exp2(-huge) = 0: the TPU kernels' guard, with no branch per score.
+__device__ __forceinline__ float lse_log2(float lse) {
+  return lse > 0.5f * kNegInf ? lse * kLog2e : -kNegInf;
+}
+
+// The first q tile (of `rows` rows) with a query that sees key k0.
+__device__ __forceinline__ int first_q_tile(const Args& a, int k0, int rows) {
+  const int q = k0 - a.offset;  // the first query position that sees k0
+  return !a.causal || q <= 0 ? 0 : q / rows;
+}
+
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) bwd_dkv_mma_kernel(const Args a) {
-  constexpr int kLd = D + 8;
-  extern __shared__ float4 smem4[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem4);
-  bf16* v_s = k_s + kTile * kLd;
-  bf16* q_s = v_s + kTile * kLd;
-  bf16* do_s = q_s + kTile * kLd;
-  bf16* qt_s = do_s + kTile * kLd;  // [D][query row]
-  bf16* dot_s = qt_s + D * kLdt;    // [D][query row]
-  float* lse_s = reinterpret_cast<float*>(dot_s + D * kLdt);
-  float* dl_s = lse_s + kTile;
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap do_map, const Args a, const int perm,
+                        const int group_bh) {
+  using C = DqCfg<D>;
+  constexpr int kN = C::kKeys / 2;  // accumulator registers of S and of dP
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;  // buffer j: Q, then dO
+  const uint32_t k_s = q_s + 4 * C::kQBytes;                   // stage s at + s * kKvBytes
+  const uint32_t v_s = k_s + C::kStages * C::kKvBytes;
+  // barriers: full[kStages], empty[kStages], q_full[2], q_empty[2], turn[2]
+  const uint32_t bar = v_s + C::kStages * C::kKvBytes;
+  const uint32_t q_full = bar + 16 * C::kStages, q_empty = q_full + 16, turn = q_empty + 16;
 
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kTile, kvh = blockIdx.y, b = blockIdx.z;
-  const int group = a.H / a.H_kv;
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  const int kr = k0 + w * 16 + g;  // this thread's keys: kr and kr + 8
+  const int n_bh = a.B * a.H;
+  const int n_qt = (a.S_q + kFwdRows - 1) / kFwdRows;
+  const int n_work = n_qt * n_bh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  load_bf16<D, false>(k_s, kp, a.k_ss, k0, a.S_k);
-  load_bf16<D, false>(v_s, vp, a.v_ss, k0, a.S_k);
-  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(bar + 8 * s, 1);
+      mbar_init(bar + 8 * (C::kStages + s), 8);
+    }
+    for (int j = 0; j < 2; ++j) {
+      mbar_init(q_full + 8 * j, 1);
+      mbar_init(q_empty + 8 * j, 8);
+      mbar_init(turn + 8 * j, kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int n_q = (a.S_q + kTile - 1) / kTile;
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = kvh * group + gi;
-    const bf16* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const bf16* dop = static_cast<const bf16*>(a.dout) + ((int64_t)b * a.S_q * a.H + h) * D;
-    const float slope = a.slopes != nullptr ? a.slopes[h] : 0.f;
-    const int64_t base = ((int64_t)b * a.H + h) * a.S_q;
-    for (int tq = 0; tq < n_q; ++tq) {
-      const int q0 = tq * kTile;
-      if (k0 >= kv_end(a, q0)) continue;  // no query of this tile sees these keys
-      __syncthreads();
-      load_bf16<D, false>(q_s, qp, a.q_ss, q0, a.S_q);
-      load_bf16<D, false>(do_s, dop, (int64_t)a.H * D, q0, a.S_q);
-      load_bf16<D, true>(qt_s, qp, a.q_ss, q0, a.S_q);
-      load_bf16<D, true>(dot_s, dop, (int64_t)a.H * D, q0, a.S_q);
-      if (threadIdx.x < kTile) {
-        const bool in = q0 + threadIdx.x < a.S_q;
-        lse_s[threadIdx.x] = in ? a.lse[base + q0 + threadIdx.x] : kNegInf;
-        dl_s[threadIdx.x] = in ? a.delta[base + q0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-      // transposed tiles: rows are keys, columns query rows; st becomes
-      // P^T and dpt dS^T in place
-      float st[8][4] = {}, dpt[8][4] = {};
-      mma_nt<D>(st, k_s, w * 16, q_s, g, t);
-      mma_nt<D>(dpt, v_s, w * 16, do_s, g, t);
+  if (warp >= 8) {
+    // producer warpgroup: the register balance of K1 (same thread counts)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == 8 && lane == 0) {
+      int it = 0;
+      for (int w = blockIdx.x, j = 0; w < n_work; w += gridDim.x, ++j) {
+        int qt, bh;
+        fwd_work(w, n_qt, n_bh, group_bh, qt, bh);
+        const int h = bh % a.H, b = bh / a.H, kvh = h / (a.H / a.H_kv);
+        const int q0 = qt * kFwdRows;
+        const uint32_t qb = q_s + (j & 1) * 2 * C::kQBytes, qf = q_full + 8 * (j & 1);
+        mbar_wait(q_empty + 8 * (j & 1), ((j >> 1) & 1) ^ 1);
+        mbar_expect_tx(qf, 2 * C::kQBytes);
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = n * 8 + 2 * t + (e & 1);  // query row within the tile
-          const float x = score(a, st[n][e], slope, q0 + c, kr + 8 * (e >> 1));
-          const float lse = lse_s[c];
-          st[n][e] = (lse > 0.5f * kNegInf) ? expf(x - lse) : 0.f;
-          dpt[n][e] = st[n][e] * (dpt[n][e] - dl_s[c]) * a.scale;
+        for (int p = 0; p < C::kPanels; ++p) {
+          tma_load(qb + p * C::kQPanel, &q_map, qf, p * kPanel, q0, h, b, perm & 15);
+          tma_load(qb + C::kQBytes + p * C::kQPanel, &do_map, qf, p * kPanel, q0, h, b,
+                   (perm >> 12) & 15);
         }
+        const int n_tiles = (kv_end(a, q0, kFwdRows) + C::kKeys - 1) / C::kKeys;
+        for (int i = 0; i < n_tiles; ++i, ++it) {
+          const int s = it % C::kStages;
+          mbar_wait(bar + 8 * (C::kStages + s), ((it / C::kStages) & 1) ^ 1);
+          const uint32_t full = bar + 8 * s;
+          mbar_expect_tx(full, 2 * C::kKvBytes);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t hi[4], lo[4];
-        acc_to_a(hi, st, j);
-        acc_to_a<true>(lo, st, j);
-        mma_tn_step<D>(dv, hi, dot_s, j, g, t);
-        mma_tn_step<D>(dv, lo, dot_s, j, g, t);
-        acc_to_a(hi, dpt, j);
-        acc_to_a<true>(lo, dpt, j);
-        mma_tn_step<D>(dk, hi, qt_s, j, g, t);
-        mma_tn_step<D>(dk, lo, qt_s, j, g, t);
+          for (int p = 0; p < C::kPanels; ++p) {
+            const uint32_t off = s * C::kKvBytes + p * C::kKvPanel;
+            tma_load(k_s + off, &k_map, full, p * kPanel, i * C::kKeys, kvh, b, (perm >> 4) & 15);
+            tma_load(v_s + off, &v_map, full, p * kPanel, i * C::kKeys, kvh, b, (perm >> 8) & 15);
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows wq0 .. wq0 + 63 of each item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4;
+    const float c2 = a.scale * kLog2e;
+    const bool alibi = a.slopes != nullptr;
+    // K1's turns: a turn covers dS K of one tile and Q K^T, dO V^T of the next
+    Turns turns{turn, wg};
+    if (wg == 1) turns.pass();
+    int it = 0;
+    for (int wi = blockIdx.x, j = 0; wi < n_work; wi += gridDim.x, ++j) {
+      int qt, bh;
+      fwd_work(wi, n_qt, n_bh, group_bh, qt, bh);
+      const int h = bh % a.H, b = bh / a.H;
+      const int q0 = qt * kFwdRows;
+      const int n_tiles = (kv_end(a, q0, kFwdRows) + C::kKeys - 1) / C::kKeys;
+      const int wq0 = q0 + wg * kWgRows;
+      const int wg_end = wq0 < a.S_q ? kv_end(a, wq0, kWgRows) : 0;
+      const int r0 = wq0 + w * 16 + g;  // this thread's rows: r0 and r0 + 8
+      const float sl2 = alibi ? a.slopes[h] * kLog2e : 0.f;
+      float lse2[2], dl[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        const int64_t at = ((int64_t)b * a.H + h) * a.S_q + row;
+        lse2[r] = lse_log2(row < a.S_q ? a.lse[at] : kNegInf);
+        dl[r] = row < a.S_q ? a.delta[at] : 0.f;
+      }
+      const uint32_t qb = q_s + (j & 1) * 2 * C::kQBytes, dob = qb + C::kQBytes;
+      float dq[C::kPanels][32];
+#pragma unroll
+      for (int p = 0; p < C::kPanels; ++p)
+#pragma unroll
+        for (int x = 0; x < 32; ++x) dq[p][x] = 0.f;
+
+      mbar_wait(q_full + 8 * (j & 1), (j >> 1) & 1);
+      for (int i = 0; i < n_tiles; ++i, ++it) {
+        const int s = it % C::kStages;
+        const int k0 = i * C::kKeys;
+        const uint32_t kb = k_s + s * C::kKvBytes, vb = v_s + s * C::kKvBytes;
+        mbar_wait(bar + 8 * s, (it / C::kStages) & 1);
+        if (i == 0) turns.take();
+        if (k0 < wg_end) {
+          float sc[kN], dp[kN];
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t col = (kk / 4) * C::kQPanel + wg * kWgRows * kSwRow + (kk % 4) * 32;
+            const uint32_t kcol = (kk / 4) * C::kKvPanel + (kk % 4) * 32;
+            wgmma_ss(sc, sw128_desc(qb + col), sw128_desc(kb + kcol), kk > 0);
+            wgmma_ss(dp, sw128_desc(dob + col), sw128_desc(vb + kcol), kk > 0);
+          }
+          wg_commit();
+          turns.pass();
+          wg_wait0();
+          fence_regs(sc);
+          fence_regs(dp);
+
+          // P = exp2(S * scale * log2 e + bias - LSE2) and dS = P (dP - Delta)
+          // scale, in place of S; the mask only on tiles that cross the
+          // diagonal, the ragged end or a ring offset (K1's rule)
+          const bool edge =
+              (a.causal && k0 + C::kKeys - 1 > wq0 + a.offset) || k0 + C::kKeys > a.S_k;
+          if (!edge && !alibi) {
+#pragma unroll
+            for (int x = 0; x < kN; ++x) {
+              const int r = (x >> 1) & 1;
+              const float p = fast_exp2(fmaf(sc[x], c2, -lse2[r]));
+              sc[x] = p * (dp[x] - dl[r]) * a.scale;
+            }
+          } else {
+            int last[2];
+            float base[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int qp = r0 + 8 * r + a.offset;
+              last[r] = a.causal ? min(qp, a.S_k - 1) : a.S_k - 1;
+              base[r] = (float)(qp - k0 - 2 * t);  // ALiBi distance of this thread's column 0
+            }
+#pragma unroll
+            for (int n = 0; n < kN / 4; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1, c = n * 8 + (e & 1);
+                float x = sc[4 * n + e] * c2;
+                if (alibi) x = fmaf(sl2, (float)c - base[r], x);
+                x = k0 + 2 * t + c > last[r] ? kNegInf : x;
+                const float p = fast_exp2(x - lse2[r]);
+                sc[4 * n + e] = p * (dp[4 * n + e] - dl[r]) * a.scale;
+              }
+          }
+          // dS rounded to K's dtype, as the TPU kernel does, as A fragments
+          uint32_t da[C::kKeys / 16][4];
+#pragma unroll
+          for (int jj = 0; jj < C::kKeys / 16; ++jj)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) da[jj][x] = pack2(sc[8 * jj + 2 * x], sc[8 * jj + 2 * x + 1]);
+          turns.take();
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p) fence_regs(dq[p]);
+          wg_fence();
+#pragma unroll
+          for (int jj = 0; jj < C::kKeys / 16; ++jj)
+#pragma unroll
+            for (int p = 0; p < C::kPanels; ++p)
+              wgmma_rs(dq[p], da[jj], sw128_desc(kb + p * C::kKvPanel + jj * 16 * kSwRow));
+          wg_commit();
+          wg_wait0();
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p) fence_regs(dq[p]);
+        } else {
+          turns.pass();
+          turns.take();
+        }
+        if (i == n_tiles - 1) turns.pass();
+        if (lane == 0) mbar_arrive(bar + 8 * (C::kStages + s));
+      }
+      if (lane == 0) mbar_arrive(q_empty + 8 * (j & 1));
+
+      bf16* dqp = static_cast<bf16*>(a.dq) + ((int64_t)b * a.S_q * a.H + h) * D;
+      const int64_t row_stride = (int64_t)a.H * D;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half;
+        if (row >= a.S_q) continue;
+        bf16* dst = dqp + (int64_t)row * row_stride + 2 * t;
+#pragma unroll
+        for (int p = 0; p < C::kPanels; ++p)
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            *reinterpret_cast<uint32_t*>(dst + p * kPanel + n * 8) =
+                pack2(dq[p][4 * n + 2 * half], dq[p][4 * n + 2 * half + 1]);
       }
     }
   }
-  const int64_t off = (((int64_t)b * a.S_k + k0) * a.H_kv + kvh) * D;
-  store_acc<D>(static_cast<bf16*>(a.dk) + off, (int64_t)a.H_kv * D, w * 16 + g, a.S_k - k0, t, dk);
-  store_acc<D>(static_cast<bf16*>(a.dv) + off, (int64_t)a.H_kv * D, w * 16 + g, a.S_k - k0, t, dv);
 }
 
-constexpr int mma_smem_bytes(int which, int D) {
-  // bf16 tiles: row-major [64][D + 8], transposed [D][kLdt]; K3 adds fp32 LSE/Delta
-  return which == 1 ? (4 * kTile * (D + 8) + D * kLdt) * 2
-                    : (4 * kTile * (D + 8) + 2 * D * kLdt) * 2 + 2 * kTile * 4;
-}
-
-// bf16: K1 on wgmma + TMA, K2 and K3 on mma.sync
+// K3. Its work items are (k tile of 128 keys, batch, kv head), in K1's L2
+// chunks (of the pairs whose group's Q and dO fit in L2 together) but with
+// the lowest k tiles first: under causality they sweep the most q tiles.
 template <int D>
-int launch_mma(int which, const Args& a, cudaStream_t stream) {
-  if (which == 0) return launch_fwd_wgmma<D>(a, stream);
-  const int smem = mma_smem_bytes(which, D);
-  void (*kernel)(const Args) = which == 1 ? bwd_dq_mma_kernel<D> : bwd_dkv_mma_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int rows = which == 2 ? a.S_k : a.S_q;
-  const dim3 grid((rows + kTile - 1) / kTile, which == 2 ? a.H_kv : a.H, a.B);
-  kernel<<<grid, kMmaThreads, smem, stream>>>(a);
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map, const Args a, const int perm,
+                         const int group_bh) {
+  using C = DkvCfg<D>;
+  constexpr int kN = C::kRows / 2;  // accumulator registers of S^T and of dP^T
+  constexpr int kSteps = C::kRows / 16;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = base;                           // buffer j at + j * kKvBytes
+  const uint32_t v_s = k_s + 2 * C::kKvBytes;
+  const uint32_t q_s = v_s + 2 * C::kKvBytes;          // stage s at + s * kQBytes
+  const uint32_t do_s = q_s + C::kStages * C::kQBytes;
+  const uint32_t rows_s = do_s + C::kStages * C::kQBytes;  // stage s: LSE[kRows], Delta[kRows]
+  const float* rows_p = reinterpret_cast<const float*>(smem_raw + (rows_s - smem_u32(smem_raw)));
+  // barriers: full[kStages], empty[kStages], kv_full[2], kv_empty[2], turn[2]
+  const uint32_t bar = rows_s + C::kStages * 2 * C::kRows * 4;
+  const uint32_t kv_full = bar + 16 * C::kStages, kv_empty = kv_full + 16, turn = kv_empty + 16;
+
+  const int group = a.H / a.H_kv;
+  const int n_bkv = a.B * a.H_kv;
+  const int n_kt = (a.S_k + kFwdKeys - 1) / kFwdKeys;
+  const int n_qt = (a.S_q + C::kRows - 1) / C::kRows;
+  const int n_work = n_kt * n_bkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(bar + 8 * s, 1 + 32);  // the expect_tx, and the producer warp's cp.async copies
+      mbar_init(bar + 8 * (C::kStages + s), 8);
+    }
+    for (int j = 0; j < 2; ++j) {
+      mbar_init(kv_full + 8 * j, 1);
+      mbar_init(kv_empty + 8 * j, 8);
+      mbar_init(turn + 8 * j, kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == 8) {
+      // lane 0 issues the TMA copies; every lane copies LSE and Delta rows
+      int it = 0;
+      for (int w = blockIdx.x, j = 0; w < n_work; w += gridDim.x, ++j) {
+        int kt, bkv;
+        fwd_work(w, n_kt, n_bkv, group_bh, kt, bkv);
+        kt = n_kt - 1 - kt;
+        const int kvh = bkv % a.H_kv, b = bkv / a.H_kv;
+        const int k0 = kt * kFwdKeys;
+        mbar_wait(kv_empty + 8 * (j & 1), ((j >> 1) & 1) ^ 1);
+        if (lane == 0) {
+          const uint32_t kvf = kv_full + 8 * (j & 1);
+          mbar_expect_tx(kvf, 2 * C::kKvBytes);
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p) {
+            const uint32_t off = (j & 1) * C::kKvBytes + p * C::kKvPanel;
+            tma_load(k_s + off, &k_map, kvf, p * kPanel, k0, kvh, b, (perm >> 4) & 15);
+            tma_load(v_s + off, &v_map, kvf, p * kPanel, k0, kvh, b, (perm >> 8) & 15);
+          }
+        }
+        const int t0 = first_q_tile(a, k0, C::kRows);
+        for (int gi = 0; gi < group; ++gi) {
+          const int h = kvh * group + gi;  // JAX's qrow order
+          const int64_t row_bh = ((int64_t)b * a.H + h) * a.S_q;
+          for (int tq = t0; tq < n_qt; ++tq, ++it) {
+            const int s = it % C::kStages;
+            const int q0 = tq * C::kRows;
+            const uint32_t full = bar + 8 * s;
+            mbar_wait(bar + 8 * (C::kStages + s), ((it / C::kStages) & 1) ^ 1);
+            if (lane == 0) {
+              mbar_expect_tx(full, 2 * C::kQBytes);
+#pragma unroll
+              for (int p = 0; p < C::kPanels; ++p) {
+                const uint32_t off = s * C::kQBytes + p * C::kQPanel;
+                tma_load(q_s + off, &q_map, full, p * kPanel, q0, h, b, perm & 15);
+                tma_load(do_s + off, &do_map, full, p * kPanel, q0, h, b, (perm >> 12) & 15);
+              }
+            }
+            // rows past S_q read as 0 (their scores are masked)
+            const uint32_t dst = rows_s + s * 2 * C::kRows * 4;
+            for (int r = lane; r < C::kRows; r += 32) {
+              const int in = q0 + r < a.S_q;
+              const int64_t at = row_bh + (in ? q0 + r : 0);
+              cp_async4(dst + r * 4, a.lse + at, in ? 4 : 0);
+              cp_async4(dst + (C::kRows + r) * 4, a.delta + at, in ? 4 : 0);
+            }
+            cp_async_arrive(full);
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns keys wk0 .. wk0 + 63 of each item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4;
+    const float c2 = a.scale * kLog2e;
+    const bool alibi = a.slopes != nullptr;
+    // K1's turns: a turn covers dV, dK of one tile and S^T, dP^T of the next
+    Turns turns{turn, wg};
+    if (wg == 1) turns.pass();
+    int it = 0;
+    for (int wi = blockIdx.x, j = 0; wi < n_work; wi += gridDim.x, ++j) {
+      int kt, bkv;
+      fwd_work(wi, n_kt, n_bkv, group_bh, kt, bkv);
+      kt = n_kt - 1 - kt;
+      const int kvh = bkv % a.H_kv, b = bkv / a.H_kv;
+      const int wk0 = kt * kFwdKeys + wg * kWgRows;
+      const int kr = wk0 + w * 16 + g;  // this thread's keys: kr and kr + 8
+      const int t0 = first_q_tile(a, kt * kFwdKeys, C::kRows);
+      const int n_tiles = group * max(0, n_qt - t0);
+      const uint32_t kb = k_s + (j & 1) * C::kKvBytes + wg * kWgRows * kSwRow;
+      const uint32_t vb = v_s + (j & 1) * C::kKvBytes + wg * kWgRows * kSwRow;
+      float dk[C::kPanels][32], dv[C::kPanels][32];
+#pragma unroll
+      for (int p = 0; p < C::kPanels; ++p)
+#pragma unroll
+        for (int x = 0; x < 32; ++x) dk[p][x] = dv[p][x] = 0.f;
+
+      mbar_wait(kv_full + 8 * (j & 1), (j >> 1) & 1);
+      for (int i = 0; i < n_tiles; ++i, ++it) {
+        const int h = kvh * group + i / (n_qt - t0);
+        const int q0 = (t0 + i % (n_qt - t0)) * C::kRows;
+        const int s = it % C::kStages;
+        const uint32_t qb = q_s + s * C::kQBytes, dob = do_s + s * C::kQBytes;
+        mbar_wait(bar + 8 * s, (it / C::kStages) & 1);
+        if (i == 0) turns.take();
+        if (wk0 < a.S_k && (!a.causal || wk0 <= q0 + C::kRows - 1 + a.offset)) {
+          float st[kN], dpt[kN];
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t kcol = (kk / 4) * C::kKvPanel + (kk % 4) * 32;
+            const uint32_t qcol = (kk / 4) * C::kQPanel + (kk % 4) * 32;
+            wgmma_ss(st, sw128_desc(kb + kcol), sw128_desc(qb + qcol), kk > 0);
+            wgmma_ss(dpt, sw128_desc(vb + kcol), sw128_desc(dob + qcol), kk > 0);
+          }
+          wg_commit();
+          turns.pass();
+          wg_wait0();
+          fence_regs(st);
+          fence_regs(dpt);
+
+          // P^T and dS^T in place of S^T and dP^T: rows are keys, columns
+          // query rows, so LSE and Delta go by column; the mask only on tiles
+          // that cross the diagonal, a ring offset or the ragged end of q
+          const float* lse_p = rows_p + s * 2 * C::kRows + 2 * t;
+          const float* dl_p = lse_p + C::kRows;
+          const bool edge =
+              (a.causal && wk0 + kWgRows - 1 > q0 + a.offset) || q0 + C::kRows > a.S_q;
+          if (!edge && !alibi) {
+#pragma unroll
+            for (int n = 0; n < kN / 4; ++n) {
+              const float2 l = *reinterpret_cast<const float2*>(lse_p + 8 * n);
+              const float2 d = *reinterpret_cast<const float2*>(dl_p + 8 * n);
+              const float l2[2] = {lse_log2(l.x), lse_log2(l.y)}, dd[2] = {d.x, d.y};
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float p = fast_exp2(fmaf(st[4 * n + e], c2, -l2[e & 1]));
+                st[4 * n + e] = p;
+                dpt[4 * n + e] = p * (dpt[4 * n + e] - dd[e & 1]) * a.scale;
+              }
+            }
+          } else {
+            const float sl2 = alibi ? a.slopes[h] * kLog2e : 0.f;
+            // rel[r]: this thread's first column that sees key row r, which is
+            // also where that row's ALiBi distance is 0
+            int rel[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) rel[r] = kr + 8 * r - a.offset - q0 - 2 * t;
+            const int n_col = a.S_q - q0 - 2 * t;  // columns at or past this are past S_q
+#pragma unroll
+            for (int n = 0; n < kN / 4; ++n) {
+              const float2 l = *reinterpret_cast<const float2*>(lse_p + 8 * n);
+              const float2 d = *reinterpret_cast<const float2*>(dl_p + 8 * n);
+              const float l2[2] = {lse_log2(l.x), lse_log2(l.y)}, dd[2] = {d.x, d.y};
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1, c = n * 8 + (e & 1);
+                float x = st[4 * n + e] * c2;
+                if (alibi) x = fmaf(sl2, (float)(rel[r] - c), x);  // -slope (qp + offset - kp)
+                x = c >= n_col || (a.causal && c < rel[r]) ? kNegInf : x;
+                const float p = fast_exp2(x - l2[e & 1]);
+                st[4 * n + e] = p;
+                dpt[4 * n + e] = p * (dpt[4 * n + e] - dd[e & 1]) * a.scale;
+              }
+            }
+          }
+          // P^T and dS^T stay fp32 in meaning, as in the TPU kernel: each
+          // enters its product as bf16 hi + lo (lo = the rounding error of
+          // hi), both into the same fp32 accumulator. hi is widened back
+          // from its packed pair by shifts: conversions run at a quarter of
+          // the fp32 rate, and this phase is on the critical path.
+          uint32_t ph[kSteps][4], pl[kSteps][4], sh[kSteps][4], sl[kSteps][4];
+#pragma unroll
+          for (int jj = 0; jj < kSteps; ++jj)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              const float p0 = st[8 * jj + 2 * x], p1 = st[8 * jj + 2 * x + 1];
+              const float d0 = dpt[8 * jj + 2 * x], d1 = dpt[8 * jj + 2 * x + 1];
+              ph[jj][x] = pack2(p0, p1);
+              pl[jj][x] = pack2(p0 - __uint_as_float(ph[jj][x] << 16),
+                                p1 - __uint_as_float(ph[jj][x] & 0xffff0000u));
+              sh[jj][x] = pack2(d0, d1);
+              sl[jj][x] = pack2(d0 - __uint_as_float(sh[jj][x] << 16),
+                                d1 - __uint_as_float(sh[jj][x] & 0xffff0000u));
+            }
+          turns.take();
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p) {
+            fence_regs(dk[p]);
+            fence_regs(dv[p]);
+          }
+          wg_fence();
+#pragma unroll
+          for (int jj = 0; jj < kSteps; ++jj)
+#pragma unroll
+            for (int p = 0; p < C::kPanels; ++p) {
+              const uint32_t row = p * C::kQPanel + jj * 16 * kSwRow;
+              wgmma_rs(dv[p], ph[jj], sw128_desc(dob + row));
+              wgmma_rs(dv[p], pl[jj], sw128_desc(dob + row));
+              wgmma_rs(dk[p], sh[jj], sw128_desc(qb + row));
+              wgmma_rs(dk[p], sl[jj], sw128_desc(qb + row));
+            }
+          wg_commit();
+          wg_wait0();
+#pragma unroll
+          for (int p = 0; p < C::kPanels; ++p) {
+            fence_regs(dk[p]);
+            fence_regs(dv[p]);
+          }
+        } else {
+          turns.pass();
+          turns.take();
+        }
+        if (i == n_tiles - 1) turns.pass();
+        if (lane == 0) mbar_arrive(bar + 8 * (C::kStages + s));
+      }
+      if (lane == 0) mbar_arrive(kv_empty + 8 * (j & 1));
+
+      const int64_t off = ((int64_t)b * a.S_k * a.H_kv + kvh) * D;
+      const int64_t row_stride = (int64_t)a.H_kv * D;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = kr + 8 * half;
+        if (row >= a.S_k) continue;
+        bf16* dkp = static_cast<bf16*>(a.dk) + off + (int64_t)row * row_stride + 2 * t;
+        bf16* dvp = static_cast<bf16*>(a.dv) + off + (int64_t)row * row_stride + 2 * t;
+#pragma unroll
+        for (int p = 0; p < C::kPanels; ++p)
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const int x = 4 * n + 2 * half;
+            *reinterpret_cast<uint32_t*>(dkp + p * kPanel + n * 8) = pack2(dk[p][x], dk[p][x + 1]);
+            *reinterpret_cast<uint32_t*>(dvp + p * kPanel + n * 8) = pack2(dv[p][x], dv[p][x + 1]);
+          }
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_bwd_dq_wgmma(const Args& a, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, dm;
+  int perm, ctas, err;
+  if ((err = make_maps(a, D, kFwdRows, DqCfg<D>::kKeys, &qm, &km, &vm, &dm, &perm))) return err;
+  const int n_work = (a.S_q + kFwdRows - 1) / kFwdRows * a.B * a.H;
+  if ((err = persistent_setup(reinterpret_cast<const void*>(bwd_dq_wgmma_kernel<D>),
+                              DqCfg<D>::kSmem, n_work, &ctas)))
+    return err;
+  bwd_dq_wgmma_kernel<D><<<ctas, kFwdThreads, DqCfg<D>::kSmem, stream>>>(
+      qm, km, vm, dm, a, perm, l2_chunk((int64_t)a.S_k * D * 2 * 2, a.B * a.H));  // K and V
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd_dkv_wgmma(const Args& a, cudaStream_t stream) {
+  using C = DkvCfg<D>;
+  CUtensorMap qm, km, vm, dm;
+  int perm, ctas, err;
+  if ((err = make_maps(a, D, C::kRows, kFwdKeys, &qm, &km, &vm, &dm, &perm))) return err;
+  const int n_work = (a.S_k + kFwdKeys - 1) / kFwdKeys * a.B * a.H_kv;
+  if ((err = persistent_setup(reinterpret_cast<const void*>(bwd_dkv_wgmma_kernel<D>), C::kSmem,
+                              n_work, &ctas)))
+    return err;
+  const int64_t qdo_bytes = (int64_t)(a.H / a.H_kv) * a.S_q * D * 2 * 2;  // the group's Q and dO
+  bwd_dkv_wgmma_kernel<D><<<ctas, kFwdThreads, C::kSmem, stream>>>(
+      qm, km, vm, dm, a, perm, l2_chunk(qdo_bytes, a.B * a.H_kv));
+  return (int)cudaGetLastError();
+}
+
+// bf16: K1, K2 and K3 on wgmma + TMA
+template <int D>
+int launch_bf16(int which, const Args& a, cudaStream_t stream) {
+  return which == 0 ? launch_fwd_wgmma<D>(a, stream)
+       : which == 1 ? launch_bwd_dq_wgmma<D>(a, stream)
+                    : launch_bwd_dkv_wgmma<D>(a, stream);
 }
 
 constexpr int smem_floats(int which, int D) {
@@ -1313,8 +1692,8 @@ int dispatch(int which, int dtype, int head_dim, const Args& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(which, a, s);
   if (dtype == 0 && head_dim == 128) return launch<float, 128>(which, a, s);
-  if (dtype == 1 && head_dim == 64) return launch_mma<64>(which, a, s);
-  if (dtype == 1 && head_dim == 128) return launch_mma<128>(which, a, s);
+  if (dtype == 1 && head_dim == 64) return launch_bf16<64>(which, a, s);
+  if (dtype == 1 && head_dim == 128) return launch_bf16<128>(which, a, s);
   return (int)cudaErrorInvalidValue;
 }
 

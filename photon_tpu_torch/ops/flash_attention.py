@@ -10,11 +10,14 @@ with hand-written CUDA kernels in ``csrc/flash_attention.cu`` (built for
 - K3 ``_bwd_dkv_kernel`` (:280) → :func:`flash_bwd_dkv`, one CTA per kv
   storage row sweeping the group's q heads (no atomics).
 
-bf16 inputs run on tensor cores with fp32 accumulation: K1 on ``wgmma``
-with TMA loads and a producer warp, K2 and K3 on ``mma.sync``; fp32 inputs
-run on CUDA cores in fp32 throughout. K1's TMA tensor maps are encoded over
-q/k/v's own strides, so their base and strides must be 16-byte aligned
-(:func:`_check_layout` raises otherwise; nothing is copied).
+bf16 inputs run on tensor cores with fp32 accumulation, all three kernels
+on ``wgmma`` with TMA loads, a producer warpgroup and two consumer
+warpgroups taking turns, in persistent CTAs; fp32 inputs run on CUDA cores
+in fp32 throughout. The TMA tensor maps are encoded over q/k/v's own
+strides and over dO, so their bases and strides must be 16-byte aligned
+(:func:`_check_layout` raises otherwise; nothing is copied). LSE and Delta
+rows may start anywhere: K2 reads them per thread and K3 copies them 4
+bytes at a time, so any ``S_q`` goes.
 
 Shape contract: ``q [B, S_q, H, D]``, ``k/v [B, S_k, H_kv, D]`` with
 ``H % H_kv == 0`` (grouped-query attention is native: q head ``h`` reads kv
@@ -168,12 +171,15 @@ def _check_bwd(q, do, lse, delta) -> None:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
 
 
-def _check_layout(q, k, v) -> None:
+def _check_layout(q, k, v, do=None) -> None:
     """The kernels' layout rules: a dense head-dim axis, and a 16-byte
     aligned base and batch/sequence/head strides that are multiples of 16
-    bytes. The kernels load 16 bytes at a time, and bf16 K1 reads q/k/v
-    by TMA, whose tensor maps take nothing else. Raises; never copies."""
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    bytes. The kernels load 16 bytes at a time, and the bf16 kernels read
+    q/k/v (and dO, which is contiguous) by TMA, whose tensor maps take
+    nothing else. Raises; never copies."""
+    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if x is None:
+            continue
         if x.stride(3) != 1:
             raise ValueError(f"{name} needs a dense head-dim axis")
         strides = [st * x.element_size() for st in x.stride()[:3]]
@@ -212,10 +218,10 @@ def _launch(name, q, k, v, *, causal, offset, slopes, scale, do=None, lse=None,
         raise ValueError(f"the kernel takes float32 or bfloat16, not {q.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, not {d}")
-    _check_layout(q, k, v)
     for x in (do, lse, delta):
         if x is not None and not x.is_contiguous():
             raise ValueError("do, lse and delta must be contiguous")
+    _check_layout(q, k, v, do)
     if q.numel() == 0 or k.numel() == 0:
         return
     lib = _lib()

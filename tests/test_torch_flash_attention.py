@@ -178,19 +178,22 @@ def test_wrapper_checks_raise():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layout_check_takes_fused_views_and_refuses_what_tma_cannot_read(dtype):
-    """K1 reads bf16 q/k/v by TMA over their own strides: the views of a
-    fused QKV projection pass as they are; a head stride or a base that is
-    not a multiple of 16 bytes raises (the kernels never copy)."""
+    """The bf16 kernels read q/k/v by TMA over their own strides, and dO:
+    the views of a fused QKV projection pass as they are; a head stride or
+    a base that is not a multiple of 16 bytes raises (the kernels never
+    copy)."""
     b, s, h, d = 2, 8, 4, 64
     qkv = torch.zeros(b, s, 3 * h * d, dtype=dtype)
     q, k, v = (x.reshape(b, s, h, d) for x in qkv.chunk(3, dim=-1))
-    fa._check_layout(q, k, v)
+    fa._check_layout(q, k, v, torch.zeros(b, s, h, d, dtype=dtype))
     padded = torch.zeros(b, s, h, d + 2, dtype=dtype)[..., :d]  # head stride d + 2
     with pytest.raises(ValueError, match="TMA"):
         fa._check_layout(padded, k, v)
     off = torch.zeros(b * s * h * d + 2, dtype=dtype)[2:].view(b, s, h, d)  # base 4 or 8 bytes off
     with pytest.raises(ValueError, match="TMA"):
         fa._check_layout(q, off, v)
+    with pytest.raises(ValueError, match="do must be 16-byte"):
+        fa._check_layout(q, k, v, off)  # a contiguous dO off its 16-byte boundary
 
 
 def test_unsupported_attention_impls_refused():

@@ -62,6 +62,11 @@ CASES = [
     ("non_causal", 1, 100, 160, 4, 2, 64, False, False, None, False),
     ("q_shorter", 1, 96, 224, 4, 4, 128, True, True, None, False),
     ("ring_offset", 1, 128, 128, 2, 2, 64, True, False, -64, False),
+    # more work items than SMs: every persistent CTA of K2 and K3 takes several
+    ("many_items", 4, 1024, 1024, 8, 8, 64, True, False, None, False),
+    ("gqa4_ragged_d128", 1, 1000, 1000, 8, 2, 128, True, False, None, False),
+    # LSE/Delta rows that do not start on a 16-byte boundary
+    ("s97", 2, 97, 97, 2, 2, 64, True, False, None, False),
 ]
 
 
@@ -94,12 +99,18 @@ def test_kernels_match_plain_versions(cuda, dtype, case):
 
 
 @pytest.mark.cuda
-def test_dkv_kernel_gives_the_same_bits_twice(cuda):
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_dkv_kernel_gives_the_same_bits_twice(cuda, kernel):
+    """K2 and K3 each own their outputs' rows in one CTA (no atomics)."""
     q, k, v, do = _inputs(cuda, torch.bfloat16, b=2, s_q=256, s_k=256, h=8, n_kv=2, d=64)
     o, lse = fa.flash_fwd(q, k, v)
     delta = fa.attention_delta(o, do)
-    first = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
-    second = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
+
+    def grads():
+        out = getattr(fa, kernel)(q, k, v, do, lse, delta)
+        return out if isinstance(out, tuple) else (out,)
+
+    first, second = grads(), grads()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
