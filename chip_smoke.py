@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive photon_tpu_torch's serving and training paths on one NVIDIA GPU.
+"""Drive photon_tpu_torch's serving, training and federated paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -33,7 +34,24 @@ Phases (any failure exits non-zero):
 4. entry point: ``photon_tpu_torch.centralized.main`` in process, 3 steps
    on synthetic data at full width, then again to step 5, resuming from
    its checkpoint;
-5. engine: full-width mpt-125m (random weights from seed 0, bf16) in a
+5. federated round: ``python -m photon_tpu_torch.federated`` (its
+   ``main`` in a child process; 2 nodes in it share the card) on the same
+   config, 2 rounds of 2 clients × 4 local steps with the preset's
+   nesterov strategy, the shm plane (in a directory of this run's own,
+   removed after) and checkpoints, eval at rounds 0 and 2; then a resume
+   to round 3. The first run must evaluate to a finite loss, each round
+   must read a positive pseudo-gradient norm, the resume must train round
+   3 alone, and K1–K3 must launch exactly the counts the rounds imply.
+   Per round, from the run's History: the broadcast, per client
+   set_parameters / train loop / get_parameters / put, the fold, the
+   server update, eval, the checkpoint, and the share of the round in
+   which the card trains. In process: one client fit under
+   ``torch.profiler`` (K1, K2, K3 each ``n_layers x n_micro`` per step),
+   and one client under FedAvg (η = 1) for 2 rounds × 3 steps against a
+   ``Trainer`` that ran 6 steps on the same stream; a planted fault (the
+   cumulative step never injected, 2 rounds × 1 step against the
+   Trainer's step 2) must read at least 10× the sound gap;
+6. engine: full-width mpt-125m (random weights from seed 0, bf16) in a
    ``PagedEngine`` with ``attention_impl="ragged"`` and one with
    ``"gather"``, stepped through the same mixed chunked-prefill schedule:
    per-step logits and greedy tokens agree, and the kernel's launch count
@@ -41,14 +59,14 @@ Phases (any failure exits non-zero):
    step with a prompt chunk. A third engine, whose every kernel call reads
    the trash block in place of each row's last live block, must fail the
    same logit gate (so the gate is shown to catch a dropped key block);
-6. server: those weights written as a round checkpoint, served by
-   ``python -m photon_tpu_torch.serve`` on an ephemeral port; 8 concurrent
-   ``/generate`` requests (one streaming, one split into chunks by the
-   prefill budget), a repeated greedy prompt, ``/healthz``, then SIGTERM
-   and a clean exit. The server's own launch count (read on ``/healthz``)
-   must equal ``n_layers`` × (steps + chunk steps).
+7. server: the round checkpoint the federated phase wrote (round 3),
+   served by ``python -m photon_tpu_torch.serve`` on an ephemeral port; 8
+   concurrent ``/generate`` requests (one streaming, one split into chunks
+   by the prefill budget), a repeated greedy prompt, ``/healthz``, then
+   SIGTERM and a clean exit. The server's own launch count (read on
+   ``/healthz``) must equal ``n_layers`` × (steps + chunk steps).
 
-Between 5 and 6, a ``torch.profiler`` window over steady decode steps
+Between 6 and 7, a ``torch.profiler`` window over steady decode steps
 reports the step's wall time, the device's busy time by kernel and its
 idle share (1 - busy / the unprofiled step's wall time).
 
@@ -732,7 +750,306 @@ def entry_phase(torch, fa):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: engine
+# phase 5: the federated round
+# ---------------------------------------------------------------------------
+
+FED_RUN = "chip-smoke-fed"
+#: ``python -m photon_tpu_torch.federated`` on top of the training config
+FED_SETS = ["fl.n_total_clients=2", "fl.n_clients_per_round=2", "fl.local_steps=4",
+            "fl.eval_interval_rounds=2", "train.eval_batches=2"]
+#: one client under FedAvg (η = 1, μ = 0), 2 rounds × 3 local steps,
+#: against a centralized Trainer that ran 6 steps on the same stream:
+#: |global params − centralized| / |centralized − init| over all
+#: parameters. On an H100 the sound run reads 1.6e-9 (the fp32 rounding
+#: of x − 1·(x − y) at the round boundary; the kernels give the same bits
+#: every run). The planted fault (a runtime that never injects the
+#: cumulative step, so the lr schedule and ADOPT's count restart each
+#: round) runs 2 rounds × 1 step against the Trainer's step 2 and must read
+#: at least FED_FAULT_RATIO times the sound gap and over the gate.
+FED_GATE = 1e-6
+FED_FAULT_RATIO = 10.0
+
+
+def _fed_child(out_path: str, cli_args: list[str]) -> int:
+    """``python -m photon_tpu_torch.federated`` (its ``main``) in a child
+    process of :func:`federated_phase`, the kernels' launch counts set to 0
+    just before it; writes the run's History, the counts and the peak
+    device memory to ``out_path``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from photon_tpu_torch import federated
+    from photon_tpu_torch.ops import flash_attention as fa
+
+    for key in fa.launches:
+        fa.launches[key] = 0
+    t0 = time.perf_counter()
+    history = federated.main(cli_args)
+    pathlib.Path(out_path).write_text(json.dumps({
+        "history": history.to_dict(), "launches": dict(fa.launches),
+        "wall_s": time.perf_counter() - t0,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    return 0
+
+
+def _round_breakdown(history: dict, rounds: list[int]) -> list[dict]:
+    """Per round, from the run's own History: where its wall time went
+    (seconds) and the share of it in which the card trains. The client
+    times are the mean over the round's clients, as the History keeps
+    them; ``rest`` is the client's pseudo-gradient and param norms."""
+    def at(key, rnd):
+        return next((v for r, v in history.get(key, []) if r == rnd), 0.0)
+
+    out = []
+    for rnd in rounds:
+        client = {name: at(key, rnd) for name, key in (
+            ("set_parameters", "client/fit_set_parameters_time"), ("train", "client/fit_time"),
+            ("get_parameters", "client/get_parameters_time"), ("put", "client/put_time"),
+            ("before_train", "client/fit_init_time"), ("fit", "node_training_time_s"))}
+        client["rest"] = client["fit"] - sum(client[k] for k in (
+            "before_train", "train", "get_parameters", "put"))
+        rec = {"round": rnd, "n_clients": at("server/n_clients", rnd), "client_mean": client}
+        for name, key in (("broadcast_s", "server/broadcast_pre_time"),
+                          ("fit_round_s", "server/round_time"),
+                          ("fold_s", "server/agg_fold_time"),
+                          ("server_update_s", "server/server_update_time"),
+                          ("eval_broadcast_s", "server/broadcast_post_time"),
+                          ("eval_s", "server/eval_round_time"),
+                          ("checkpoint_blocking_s", "server/checkpoint_time"),
+                          ("checkpoint_barrier_s", "server/ckpt_barrier_wait_s"),
+                          ("checkpoint_last_write_s", "server/ckpt_async_write_s")):
+            rec[name] = at(key, rnd)
+        # the server's fetch of each result and its scheduling
+        rec["fit_round_rest_s"] = rec["fit_round_s"] - rec["n_clients"] * client["fit"] \
+            - rec["fold_s"] - rec["server_update_s"]
+        rec["wall_s"] = sum(rec[k] for k in ("broadcast_s", "fit_round_s", "eval_broadcast_s",
+                                             "eval_s", "checkpoint_blocking_s"))
+        rec["train_share_of_round"] = (rec["n_clients"] * client["train"] / rec["wall_s"]
+                                       if rec["wall_s"] > 0 else None)
+        out.append(rec)
+    return out
+
+
+def _fed_cli_run(work: pathlib.Path, tag: str, args: list[str], shm_dir: str) -> dict:
+    import os
+
+    out_json = work / f"child-{tag}.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--fed-child", str(out_json), "--", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PHOTON_SHM_DIR=shm_dir))
+    if proc.returncode != 0:
+        fail(f"federated CLI ({tag}) exited {proc.returncode}: {proc.stderr[-3000:]}")
+    child = json.loads(out_json.read_text())
+    return {"tag": tag, "wall_s": time.perf_counter() - t0,
+            "final_line": json.loads(proc.stdout.strip().splitlines()[-1]),
+            "history": child["history"], "launches": child["launches"],
+            "child_wall_s": child["wall_s"],
+            "max_memory_allocated_gb": child["max_memory_allocated_gb"]}
+
+
+def _fed_gate(torch, np, cfg, work, initial) -> dict:
+    """(c) and (d) in process, on one node (one Trainer): one client under
+    FedAvg (η = 1, μ = 0) for 2 rounds × 3 local steps, its first fit under
+    ``torch.profiler``; then the planted fault on the same node under a
+    fresh server, 2 rounds × 1 step, with the node's ``set_step`` pinned to
+    0 (patched in from outside the package; the fit knobs rewind its loader
+    and optimizer in round 1); and a centralized Trainer on the same
+    client stream, read at steps 2 and 6."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_tpu_torch.codec.params import params_from_numpy
+    from photon_tpu_torch.data import ShardedDataset, StreamingLoader
+    from photon_tpu_torch.federation import InProcessDriver, NodeAgent, ParamTransport, ServerApp
+    from photon_tpu_torch.ops import flash_attention as fa
+    from photon_tpu_torch.train.trainer import Trainer
+
+    c = copy.deepcopy(cfg)
+    c.photon.save_path, c.photon.checkpoint = str(work), False
+    c.fl.strategy_name, c.fl.server_learning_rate, c.fl.server_momentum = "fedavg", 1.0, 0.0
+    c.fl.n_total_clients = c.fl.n_clients_per_round = 1
+    c.fl.local_steps, c.fl.eval_interval_rounds = 3, 0
+    driver = InProcessDriver(c, lambda nid: NodeAgent(c, nid, lambda: ParamTransport("inline"),
+                                                      device="cuda"), n_nodes=1)
+    trainer = driver._agents["node0"].runtime.trainer
+    sound_fit, sound_set_step = trainer.fit, trainer.set_step
+    counted, times = {}, {}
+
+    def profiled_fit(batches, steps, **kw):
+        trainer.fit = sound_fit
+        before = dict(fa.launches)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = sound_fit(batches, steps, **kw)
+        counted["counter_launches_per_step"] = {
+            k: (fa.launches[k] - before[k]) / steps for k in before}
+        per = {k: sum(e.count for e in prof.key_averages()
+                      if str(getattr(e, "device_type", "")).endswith("CUDA")
+                      and tag in e.key) / steps for k, (_, tag) in FLASH_KERNELS.items()}
+        counted["profiler_launches_per_step"] = per if any(per.values()) else "not measured"
+        return out
+
+    fit_config = dict(c.fl.fit_config)
+
+    def two_rounds(fit_config_round_1=None):
+        app = ServerApp(c, driver, ParamTransport("inline"), initial_params=initial)
+        for r in (1, 2):  # the server reads the knobs as it sends each round
+            c.fl.fit_config = {**fit_config, **(fit_config_round_1 or {})} if r == 1 \
+                else dict(fit_config)
+            app.broadcast_parameters(r)
+            app.fit_round(r)
+        app.free_transport()
+        return app.strategy.current_parameters
+
+    t0 = time.perf_counter()
+    trainer.fit = profiled_fit
+    sound = two_rounds()
+    times["sound_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c.fl.local_steps = 1
+    trainer.set_step = lambda step: sound_set_step(0)
+    fault = two_rounds({"reset_optimizer": True, "reset_dataset_state": True})
+    driver.shutdown()
+    del trainer, driver
+    times["fault_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    central = Trainer(cfg, params=params_from_numpy(initial[0].names, initial[1], cfg.model,
+                                                    "cuda"), device="cuda")
+    ds = ShardedDataset(work / "synthetic" / "client_0" / cfg.dataset.split_train)
+    loader = StreamingLoader(ds, cfg.train.global_batch_size, seed=cfg.dataset.shuffle_seed,
+                             shuffle=cfg.dataset.shuffle)
+    central.fit(loader, 2)
+    at_2 = central.get_parameters()[1]
+    central.fit(loader, 4)
+    at_6 = central.get_parameters()[1]
+    del central
+    torch.cuda.empty_cache()
+    times["central_s"] = time.perf_counter() - t0
+
+    def gap(got, want):
+        num = sum(float(np.sum((g.astype(np.float64) - w) ** 2)) for g, w in zip(got, want))
+        den = sum(float(np.sum((w.astype(np.float64) - a) ** 2))
+                  for w, a in zip(want, initial[1]))
+        per = max(float(np.linalg.norm(g.astype(np.float64) - w) / max(np.linalg.norm(w), 1e-30))
+                  for g, w in zip(got, want))
+        return math.sqrt(num / den), per
+
+    (sound_gap, sound_rel), (fault_gap, fault_rel) = gap(sound, at_6), gap(fault, at_2)
+    return {"gate": FED_GATE, "sound": sound_gap, "planted_fault": fault_gap,
+            "fault_over_sound": fault_gap / sound_gap if sound_gap > 0 else None,
+            "sound_max_param_rel_l2": sound_rel, "fault_max_param_rel_l2": fault_rel,
+            **times, **counted}
+
+
+def federated_phase(torch, np):
+    """The federated round at full width on the card:
+
+    (a) ``python -m photon_tpu_torch.federated`` (a child process, 2
+        in-process nodes sharing the card, the preset's nesterov strategy,
+        the shm plane in a directory of this run's own, checkpoints on)
+        for 2 rounds of 2 clients × 4 local steps with eval at rounds 0
+        and 2, then again with ``photon.resume_round=-1`` to round 3, which
+        must train round 3 alone; the first run's final line must carry a
+        finite eval loss (the resumed run does not evaluate: its final
+        eval loss is the restored round 0's) and both a positive
+        pseudo-gradient norm; K1–K3 launch exactly the counts the rounds
+        imply;
+    (b) per round, from the run's History: the broadcast, per client
+        set_parameters / train loop / get_parameters / put, the fold, the
+        server update, eval, the checkpoint, and the card's training share
+        of the round;
+    (c) + (d): :func:`_fed_gate`."""
+    import tempfile
+
+    from photon_tpu_torch.codec.params import params_to_ndarrays
+    from photon_tpu_torch.models.mpt import init_params, param_shapes
+
+    work = ROOT / ".chip_smoke" / "fed"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = train_config()
+    cfg.run_uuid = FED_RUN
+    cfg.photon.save_path = str(work)
+    cfg.dataset.synthetic = True
+    cfg.to_yaml(work / "in.yaml")
+    L = cfg.model.n_layers
+    n_micro = cfg.train.global_batch_size // cfg.train.device_microbatch_size
+    payload = 4 * sum(int(np.prod(s)) for s in param_shapes(cfg.model).values())
+    # a round holds the broadcast and the clients' results at once
+    need = 4 * payload
+    free = shutil.disk_usage("/dev/shm").free if pathlib.Path("/dev/shm").is_dir() else 0
+    # a directory of this run's own: another run's segments and sweeps
+    # never meet this one's
+    shm_dir = tempfile.mkdtemp(prefix="photon-smoke-", dir="/dev/shm" if free >= need else work)
+    log(f"federated: shm plane in {shm_dir} (/dev/shm free {free / 1e9:.2f} GB, "
+        f"a round needs {need / 1e9:.2f} GB)")
+    try:
+        base = ["--config", str(work / "in.yaml"), "--device", "cuda", "--nodes", "2"]
+        for s in FED_SETS:
+            base += ["--set", s]
+        first = _fed_cli_run(work, "rounds-1-2", base + ["--rounds", "2"], shm_dir)
+        second = _fed_cli_run(work, "resume-to-3", base + ["--rounds", "3", "--set",
+                                                            "photon.resume_round=-1"], shm_dir)
+        left = sorted(p.name for p in pathlib.Path(shm_dir).iterdir())
+    finally:
+        shutil.rmtree(shm_dir, ignore_errors=True)
+    if left:
+        fail(f"federated CLI left shm segments behind: {left}")
+    per_fit = L * n_micro * 4  # 4 local steps
+    evals = L * 2  # eval_batches 2, one K1 launch per layer per batch
+    want = [{"flash_fwd": 2 * 2 * per_fit + 2 * 2 * evals,  # evals at rounds 0 and 2
+             "flash_bwd_dq": 2 * 2 * per_fit, "flash_bwd_dkv": 2 * 2 * per_fit},
+            {k: 2 * per_fit for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}]
+    for run, w, rounds in zip((first, second), want, ([1, 2], [3])):
+        if run["launches"] != w:
+            fail(f"federated CLI ({run['tag']}) launched {run['launches']}, want {w}")
+        hist = run["history"]
+        grad = dict(map(tuple, hist.get("server/pseudo_grad_norm", [])))
+        steps = dict(map(tuple, hist.get("server/steps_cumulative", [])))
+        if not all(grad.get(r, 0.0) > 0 and steps.get(r) == 4 * r for r in rounds) \
+                or not run["final_line"].get("server/pseudo_grad_norm", 0.0) > 0:
+            fail(f"federated CLI ({run['tag']}): rounds {rounds} read pseudo-gradient norms "
+                 f"{grad} and steps {steps}; final line {run['final_line']}")
+        run["rounds"] = _round_breakdown(hist, rounds)
+        for r in run["rounds"]:
+            log("fed_round " + json.dumps(dict(r, run=run["tag"])))
+    evals_1 = first["history"].get("server/eval_loss", [])
+    if [r for r, _ in evals_1] != [0, 2] or not all(math.isfinite(v) for _, v in evals_1) \
+            or first["final_line"].get("server/eval_loss") != evals_1[-1][1]:
+        fail(f"federated CLI: eval losses {evals_1}, final line {first['final_line']}")
+
+    # (c) + (d): one client in process against centralized training
+    init = init_params(cfg.model, seed=0, device="cuda")
+    initial = params_to_ndarrays(init)
+    del init
+    t0 = time.perf_counter()
+    gate = _fed_gate(torch, np, cfg, work / "gate", initial)
+    gate["wall_s"] = time.perf_counter() - t0
+    log("fed_gate " + json.dumps(gate))
+    per_step = L * n_micro
+    if gate["counter_launches_per_step"] != {k: per_step for k in FLASH_KERNELS}:
+        fail(f"a client fit launched {gate['counter_launches_per_step']} per step, "
+             f"want {per_step} each")
+    prof = gate["profiler_launches_per_step"]
+    if prof != "not measured" and prof != {k: per_step for k in FLASH_KERNELS}:
+        fail(f"the profiler saw {prof} kernel launches per step, want {per_step} each")
+    if not gate["sound"] <= FED_GATE:
+        fail(f"single-client FedAvg vs centralized: {gate['sound']:.3e} > {FED_GATE}")
+    if not gate["planted_fault"] >= max(FED_FAULT_RATIO * gate["sound"], FED_GATE):
+        fail(f"the planted set_step fault reads {gate['planted_fault']:.3e}, not "
+             f"{FED_FAULT_RATIO}x the sound {gate['sound']:.3e} and over the gate {FED_GATE}")
+    rec = {"shm_dir": shm_dir, "dev_shm_free_gb": free / 1e9, "payload_gb": payload / 1e9,
+           "runs": [first, second], "gate": gate,
+           "store": str(work / "store"), "run_uuid": FED_RUN, "served_round": 3}
+    log("federated_phase " + json.dumps({k: v for k, v in rec.items() if k != "runs"}))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 6: engine
 # ---------------------------------------------------------------------------
 
 def serve_config(preset: str = "mpt-125m"):
@@ -940,7 +1257,7 @@ def profile_phase(torch, np, params, cfg):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: server
+# phase 7: server
 # ---------------------------------------------------------------------------
 
 def _request(port, path, body=None, timeout=600):
@@ -969,21 +1286,19 @@ def _generate(port, prompt, max_new, stream=False):
     return status, final
 
 
-def server_phase(torch, np, params, cfg, n_layers):
-    from photon_tpu_torch.checkpoint import FileStore, ServerCheckpointManager
-    from photon_tpu_torch.codec.params import params_to_ndarrays
-
-    work = ROOT / ".chip_smoke"
+def server_phase(torch, np, cfg, n_layers, fed):
+    """Serve the round checkpoint the federated phase wrote (its latest
+    round, with the nesterov momentum beside the params, which serving
+    does not read)."""
+    work = ROOT / ".chip_smoke" / "serve"
     shutil.rmtree(work, ignore_errors=True)
-    store = FileStore(work / "store")
-    t0 = time.perf_counter()
-    ServerCheckpointManager(store, cfg.run_uuid).save_round_params(1, *params_to_ndarrays(params))
+    work.mkdir(parents=True)
+    cfg.run_uuid = fed["run_uuid"]
     cfg.photon.serve.attention_impl = "auto"
     cfg.to_yaml(work / "resolved.yaml")
-    log(f"server: round written in {time.perf_counter() - t0:.1f}s")
     proc = subprocess.Popen(
         [sys.executable, "-m", "photon_tpu_torch.serve", "--config", str(work / "resolved.yaml"),
-         "--store", str(work / "store"), "--enable", "--port", "0"],
+         "--store", fed["store"], "--enable", "--port", "0"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
     stderr_tail: list[str] = []
@@ -1000,6 +1315,9 @@ def server_phase(torch, np, params, cfg, n_layers):
         info = json.loads(first)
         port = info["port"]
         log("server_up " + json.dumps(dict(info, startup_s=time.perf_counter() - t_start)))
+        if info["round"] != fed["served_round"]:
+            fail(f"server loaded round {info['round']}, want the federated phase's "
+                 f"{fed['served_round']}")
         _, h0 = _request(port, "/healthz")
         if json.loads(h0)["kernel_launches"]["ragged_paged_attention"] != 0:
             fail("server launched the kernel before any request")
@@ -1039,7 +1357,8 @@ def server_phase(torch, np, params, cfg, n_layers):
                "repeat_equal": True,
                "repeat_equals_concurrent": again[0]["tokens"] == replies[3][1]["tokens"],
                "server_steps": st["steps"], "server_chunk_steps": st["chunk_steps"],
-               "chunk_split_prompts": st["chunk_split_prompts"], "launches": launches}
+               "chunk_split_prompts": st["chunk_split_prompts"], "launches": launches,
+               "served": {"run_uuid": fed["run_uuid"], "round": info["round"]}}
         proc.send_signal(signal.SIGTERM)
         try:
             rc = proc.wait(timeout=120)
@@ -1061,6 +1380,8 @@ def server_phase(torch, np, params, cfg, n_layers):
 # ---------------------------------------------------------------------------
 
 def main() -> int:
+    if sys.argv[1:2] == ["--fed-child"]:  # a child of the federated phase
+        return _fed_child(sys.argv[2], sys.argv[4:])
     import torch
 
     if not torch.cuda.is_available():
@@ -1113,12 +1434,19 @@ def main() -> int:
     t0 = time.perf_counter()
     entry = entry_phase(torch, fa)
     entry["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fed = federated_phase(torch, np)
+    fed["phase_s"] = time.perf_counter() - t0
 
     cfg = serve_config()
     params = init_params(cfg.model, seed=0, device="cuda")
     engine = engine_phase(torch, rpa, np, params, cfg)
     profile = profile_phase(torch, np, params, cfg)
-    server = server_phase(torch, np, params, cfg, cfg.model.n_layers)
+    del params
+    torch.cuda.empty_cache()
+    server = server_phase(torch, np, cfg, cfg.model.n_layers, fed)
+    shutil.rmtree(ROOT / ".chip_smoke" / "fed", ignore_errors=True)
 
     kernels = {"kernels": [{
         "name": "ragged_paged_attention",
@@ -1139,7 +1467,7 @@ def main() -> int:
         "route": "cuda",
         "source": "photon_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": FLASH_KERNELS[name][0],
-        "launches": train["launches"][name],
+        "launches": fed["runs"][0]["launches"][name],
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"],
         "plain_ms": rec["plain_ms"],
@@ -1147,13 +1475,16 @@ def main() -> int:
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
         "shapes": [rec["shape"]],
+        "train_phase_launches": train["launches"][name],
         "entry_phase_launches": entry["runs"][0]["launches"][name],
+        "federated_resume_launches": fed["runs"][1]["launches"][name],
     } for name, rec in flash_main.items()]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "env": env, "kernel_build": built, "kernel_cases": kernel_records, "flash_cases": flash_records,
-        "train": train, "entry": entry, "engine": engine, "profile": profile, "server": server,
+        "train": train, "entry": entry, "federated": fed, "engine": engine, "profile": profile,
+        "server": server,
         "kernels": kernels["kernels"], "total_s": time.perf_counter() - t_all,
     }, indent=1))
     log(f"total {time.perf_counter() - t_all:.1f}s")

@@ -51,6 +51,14 @@ class ClientCheckpointManager:
                 out.add(int(m.group(1)))
         return sorted(out)
 
+    def should_skip_round(self, cid: int, target_step: int) -> bool:
+        """True iff the post-round checkpoint exists: the round was fully
+        trained before a restart, so it is reused, not trained again."""
+        return self.store.exists(f"{self._prefix(cid, target_step)}/state.bin")
+
+    def load_params_only(self, cid: int, step: int) -> tuple[ParamsMetadata, list[np.ndarray]]:
+        return npz_to_arrays(self.store.get(f"{self._prefix(cid, step)}/params.npz"))
+
     def latest_at_most(self, cid: int, step: int) -> int | None:
         """Latest checkpointed step ≤ ``step``."""
         candidates = [s for s in self.steps(cid) if s <= step]

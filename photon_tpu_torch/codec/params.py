@@ -11,6 +11,7 @@ packages byte for byte (:func:`params_from_numpy` /
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Iterable
 
 import numpy as np
@@ -38,6 +39,30 @@ class ParamsMetadata:
             shapes=tuple(tuple(a.shape) for a in arrays),
             dtypes=tuple(str(a.dtype) for a in arrays),
         )
+
+    @property
+    def nbytes_each(self) -> list[int]:
+        return [int(np.prod(s, dtype=np.int64)) * np.dtype(d).itemsize
+                for s, d in zip(self.shapes, self.dtypes)]
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.nbytes_each)
+
+    def to_json(self) -> str:
+        return json.dumps({"names": list(self.names), "shapes": [list(s) for s in self.shapes],
+                           "dtypes": list(self.dtypes)})
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ParamsMetadata":
+        """From a parsed manifest; unknown keys (the transport's ``codec``
+        header) are ignored."""
+        return cls(names=tuple(d["names"]), shapes=tuple(tuple(s) for s in d["shapes"]),
+                   dtypes=tuple(d["dtypes"]))
+
+    @classmethod
+    def from_json(cls, s: str) -> "ParamsMetadata":
+        return cls.from_dict(json.loads(s))
 
     def validate_arrays(self, arrays: list[np.ndarray]) -> None:
         if len(arrays) != len(self.names):
@@ -73,16 +98,19 @@ def unflatten(flat: dict[str, Any]) -> dict:
     return tree
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host array that owns its memory: for a CPU tensor ``.numpy()``
+    would be a view of the tensor's storage, which later in-place updates
+    (the optimizer, ``set_parameters``) overwrite."""
     if t.dtype == torch.bfloat16:
         raise ValueError("bf16 tensors have no numpy dtype; keep the fp32 master copy")
-    return t.detach().cpu().numpy()
+    return t.detach().to("cpu", copy=True).numpy()
 
 
 def params_to_ndarrays(params: dict) -> tuple[ParamsMetadata, list[np.ndarray]]:
     """Tree → (metadata, host numpy arrays) in canonical order."""
     flat = flatten(params)
-    arrays = [_to_numpy(t) for t in flat.values()]
+    arrays = [to_numpy(t) for t in flat.values()]
     return ParamsMetadata.from_ndarrays(flat.keys(), arrays), arrays
 
 

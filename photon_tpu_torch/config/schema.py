@@ -1,25 +1,30 @@
-"""The port's own copy of the config fields that serving and training read.
+"""The port's own copy of the config schema (``photon_tpu/config/schema.py``).
 
 ``ModelConfig``, ``ServeConfig``, ``OptimizerConfig``, ``SchedulerConfig``,
-``MeshConfig``, ``TrainConfig`` and ``DatasetConfig`` carry the same
-fields, names and defaults as ``photon_tpu/config/schema.py``, so a
-resolved YAML written by the JAX package loads here unchanged.
-:class:`Config` reads those sections, ``seed``, ``wandb_project``,
-``run_uuid`` and the ``photon`` keys below, and ignores every other
-section (federation, telemetry): nothing here uses them yet.
+``MeshConfig``, ``TrainConfig``, ``DatasetConfig``, ``FLConfig``,
+``CommStackConfig``, ``CompressionConfig``, ``MembershipConfig`` and
+``PhotonConfig`` carry the same fields, names and defaults as the JAX
+package's, so a resolved YAML written by either package loads in the
+other with equal fields. The sections of features the port does not run
+(``photon.chaos``, ``telemetry``, ``async_rounds``, ``adapters``, and
+``serve.speculative`` / ``serve.fleet``) are kept as the raw dicts they
+were read as and written back unchanged; only their ``enabled`` flag is
+read, to refuse them.
 
 :meth:`Config.validate` raises ``NotImplementedError`` for the features
 this package does not port yet, so such a config fails at start-up
 instead of running without them: MoE, LoRA adapters, speculative
 decoding, the prefix cache, hot-swap and the fleet router everywhere; and
 for training (``validate(serving=False)``, the default) a mesh of more
-than one device, ring attention, ``device_microbatch_size: auto`` and the
-mesh autotuner.
+than one device, ring attention, ``device_microbatch_size: auto``, the
+mesh autotuner, the collective aggregation plane, wire compression,
+chaos, telemetry and asynchronous rounds.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import pathlib
 import typing
 from dataclasses import dataclass, field
@@ -185,14 +190,114 @@ class DatasetConfig:
     synthetic: bool = False
 
 
+#: server strategies (``photon_tpu.config.schema.StrategyName``)
+STRATEGY_NAMES = ("fedavg", "nesterov", "fedmom", "fedadam", "fedyogi")
+#: wire-codec policies the JAX package knows; only "off" is ported
+COMPRESSION_POLICIES = ("off", "delta", "delta_q8", "delta_topk_q8")
+
+
+@dataclass
+class CommStackConfig:
+    """Bulk-tensor transport (same fields as the JAX package): ``shm``
+    (named segments on one host) or ``objstore`` (the object store);
+    ``collective`` and its ``collective_*`` knobs belong to the device
+    aggregation plane, which is not ported."""
+
+    shm: bool = True
+    objstore: bool = False
+    collective: bool = False
+    collective_replica: int = 1
+    collective_quantization: str = "off"
+    collective_q8_block: int = 0
+    collective_device_optimizer: bool = False
+    collective_zero1: bool = True
+    collective_stage_timeout_s: float = 0.0
+    collective_quorum: float = 0.5
+    collective_retry_budget: int = 1
+
+
+@dataclass
+class CompressionConfig:
+    """The uplink wire codec (same fields as the JAX package); only
+    ``policy: off`` runs here."""
+
+    policy: str = "off"
+    topk_ratio: float = 0.125
+    q8_block_size: int = 256
+    error_feedback: bool = True
+    ef_max_clients: int = 16
+
+
+@dataclass
+class MembershipConfig:
+    """Node liveness between rounds (same fields as the JAX package);
+    ``enabled`` gates the ping sweep only."""
+
+    enabled: bool = True
+    ping_interval_rounds: int = 1
+    ping_timeout_s: float = 5.0
+    suspect_after_misses: int = 1
+    dead_after_misses: int = 2
+    reconnect_backoff_base_s: float = 0.5
+    reconnect_backoff_max_s: float = 30.0
+    reconnect_backoff_jitter: float = 0.25
+    reconnect_max_attempts: int = 60
+
+
+@dataclass
+class FLConfig:
+    """Federation hyperparameters (same fields as the JAX package)."""
+
+    n_total_clients: int = 8
+    n_clients_per_round: int = 8
+    n_rounds: int = 320
+    local_steps: int = 128
+    strategy_name: str = "nesterov"
+    server_learning_rate: float = 1.0
+    server_momentum: float = 0.0
+    server_beta_1: float = 0.9
+    server_beta_2: float = 0.99
+    server_tau: float = 1.0e-9
+    client_count_scaling: str = "none"  # none | linear | sqrt
+    aggregate_momenta: bool = False
+    accept_failures_cnt: int = 0
+    ignore_failed_rounds: bool = False
+    eval_interval_rounds: int = 0
+    sample_seed: int = 1234
+    fit_timeout_s: float = 3600.0
+    eval_timeout_s: float = 3600.0
+    fit_config: dict = field(default_factory=dict)  # FitRoundConfig knobs
+    eval_config: dict = field(default_factory=dict)  # EvaluateRoundConfig knobs
+
+
 @dataclass
 class PhotonConfig:
-    serve: ServeConfig = field(default_factory=ServeConfig)
-    save_path: str = "/tmp/photon_tpu"
-    adapters_enabled: bool = False
-    checkpoint: bool = True
-    keep_checkpoints: int = 3
+    """Node/process topology (same fields as the JAX package)."""
+
+    n_nodes: int = 1
+    refresh_period: int = 0  # rebuild node runtimes every N rounds; 0 = never
+    host_threads: int = 0  # host-plane pool: 0 = auto, 1 = serial
     mesh_autotune: bool = False
+    checkpoint: bool = True
+    checkpoint_interval: int = 1
+    async_checkpoint: bool = True
+    keep_checkpoints: int = 3
+    resume_round: int | None = None  # negative = index from the latest valid round
+    restore_run_uuid: str | None = None
+    init_from_run: str | None = None
+    comm_stack: CommStackConfig = field(default_factory=CommStackConfig)
+    compression: CompressionConfig = field(default_factory=CompressionConfig)
+    membership: MembershipConfig = field(default_factory=MembershipConfig)
+    chaos: dict = field(default_factory=dict)  # raw: refused when enabled
+    async_rounds: dict = field(default_factory=dict)  # raw: refused when enabled
+    telemetry: dict = field(default_factory=dict)  # raw: refused when enabled
+    serve: ServeConfig = field(default_factory=ServeConfig)
+    adapters: dict = field(default_factory=dict)  # raw: refused when enabled
+    save_path: str = "/tmp/photon_tpu"
+
+    @property
+    def adapters_enabled(self) -> bool:
+        return bool(self.adapters.get("enabled", False))
 
 
 @dataclass
@@ -200,8 +305,9 @@ class Config:
     run_uuid: str = "dev"
     seed: int = 17
     wandb_project: str | None = None
-    model: ModelConfig = field(default_factory=ModelConfig)
     photon: PhotonConfig = field(default_factory=PhotonConfig)
+    fl: FLConfig = field(default_factory=FLConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
@@ -211,50 +317,25 @@ class Config:
     # -- (de)serialization ----------------------------------------------
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "Config":
-        """Read the sections this package uses from a (JAX-written)
-        resolved config dict; other sections are ignored."""
-        d = d or {}
-        ph = d.get("photon") or {}
-        base = PhotonConfig()
-        return cls(
-            run_uuid=str(d.get("run_uuid", "dev")),
-            seed=int(d.get("seed", 17)),
-            wandb_project=d.get("wandb_project"),
-            model=_build(ModelConfig, d.get("model") or {}),
-            photon=PhotonConfig(
-                serve=_build(ServeConfig, ph.get("serve") or {}),
-                save_path=str(ph.get("save_path", base.save_path)),
-                adapters_enabled=bool((ph.get("adapters") or {}).get("enabled", False)),
-                checkpoint=bool(ph.get("checkpoint", base.checkpoint)),
-                keep_checkpoints=int(ph.get("keep_checkpoints", base.keep_checkpoints)),
-                mesh_autotune=bool(ph.get("mesh_autotune", base.mesh_autotune)),
-            ),
-            **{name: _build(sec, d.get(name) or {}) for name, sec in _SECTIONS.items()},
-        )
+        """Build from a resolved config dict (either package writes one);
+        an unknown key raises."""
+        return _build(cls, d or {})
 
     @classmethod
     def from_yaml(cls, path: str | pathlib.Path) -> "Config":
         return cls.from_dict(yaml.safe_load(pathlib.Path(path).read_text()) or {})
 
+    @classmethod
+    def from_json(cls, s: str) -> "Config":
+        return cls.from_dict(json.loads(s))
+
     def to_dict(self) -> dict[str, Any]:
         """The same nesting as the JAX package's resolved config, so either
         package can read the file back."""
-        ph = self.photon
-        return {
-            "run_uuid": self.run_uuid,
-            "seed": self.seed,
-            "wandb_project": self.wandb_project,
-            "model": _plain(dataclasses.asdict(self.model)),
-            "photon": {
-                "serve": _plain(dataclasses.asdict(ph.serve)),
-                "save_path": ph.save_path,
-                "adapters": {"enabled": ph.adapters_enabled},
-                "checkpoint": ph.checkpoint,
-                "keep_checkpoints": ph.keep_checkpoints,
-                "mesh_autotune": ph.mesh_autotune,
-            },
-            **{name: _plain(dataclasses.asdict(getattr(self, name))) for name in _SECTIONS},
-        }
+        return _plain(dataclasses.asdict(self))
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict())
 
     def to_yaml(self, path: str | pathlib.Path) -> None:
         p = pathlib.Path(path)
@@ -363,6 +444,40 @@ class Config:
             raise ValueError(f"unknown optimizer {self.optimizer.name!r}")
         if self.scheduler.name != "cosine_with_warmup":
             raise ValueError(f"unknown scheduler {self.scheduler.name!r}")
+        self._validate_federation()
+
+    def _validate_federation(self) -> None:
+        fl, ph = self.fl, self.photon
+        if fl.n_clients_per_round > fl.n_total_clients:
+            raise ValueError("n_clients_per_round > n_total_clients")
+        if fl.strategy_name not in STRATEGY_NAMES:
+            raise ValueError(f"unknown fl.strategy_name {fl.strategy_name!r}")
+        if fl.client_count_scaling not in ("none", "linear", "sqrt"):
+            raise ValueError(f"bad client_count_scaling {fl.client_count_scaling}")
+        if ph.host_threads < 0:
+            raise ValueError(f"photon.host_threads must be >= 0 (0 = auto), got {ph.host_threads}")
+        if ph.compression.policy not in COMPRESSION_POLICIES:
+            raise ValueError(f"unknown compression.policy {ph.compression.policy!r}")
+        mem = ph.membership
+        if mem.ping_interval_rounds < 0 or mem.ping_timeout_s < 0:
+            raise ValueError("membership ping knobs must be >= 0")
+        if mem.suspect_after_misses < 1 or mem.dead_after_misses < mem.suspect_after_misses:
+            raise ValueError(
+                "membership needs 1 <= suspect_after_misses <= dead_after_misses, got "
+                f"{mem.suspect_after_misses}/{mem.dead_after_misses}"
+            )
+        for what, on in (
+            ("photon.comm_stack.collective", ph.comm_stack.collective),
+            ("photon.compression (policy != 'off')", ph.compression.policy != "off"),
+            ("photon.chaos", bool(ph.chaos.get("enabled", False))),
+            ("photon.telemetry", bool(ph.telemetry.get("enabled", False))),
+            ("photon.async_rounds", bool(ph.async_rounds.get("enabled", False))),
+        ):
+            if on:
+                raise NotImplementedError(
+                    f"{what} is not ported to photon_tpu_torch yet; turn it off "
+                    "or run with photon_tpu"
+                )
 
 
 def _check_ragged_device(device: Any) -> None:
@@ -384,16 +499,18 @@ def _check_ragged_device(device: Any) -> None:
         )
 
 
-def _plain(d: dict) -> dict:
-    """Tuples → lists, so ``yaml.safe_dump`` can write the dict."""
-    return {k: list(v) if isinstance(v, tuple) else v for k, v in d.items()}
-
-
-_SECTIONS = {"optimizer": OptimizerConfig, "scheduler": SchedulerConfig, "mesh": MeshConfig,
-             "train": TrainConfig, "dataset": DatasetConfig}
+def _plain(x: Any) -> Any:
+    """Tuples → lists, recursively, so ``yaml.safe_dump`` can write it."""
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    return x
 
 
 def _build(cls: type, d: dict[str, Any]) -> Any:
+    """A dataclass from a (possibly partial) dict, nested sections
+    included; an unknown key raises, as in the JAX package."""
     hints = typing.get_type_hints(cls)
     names = {f.name for f in dataclasses.fields(cls)}
     kwargs: dict[str, Any] = {}
@@ -401,7 +518,9 @@ def _build(cls: type, d: dict[str, Any]) -> Any:
         if name not in names:
             raise ValueError(f"unknown config key {cls.__name__}.{name}")
         hint = hints.get(name)
-        if (hint is tuple or typing.get_origin(hint) is tuple) and isinstance(value, list):
+        if dataclasses.is_dataclass(hint) and isinstance(value, dict):
+            value = _build(hint, value)
+        elif (hint is tuple or typing.get_origin(hint) is tuple) and isinstance(value, list):
             value = tuple(value)
         kwargs[name] = value
     return cls(**kwargs)

@@ -26,6 +26,7 @@ from photon_tpu_torch.codec.params import (
     flatten,
     params_from_ndarrays,
     params_to_ndarrays,
+    to_numpy,
 )
 from photon_tpu_torch.config.schema import Config
 from photon_tpu_torch.device import resolve_device
@@ -179,7 +180,8 @@ class Trainer:
         return self.state.step
 
     def get_parameters(self) -> tuple[ParamsMetadata, list[np.ndarray]]:
-        """The parameters as the canonical flat list (sorted names)."""
+        """The parameters as the canonical flat list (sorted names), as
+        fresh host arrays that later steps do not overwrite."""
         return params_to_ndarrays(_tree_map(torch.Tensor.detach, self.state.params))
 
     def set_parameters(self, metadata: ParamsMetadata, arrays: list[np.ndarray]) -> None:
@@ -192,9 +194,10 @@ class Trainer:
         self._last_set_time = time.monotonic() - t0
 
     def get_opt_state_arrays(self) -> tuple[ParamsMetadata, list[np.ndarray]]:
-        """The optimizer state as (metadata, arrays) under optax's names."""
+        """The optimizer state as (metadata, arrays) under optax's names;
+        fresh host arrays, as :meth:`get_parameters` returns."""
         names = sorted(self.state.opt_state)
-        arrays = [self.state.opt_state[n].detach().cpu().numpy() for n in names]
+        arrays = [to_numpy(self.state.opt_state[n]) for n in names]
         return ParamsMetadata.from_ndarrays(names, arrays), arrays
 
     def set_opt_state_arrays(self, metadata: ParamsMetadata, arrays: list[np.ndarray]) -> None:
@@ -209,14 +212,14 @@ class Trainer:
                     old.shape).to(old.device)
 
     def get_momenta(self) -> tuple[list[np.ndarray], list[np.ndarray]]:
-        """First and second moments in codec (sorted-name) order; frozen
-        parameters report zeros."""
+        """First and second moments in codec (sorted-name) order, as fresh
+        host arrays; frozen parameters report zeros."""
         m1, m2 = [], []
         for name, p in flatten(self.state.params).items():
             for out, key in zip((m1, m2), self.tx.moment_names(name)):
                 t = self.state.opt_state.get(key)
                 out.append(np.zeros(tuple(p.shape), np.float32) if t is None
-                           else t.detach().cpu().numpy())
+                           else to_numpy(t))
         return m1, m2
 
     def set_momenta(self, m1: list[np.ndarray], m2: list[np.ndarray]) -> None:

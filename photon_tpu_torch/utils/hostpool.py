@@ -1,0 +1,119 @@
+"""Shared bounded host thread pool for the server's parameter plane (the
+port of ``photon_tpu/utils/hostpool.py``, unchanged).
+
+The server's host-side round work (the per-array aggregation fold and the
+fetch of the next client's payload) is large-ufunc numpy, which releases
+the GIL, so one small shared pool (``photon.host_threads``) buys real
+parallelism without processes or extra copies.
+
+- ``threads == 1`` is the degenerate config: every ``submit``/``map`` runs
+  inline on the caller's thread and no thread is created. Results are
+  bit-identical across settings; only wall-clock moves.
+- ``threads <= 0`` auto-sizes to ``min(os.cpu_count() - 1, 8)``: the
+  caller's thread is itself a pipeline stage.
+- At most ONE pool task may block on other tasks of the same pool (the
+  aggregation's single lookahead worker); with ``threads >= 2`` that
+  leaves ``threads - 1`` workers to make progress.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import os
+import threading
+from typing import Any, Callable, Iterable, Sequence
+
+#: auto-size ceiling: past this, large-ufunc numpy stops scaling and the
+#: pool starts stealing cores from co-located client processes
+AUTO_THREADS_CAP = 8
+
+
+def resolve_host_threads(requested: int = 0, cap: int = AUTO_THREADS_CAP) -> int:
+    """``photon.host_threads`` → actual worker count: positive values are
+    taken literally, ``0`` (the default) auto-sizes to
+    ``min(cpu_count - 1, cap)``.
+
+    The ``- 1`` is not politeness: the caller's thread is itself a pipeline
+    stage (it folds client k while the pool decodes k+1), so the pool must
+    leave it a core. On a <=2-core host that resolves to 1 — fully serial —
+    which measurement shows is correct there: task-dispatch overhead eats
+    the sliver of overlap two cores could buy."""
+    if requested > 0:
+        return requested
+    return max(1, min((os.cpu_count() or 1) - 1, cap))
+
+
+class _InlineFuture:
+    """Completed-at-construction future for the threads==1 inline path."""
+
+    __slots__ = ("_value", "_error")
+
+    def __init__(self, fn: Callable[..., Any], args: tuple, kwargs: dict) -> None:
+        self._error: BaseException | None = None
+        self._value: Any = None
+        try:
+            self._value = fn(*args, **kwargs)
+        except BaseException as e:  # noqa: BLE001 — re-raised at result()
+            self._error = e
+
+    def result(self, timeout: float | None = None) -> Any:
+        if self._error is not None:
+            raise self._error
+        return self._value
+
+    def cancel(self) -> bool:
+        return False
+
+    def done(self) -> bool:
+        return True
+
+
+class HostPool:
+    """Bounded thread pool with an inline degenerate mode.
+
+    The executor is created lazily (a pool that is never exercised costs
+    nothing) and :meth:`close` is idempotent + reusable — the next
+    ``submit`` after a close simply rebuilds the executor.
+    """
+
+    def __init__(self, threads: int = 0) -> None:
+        self.threads = resolve_host_threads(threads)
+        self._ex: concurrent.futures.ThreadPoolExecutor | None = None
+        self._lock = threading.Lock()
+
+    @property
+    def pipelined(self) -> bool:
+        """Whether this pool actually runs work concurrently."""
+        return self.threads > 1
+
+    def _executor(self) -> concurrent.futures.ThreadPoolExecutor:
+        with self._lock:
+            if self._ex is None:
+                self._ex = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=self.threads, thread_name_prefix="photon-host"
+                )
+            return self._ex
+
+    # ------------------------------------------------------------------
+    def submit(self, fn: Callable[..., Any], *args: Any, **kwargs: Any):
+        """Schedule ``fn`` — inline (already done) when ``threads == 1``."""
+        if self.threads <= 1:
+            return _InlineFuture(fn, args, kwargs)
+        return self._executor().submit(fn, *args, **kwargs)
+
+    def map(self, fn: Callable[[Any], Any], items: Iterable[Any]) -> list[Any]:
+        """Ordered results; inline when serial or when there is nothing to
+        overlap (a single item round-trips through the queue for no win)."""
+        seq: Sequence[Any] = items if isinstance(items, Sequence) else list(items)
+        if self.threads <= 1 or len(seq) <= 1:
+            return [fn(x) for x in seq]
+        return list(self._executor().map(fn, seq))
+
+    def close(self) -> None:
+        with self._lock:
+            ex, self._ex = self._ex, None
+        if ex is not None:
+            ex.shutdown(wait=False)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"HostPool(threads={self.threads}, live={self._ex is not None})"

@@ -394,8 +394,8 @@ def test_port_checkpoint_roundtrip_and_crc(tmp_path):
     store = FileStore(tmp_path)
     mgr = ServerCheckpointManager(store, "r")
     meta, arrays = params_to_ndarrays(init_params(pcfg.model, seed=1))
-    mgr.save_round_params(1, meta, arrays)
-    mgr.save_round_params(2, meta, arrays)
+    mgr.save_round(1, meta, arrays)
+    mgr.save_round(2, meta, arrays)
     m2, a2 = mgr.load_round_params(2)
     assert m2 == meta and all(np.array_equal(x, y) for x, y in zip(arrays, a2))
     # a bit-flipped newest round is skipped for the previous good one
@@ -486,7 +486,8 @@ def test_port_imports_no_jax_or_reference_package():
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, photon_tpu_torch.serve.engine, photon_tpu_torch.serve.frontend, "
             "photon_tpu_torch.serve.__main__, photon_tpu_torch.centralized, "
-            "photon_tpu_torch.train.trainer, photon_tpu_torch.ops.flash_attention; "
+            "photon_tpu_torch.train.trainer, photon_tpu_torch.ops.flash_attention, "
+            "photon_tpu_torch.federated; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'photon_tpu')))")
     out = subprocess.run([sys.executable, "-S", "-c", code], cwd=ROOT, capture_output=True,
