@@ -68,7 +68,25 @@ Phases (any failure exits non-zero):
 
 Between 6 and 7, a ``torch.profiler`` window over steady decode steps
 reports the step's wall time, the device's busy time by kernel and its
-idle share (1 - busy / the unprofiled step's wall time).
+idle share (1 - busy / the unprofiled step's wall time). Then:
+
+8. decode: contiguous KV-cache decode (``models/decode.py``: ``prefill``
+   with K1, ``decode_step``, ``generate``) against the ragged engine on
+   the same weights, 8 prompts of 1–1500 tokens × 32 greedy steps on one
+   token stream: per-row logits within the engine gate every step,
+   greedy tokens equal wherever the margin is clear, ``generate`` equal
+   to the engine up to each row's first unclear step; a planted fault
+   (the cache written one past the cursor) must break the gate; the
+   contiguous decode's tokens/s;
+9. eval (after 7, before the federated phase's directory goes):
+   ``python -m photon_tpu_torch.data.convert`` over the repo's markdown
+   (byte-fallback, 2 clients, seq 2048), then ``python -m
+   photon_tpu_torch.eval`` (each CLI's ``main`` in process, the eval
+   under ``torch.profiler``) on the federated round with ``--dataset`` on
+   that set and the v0.3 gauntlet at ``EVAL_MAX_ROWS`` rows a task: a
+   finite val loss, every score in [0, 1], and K1 launched ``n_layers``
+   times a forward pass. Phase 2 also holds K1 alone at the eval forward's shape
+   (B=16, S=512) to its plain version.
 
 The second-last line of stdout is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -79,7 +97,9 @@ also go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import http.client
+import io
 import json
 import math
 import pathlib
@@ -390,21 +410,24 @@ def _flash_work(b, s_q, s_k, h, n_kv, d, causal, elem):
 
 
 def flash_kernel_phase(torch, fa, alibi_slopes, np):
-    """K1–K3 against their plain versions at the training step's shapes;
-    returns the per-case records and the main-path entry of each kernel."""
+    """K1–K3 against their plain versions at the training step's shapes,
+    and K1 alone at the eval forward's; returns the per-case records, the
+    training path's entry of each kernel and the eval path's K1 entry."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     flush = torch.empty(256 * 2**20 // 4, dtype=torch.float32, device=dev)
     cases = [
-        # name, B, S, H, H_kv, D, alibi, main path
-        ("mpt125m_train", 16, 2048, 12, 12, 64, False, True),
-        ("llama1b_train", 4, 2048, 16, 4, 128, False, False),
-        ("mpt125m_alibi", 4, 1024, 12, 12, 64, True, False),
-        ("ragged_s1000", 2, 1000, 12, 12, 64, False, False),
+        # name, B, S, H, H_kv, D, alibi, the path whose shape it is
+        ("mpt125m_train", 16, 2048, 12, 12, 64, False, "train"),
+        ("mpt125m_eval", 16, 512, 12, 12, 64, False, "eval"),  # forward only
+        ("llama1b_train", 4, 2048, 16, 4, 128, False, None),
+        ("mpt125m_alibi", 4, 1024, 12, 12, 64, True, None),
+        ("ragged_s1000", 2, 1000, 12, 12, 64, False, None),
     ]
-    records, main = [], {}
+    records, main, main_eval = [], {}, {}
     for name, b, s, h, n_kv, d, alibi, on_path in cases:
+        fwd_only = on_path == "eval"
         slopes = alibi_slopes(h, dev) if alibi else None
         kw = dict(causal=True, slopes=slopes)
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -421,19 +444,18 @@ def flash_kernel_phase(torch, fa, alibi_slopes, np):
             o, lse = fa.flash_fwd(q, k, v, **kw)
             torch.cuda.synchronize()
             o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, **kw)
-            delta = fa.attention_delta(o_ref, do)
-            dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
-            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw)
-            torch.cuda.synchronize()
-            dq_ref = fa.flash_bwd_dq_reference(q, k, v, do, lse_ref, delta, **kw)
-            dk_ref, dv_ref = fa.flash_bwd_dkv_reference(q, k, v, do, lse_ref, delta, **kw)
-            errs = {
-                "flash_fwd": [(o, o_ref), (lse, lse_ref)],
-                "flash_bwd_dq": [(dq, dq_ref)],
-                "flash_bwd_dkv": [(dk, dk_ref), (dv, dv_ref)],
-            }
+            errs = {"flash_fwd": [(o, o_ref), (lse, lse_ref)]}
+            delta = dq = dk = dv = dq_ref = dk_ref = dv_ref = None
+            if not fwd_only:
+                delta = fa.attention_delta(o_ref, do)
+                dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
+                dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw)
+                torch.cuda.synchronize()
+                dq_ref = fa.flash_bwd_dq_reference(q, k, v, do, lse_ref, delta, **kw)
+                dk_ref, dv_ref = fa.flash_bwd_dkv_reference(q, k, v, do, lse_ref, delta, **kw)
+                errs.update(flash_bwd_dq=[(dq, dq_ref)], flash_bwd_dkv=[(dk, dk_ref), (dv, dv_ref)])
             rec = {"case": name, "dtype": dname, "B": b, "S": s, "H": h, "H_kv": n_kv, "D": d,
-                   "alibi": alibi, "causal": True}
+                   "alibi": alibi, "causal": True, "forward_only": fwd_only}
             for kname, pairs in errs.items():
                 gate = (FLASH_FWD_GATE if kname == "flash_fwd" else FLASH_BWD_GATE)[dname]
                 rel = max(_rel_l2(x.float(), r.float()) for x, r in pairs)
@@ -443,7 +465,27 @@ def flash_kernel_phase(torch, fa, alibi_slopes, np):
                     fail(f"{kname} {name} {dname}: rel L2 {rel:.3e} > {gate}")
                 rec[kname] = {"rel_l2": rel, "max_abs_err": max_abs, "gate": gate}
             del errs, o_ref, lse_ref, dq_ref, dk_ref, dv_ref
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and fwd_only:
+                qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+                work = _flash_work(b, s, s, h, n_kv, d, True, q.element_size())
+                nbytes, flops = work["flash_fwd"]
+                t_b = nbytes / HBM_BYTES_PER_S * 1e3
+                t_o = flops / PEAK_FLOPS[dname] * 1e3
+                rec["flash_fwd"].update(
+                    kernel_ms=_time_ms(torch, lambda: fa.flash_fwd(q, k, v, **kw), flush),
+                    plain_ms=_time_ms(torch, lambda: fa.flash_fwd_reference(q, k, v, **kw), flush),
+                    library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, is_causal=True), flush),
+                    bytes=nbytes, flops=flops, bound_ms=max(t_b, t_o),
+                    bound_by="bytes" if t_b >= t_o else "operations")
+                r = rec["flash_fwd"]
+                main_eval.update(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                                 library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+                                 bound_by=r["bound_by"], max_abs_err=r["max_abs_err"],
+                                 shape=f"{name}: B={b} S={s} H={h}/{n_kv} D={d} causal bf16, "
+                                       "forward only")
+                del qs, ks, vs
+            elif dtype == torch.bfloat16:
                 delta = fa.attention_delta(o, do)
                 for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
                     first, again = (getattr(fa, kname)(q, k, v, do, lse, delta, **kw)
@@ -494,7 +536,7 @@ def flash_kernel_phase(torch, fa, alibi_slopes, np):
                         library_ms={"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd}.get(kname),
                         bytes=nbytes, flops=flops, bound_ms=max(t_b, t_o),
                         bound_by="bytes" if t_b >= t_o else "operations")
-                    if on_path:
+                    if on_path == "train":
                         r = rec[kname]
                         main[kname] = {
                             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
@@ -514,7 +556,7 @@ def flash_kernel_phase(torch, fa, alibi_slopes, np):
             torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
-    return records, main
+    return records, main, main_eval
 
 
 # ---------------------------------------------------------------------------
@@ -1378,6 +1420,337 @@ def server_phase(torch, np, cfg, n_layers, fed):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: contiguous decode against the paged engine
+# ---------------------------------------------------------------------------
+
+#: greedy steps and prompt lengths of the decode phase (8 rows, one a slot)
+DECODE_STEPS = 32
+DECODE_PROMPTS = (1, 4, 16, 100, 400, 800, 1100, 1500)
+
+
+def _cache_write_one_past(decode):
+    """A planted fault, patched in from outside the package: the decode
+    step writes each token's k/v one position past its cursor (so the
+    token never sees its own key and the next one reads it as its own)."""
+    sound = decode._write_cache
+
+    def faulty(cache, rows, pos, new):
+        sound(cache, rows, (pos + 1).clamp(max=cache.shape[1] - 1), new)
+
+    return sound, faulty
+
+
+def _row_rel_l2(a, b) -> float:
+    """The largest relative L2 over the rows of ``[B, V]`` logits."""
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-12)).max())
+
+
+def _contiguous_stream(torch, decode, cp, mc, tokens, lengths, stream):
+    """Prefill, then decode the engine's token ``stream`` (one column a
+    step) through the contiguous cache; the logits of every step."""
+    with torch.inference_mode():
+        logits, st = decode.prefill(cp, tokens, lengths, mc)
+        out = [logits.float()]
+        for nxt in stream[:-1]:
+            logits, st = decode.decode_step(cp, st, nxt, mc)
+            out.append(logits.float())
+    return out
+
+
+def decode_phase(torch, np, fa, params, cfg):
+    """Contiguous KV-cache decode (``models/decode.py``) against a
+    ``PagedEngine`` with ``attention_impl="ragged"`` (K4) on full-width
+    mpt-125m: 8 prompts of 16–1500 tokens, ``DECODE_STEPS`` greedy steps.
+    Both run on one token stream, the engine's; per step the logits agree
+    within ``ENGINE_LOGIT_GATE`` and the greedy tokens wherever the
+    engine's top-2 margin is clear. ``generate`` then decodes the same
+    prompts on its own: its tokens equal the engine's in every row up to
+    the row's first step without a clear margin. A planted fault (the
+    cache written one position past the cursor) must break the logit
+    gate. Contiguous decode tokens/s: 8 rows × 31 steps over ``many(32)``
+    less ``many(1)``."""
+    import copy
+
+    from photon_tpu_torch.models import decode
+    from photon_tpu_torch.serve.engine import PagedEngine
+
+    mc = cfg.model
+    cfg_r = copy.deepcopy(cfg)
+    cfg_r.photon.serve.attention_impl = "ragged"
+    eng = PagedEngine(cfg_r, params, device="cuda")
+    rng = np.random.default_rng(3)
+    prompts = [list(map(int, rng.integers(0, mc.vocab_size, n))) for n in DECODE_PROMPTS]
+    b, s = len(prompts), eng.s_cap
+    tokens_np = np.zeros((b, s), np.int32)
+    for i, p in enumerate(prompts):
+        tokens_np[i, :len(p)] = p
+    tokens = torch.from_numpy(tokens_np).cuda()
+    lengths = torch.tensor(DECODE_PROMPTS, dtype=torch.int32, device="cuda")
+
+    first, rows0 = [], []
+    for i, p in enumerate(prompts):  # each admission emits its slot's first token
+        first.append(eng.admit(i, p, DECODE_STEPS + 1))
+        rows0.append(eng.last_logits[i].float())
+    eng_logits = [torch.stack(rows0)]
+    stream = [torch.tensor(first, dtype=torch.int32, device="cuda")]
+    for _ in range(1, DECODE_STEPS):
+        nxt = eng.step()
+        eng_logits.append(eng.last_logits.float().clone())
+        stream.append(torch.from_numpy(nxt.astype(np.int32)).cuda())
+    for i in range(b):
+        eng.evict(i)
+    eng_tokens = torch.stack(stream, dim=1)  # [B, steps]
+
+    cp = decode.compute_params(params, mc, torch.device("cuda"))
+    k1_before = fa.launches["flash_fwd"]
+    sound_logits = _contiguous_stream(torch, decode, cp, mc, tokens, lengths, stream)
+    k1_prefill = fa.launches["flash_fwd"] - k1_before
+    rels, clear = [], torch.ones(b, DECODE_STEPS, dtype=torch.bool, device="cuda")
+    for step, (lc, le) in enumerate(zip(sound_logits, eng_logits)):
+        if not (torch.isfinite(lc).all() and lc.shape == (b, mc.vocab_size)):
+            fail(f"decode step {step}: contiguous logits not finite or of shape {tuple(lc.shape)}")
+        rel = _row_rel_l2(lc, le)
+        rels.append(rel)
+        if rel > ENGINE_LOGIT_GATE:
+            fail(f"decode step {step}: contiguous vs paged logits rel L2 {rel:.3e}")
+        top2 = le.topk(2, dim=-1).values
+        clear[:, step] = (top2[:, 0] - top2[:, 1]) > 2 * float((lc - le).abs().max())
+        if (clear[:, step] & (lc.argmax(-1) != le.argmax(-1))).any():
+            fail(f"decode step {step}: greedy tokens differ where the top-2 margin is clear")
+
+    gen_tokens, gen_len = decode.generate(params, tokens, lengths, mc, DECODE_STEPS)
+    generated = torch.stack([gen_tokens[i, DECODE_PROMPTS[i]:DECODE_PROMPTS[i] + DECODE_STEPS]
+                             for i in range(b)]).to(eng_tokens.dtype)
+    unclear = (~clear).float()
+    held = torch.where(unclear.any(1), unclear.argmax(1),
+                       torch.full_like(unclear[:, 0], DECODE_STEPS).long())
+    for i in range(b):
+        n = int(held[i])
+        if not torch.equal(generated[i, :n], eng_tokens[i, :n]):
+            fail(f"decode row {i}: generate's tokens differ from the engine's in the first "
+                 f"{n} steps, where every margin is clear")
+    if gen_len.tolist() != [n + DECODE_STEPS for n in DECODE_PROMPTS]:
+        fail(f"generate returned lengths {gen_len.tolist()}")
+
+    sound_write, faulty_write = _cache_write_one_past(decode)
+    decode._write_cache = faulty_write
+    try:
+        fault_logits = _contiguous_stream(torch, decode, cp, mc, tokens, lengths, stream)
+    finally:
+        decode._write_cache = sound_write
+    fault_rels = [_row_rel_l2(lf, le) for lf, le in zip(fault_logits, eng_logits)]
+    if max(fault_rels) <= ENGINE_LOGIT_GATE:
+        fail(f"the logit gate {ENGINE_LOGIT_GATE} misses a cache written one past the "
+             f"cursor (largest reading {max(fault_rels):.3e})")
+
+    fn = decode.make_cached_generate_fn(mc, params)
+    times = {}
+    for n in (1, DECODE_STEPS):
+        fn.many(tokens, lengths, n)  # warm
+        reps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn.many(tokens, lengths, n)
+            torch.cuda.synchronize()
+            reps.append(time.perf_counter() - t0)
+        times[n] = statistics.median(reps)
+    step_s = (times[DECODE_STEPS] - times[1]) / (DECODE_STEPS - 1)
+    rec = {"rows": b, "prompt_lengths": list(DECODE_PROMPTS), "steps": DECODE_STEPS,
+           "cache_width": s, "worst_logit_rel_l2": max(rels), "logit_gate": ENGINE_LOGIT_GATE,
+           "logit_rel_l2_by_step": rels,
+           "tokens_held_equal_clear_margin": int(clear.sum()),
+           "rows_generate_equal_engine_all_steps": int(sum(
+               torch.equal(generated[i], eng_tokens[i]) for i in range(b))),
+           "planted_fault_rel_l2_max": max(fault_rels),
+           "planted_fault_steps_over_gate": sum(r > ENGINE_LOGIT_GATE for r in fault_rels),
+           "planted_fault_rel_l2_by_step": fault_rels,
+           "k1_launches_one_prefill": k1_prefill,
+           "many_1_s": times[1], f"many_{DECODE_STEPS}_s": times[DECODE_STEPS],
+           "decode_step_s": step_s, "decode_tokens_per_s": b / step_s if step_s > 0 else None}
+    log("decode_phase " + json.dumps(rec))
+    log(f"contiguous decode: {rec['decode_tokens_per_s']:.1f} tokens/s "
+        f"({b} rows, {step_s * 1e3:.2f} ms a step)")
+    del eng, fn, cp, sound_logits, fault_logits, eng_logits
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 9: converting a corpus and evaluating a checkpoint
+# ---------------------------------------------------------------------------
+
+#: the eval phase's cut of the v0.3 gauntlet: rows a task, and val batches
+EVAL_MAX_ROWS = 16
+EVAL_BATCHES = 2
+
+
+def _timed(times: dict, name: str, torch, fn):
+    """``fn``, adding the seconds of each call (the device synchronized
+    after it) to ``times[name]``; patched in from outside the package."""
+    def wrapped(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t
+
+    return wrapped
+
+
+def _run_cli(main_fn, args: list[str]):
+    """A CLI's ``main`` in process: (what it returns, the last line it
+    printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = main_fn(args)
+    return ret, buf.getvalue().strip().splitlines()[-1]
+
+
+def _eval_forwards(args: list[str]) -> dict:
+    """The eval's forward passes, counted from the suite itself: one a
+    val batch; one per 16 (row, option) items of a multiple-choice or
+    schema task and per 16 rows of a language-modeling task; one prefill
+    per 16 rows of a generation task (the decode steps run no K1)."""
+    from photon_tpu_torch.eval.gauntlet import GauntletConfig, TaskSuite
+
+    opt = dict(zip(args[::2], args[1::2]))
+    suite = TaskSuite.from_yaml(opt["--tasks-yaml"], root_dir=opt["--tasks-root"])
+    tasks, _ = suite.load_tasks(GauntletConfig.from_yaml(opt["--gauntlet-yaml"]).labels_fewshot())
+    rows_cap = int(opt["--icl-max-rows"])
+    scored = generated = 0
+    for t in tasks:
+        rows = t.rows[:rows_cap]
+        if t.kind == "multiple_choice":
+            n = sum(len(r["choices"]) for r in rows)
+        elif t.kind == "schema":
+            n = sum(len(r["context_options"]) for r in rows)
+        else:
+            n = len(rows)
+        if t.kind == "generation_task_with_answers":
+            generated += -(-n // 16)
+        else:
+            scored += -(-n // 16)
+    return {"val": int(opt["--eval-batches"]), "scored": scored, "generation_prefills": generated,
+            "tasks": len(tasks)}
+
+
+def eval_phase(torch, cfg, fed):
+    """The offline data pipeline and the eval CLI at full width, each
+    through its CLI's ``main`` in process (as a user's ``python -m``
+    would run it, less the process start):
+
+    (a) ``photon_tpu_torch.data.convert`` over the repo's own markdown
+        files (byte-fallback, ``--split val``, 2 clients, seq 2048, the
+        freq dicts counted on the card): each client must hold at least
+        one global batch;
+    (b) ``photon_tpu_torch.eval`` on the federated phase's latest round,
+        with ``--dataset`` on that set (``EVAL_BATCHES`` global batches)
+        and the v0.3 gauntlet from the port's YAMLs over the committed
+        task data, ``EVAL_MAX_ROWS`` rows a task, the launch counts set to
+        0 just before it and under ``torch.profiler``: a finite val loss,
+        every accuracy and gauntlet score in [0, 1], and K1 launched
+        ``n_layers`` times per forward pass of the eval, by the counters
+        and by the profiler. The checkpoint load, the ``Trainer``, the val
+        loss and the gauntlet are timed (wrappers patched in from
+        outside the package)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_tpu_torch.data import ShardedDataset, convert
+    from photon_tpu_torch.eval import __main__ as eval_cli
+    from photon_tpu_torch.eval import gauntlet
+    from photon_tpu_torch.ops import flash_attention as fa
+    from photon_tpu_torch.train.trainer import Trainer
+
+    work = ROOT / ".chip_smoke" / "eval"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    L = cfg.model.n_layers
+    t0 = time.perf_counter()
+    texts = sorted(str(p) for p in ROOT.glob("*.md"))
+    summary, line = _run_cli(convert.main, [
+        "--text-files", *texts, "--tokenizer", "byte-fallback", "--out", str(work / "data"),
+        "--n-clients", "2", "--seq-len", str(cfg.model.max_seq_len), "--split", "val"])
+    convert_s = time.perf_counter() - t0
+    if json.loads(line) != summary:
+        fail(f"convert printed {line}, returned {summary}")
+    sizes = [len(ShardedDataset(work / "data" / f"client_{i}" / "val")) for i in range(2)]
+    if min(sizes) < cfg.train.global_batch_size:
+        fail(f"converted clients hold {sizes} samples, under one global batch "
+             f"({cfg.train.global_batch_size})")
+
+    cfg_path = work / "eval.yaml"
+    cfg.to_yaml(cfg_path)
+    configs = ROOT / "photon_tpu_torch" / "eval" / "configs"
+    args = ["--store", fed["store"], "--run", fed["run_uuid"], "--round", "-1",
+            "--config", str(cfg_path), "--dataset", str(work / "data"), "--split", "val",
+            "--eval-batches", str(EVAL_BATCHES),
+            "--tasks-yaml", str(configs / "tasks_v0.3.yaml"),
+            "--gauntlet-yaml", str(configs / "eval_gauntlet_v0.3.yaml"),
+            "--tasks-root", str(ROOT / "photon_tpu" / "eval" / "local_data"),
+            "--icl-max-rows", str(EVAL_MAX_ROWS), "--device", "cuda"]
+    forwards = _eval_forwards(args)
+    times: dict[str, float] = {}
+    timed = [(eval_cli, "load_params", "load_checkpoint"), (Trainer, "__init__", "trainer"),
+             (Trainer, "evaluate", "val_loss"), (gauntlet, "run_gauntlet_suite", "gauntlet")]
+    sound = [(obj, name, getattr(obj, name)) for obj, name, _ in timed]
+    for obj, name, label in timed:
+        setattr(obj, name, _timed(times, label, torch, getattr(obj, name)))
+    try:
+        for key in fa.launches:  # the counted run starts here
+            fa.launches[key] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out, line = _run_cli(eval_cli.main, args)
+            torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = dict(fa.launches)
+    finally:
+        for obj, name, fn in sound:
+            setattr(obj, name, fn)
+    line = json.loads(line)
+    if set(line) != set(out) or not all(abs(line[k] - round(out[k], 6)) < 1e-9 for k in line):
+        fail("the eval CLI's printed line differs from its result")
+    if not math.isfinite(out.get("eval/loss", float("nan"))):
+        fail(f"eval loss {out.get('eval/loss')}")
+    scores = {k: v for k, v in out.items()
+              if k.endswith("/accuracy") or (k.startswith("gauntlet/") and "skipped" not in k
+                                             and "missing" not in k)}
+    accs = [k for k in scores if k.endswith("/accuracy")]
+    if len(accs) != forwards["tasks"] or not all(0.0 <= v <= 1.0 for v in scores.values()):
+        fail(f"eval scores out of [0, 1] or tasks missing: {scores}")
+    n_fwd = forwards["val"] + forwards["scored"] + forwards["generation_prefills"]
+    want = {"flash_fwd": L * n_fwd, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if launches != want:
+        fail(f"the eval launched {launches}, want {want} ({n_fwd} forwards)")
+    events = [e for e in prof.key_averages()
+              if (getattr(e, "self_device_time_total", 0.0) or 0.0) > 0]
+    profiler_k1 = (sum(e.count for e in events if "::fwd_" in e.key)
+                   if events else "not measured")
+    if profiler_k1 not in ("not measured", L * n_fwd):
+        fail(f"the profiler saw {profiler_k1} K1 launches, want {L * n_fwd}")
+    rec = {"convert": dict(summary, client_samples=sizes, wall_s=convert_s),
+           "forwards": forwards, "launches": launches, "profiler_k1": profiler_k1,
+           "profiler_k1_ms": sum(e.self_device_time_total for e in events
+                                 if "::fwd_" in e.key) / 1e3,
+           "cli_wall_s": cli_s, "timed_s": times,
+           "device_busy_ms": (sum(e.self_device_time_total for e in events) / 1e3
+                              if events else "not measured"),
+           "top_kernels_ms": sorted(([e.key[:80], e.self_device_time_total / 1e3, e.count]
+                                     for e in events), key=lambda r: -r[1])[:8],
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "eval_loss": out["eval/loss"], "eval_tokens": out["eval/tokens"],
+           "gauntlet_average": out.get("gauntlet/average"),
+           "icl_max_rows": EVAL_MAX_ROWS, "eval_batches": EVAL_BATCHES, "result": out}
+    del prof, events
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if sys.argv[1:2] == ["--fed-child"]:  # a child of the federated phase
@@ -1427,7 +1800,7 @@ def main() -> int:
         log("kernel_build " + json.dumps(dict(rec, kernel=name)))
 
     kernel_records, main = kernel_phase(torch, rpa, alibi_slopes, np)
-    flash_records, flash_main = flash_kernel_phase(torch, fa, alibi_slopes, np)
+    flash_records, flash_main, flash_eval = flash_kernel_phase(torch, fa, alibi_slopes, np)
     t0 = time.perf_counter()
     train = training_phase(torch, fa, np)
     train["phase_s"] = time.perf_counter() - t0
@@ -1443,9 +1816,19 @@ def main() -> int:
     params = init_params(cfg.model, seed=0, device="cuda")
     engine = engine_phase(torch, rpa, np, params, cfg)
     profile = profile_phase(torch, np, params, cfg)
+    t0 = time.perf_counter()
+    decode_rec = decode_phase(torch, np, fa, params, cfg)
+    decode_rec["phase_s"] = time.perf_counter() - t0
     del params
     torch.cuda.empty_cache()
     server = server_phase(torch, np, cfg, cfg.model.n_layers, fed)
+    t0 = time.perf_counter()
+    evaluation = eval_phase(torch, train_config(), fed)
+    evaluation["phase_s"] = time.perf_counter() - t0
+    log("eval_phase " + json.dumps({k: v for k, v in evaluation.items() if k != "result"}))
+    log(f"eval phase: {evaluation['phase_s']:.1f} s (convert {evaluation['convert']['wall_s']:.1f}"
+        f" s, eval CLI {evaluation['cli_wall_s']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in evaluation["timed_s"].items()) + ")")
     shutil.rmtree(ROOT / ".chip_smoke" / "fed", ignore_errors=True)
 
     kernels = {"kernels": [{
@@ -1478,13 +1861,17 @@ def main() -> int:
         "train_phase_launches": train["launches"][name],
         "entry_phase_launches": entry["runs"][0]["launches"][name],
         "federated_resume_launches": fed["runs"][1]["launches"][name],
+        "eval_phase_launches": evaluation["launches"][name],
     } for name, rec in flash_main.items()]}
+    k1 = next(k for k in kernels["kernels"] if k["name"] == "flash_fwd")
+    k1["eval_shape"] = flash_eval
+    k1["shapes"].append(flash_eval["shape"])
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "env": env, "kernel_build": built, "kernel_cases": kernel_records, "flash_cases": flash_records,
         "train": train, "entry": entry, "federated": fed, "engine": engine, "profile": profile,
-        "server": server,
+        "server": server, "decode": decode_rec, "eval": evaluation,
         "kernels": kernels["kernels"], "total_s": time.perf_counter() - t_all,
     }, indent=1))
     log(f"total {time.perf_counter() - t_all:.1f}s")

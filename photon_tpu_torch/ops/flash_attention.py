@@ -326,10 +326,14 @@ def flash_attention(q, k, v, *, causal=True, alibi=False):
     """Differentiable attention over ``[B, S, H, D]`` inputs through K1–K3
     (the counterpart of ``photon_tpu``'s ``flash_attention``), with query
     positions aligned to the end of the keys and ALiBi slopes
-    ``alibi_slopes(H)``."""
+    ``alibi_slopes(H)``. Without a gradient to take (``inference_mode``,
+    ``no_grad``, or inputs that need none) it is K1 alone, and nothing is
+    kept for a backward."""
     slopes = None
     if alibi:
         from photon_tpu_torch.ops.attention import alibi_slopes
 
         slopes = alibi_slopes(q.shape[2], q.device)
-    return FlashAttention.apply(q, k, v, slopes, causal, None, None)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, slopes, causal, None, None)
+    return flash_fwd(q, k, v, causal=causal, slopes=slopes)[0]

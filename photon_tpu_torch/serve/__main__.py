@@ -16,6 +16,9 @@ Examples::
 
     curl -s localhost:8000/generate -d '{"tokens": [5, 9, 2], "max_new_tokens": 8}'
 
+    # text prompts, tokenized by the server (--tokenizer byte-fallback)
+    curl -s localhost:8000/generate -d '{"text": "Hello", "max_new_tokens": 8}'
+
 The first line on stdout is one JSON object with the serving URL, the
 bound port, the round, the model and the pool's shape. SIGTERM drains
 (in-flight requests finish, new ones get 503); SIGINT stops at once.
@@ -45,6 +48,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--host", default=None)
     ap.add_argument("--port", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--tokenizer", default=None,
+                    help="enable 'text' prompts (byte-fallback, the only one taken)")
     args = ap.parse_args(argv)
 
     from photon_tpu_torch.checkpoint import FileStore
@@ -70,6 +75,11 @@ def main(argv: list[str] | None = None) -> None:
     if args.port is not None:
         sc.port = args.port
     cfg.validate(args.device, serving=True)
+    tokenizer = None
+    if args.tokenizer:
+        from photon_tpu_torch.data.tokenizer import load_tokenizer
+
+        tokenizer = load_tokenizer(args.tokenizer)
 
     store = FileStore(args.store) if args.store else FileStore(cfg.photon.save_path + "/store")
     engine = PagedEngine.from_checkpoint(cfg, store=store, resume_round=args.round,
@@ -79,7 +89,7 @@ def main(argv: list[str] | None = None) -> None:
         default_eos_id=sc.eos_id if sc.eos_id >= 0 else None,
     ).start()
     frontend = ServeFrontend(batcher, host=sc.host, port=sc.port,
-                             max_new_tokens_cap=sc.max_new_tokens)
+                             max_new_tokens_cap=sc.max_new_tokens, tokenizer=tokenizer)
     port = frontend.start()
     print(json.dumps({
         "serving": f"http://{sc.host}:{port}",

@@ -32,6 +32,7 @@ from photon_tpu_torch.models.decode import (
     _norm,
     _qkv,
     _rope_at,
+    decode_layers,
     torch_dtype,
 )
 from photon_tpu_torch.ops.attention import alibi_slopes
@@ -226,31 +227,23 @@ def paged_decode_step(params: dict, layers: list[dict], state: PagedState,
     """The full-width oracle: one decode step over all slots, placing
     ``token [n_slots]`` at each active slot's cursor (inactive slots write
     the trash block and do not advance) and attending over every table
-    entry with the dense gather. Returns (logits ``[n_slots, V]``, state
-    updated in place)."""
-    n_slots, m = state.block_tables.shape
+    entry with the dense gather (``models.decode.decode_layers``, the
+    contiguous decoder's computation). Returns (logits ``[n_slots, V]``,
+    state updated in place)."""
+    m = state.block_tables.shape[1]
     bs = state.block_size
     pos = state.lengths.clone()  # [B] where this token lands
-    x = _embed(params, token[:, None], pos[:, None], cfg)  # [B, 1, D]
-    scale = 1.0 / (cfg.d_head ** 0.5)
-    slopes = alibi_slopes(cfg.n_heads, token.device) if cfg.alibi else None
     blk = torch.clamp(pos // bs, max=m - 1).long()
     phys = torch.gather(state.block_tables, 1, blk[:, None])[:, 0]
     phys = torch.where(active, phys, torch.full_like(phys, state.trash_block)).long()
     off = (pos % bs).long()
-    for li, lp in enumerate(layers):
-        h = _norm(x, lp["ln_1"]["scale"], lp["ln_1"].get("bias"), cfg.norm, cfg.norm_eps)
-        q, k_new, v_new = _qkv(lp, h, cfg)  # [B, 1, H, Dh]
-        if cfg.rope:
-            q = _rope_at(q, pos[:, None], cfg.rope_theta)
-            k_new = _rope_at(k_new, pos[:, None], cfg.rope_theta)
+
+    def write_and_view(li, k_new, v_new):
         lidx = torch.full_like(phys, li)
-        state.cache_k.index_put_((phys, lidx, off), k_new[:, 0].to(state.cache_k.dtype))
-        state.cache_v.index_put_((phys, lidx, off), v_new[:, 0].to(state.cache_v.dtype))
-        kb, vb = live_view(state.cache_k, state.cache_v, li, state.block_tables)
-        out = ragged_reference_attention(q, kb, vb, pos[:, None].int(), scale=scale,
-                                         slopes=slopes)
-        x = x + _dense(lp, "out_proj", out.reshape(n_slots, 1, cfg.d_model))
-        x = _mlp(lp, x, cfg)
+        state.cache_k.index_put_((phys, lidx, off), k_new.to(state.cache_k.dtype))
+        state.cache_v.index_put_((phys, lidx, off), v_new.to(state.cache_v.dtype))
+        return live_view(state.cache_k, state.cache_v, li, state.block_tables)
+
+    logits = decode_layers(params, layers, token, pos, cfg, write_and_view)
     state.lengths.add_(active.to(state.lengths.dtype))
-    return _logits(params, x[:, 0], cfg), state
+    return logits, state

@@ -14,8 +14,9 @@ scheduler's single driver thread does all engine work.
      "eos_id": 256,                # per-request EOS (default: photon.serve)
      "stream": false}
 
-A ``"text"`` prompt needs a server-side tokenizer, which this package does
-not have: it gets a 400. Blocking responses return one JSON object;
+A ``"text"`` prompt is tokenized by the server's tokenizer (``--tokenizer
+byte-fallback``; a server without one answers 400), and the reply then
+carries the completion's ``"text"`` too. Blocking responses return one JSON object;
 ``"stream": true`` switches to chunked transfer with one JSON line per
 token, then a final stats line. A full queue answers 429 with a
 ``Retry-After`` hint; a draining server answers 503.
@@ -38,8 +39,9 @@ class ServeFrontend:
 
     def __init__(self, batcher: ContinuousBatcher, *, host: str = "127.0.0.1",
                  port: int = 0, max_new_tokens_cap: int = 64,
-                 request_timeout_s: float = 300.0) -> None:
+                 request_timeout_s: float = 300.0, tokenizer=None) -> None:
         self.batcher = batcher
+        self.tokenizer = tokenizer
         self.host = host
         self.port = port
         self.max_new_tokens_cap = max_new_tokens_cap
@@ -223,14 +225,21 @@ class ServeFrontend:
                 raise ValueError(f"'tokens' must be a list of ints in [0, {vocab})")
             return toks
         if body.get("text") is not None:
-            raise ValueError("'text' prompts need a server-side tokenizer; send 'tokens'")
+            if self.tokenizer is None:
+                raise ValueError("'text' prompts need a server-side tokenizer; send 'tokens'")
+            if not isinstance(body["text"], str):
+                raise ValueError("'text' must be a string")
+            return list(self.tokenizer.encode(body["text"]))
         raise ValueError("need 'tokens' or 'text'")
 
     def _result_payload(self, req, tokens: list[int]) -> dict:
-        return {
+        out = {
             "tokens": [int(t) for t in tokens],
             "n_prompt": len(req.prompt),
             "n_generated": len(req.generated),
             "ttft_s": round(req.ttft_s, 6),
             "total_s": round(max(0.0, req.t_done - req.t_submit), 6),
         }
+        if self.tokenizer is not None:
+            out["text"] = self.tokenizer.decode(tokens)
+        return out

@@ -163,3 +163,21 @@ def test_forward_refuses_views_that_break_tma(cuda, bad):
     with pytest.raises(ValueError, match="TMA"):
         fa.flash_fwd(q, k, v)
     assert fa.launches["flash_fwd"] == before
+
+
+@pytest.mark.cuda
+def test_inference_mode_launches_the_forward_alone(cuda):
+    """Without a gradient to take (the eval forward, ``inference_mode``),
+    ``flash_attention`` launches K1 once a call and no backward kernel,
+    with the bits of a direct K1 launch, at the eval shape's S = 512."""
+    q, k, v, _ = _inputs(cuda, torch.bfloat16, b=2, s_q=512, s_k=512, h=4, n_kv=4, d=64,
+                         fused=True)
+    before = dict(fa.launches)
+    with torch.inference_mode():
+        out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in before} == \
+        {"flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert not out.requires_grad and torch.equal(out, fa.flash_fwd(q, k, v)[0])
+    o_ref, _ = fa.flash_fwd_reference(q, k, v)
+    assert _rel(out, o_ref) <= FWD_GATE[torch.bfloat16]

@@ -461,6 +461,38 @@ def test_http_end_to_end(tmp_path):
         batcher.close()
 
 
+def test_http_text_prompt_with_tokenizer(tmp_path):
+    """With a tokenizer (``--tokenizer byte-fallback``) a ``"text"`` prompt
+    is tokenized by the server and the reply carries the completion's
+    text; the same prompt as ``"tokens"`` gives the same tokens."""
+    from photon_tpu_torch.data.tokenizer import load_tokenizer
+    from photon_tpu_torch.serve.engine import PagedEngine
+    from photon_tpu_torch.serve.frontend import ServeFrontend
+    from photon_tpu_torch.serve.scheduler import ContinuousBatcher
+
+    jcfg = _jax_cfg("mpt-wpe", budget=4)
+    jcfg.model.vocab_size = 260  # the byte tokenizer's ids fit
+    jcfg.validate()
+    _, tp = _weights(jcfg)
+    eng = PagedEngine(_port_cfg(jcfg), tp, device="cpu")
+    batcher = ContinuousBatcher(eng, max_queue=4, prefill_token_budget=4).start()
+    tok = load_tokenizer("byte-fallback")
+    fe = ServeFrontend(batcher, max_new_tokens_cap=6, tokenizer=tok)
+    port = fe.start()
+    try:
+        status, body = _post(port, {"text": "héllo", "max_new_tokens": 5})
+        assert status == 200
+        rep = json.loads(body)
+        assert rep["n_prompt"] == len("héllo".encode()) and rep["n_generated"] == 5
+        assert rep["text"] == tok.decode(rep["tokens"])
+        status, body = _post(port, {"tokens": tok.encode("héllo"), "max_new_tokens": 5})
+        assert status == 200 and json.loads(body)["tokens"] == rep["tokens"]
+        assert _post(port, {"text": 5})[0] == 400
+    finally:
+        fe.close()
+        batcher.close()
+
+
 # ---------------------------------------------------------------------------
 # 7. import hygiene, 8. device rules, config gating
 # ---------------------------------------------------------------------------
@@ -487,7 +519,8 @@ def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, photon_tpu_torch.serve.engine, photon_tpu_torch.serve.frontend, "
             "photon_tpu_torch.serve.__main__, photon_tpu_torch.centralized, "
             "photon_tpu_torch.train.trainer, photon_tpu_torch.ops.flash_attention, "
-            "photon_tpu_torch.federated; "
+            "photon_tpu_torch.federated, photon_tpu_torch.eval.__main__, "
+            "photon_tpu_torch.data.convert, photon_tpu_torch.models.decode; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'photon_tpu')))")
     out = subprocess.run([sys.executable, "-S", "-c", code], cwd=ROOT, capture_output=True,
