@@ -156,7 +156,9 @@ def _dump_params(cfg: Config, trainer: Trainer, tag: str) -> None:
     out.write_bytes(arrays_to_npz(meta, arrays))
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> History:
+    """Run the CLI; returns the run's History (``client/fit_time`` and the
+    loss of every checkpoint interval, the evals)."""
     ap = argparse.ArgumentParser(description="photon-tpu centralized training (PyTorch)")
     ap.add_argument("--config", help="resolved config YAML (either package writes one)")
     ap.add_argument("--steps", type=int, default=None)
@@ -176,7 +178,7 @@ def main(argv: list[str] | None = None) -> None:
     cfg.validate()
     pathlib.Path(cfg.photon.save_path).mkdir(parents=True, exist_ok=True)
     cfg.to_yaml(pathlib.Path(cfg.photon.save_path) / "config.yaml")
-    run_centralized(
+    return run_centralized(
         cfg, total_steps=args.steps, eval_only=args.eval_only, eval_first=args.eval_first,
         eval_interval_steps=args.eval_interval, dump_params=args.dump_params,
         device=args.device,

@@ -13,12 +13,14 @@ read, to refuse them.
 
 :meth:`Config.validate` raises ``NotImplementedError`` for the features
 this package does not port yet, so such a config fails at start-up
-instead of running without them: MoE, LoRA adapters, speculative
-decoding, the prefix cache, hot-swap and the fleet router everywhere; and
-for training (``validate(serving=False)``, the default) a mesh of more
-than one device, ring attention, ``device_microbatch_size: auto``, the
-mesh autotuner, the collective aggregation plane, wire compression,
-chaos, telemetry and asynchronous rounds.
+instead of running without them: LoRA adapters, speculative decoding,
+the prefix cache, hot-swap and the fleet router everywhere; and for
+training (``validate(serving=False)``, the default) a mesh of more than
+one device (``mesh.expert > 1`` included), ring attention, the mesh
+autotuner, the collective aggregation plane, wire compression, chaos,
+telemetry and asynchronous rounds. ``mlp: moe`` is checked as the JAX
+package checks it (its ``ValueError`` texts); ``device_microbatch_size:
+auto`` runs the trainer's probe.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ class ModelConfig:
     n_kv_heads: int = 0  # 0 -> n_heads (MHA)
     norm: str = "layernorm"  # layernorm | rmsnorm (both fp32)
     norm_eps: float = 1.0e-5
-    mlp: str = "gelu"  # gelu | swiglu | moe (moe is not served here yet)
+    mlp: str = "gelu"  # gelu | swiglu | moe
     mlp_hidden_size: int = 0  # 0 -> expansion_ratio * d_model
     moe_num_experts: int = 0
     moe_top_k: int = 2
@@ -168,7 +170,7 @@ class TrainConfig:
     """Per-client training loop (same fields as the JAX package)."""
 
     global_batch_size: int = 256
-    device_microbatch_size: int | str = 8  # "auto" is not ported
+    device_microbatch_size: int | str = 8  # or "auto": the trainer probes for it
     auto_microbatch_cap: int = 0
     loss_chunk_tokens: int = 2048  # 0 = materialize the full logits
     seed: int = 17
@@ -358,9 +360,17 @@ class Config:
         if m.mlp not in ("gelu", "swiglu", "moe"):
             raise ValueError(f"bad model.mlp {m.mlp}")
         if m.mlp == "moe":
-            raise NotImplementedError(
-                "model.mlp='moe' is not served by photon_tpu_torch yet"
-            )
+            if m.moe_num_experts < 2:
+                raise ValueError("mlp='moe' needs moe_num_experts >= 2")
+            if m.moe_capacity_factor <= 0:
+                # expert_capacity() would clamp every expert to capacity 1
+                raise ValueError(
+                    f"moe_capacity_factor must be > 0, got {m.moe_capacity_factor}"
+                )
+            if m.moe_mlp_act not in ("gelu", "swiglu"):
+                raise ValueError(f"bad moe_mlp_act {m.moe_mlp_act}")
+            if not 1 <= m.moe_top_k <= m.moe_num_experts:
+                raise ValueError("moe_top_k must be in [1, moe_num_experts]")
         if m.n_kv_heads < 0 or m.mlp_hidden_size < 0:
             raise ValueError("n_kv_heads and mlp_hidden_size must be >= 0")
         if m.n_kv_heads and m.n_heads % m.n_kv_heads:
@@ -430,13 +440,11 @@ class Config:
         if ph.mesh_autotune:
             raise NotImplementedError("photon.mesh_autotune is not ported yet")
         micro = tr.device_microbatch_size
-        if isinstance(micro, str):
-            if micro == "auto":
-                raise NotImplementedError("device_microbatch_size 'auto' is not ported yet")
+        if isinstance(micro, str) and micro != "auto":
             raise ValueError(f"device_microbatch_size must be an int or 'auto', got {micro!r}")
-        if micro < 1 or tr.global_batch_size < 1:
+        if tr.global_batch_size < 1 or (micro != "auto" and micro < 1):
             raise ValueError("global_batch_size and device_microbatch_size must be >= 1")
-        if tr.global_batch_size % micro:
+        if micro != "auto" and tr.global_batch_size % micro:
             raise ValueError("global_batch_size must be divisible by device_microbatch_size")
         if tr.loss_chunk_tokens < 0:
             raise ValueError("train.loss_chunk_tokens must be >= 0")

@@ -73,7 +73,9 @@ def main(argv: list[str] | None = None) -> History:
     the final line prints four of them)."""
     ap = argparse.ArgumentParser(description="photon-tpu federated training (PyTorch)")
     ap.add_argument("--config", help="resolved config YAML (either package writes one)")
-    ap.add_argument("--preset", default=None, help="model preset (mpt-125m, llama-1b)")
+    ap.add_argument("--preset", default=None,
+                    help="model preset (mpt-125m, mpt-125m-moe8, mpt-350m, mpt-760m, mpt-1b, "
+                         "mpt-3b, mpt-7b, llama-1b)")
     ap.add_argument("--rounds", type=int, default=None)
     ap.add_argument("--nodes", type=int, default=1)
     ap.add_argument("--multiprocess", action="store_true", help="not ported: raises")

@@ -21,6 +21,13 @@ forward and the serving engine. On top of them:
   seeded ``torch.Generator`` (other draws than JAX's threefry streams);
   an optional ``eos_id`` freezes finished rows and ends the loop early.
 
+An MoE MLP (``cfg.mlp == "moe"``, ``ops/moe.py``) routes every token of a
+call in one capacity pool, as in JAX: ``prefill`` passes its ``pos <
+lengths`` mask so padding claims no capacity, and the decode steps pass
+none. A row's output therefore depends on its batch-mates, and decode
+agrees with another batching of the same rows only where no expert
+overflows.
+
 The JAX module shares one jitted prefill/step pair per config
 (``decode_jit_pair``); eager torch has no trace to share, so that has no
 counterpart here. Dtypes follow the JAX functions: activations in the
@@ -41,6 +48,7 @@ import torch.nn.functional as F
 
 from photon_tpu_torch.config.schema import ModelConfig
 from photon_tpu_torch.ops.attention import alibi_slopes, multihead_attention
+from photon_tpu_torch.ops.moe import moe_mlp
 from photon_tpu_torch.ops.ragged_paged_attention import ragged_reference_attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -57,9 +65,11 @@ def torch_dtype(name: str) -> torch.dtype:
 def compute_params(params: dict, cfg: ModelConfig,
                    device: torch.device) -> dict:
     """The compute copy of ``params`` on ``device``: dense kernels and
-    biases, embeddings and the head in the compute dtype; norm scales and
-    biases stay fp32 (the JAX norms multiply in fp32). Serving makes it once
-    at load; training makes it in every forward, inside autograd."""
+    biases, embeddings, the head and the experts in the compute dtype; norm
+    scales and biases and the MoE router stay fp32 (the JAX norms multiply
+    in fp32, and its router reads its weight in fp32: a rounded router
+    flips top-k choices). Serving makes it once at load; training makes it
+    in every forward, inside autograd."""
     compute = torch_dtype(cfg.compute_dtype)
 
     def walk(node: dict, in_norm: bool) -> dict:
@@ -68,7 +78,7 @@ def compute_params(params: dict, cfg: ModelConfig,
             if isinstance(val, dict):
                 out[key] = walk(val, in_norm or key.startswith("ln_"))
             else:
-                dt = torch.float32 if in_norm else compute
+                dt = torch.float32 if in_norm or key == "router" else compute
                 out[key] = val.to(device=device, dtype=dt)
         return out
 
@@ -132,16 +142,24 @@ def _qkv(lp: dict, h: torch.Tensor, cfg: ModelConfig):
             v.reshape(*lead, cfg.kv_heads, cfg.d_head))
 
 
-def _mlp(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlp(lp: dict, x: torch.Tensor, cfg: ModelConfig,
+         token_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The MLP half of a block: ``(x + mlp(norm(x)), the MoE aux loss or
+    None)``. An MoE layer routes every token of ``x`` in one capacity pool
+    (``ops/moe.py``); ``token_mask`` (nonzero = real token) keeps padding
+    from claiming capacity, as the JAX prefill and serving step pass it."""
     h = _norm(x, lp["ln_2"]["scale"], lp["ln_2"].get("bias"), cfg.norm, cfg.norm_eps)
+    if cfg.mlp == "moe":
+        out, aux = moe_mlp(h, lp["router"], lp["moe_up"], lp["moe_down"],
+                           w_gate=lp.get("moe_gate"), top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.moe_capacity_factor, token_mask=token_mask)
+        return x + out, aux
     if cfg.mlp == "swiglu":
         h = F.silu(_dense(lp, "gate_proj", h)) * _dense(lp, "up_proj", h)
-    elif cfg.mlp == "gelu":
+    else:
         # the JAX package uses gelu(approximate=True): the tanh form
         h = F.gelu(_dense(lp, "up_proj", h), approximate="tanh")
-    else:
-        raise NotImplementedError(f"mlp {cfg.mlp!r} is not served here")
-    return x + _dense(lp, "down_proj", h)
+    return x + _dense(lp, "down_proj", h), None
 
 
 def _embed(params: dict, tokens: torch.Tensor, pos: torch.Tensor,
@@ -197,6 +215,8 @@ def _prefill(cp: dict, layers: list[dict], tokens: torch.Tensor, lengths: torch.
     tokens = tokens.long()
     pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
     impl = "xla" if cfg.attn_impl == "ring" else cfg.attn_impl  # one device: no ring
+    lengths = torch.as_tensor(lengths, device=tokens.device).to(torch.int32)
+    valid = pos < lengths[:, None]  # [B, S] real tokens
     x = _embed(cp, tokens, pos, cfg)
     ks, vs = [], []
     for lp in layers:
@@ -206,10 +226,9 @@ def _prefill(cp: dict, layers: list[dict], tokens: torch.Tensor, lengths: torch.
             q, k = _rope_at(q, pos, cfg.rope_theta), _rope_at(k, pos, cfg.rope_theta)
         attn = multihead_attention(q, k, v, impl=impl, causal=True, alibi=cfg.alibi)
         x = x + _dense(lp, "out_proj", attn.reshape(b, s, cfg.d_model))
-        x = _mlp(lp, x, cfg)
+        x, _ = _mlp(lp, x, cfg, token_mask=valid)  # padding claims no expert capacity
         ks.append(k)
         vs.append(v)
-    lengths = torch.as_tensor(lengths, device=tokens.device).to(torch.int32)
     idx = torch.clamp(lengths.long() - 1, 0, s - 1)
     last = x[torch.arange(b, device=x.device), idx]
     return _logits(cp, last, cfg), DecodeState(torch.stack(ks), torch.stack(vs), lengths)
@@ -256,7 +275,7 @@ def decode_layers(cp: dict, layers: list[dict], token: torch.Tensor, pos: torch.
         out = ragged_reference_attention(q, kb, vb, pos[:, None].int(), scale=scale,
                                          slopes=slopes)
         x = x + _dense(lp, "out_proj", out.reshape(b, 1, cfg.d_model))
-        x = _mlp(lp, x, cfg)
+        x, _ = _mlp(lp, x, cfg)  # no mask: every row routes, as the JAX decode step
     return _logits(cp, x[:, 0], cfg)
 
 

@@ -5,6 +5,9 @@ parameter tree (:func:`param_shapes`), a seeded :func:`init_params`, and
 :class:`MPTModel`/:class:`MPTBlock`, the forward that training runs.
 Layout, as in the JAX package: flat ``/``-joined names, layers stacked on
 a leading ``[n_layers]`` axis, dense kernels ``[in, out]``, fp32 masters.
+An MoE block (``mlp: moe``) holds ``router [D, E]``, ``moe_up [E, D, H]``,
+``moe_down [E, H, D]`` (and ``moe_gate`` for SwiGLU experts) in place of
+the dense MLP, and returns its layer's aux loss beside its output.
 
 :class:`MPTModel` is a module without parameters of its own: like
 ``MPTModel.apply`` it takes the parameter tree with the tokens, so the
@@ -64,10 +67,18 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
         dense["k_proj"] = (d, cfg.kv_heads * cfg.d_head)
         dense["v_proj"] = (d, cfg.kv_heads * cfg.d_head)
     dense["out_proj"] = (d, d)
-    if cfg.mlp == "swiglu":
-        dense["gate_proj"] = (d, cfg.hidden)
-    dense["up_proj"] = (d, cfg.hidden)
-    dense["down_proj"] = (cfg.hidden, d)
+    if cfg.mlp == "moe":  # the router and the experts: no biases
+        e, h = cfg.moe_num_experts, cfg.hidden
+        out[f"{blk}/router"] = lead + (d, e)
+        out[f"{blk}/moe_up"] = lead + (e, d, h)
+        out[f"{blk}/moe_down"] = lead + (e, h, d)
+        if cfg.moe_mlp_act == "swiglu":
+            out[f"{blk}/moe_gate"] = lead + (e, d, h)
+    else:
+        if cfg.mlp == "swiglu":
+            dense["gate_proj"] = (d, cfg.hidden)
+        dense["up_proj"] = (d, cfg.hidden)
+        dense["down_proj"] = (cfg.hidden, d)
     for name, (i, o) in dense.items():
         out[f"{blk}/{name}/kernel"] = lead + (i, o)
         if not cfg.no_bias:
@@ -78,7 +89,7 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
 
 
 def _init_std(cfg: ModelConfig, name: str) -> float:
-    if name.endswith(("out_proj/kernel", "down_proj/kernel")):
+    if name.endswith(("out_proj/kernel", "down_proj/kernel", "moe_down")):
         return cfg.emb_init_std / (2.0 * cfg.n_layers) ** 0.5
     return cfg.emb_init_std
 
@@ -108,13 +119,14 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 
 class MPTBlock(torch.nn.Module):
-    """One pre-norm decoder block over one layer's slice of the tree."""
+    """One pre-norm decoder block over one layer's slice of the tree:
+    ``(x, lp) -> (x, the layer's MoE aux loss or None)``."""
 
     def __init__(self, cfg: ModelConfig) -> None:
         super().__init__()
         self.cfg = cfg
 
-    def forward(self, x: torch.Tensor, lp: dict) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lp: dict) -> tuple[torch.Tensor, torch.Tensor | None]:
         from photon_tpu_torch.ops.attention import multihead_attention
 
         cfg = self.cfg
@@ -147,23 +159,31 @@ class MPTModel(torch.nn.Module):
     """Decoder-only LM: ``model(params, tokens [B, S])`` → logits
     ``[B, S, vocab]`` in ``logits_dtype``, or with ``return_hidden=True``
     the ``[B, S, d_model]`` hidden states after the final norm (the loss
-    then computes logits chunk by chunk)."""
+    then computes logits chunk by chunk). ``return_aux=True`` returns
+    ``(that, moe_aux_weight × Σ_layers aux)``, the MoE load-balance term
+    the training loss adds (an fp32 zero for a dense model), as the JAX
+    package's ``_apply_collecting_aux``."""
 
     def __init__(self, cfg: ModelConfig) -> None:
         super().__init__()
         self.cfg = cfg
         self.block = MPTBlock(cfg)
 
-    def forward(self, params: dict, tokens: torch.Tensor,
-                return_hidden: bool = False) -> torch.Tensor:
+    def forward(self, params: dict, tokens: torch.Tensor, return_hidden: bool = False,
+                return_aux: bool = False):
         cfg = self.cfg
         cp = compute_params(params, cfg, tokens.device)  # casts inside autograd
         x = _embed(cp, tokens, torch.arange(tokens.shape[1], device=tokens.device)[None], cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for lp in _layers(cp["blocks"]["block"]):
-            if cfg.remat:
-                x = checkpoint(self.block, x, lp, use_reentrant=False)
+            if cfg.remat:  # the aux is an output of the checkpointed block
+                x, layer_aux = checkpoint(self.block, x, lp, use_reentrant=False)
             else:
-                x = self.block(x, lp)
+                x, layer_aux = self.block(x, lp)
+            if layer_aux is not None:
+                aux = aux + layer_aux
         if return_hidden:
-            return _norm(x, cp["ln_f"]["scale"], cp["ln_f"].get("bias"), cfg.norm, cfg.norm_eps)
-        return _logits(cp, x, cfg)
+            out = _norm(x, cp["ln_f"]["scale"], cp["ln_f"].get("bias"), cfg.norm, cfg.norm_eps)
+        else:
+            out = _logits(cp, x, cfg)
+        return (out, cfg.moe_aux_weight * aux) if return_aux else out

@@ -16,24 +16,26 @@ stays torch ops here. The moments are updated in place.
 
 from __future__ import annotations
 
+from typing import Iterator
+
 import torch
 
 
 def adopt_update(grads: dict[str, torch.Tensor], m: dict[str, torch.Tensor],
                  v: dict[str, torch.Tensor], params: dict[str, torch.Tensor], *,
                  count: int, lr: float, b1: float = 0.9, b2: float = 0.9999,
-                 eps: float = 1.0e-6, weight_decay: float = 0.0) -> dict[str, torch.Tensor]:
+                 eps: float = 1.0e-6,
+                 weight_decay: float = 0.0) -> Iterator[tuple[str, torch.Tensor]]:
     """One ADOPT step over the names of ``grads``. ``count`` is the number
     of updates applied before this one and ``lr`` the schedule's value at
-    it. ``m`` and ``v`` (fp32) change in place; returns the updates, in
-    each parameter's dtype."""
+    it. ``m`` and ``v`` (fp32) change in place; yields ``(name, update)``
+    one tensor at a time, each in its parameter's dtype (step 0 yields
+    none: it applies no update), so a caller can apply each and drop it."""
     clip = max(float(count), 1.0) ** 0.25
-    out = {}
     for name, g in grads.items():
         g = g.float()
         if count == 0:
             v[name].copy_(g * g)
-            out[name] = torch.zeros_like(params[name])
             continue
         normed = (g / torch.clamp(v[name].sqrt(), min=eps)).clamp_(-clip, clip)
         m[name].mul_(b1).add_(normed, alpha=1.0 - b1)
@@ -41,5 +43,4 @@ def adopt_update(grads: dict[str, torch.Tensor], m: dict[str, torch.Tensor],
         d = m[name] * -lr
         if weight_decay:
             d = d - (lr * weight_decay) * params[name].float()
-        out[name] = d.to(params[name].dtype)
-    return out
+        yield name, d.to(params[name].dtype)

@@ -6,6 +6,11 @@ scaled by ``-lr(count)``); ``clip_by_global_norm`` first in the chain;
 ``freeze_patterns`` give zero updates. Under ``freeze_patterns`` the
 clip's global norm covers only the trainable gradients (optax's
 ``multi_transform`` hands the clip the trainable subtree alone).
+:meth:`Optimizer.apply` works tensor by tensor and in place: it clips the
+gradients where they lie and adds each parameter's update as soon as it
+is made, so the step holds no second full-size copy of the gradients or
+of the updates (at mpt-3b each is 10.6 GB); the elementwise operations
+and their order are optax's.
 
 The state is a flat dict under the names optax's state flattens to, so a
 checkpoint resumes across the two packages:
@@ -66,8 +71,8 @@ def _count(n: int = 0) -> torch.Tensor:
 
 
 class Optimizer:
-    """``init(params) -> state`` and ``update(grads, state, params) ->
-    (updates, state)`` over flat ``{name: tensor}`` dicts."""
+    """``init(params) -> state`` and ``apply(grads, state, params) ->
+    state`` over flat ``{name: tensor}`` dicts."""
 
     def __init__(self, ocfg: OptimizerConfig, schedule: Schedule) -> None:
         if ocfg.name not in ("adopt", "adamw"):
@@ -100,13 +105,17 @@ class Optimizer:
         return dict(sorted(state.items()))
 
     @torch.no_grad()
-    def update(self, grads: dict[str, torch.Tensor], state: dict[str, torch.Tensor],
-               params: dict[str, torch.Tensor]):
+    def apply(self, grads: dict[str, torch.Tensor], state: dict[str, torch.Tensor],
+              params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """One optimizer step: the trainable ``grads`` are clipped in place
+        (by their global norm), then each trainable parameter gets its
+        update added in place; frozen ones do not move. Returns ``state``,
+        its moments updated in place and its counters advanced."""
         train = {n: g for n, g in grads.items() if self.trainable(n)}
         if self.clip and train:
             norm = global_norm(train.values())
-            train = {n: torch.where(norm < self.clip, g, g / norm * self.clip)
-                     for n, g in train.items()}
+            for g in train.values():
+                torch.where(norm < self.clip, g, g / norm * self.clip, out=g)
         m = {n: state[self._m + n] for n in train}
         v = {n: state[self._v + n] for n in train}
         c = self.cfg
@@ -118,24 +127,23 @@ class Optimizer:
         else:
             updates = _adamw_update(train, m, v, params, count=int(state[self.counts[0]]),
                                     lr=self.schedule(int(state[self.counts[1]])), cfg=c)
+        for name, u in updates:
+            params[name].add_(u)
         for key in self.counts:
             state[key] = _count(int(state[key]) + 1)
-        for name, p in params.items():
-            if name not in updates:
-                updates[name] = torch.zeros_like(p)  # frozen: zero update
-        return updates, state
+        return state
 
 
 def _adamw_update(grads, mu, nu, params, *, count: int, lr: float, cfg: OptimizerConfig):
     """optax ``adamw``: ``scale_by_adam`` (bias-corrected at ``count + 1``),
     ``add_decayed_weights``, then ``-lr``. ``mu``/``nu`` change in place.
     The bias corrections are computed in fp32, as optax does: ``1 - b2^t``
-    at ``b2 = 0.9999`` differs from its float64 value by ~1.7e-4 relative."""
+    at ``b2 = 0.9999`` differs from its float64 value by ~1.7e-4 relative.
+    Yields ``(name, update)`` one tensor at a time."""
     b1, b2 = cfg.betas
     t = np.float32(count + 1)
     bc1 = float(np.float32(1) - np.float32(b1) ** t)
     bc2 = float(np.float32(1) - np.float32(b2) ** t)
-    out = {}
     for name, g in grads.items():
         g = g.float()
         mu[name].mul_(b1).add_(g, alpha=1.0 - b1)
@@ -143,8 +151,7 @@ def _adamw_update(grads, mu, nu, params, *, count: int, lr: float, cfg: Optimize
         u = (mu[name] / bc1) / ((nu[name] / bc2).sqrt() + cfg.eps)
         if cfg.weight_decay:
             u = u + cfg.weight_decay * params[name].float()
-        out[name] = (u * -lr).to(params[name].dtype)
-    return out
+        yield name, (u * -lr).to(params[name].dtype)
 
 
 def build_optimizer(ocfg: OptimizerConfig, scfg: SchedulerConfig) -> tuple[Optimizer, Schedule]:

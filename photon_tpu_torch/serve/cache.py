@@ -175,6 +175,13 @@ def mixed_chunk_step(params: dict, layers: list[dict], state: PagedState,
     ``emit_off`` column, the state updated in place with
     ``lengths_after``).
 
+    MoE caveat (``cfg.mlp == "moe"``), as in JAX: expert-capacity routing
+    is batch-global: every row of the step competes for one capacity pool
+    of ``N = n_slots · Tq`` tokens, so neither equality with contiguous
+    decode nor independence from batch-mates holds, and serving MoE is
+    best-effort. ``q_valid`` is the routing's token mask, so pad and idle
+    rows claim no capacity.
+
     ``layers`` holds the per-layer views of ``params``
     (:func:`models.decode.layer_params`). Each layer first writes every
     real token's k/v at ``(table[slot, pos // bs], pos % bs)`` (padding
@@ -215,7 +222,7 @@ def mixed_chunk_step(params: dict, layers: list[dict], state: PagedState,
             attn = attn.clone()
             attn[chunk_slot] = out_c[0].to(attn.dtype)
         x = x + _dense(lp, "out_proj", attn.reshape(n_slots, tq, cfg.d_model))
-        x = _mlp(lp, x, cfg)
+        x, _ = _mlp(lp, x, cfg, token_mask=q_valid)  # pad and idle rows claim no capacity
     last = x[torch.arange(n_slots, device=x.device), emit_off.long()]  # [B, D]
     state.lengths.copy_(lengths_after)
     return _logits(params, last, cfg), state
@@ -228,8 +235,9 @@ def paged_decode_step(params: dict, layers: list[dict], state: PagedState,
     ``token [n_slots]`` at each active slot's cursor (inactive slots write
     the trash block and do not advance) and attending over every table
     entry with the dense gather (``models.decode.decode_layers``, the
-    contiguous decoder's computation). Returns (logits ``[n_slots, V]``,
-    state updated in place)."""
+    contiguous decoder's computation). An MoE layer routes every slot,
+    idle ones included (no token mask, as in JAX). Returns (logits
+    ``[n_slots, V]``, state updated in place)."""
     m = state.block_tables.shape[1]
     bs = state.block_size
     pos = state.lengths.clone()  # [B] where this token lands

@@ -18,6 +18,11 @@ request's seed), which advances only on steps where the slot emits — so
 a seeded completion does not depend on its batch-mates. Draws cannot
 match JAX's threefry streams; greedy streams match the JAX engine.
 
+An MoE model routes every token of a step in one capacity pool, whose
+size is a function of the step's ``N = n_slots · Tq`` (the same buckets
+as JAX's step): a request's tokens depend on its batch-mates, so serving
+MoE is best-effort, as in the JAX package.
+
 Each step reads its next tokens back with one device-to-host copy of
 ``[n_slots]``. Thread discipline: one driver thread (the scheduler loop)
 calls begin/mixed_step/evict; HTTP handler threads only read counters.

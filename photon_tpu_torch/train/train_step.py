@@ -84,15 +84,17 @@ def _chunked_ce_sum(model: MPTModel, params: dict, hidden: torch.Tensor,
 
 def make_loss_fn(model: MPTModel, loss_chunk_tokens: int = 2048) -> Callable:
     def loss_fn(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        """Mean next-token cross entropy over ``[B, S]`` token ids."""
+        """Mean next-token cross entropy over ``[B, S]`` token ids, plus
+        the weighted MoE load-balance loss (0 for a dense model)."""
         if loss_chunk_tokens:
-            hidden = model(params, tokens, return_hidden=True)
+            hidden, aux = model(params, tokens, return_hidden=True, return_aux=True)
             ce_sum = _chunked_ce_sum(model, params, hidden[:, :-1], tokens[:, 1:],
                                      loss_chunk_tokens)
-            return ce_sum / (tokens.shape[0] * (tokens.shape[1] - 1))
-        logits = model(params, tokens)[:, :-1]
+            return ce_sum / (tokens.shape[0] * (tokens.shape[1] - 1)) + aux
+        logits, aux = model(params, tokens, return_aux=True)
+        logits = logits[:, :-1]
         return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
-                               tokens[:, 1:].reshape(-1))
+                               tokens[:, 1:].reshape(-1)) + aux
 
     return loss_fn
 
@@ -126,12 +128,9 @@ def make_train_step(model: MPTModel, tx: Optimizer, n_microbatches: int = 1,
             loss_sum /= n_microbatches
             for g in grad_sum:
                 g /= n_microbatches
-        grads = dict(zip(flat, grad_sum))
-        grad_norm = global_norm(grad_sum)
-        updates, state.opt_state = tx.update(grads, state.opt_state, flat)
-        with torch.no_grad():
-            for name, p in flat.items():
-                p.add_(updates[name])
+        grad_norm = global_norm(grad_sum)  # before the optimizer clips them in place
+        state.opt_state = tx.apply(dict(zip(flat, grad_sum)), state.opt_state, flat)
+        del grad_sum
         state.step += 1
         return state, {"loss": loss_sum, "grad_norm": grad_norm,
                        "param_norm": global_norm(leaves).detach()}
@@ -141,7 +140,7 @@ def make_train_step(model: MPTModel, tx: Optimizer, n_microbatches: int = 1,
 
 def make_eval_step(model: MPTModel, loss_chunk_tokens: int = 2048) -> Callable:
     """``(params, tokens) -> (sum_ce, n_tokens)`` for loss aggregation over
-    eval batches."""
+    eval batches (no MoE aux term, as in JAX)."""
 
     @torch.no_grad()
     def eval_step(params: dict, tokens: torch.Tensor):

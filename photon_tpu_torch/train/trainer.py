@@ -6,9 +6,10 @@ state under optax's names) and the host loop, with the parameter plane the
 federation layer calls at round boundaries (``get/set_parameters``,
 ``get/set_opt_state_arrays``, ``get/set_momenta``, ``reset_optimizer``,
 ``set_step``). It runs on ``cuda`` unless the caller asks for the CPU,
-where the attention kernels' plain versions run. There is no mesh, no
-``auto`` microbatch probe, no pipeline and no autotuner: the config's
-``validate()`` refuses them.
+where the attention kernels' plain versions run. ``device_microbatch_size:
+auto`` probes for the largest microbatch that trains (:meth:`Trainer.
+_probe_microbatch`). There is no mesh, no pipeline and no autotuner: the
+config's ``validate()`` refuses them.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from photon_tpu_torch.utils.profiling import (
     CLIENT_STEPS,
     CLIENT_TOKENS_PER_SEC,
     SpeedMonitor,
+    is_oom,
 )
 
 
@@ -67,8 +69,10 @@ class Trainer:
         # microbatch larger than the batch is clamped to it, and the batch
         # is rounded down to a multiple of the microbatch
         micro = cfg.train.device_microbatch_size
-        if not isinstance(micro, int):
-            raise ValueError(f"device_microbatch_size must be an int here, got {micro!r}")
+        if micro == "auto":
+            micro = self._probe_microbatch(params)
+        elif not isinstance(micro, int):
+            raise ValueError(f"device_microbatch_size must be an int or 'auto', got {micro!r}")
         clamped = min(micro, cfg.train.global_batch_size)
         if clamped != micro:
             warnings.warn(f"device_microbatch_size {micro} exceeds the per-device batch "
@@ -90,6 +94,60 @@ class Trainer:
         self._eval_step = make_eval_step(self.model, loss_chunk_tokens=cfg.train.loss_chunk_tokens)
         name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
         self.speed_monitor = SpeedMonitor(cfg.model, device_name=name)
+
+    # ------------------------------------------------------------------
+    # auto microbatch probe
+    # ------------------------------------------------------------------
+
+    def _probe_microbatch(self, params: dict) -> int:
+        """The largest power-of-2 microbatch that runs one real train step
+        without exhausting device memory: the JAX trainer's probe
+        (``device_train_microbatch_size: auto`` halving on a CUDA OOM in the
+        original photon, ``photon/clients/trainer_utils.py:972-978``).
+
+        Candidates start at the largest power of 2 <= ``global_batch_size``
+        (capped by ``train.auto_microbatch_cap``) and skip those that do not
+        divide the batch (on one device 1 always does: JAX's ``ValueError``
+        for none is a multi-device case). Each runs a step of zero tokens on
+        ``params`` with an optimizer state of its own, so its memory is the
+        real step's; ``params`` are restored from a host copy after each,
+        and the candidate's state, gradients and activations are freed (and
+        the allocator's cache emptied) before the next. A non-OOM error
+        propagates."""
+        cfg = self.cfg
+        gbs = cfg.train.global_batch_size
+        rows = gbs
+        if cfg.train.auto_microbatch_cap:
+            rows = min(rows, cfg.train.auto_microbatch_cap)
+        cand = 1 << (max(rows, 1).bit_length() - 1)  # largest pow2 <= rows
+        flat = flatten(params)
+        saved = {name: p.detach().to("cpu", copy=True) for name, p in flat.items()}
+        tokens = torch.zeros((gbs, cfg.model.max_seq_len), dtype=torch.long,
+                             device=self.device)
+        last_err = ""
+        while cand >= 1:
+            if gbs % cand:
+                cand //= 2  # the microbatches must be equal
+                continue
+            try:
+                step = make_train_step(self.model, self.tx, n_microbatches=gbs // cand,
+                                       loss_chunk_tokens=cfg.train.loss_chunk_tokens)
+                step(init_train_state(self.tx, params), tokens)
+                self._sync()
+                return cand
+            except Exception as e:  # noqa: BLE001 -- only an OOM is retried
+                if not is_oom(e):
+                    raise
+                last_err = str(e)  # not the exception: its frames hold the activations
+                cand //= 2
+            finally:
+                with torch.no_grad():
+                    for name, p in flat.items():
+                        p.copy_(saved[name])
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+        raise RuntimeError(f"auto microbatch: even microbatch 1 exhausts device memory: "
+                           f"{last_err}")
 
     # ------------------------------------------------------------------
     # training / eval loops

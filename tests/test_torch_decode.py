@@ -14,8 +14,13 @@ arrays. One counterpart per case of ``tests/test_decode.py``:
 - bf16: cached greedy equals the full-forward greedy.
 
 Port-internal pins: paged decode equals contiguous decode bit for bit at
-every step (mirroring ``tests/test_serve.py:69``); with no gradient to
+every step (mirroring ``tests/test_serve.py:69``), an MoE model included
+(both route one batch through ``decode_layers``); with no gradient to
 take, the flash attention runs its forward alone.
+
+MoE (``mpt-moe``, gelu and SwiGLU experts): prefill over right-padded
+prompts (its mask keeps padding out of the capacity pool) and cached
+greedy generation equal JAX's.
 """
 
 import numpy as np
@@ -44,7 +49,12 @@ def _mpt_cfg(alibi: bool) -> JaxConfig:
 def _jax_cfg(name: str) -> JaxConfig:
     if name == "llama-gqa":
         return tiny_llama_config(n_kv_heads=2)
-    return _mpt_cfg(alibi=name == "mpt-alibi")
+    cfg = _mpt_cfg(alibi=name == "mpt-alibi")
+    if name.startswith("mpt-moe"):  # 4 experts, top-2, tight capacity
+        m = cfg.model
+        m.mlp, m.moe_num_experts, m.moe_top_k, m.moe_capacity_factor = "moe", 4, 2, 1.0
+        m.moe_mlp_act = "swiglu" if name.endswith("swiglu") else "gelu"
+    return cfg.validate()
 
 
 def _port_cfg(jcfg: JaxConfig):
@@ -86,11 +96,14 @@ def _full_forward_generate(mc, params, tokens, lengths, n):
 
 
 def test_moe_config_refused():
-    """``tests/test_decode.py`` also runs an MoE config; the port does not
-    serve MoE yet and says so at ``validate()``."""
+    """An MoE config validates (``tests/test_torch_moe.py`` decodes one);
+    what is still refused is an expert mesh, which needs more than one
+    device."""
     cfg = _mpt_cfg(alibi=False)
     cfg.model.mlp, cfg.model.moe_num_experts, cfg.model.moe_top_k = "moe", 4, 2
-    with pytest.raises(NotImplementedError, match="moe"):
+    assert _port_cfg(cfg.validate()).model.mlp == "moe"
+    cfg.mesh.expert = 2
+    with pytest.raises(NotImplementedError, match="mesh"):
         _port_cfg(cfg.validate())
 
 
@@ -144,6 +157,35 @@ def test_cached_generate_matches_jax_and_full_forward(name):
     oracle, oracle_len = _full_forward_generate(mc, tp, tokens, lengths, gen)
     np.testing.assert_array_equal(got.numpy(), oracle)
     np.testing.assert_array_equal(got_len.numpy(), oracle_len)
+
+
+@pytest.mark.parametrize("name", ["mpt-moe", "mpt-moe-swiglu"])
+def test_moe_prefill_and_generate_match_jax(name):
+    """Prefill over right-padded prompts (padding claims no capacity in
+    either package), its caches, and cached greedy generation, against
+    JAX's; the decode steps route every row of the batch, as JAX's do."""
+    import jax.numpy as jnp
+
+    from photon_tpu.models.decode import make_cached_generate_fn as jax_cached
+    from photon_tpu.models.decode import prefill as jax_prefill
+    from photon_tpu_torch.models.decode import make_cached_generate_fn, prefill
+
+    jcfg = _jax_cfg(name)
+    mc = _port_cfg(jcfg).model
+    jp, tp = _weights(jcfg, seed=4)
+    lengths = np.asarray([5, 16, 9], np.int32)
+    tokens = _prompts(mc.vocab_size, lengths, 24, seed=2)
+    want, jst = jax_prefill(jp, jnp.asarray(tokens), jnp.asarray(lengths), jcfg.model)
+    logits, st = prefill(tp, torch.from_numpy(tokens), torch.from_numpy(lengths), mc)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want), rtol=0, atol=LOGIT_ATOL)
+    for got, ref in ((st.cache_k, jst.cache_k), (st.cache_v, jst.cache_v)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=LOGIT_ATOL)
+    gen = 6
+    want, want_len = jax_cached(jcfg.model, jp).many(jnp.asarray(tokens), jnp.asarray(lengths),
+                                                     gen)
+    got, got_len = make_cached_generate_fn(mc, tp).many(tokens, lengths, gen)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
 
 
 def test_cached_generate_with_npz_params():
@@ -291,7 +333,7 @@ def test_cached_generate_matches_full_forward_bf16():
     np.testing.assert_array_equal(got.numpy(), oracle)
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + ["mpt-moe"])
 def test_paged_decode_bitexact_with_contiguous(name):
     """The paged pool, filled with the contiguous prefill's caches, decodes
     to the same logits as the contiguous cache, bit for bit, at every step

@@ -13,7 +13,8 @@ across as numpy, inline transport unless a case says otherwise:
    ``aggregate_momenta`` off and on: the same sampled cids, client states
    and cumulative steps; global params within 2e-5 rel L2 per tensor and
    the eval loss within 1e-5 relative after every round (the JAX runs are
-   module-scoped fixtures, shared by the cases);
+   module-scoped fixtures, shared by the cases); one FedAvg round of an MoE
+   model (4 experts, top-2) from the same weights;
 3. resume: 4 rounds straight equal 2 + resume + 2 (port against port);
    a round checkpoint with strategy state written by either package
    resumes in the other; the two part on resume only by FedAdam's step
@@ -281,6 +282,26 @@ def test_rounds_match_jax(tmp_path, jax_rounds, init_arrays, strategy, momenta):
         assert worst <= PARAM_REL, (rnd, worst)
         assert abs(g["eval_loss"] - w["eval_loss"]) <= EVAL_REL * abs(w["eval_loss"])
     assert got[0]["cids"] != got[1]["cids"] or len(set(got[0]["cids"])) == 2
+
+
+def test_moe_round_matches_jax(tmp_path):
+    """One FedAvg round of 2 clients × 2 steps of a tiny MoE model (the
+    loss with its aux in every client step), from the same JAX init."""
+    def moe_cfg(save):
+        cfg = _jax_cfg(save, "fedavg", False)
+        cfg.model.mlp, cfg.model.moe_num_experts, cfg.model.moe_top_k = "moe", 4, 2
+        return cfg.validate()
+
+    jcfg = moe_cfg(tmp_path / "jax")
+    init = jax_to_ndarrays(jax_init(jcfg.model, seed=0))
+    assert any(n.endswith("moe_up") for n in init[0].names)
+    want = _drive(_app("jax", jcfg, init), (1,))[0]
+    got = _drive(_app("port", _port_cfg(moe_cfg(tmp_path / "port")), init), (1,))[0]
+    assert got["cids"] == want["cids"] and got["steps"] == want["steps"] == 2
+    _same_states(got["client_states"], want["client_states"])
+    worst = max(_rel(a, b) for a, b in zip(got["params"], want["params"]))
+    assert worst <= PARAM_REL, worst
+    assert abs(got["eval_loss"] - want["eval_loss"]) <= EVAL_REL * abs(want["eval_loss"])
 
 
 # ---------------------------------------------------------------------------

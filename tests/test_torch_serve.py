@@ -8,7 +8,8 @@ from the JAX ``init_params`` carried across as numpy arrays:
    (decode-only and mixed steps, the port's gather and ragged impls),
    max abs 1e-5 on fp32;
 3. ``PagedEngine`` greedy completions equal the JAX engine's, with chunk
-   budgets that split prompts and blocks recycled after eviction;
+   budgets that split prompts and blocks recycled after eviction, an MoE
+   model (mpt-moe: 4 experts, top-2) included;
 4. port-internal pins: per-step logits equal the ``paged_decode_step``
    oracle, no slot/block leaks, seeded sampling reproducible and
    independent of batch-mates;
@@ -51,6 +52,9 @@ def _jax_cfg(kind: str, *, n_slots=2, block_size=4, max_seq=32, max_new=8,
         m.attn_impl, m.compute_dtype = "xla", "float32"
         m.alibi = kind == "mpt-alibi"
         m.learned_pos_emb = not m.alibi
+        if kind.startswith("mpt-moe"):  # the step routes n_slots · Tq tokens in one pool
+            m.mlp, m.moe_num_experts, m.moe_top_k = "moe", 4, 2
+            m.moe_mlp_act = "swiglu" if kind.endswith("swiglu") else "gelu"
     cfg.model.max_seq_len = max_seq
     s = cfg.photon.serve
     s.n_slots, s.block_size, s.max_new_tokens = n_slots, block_size, max_new
@@ -253,7 +257,8 @@ def test_mixed_chunk_step_matches_jax(kind, kind_step, impl):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kind,budget", [("mpt-wpe", 4), ("mpt-wpe", 2048),
-                                         ("mpt-alibi", 5), ("llama-gqa", 4)])
+                                         ("mpt-alibi", 5), ("llama-gqa", 4),
+                                         ("mpt-moe", 4), ("mpt-moe-swiglu", 5)])
 def test_engine_greedy_matches_jax(kind, budget):
     from photon_tpu.serve.engine import PagedEngine as JaxEngine
     from photon_tpu_torch.serve.engine import PagedEngine
@@ -520,7 +525,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "photon_tpu_torch.serve.__main__, photon_tpu_torch.centralized, "
             "photon_tpu_torch.train.trainer, photon_tpu_torch.ops.flash_attention, "
             "photon_tpu_torch.federated, photon_tpu_torch.eval.__main__, "
-            "photon_tpu_torch.data.convert, photon_tpu_torch.models.decode; "
+            "photon_tpu_torch.data.convert, photon_tpu_torch.models.decode, "
+            "photon_tpu_torch.ops.moe, photon_tpu_torch.config; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'photon_tpu')))")
     out = subprocess.run([sys.executable, "-S", "-c", code], cwd=ROOT, capture_output=True,
@@ -548,8 +554,10 @@ def test_unported_features_refused(feature):
     from photon_tpu_torch.config.schema import Config
 
     d = _jax_cfg("mpt-wpe").to_dict()
-    if feature == "moe":
+    if feature == "moe":  # MoE is ported; an expert mesh is not
         d["model"].update(mlp="moe", moe_num_experts=4)
+        Config.from_dict(d).validate("cpu")
+        d["mesh"]["expert"] = 2
     elif feature == "adapters":
         d["photon"]["adapters"]["enabled"] = True
     elif feature in ("speculative", "fleet"):
@@ -565,7 +573,10 @@ def test_config_reads_jax_yaml_and_presets(tmp_path):
     from photon_tpu_torch.config import load_preset
     from photon_tpu_torch.config.schema import Config
 
-    for name in ("mpt-125m", "llama-1b"):
+    from photon_tpu.config import list_presets
+
+    assert len(list_presets()) == 8
+    for name in list_presets():
         assert load_preset(name).model.__dict__ == jax_preset(name).model.__dict__
     jcfg = _jax_cfg("llama-gqa")
     jcfg.to_yaml(tmp_path / "a.yaml")

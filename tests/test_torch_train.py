@@ -1,8 +1,9 @@
 """The port's training path (``photon_tpu_torch``) against the JAX package's.
 
 All CPU, fp32, tiny configs (mpt-wpe, mpt-alibi, llama-gqa: rope, swiglu,
-untied head, rmsnorm, remat), with weights from the JAX ``init_params``
-carried across as numpy arrays and token batches made with numpy:
+untied head, rmsnorm, remat; mpt-d128: the d_head-128 family of mpt-1b
+and mpt-3b, with remat), with weights from the JAX ``init_params`` carried
+across as numpy arrays and token batches made with numpy:
 
 1. model logits and hidden states against ``MPTModel.apply``;
 2. 3 train steps with 2 microbatches against ``make_train_step`` (loss,
@@ -17,7 +18,10 @@ carried across as numpy arrays and token batches made with numpy:
 6. a client checkpoint written by either package's ``run_centralized``
    resumes in the other;
 7. ``python -m photon_tpu_torch.centralized --device cpu`` end to end;
-   what this slice does not port is refused at ``validate()``.
+   what this slice does not port is refused at ``validate()``;
+8. ``device_microbatch_size: auto``: one case per case of
+   ``tests/test_auto_microbatch.py`` (the largest microbatch that fits,
+   halving on an OOM, no fit, a non-OOM error propagates).
 """
 
 import dataclasses
@@ -52,7 +56,7 @@ PARAM_REL = 2e-5
 #: which amplifies the frameworks' rounding where v_prev comes from a
 #: near-zero gradient (a few elements in 1e4 differ by ~1e-4 against m ~ 0.1)
 MOMENT_REL = 1e-4
-CONFIGS = ["mpt-wpe", "mpt-alibi", "llama-gqa"]
+CONFIGS = ["mpt-wpe", "mpt-alibi", "llama-gqa", "mpt-d128"]
 
 
 def _jax_cfg(kind: str) -> JaxConfig:
@@ -66,6 +70,8 @@ def _jax_cfg(kind: str) -> JaxConfig:
         m.attn_impl, m.compute_dtype = "xla", "float32"
         m.alibi = kind == "mpt-alibi"
         m.learned_pos_emb = not m.alibi
+        if kind == "mpt-d128":  # mpt-1b's head dim at a tiny width
+            m.d_model, m.n_heads, m.remat = 256, 2, True
     cfg.train.global_batch_size, cfg.train.device_microbatch_size = 4, 2
     cfg.optimizer.lr = 1e-2
     cfg.scheduler.t_warmup, cfg.scheduler.t_max = 2, 20
@@ -143,6 +149,9 @@ STEP_CASES = {
     "adopt_freeze": ("mpt-wpe", {"freeze_patterns": ["blocks/.*ln_1", "wpe"]}, 20),
     "adamw_freeze_clip": ("mpt-wpe", {"name": "adamw", "freeze_patterns": ["ln_f"],
                                       "grad_clip_norm": 0.05}, 0),
+    # mpt-1b's recipe: D=128 heads, remat, AdamW (0.9, 0.95), a binding clip
+    "adamw_d128_remat": ("mpt-d128", {"name": "adamw", "betas": (0.9, 0.95),
+                                      "grad_clip_norm": 0.05}, 20),
 }
 
 
@@ -449,8 +458,10 @@ def test_unported_training_features_refused(feature):
         d["mesh"]["data"] = 2
     elif feature == "ring":
         d["model"]["attn_impl"] = "ring"
-    elif feature == "auto_micro":
+    elif feature == "auto_micro":  # auto is ported; an expert mesh under it is not
         d["train"]["device_microbatch_size"] = "auto"
+        Config.from_dict(d).validate()
+        d["mesh"]["expert"] = 2
     elif feature == "mesh_autotune":
         d["photon"]["mesh_autotune"] = True
     else:
@@ -459,3 +470,109 @@ def test_unported_training_features_refused(feature):
         Config.from_dict(d).validate()
     if feature in ("mesh", "auto_micro", "mesh_autotune"):
         Config.from_dict(d).validate(serving=True)  # a server loads weights whatever trained them
+
+
+# ---------------------------------------------------------------------------
+# 8. device_microbatch_size: auto (tests/test_auto_microbatch.py)
+# ---------------------------------------------------------------------------
+
+def _auto_cfg(**train_kw):
+    from photon_tpu_torch.config.schema import Config
+
+    jcfg = _jax_cfg("mpt-wpe")
+    d = jcfg.to_dict()
+    d["train"].update({"global_batch_size": 4, "device_microbatch_size": "auto", **train_kw})
+    return Config.from_dict(d).validate()
+
+
+def _oom_above(real_make, limit, probed, error):
+    """A ``make_train_step`` whose steps raise ``error`` for microbatches
+    above ``limit`` (batch 4: ``n_microbatches`` 1 → 4, 2 → 2, 4 → 1)."""
+    def fake_make(model, tx, n_microbatches=1, **kw):
+        micro = 4 // n_microbatches
+        probed.append(micro)
+        if micro > limit:
+            def boom(state, tokens):
+                raise error
+            return boom
+        return real_make(model, tx, n_microbatches=n_microbatches, **kw)
+
+    return fake_make
+
+
+def test_auto_picks_largest_fitting_microbatch():
+    """No memory pressure on the CPU: auto lands on the whole batch, as
+    JAX's probe does."""
+    from photon_tpu.train.trainer import Trainer as JaxTrainer
+    from photon_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(_auto_cfg(), init_seed=0, device="cpu")
+    assert trainer.device_microbatch_size == 4 and trainer._n_micro == 1
+    jcfg = _jax_cfg("mpt-wpe")
+    jcfg.train.global_batch_size, jcfg.train.device_microbatch_size = 4, "auto"
+    assert JaxTrainer(jcfg.validate(), init_seed=0).device_microbatch_size == 4
+    m = trainer.train_batch(_tokens(jcfg, 4))
+    assert np.isfinite(float(m["loss"]))
+
+
+@pytest.mark.parametrize("error", ["resource_exhausted", "cuda_oom"])
+def test_auto_halves_on_oom(monkeypatch, error):
+    """An OOM (JAX's phrasing, or ``torch.cuda.OutOfMemoryError``) for
+    microbatches above 1 drives the probe down in powers of two; the probe
+    leaves the parameters and the optimizer as it found them."""
+    import photon_tpu_torch.train.trainer as trainer_mod
+    from photon_tpu_torch.models.mpt import init_params
+
+    err = (RuntimeError("RESOURCE_EXHAUSTED: Out of memory (simulated)")
+           if error == "resource_exhausted" else torch.cuda.OutOfMemoryError("simulated"))
+    probed = []
+    monkeypatch.setattr(trainer_mod, "make_train_step",
+                        _oom_above(trainer_mod.make_train_step, 1, probed, err))
+    cfg = _auto_cfg()
+    cfg.optimizer.name = "adamw"  # its first step moves every parameter
+    trainer = trainer_mod.Trainer(cfg, init_seed=0, device="cpu")
+    assert trainer.device_microbatch_size == 1 and trainer._n_micro == 4
+    assert probed[:3] == [4, 2, 1]  # descending powers of two
+    fresh = _port_flat(init_params(cfg.model, seed=0))
+    assert all(np.array_equal(v, fresh[k]) for k, v in _port_flat(trainer.state.params).items())
+    assert trainer.step == 0
+    assert all(not t.any() for n, t in trainer.state.opt_state.items() if "count" not in n)
+
+
+def test_auto_raises_when_nothing_fits(monkeypatch):
+    import photon_tpu_torch.train.trainer as trainer_mod
+
+    err = RuntimeError("RESOURCE_EXHAUSTED: Out of memory (simulated)")
+    monkeypatch.setattr(trainer_mod, "make_train_step",
+                        _oom_above(trainer_mod.make_train_step, 0, [], err))
+    with pytest.raises(RuntimeError, match="even microbatch 1"):
+        trainer_mod.Trainer(_auto_cfg(), init_seed=0, device="cpu")
+
+
+def test_non_oom_probe_error_propagates(monkeypatch):
+    import photon_tpu_torch.train.trainer as trainer_mod
+
+    monkeypatch.setattr(trainer_mod, "make_train_step",
+                        _oom_above(trainer_mod.make_train_step, 0, [],
+                                   ValueError("a real bug, not OOM")))
+    with pytest.raises(ValueError, match="real bug"):
+        trainer_mod.Trainer(_auto_cfg(), init_seed=0, device="cpu")
+
+
+def test_schema_rejects_bad_string():
+    with pytest.raises(ValueError, match="auto"):
+        _auto_cfg(device_microbatch_size="Auto")
+
+
+def test_auto_microbatch_cap():
+    """``train.auto_microbatch_cap`` bounds the first candidate, in both
+    packages; batch 6 under a cap of 4 probes 4 (no: 6 % 4), then 2."""
+    from photon_tpu.train.trainer import Trainer as JaxTrainer
+    from photon_tpu_torch.train.trainer import Trainer
+
+    t = Trainer(_auto_cfg(global_batch_size=6, auto_microbatch_cap=4), init_seed=0, device="cpu")
+    assert t.device_microbatch_size == 2 and t._n_micro == 3
+    jcfg = _jax_cfg("mpt-wpe")
+    jcfg.train.global_batch_size, jcfg.train.device_microbatch_size = 6, "auto"
+    jcfg.train.auto_microbatch_cap = 4
+    assert JaxTrainer(jcfg.validate(), init_seed=0).device_microbatch_size == 2
