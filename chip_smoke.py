@@ -14,8 +14,9 @@ Phases (any failure exits non-zero):
    kernel's SASS (``cuobjdump``): the bf16 K1, K2 and K3 must each hold
    ``HGMMA`` and ``UTMALDG``; ptxas's notes of wgmma it had to serialize;
 2. kernels: each kernel against its plain PyTorch version on the card,
-   fp32 and bf16, at the shapes the serving step (K4) and the training
-   step (K1 forward, K2 dQ, K3 dK/dV) give it; times of the kernel, the
+   fp32 and bf16, at the shapes the serving step (K4: decode, chunk and
+   speculative verify) and the training step (K1 forward, K2 dQ, K3
+   dK/dV) give it; times of the kernel, the
    plain version and one PyTorch library call, and the least time the
    card could take (bytes over 3.35 TB/s, flops over the peak for the
    dtype); K2, K3 and K4 give the same bits twice; K4's decode must run
@@ -59,14 +60,37 @@ Phases (any failure exits non-zero):
    step with a prompt chunk. A third engine, whose every kernel call reads
    the trash block in place of each row's last live block, must fail the
    same logit gate (so the gate is shown to catch a dropped key block);
-7. server: the round checkpoint the federated phase wrote (round 3),
-   served by ``python -m photon_tpu_torch.serve`` on an ephemeral port; 8
-   concurrent ``/generate`` requests (one streaming, one split into chunks
-   by the prefill budget), a repeated greedy prompt, ``/healthz``, then
-   SIGTERM and a clean exit. The server's own launch count (read on
-   ``/healthz``) must equal ``n_layers`` × (steps + chunk steps).
+6b. spec_prefix: the verify grid (8 slots mid-decode at 16–1500 tokens,
+   one ``mixed_chunk_step`` with ``n_spec = 4`` fed each row's own greedy
+   continuation) against 4 sequential steps, per (row, column) logits
+   within the engine gate and greedy tokens equal on clear margins, at
+   mpt-125m's shape and at llama-1b's attention shape (GQA 16/4, D=128, 2
+   layers: K4's chunk regime at B = 8); a wrapper that gives every query
+   of a row the row's last position must break the gate. Then 16
+   templated prompts (a 64-token block × 5 and a suffix each, 64 greedy
+   tokens) through a speculative batcher (k = 4) and a plain one:
+   streams equal up to a tie (a top-2 margin within twice the engine
+   phase's largest logit difference), the acceptance rate and tokens/s
+   of both, greedy and sampled at temperature 0.2 (tokens/s recorded, not
+   gated); and through one with the prefix cache, twice: the second
+   pass hits, maps blocks at refcount > 1, equals the first up to a tie,
+   and nothing leaks after a flush; TTFT cold vs cached. K4 launches
+   ``n_layers`` × (steps + chunk steps) in every batcher run;
+7. server: ``python -m photon_tpu_torch.serve`` on an ephemeral port with
+   hot-swap, the prefix cache and speculative decoding on, started with
+   ``--round -1`` on a copy of the federated run's store that holds its
+   rounds up to 2; 8 concurrent ``/generate`` requests (one streaming, one
+   split into chunks by the prefill budget), during which round 3 is
+   copied in (manifest last) and must be swapped in (``/healthz`` round
+   3, one swap, every request answered); then a round 4 whose params
+   object has one byte flipped must be skipped as corrupt while round 3
+   serves; a repeated greedy prompt, ``/healthz``, then SIGTERM and a
+   clean exit. The server's own launch count (read on ``/healthz``) must
+   equal ``n_layers`` × (steps + chunk steps). The swap's latency
+   (manifest landed → applied) and the device memory across it are
+   recorded.
 
-Between 6 and 7, a ``torch.profiler`` window over steady decode steps
+Between 6b and 7, a ``torch.profiler`` window over steady decode steps
 reports the step's wall time, the device's busy time by kernel and its
 idle share (1 - busy / the unprofiled step's wall time). Then:
 
@@ -294,10 +318,21 @@ def kernel_phase(torch, rpa, alibi_slopes, np):
          np.arange(1024, 1536)[None, :], False, True),
         ("mpt125m_alibi_chunk", (12, 12, 12, 64), 1, 256,
          np.arange(600, 856)[None, :], True, False),
+        # speculative verify (k = 4 drafts bucket to n_spec 8): each row's
+        # [last, drafts] at consecutive positions, rows at different depths.
+        # Reported in its own record, outside the main entry, which stays
+        # the decode + chunk sum that earlier slices reported
+        ("mpt125m_verify", (12, 12, 12, 64), 8, 8,
+         np.array([2039, 1800, 1536, 1200, 1024, 700, 400, 130])[:, None] + np.arange(8),
+         False, False),
         ("llama1b_decode", (22, 16, 4, 128), 8, 1,
          np.array([[2047], [1900], [1500], [1100], [900], [512], [256], [31]]), False, False),
         ("llama1b_chunk", (22, 16, 4, 128), 1, 512,
          np.arange(512, 1024)[None, :], False, False),
+        # GQA 16/4 at n_spec 4: 16 rows a (slot, kv head), the bf16 chunk regime at B = 8
+        ("llama1b_verify", (22, 16, 4, 128), 8, 4,
+         np.array([2043, 1900, 1500, 1100, 900, 512, 256, 31])[:, None] + np.arange(4),
+         False, False),
         ("recycled_shared_blocks", (12, 12, 12, 64), 4, 4,
          np.array([[5, 6, 7, 8], [100, 101, 102, 103], [0, 1, 2, 3], [700, 701, 702, 703]]),
          False, False),
@@ -1185,7 +1220,8 @@ def _compare_logits(torch, np, eng_r, eng_g, emitted, vocab, step):
     """The emitting rows' logits of the two engines: finite, of the right
     shape, within the gate; greedy tokens equal wherever the gather
     engine's top-2 margin exceeds twice the largest logit difference.
-    Returns (relative L2, rows whose tokens were held equal)."""
+    Returns (relative L2, rows whose tokens were held equal, the largest
+    logit difference)."""
     rows = torch.from_numpy(np.flatnonzero(emitted)).to("cuda")
     lr = eng_r.last_logits[rows].float()
     lg = eng_g.last_logits[rows].float()
@@ -1200,7 +1236,7 @@ def _compare_logits(torch, np, eng_r, eng_g, emitted, vocab, step):
     same = (lr.argmax(-1) == lg.argmax(-1)).cpu().numpy()
     if (clear & ~same).any():
         fail(f"step {step}: greedy tokens differ where the top-2 margin is clear")
-    return rel, int(clear.sum())
+    return rel, int(clear.sum()), max_diff
 
 
 def engine_phase(torch, rpa, np, params, cfg):
@@ -1226,7 +1262,7 @@ def engine_phase(torch, rpa, np, params, cfg):
     max_new, budget = 8, cfg.photon.serve.prefill_token_budget
     queue, running, emitted_n = list(enumerate(prompts)), {}, {}
     steps = chunk_steps = checked = 0
-    sound_rels, fault_rels = [], []
+    sound_rels, fault_rels, max_diffs = [], [], []
     rpa.launches = 0  # the counted run starts here
     t0 = time.perf_counter()
     while queue or running:
@@ -1258,8 +1294,10 @@ def engine_phase(torch, rpa, np, params, cfg):
             cache.ragged_paged_attention = sound_rpa
             rpa.launches = before + launched  # the planted-fault check is not the main path
         if emitted.any():
-            rel, n_checked = _compare_logits(torch, np, eng_r, eng_g, emitted, vocab, steps)
+            rel, n_checked, max_diff = _compare_logits(torch, np, eng_r, eng_g, emitted,
+                                                       vocab, steps)
             sound_rels.append(rel)
+            max_diffs.append(max_diff)
             checked += n_checked
             rows = torch.from_numpy(np.flatnonzero(emitted)).to("cuda")
             fault_rels.append(_rel_l2(eng_f.last_logits[rows].float(),
@@ -1293,6 +1331,9 @@ def engine_phase(torch, rpa, np, params, cfg):
            "emitting_steps": len(fault_rels),
            "sound_rel_l2_by_step": sound_rels, "planted_fault_rel_l2_by_step": fault_rels,
            "greedy_rows_held_equal": checked,
+           # the largest logit difference of two sound engines: what
+           # spec_prefix calls a tie
+           "max_abs_logit_diff": max(max_diffs),
            "wall_s_three_engines": wall}
     log("engine_phase " + json.dumps(rec))
     del eng_r, eng_g, eng_f
@@ -1356,6 +1397,298 @@ def profile_phase(torch, np, params, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: speculative verify and the prefix cache
+# ---------------------------------------------------------------------------
+
+#: the verify grid's slots: 8 rows mid-decode at these context lengths
+SPEC_LENGTHS = (16, 100, 250, 400, 600, 800, 1100, 1500)
+#: the spec and prefix passes: 16 prompts of a 64-token block repeated 5
+#: times plus a 16-token suffix of their own, 64 greedy tokens each
+SPEC_PROMPTS, SPEC_NEW = 16, 64
+SPEC_TEMP = 0.2  # the sampled passes' temperature: low enough that drafts still land
+
+
+def _last_position_per_row(rpa_fn):
+    """A planted fault: ``rpa_fn`` with every query of a row given the
+    row's last position, so a verify column sees the later drafts' keys
+    (a per-row mask in place of a per-query one)."""
+    def faulty(q, k_pool, v_pool, layer, rows, positions, **kw):
+        last = positions.max(dim=1, keepdim=True).values
+        return rpa_fn(q, k_pool, v_pool, layer, rows, last.expand_as(positions).contiguous(), **kw)
+
+    return faulty
+
+
+def _verify_grid(torch, np, rpa, cfg, params, tag) -> dict:
+    """8 slots mid-decode at ``SPEC_LENGTHS``: 4 sequential single-token
+    steps on one clone of the state against one ``mixed_chunk_step`` with
+    ``n_spec = 4`` on another, each row fed its own greedy continuation
+    as drafts. Per (row, column) logits within ``ENGINE_LOGIT_GATE``,
+    greedy tokens equal where the top-2 margin exceeds twice the largest
+    difference; K4 launched ``n_layers`` times for the verify and 4 ×
+    ``n_layers`` for the steps. Then the verify again with
+    :func:`_last_position_per_row` patched in, which must read over the
+    gate."""
+    import copy
+
+    from photon_tpu_torch.serve import cache
+    from photon_tpu_torch.serve.engine import PagedEngine
+
+    c = copy.deepcopy(cfg)
+    c.photon.serve.attention_impl = "ragged"
+    eng = PagedEngine(c, params, device="cuda")
+    L, vocab, budget = c.model.n_layers, c.model.vocab_size, c.photon.serve.prefill_token_budget
+    rng = np.random.default_rng(4)
+    for slot, n in enumerate(SPEC_LENGTHS):
+        eng.begin(slot, list(map(int, rng.integers(0, vocab, n))), 64)
+        while eng.pending_tokens(slot):
+            eng.mixed_step((slot, min(eng.pending_tokens(slot), budget)), include_decode=False)
+    B, n_spec = eng.n_slots, 4
+    lengths, n_ctx = eng._lengths.copy(), eng._ctx_width()
+
+    def run(state, toks, first, width):
+        t = toks.shape[1]
+        pos = torch.from_numpy((lengths + first)[:, None] + np.arange(t)).int().cuda()
+        return cache.mixed_chunk_step(
+            eng.params, eng._layers, state, torch.from_numpy(toks).long().cuda(),
+            pos.contiguous(), torch.ones((B, t), dtype=torch.bool, device="cuda"),
+            torch.zeros(B, dtype=torch.int32, device="cuda"),
+            torch.from_numpy(lengths + first + t).int().cuda(), 0, eng.mc,
+            n_ctx=n_ctx, impl="ragged", n_spec=width)[0]
+
+    seq_state = eng.state.clone()
+    cur = eng._last.copy()[:, None]
+    seq, feed = [], [cur[:, 0]]
+    rpa.launches = 0
+    for i in range(n_spec):
+        lg = run(seq_state, cur, i, 1).float()
+        seq.append(lg)
+        cur = lg.argmax(-1).int().cpu().numpy()[:, None]
+        feed.append(cur[:, 0])
+    seq_launches = rpa.launches
+    toks = np.stack(feed[:n_spec], axis=1).astype(np.int32)  # [last, t1, t2, t3]
+    rpa.launches = 0
+    grid = run(eng.state.clone(), toks, 0, n_spec).float()
+    torch.cuda.synchronize()
+    grid_launches = rpa.launches
+    if seq_launches != n_spec * L or grid_launches != L:
+        fail(f"{tag} verify grid: K4 launched {grid_launches} (want {L}) and the steps "
+             f"{seq_launches} (want {n_spec * L})")
+    if not (torch.isfinite(grid).all() and grid.shape == (B, n_spec, vocab)):
+        fail(f"{tag} verify grid: logits not finite or of shape {tuple(grid.shape)}")
+    rels, clear, max_abs = [], 0, 0.0
+    for i in range(n_spec):
+        for r in range(B):
+            a, b = grid[r, i], seq[i][r]
+            rel = _rel_l2(a, b)
+            diff = float((a - b).abs().max())
+            rels.append(rel)
+            max_abs = max(max_abs, diff)
+            top2 = b.topk(2).values
+            if float(top2[0] - top2[1]) > 2 * diff:
+                clear += 1
+                if int(a.argmax()) != int(b.argmax()):
+                    fail(f"{tag} verify grid: row {r} column {i} greedy token differs "
+                         f"where the margin is clear")
+    if max(rels) > ENGINE_LOGIT_GATE:
+        fail(f"{tag} verify grid vs sequential steps: rel L2 {max(rels):.3e} > "
+             f"{ENGINE_LOGIT_GATE}")
+    sound = cache.ragged_paged_attention
+    cache.ragged_paged_attention = _last_position_per_row(sound)
+    try:
+        bad = run(eng.state.clone(), toks, 0, n_spec).float()
+    finally:
+        cache.ragged_paged_attention = sound
+    fault = [_rel_l2(bad[r, i], seq[i][r]) for i in range(n_spec) for r in range(B)]
+    if max(fault) <= ENGINE_LOGIT_GATE:
+        fail(f"{tag}: the gate {ENGINE_LOGIT_GATE} misses a per-row position mask "
+             f"(largest reading {max(fault):.3e})")
+    rec = {"shape": f"B={B} n_spec={n_spec} H={c.model.n_heads}/{c.model.kv_heads} "
+                    f"Dh={c.model.d_head} L={L} n_ctx={n_ctx} {c.model.compute_dtype}",
+           "regime": rpa.regime(n_spec, c.model.n_heads // c.model.kv_heads,
+                                eng.state.cache_k.dtype),
+           "worst_rel_l2": max(rels), "max_abs_logit_diff": max_abs,
+           "rows_columns_clear": clear, "launches_verify": grid_launches,
+           "launches_sequential": seq_launches, "planted_fault_rel_l2_max": max(fault),
+           "planted_fault_over_gate": sum(f > ENGINE_LOGIT_GATE for f in fault)}
+    del eng, seq, grid, bad
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _batcher_pass(torch, rpa, eng, prompts, speculative=None, temperature=0.0) -> dict:
+    """The prompts through a ``ContinuousBatcher`` (submitted before it
+    starts, so admission is FIFO from one queue), ``SPEC_NEW`` tokens each
+    (greedy, or sampled at ``temperature`` with request ``i`` seeded
+    ``i``); K4 must launch ``n_layers`` × (steps + chunk steps)."""
+    from photon_tpu_torch.serve.scheduler import ContinuousBatcher
+
+    b = ContinuousBatcher(eng, max_queue=64,
+                          prefill_token_budget=eng.cfg.photon.serve.prefill_token_budget,
+                          speculative=speculative)
+    reqs = [b.submit(p, SPEC_NEW, temperature=temperature, seed=i)
+            for i, p in enumerate(prompts)]
+    rpa.launches = 0
+    t0 = time.perf_counter()
+    b.start()
+    outs = [r.result(timeout=600) for r in reqs]
+    wall = time.perf_counter() - t0
+    launches = rpa.launches
+    b.close()
+    st = b.stats()
+    want = eng.mc.n_layers * int(st["steps"] + st["chunk_steps"])
+    if launches != want or launches == 0:
+        fail(f"batcher pass launched K4 {launches} times, want {want}")
+    if any(len(o) != SPEC_NEW for o in outs) or eng.n_active:
+        fail(f"batcher pass: lengths {[len(o) for o in outs]}, {eng.n_active} slots left")
+    ttft = [r.ttft_s for r in reqs]
+    return {"outs": outs, "wall_s": wall, "tokens_per_s": len(prompts) * SPEC_NEW / wall,
+            "launches": launches, "steps": st["steps"], "chunk_steps": st["chunk_steps"],
+            "mean_ttft_s": sum(ttft) / len(ttft),
+            "first_wave_mean_ttft_s": sum(ttft[: eng.n_slots]) / eng.n_slots,
+            "spec": b.spec_stats()}
+
+
+def _streams_agree(torch, eng, prompts, got, want, tie, what) -> list:
+    """Greedy streams ``got`` equal ``want`` up to each request's first
+    divergence, where the top-2 margin of the logits (recomputed by ``eng``
+    over the prompt and the common prefix) must be a tie: at most ``tie``.
+    Returns ``[request, token index, margin]`` of each divergence."""
+    diverged = []
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        eng.admit(0, p + b[:j], 1)
+        top2 = eng.last_logits[0].float().topk(2).values
+        eng.evict(0)
+        margin = float(top2[0] - top2[1])
+        if margin > tie:
+            fail(f"{what}: a stream differs at token {j} where the top-2 margin "
+                 f"{margin:.4f} is clear (tie {tie:.4f})")
+        diverged.append([i, j, margin])
+    return diverged
+
+
+def spec_prefix_phase(torch, rpa, np, params, cfg, tie: float) -> dict:
+    """Speculative decoding and the prefix cache at full width (mpt-125m,
+    bf16, ``attention_impl="ragged"``): the verify grid against sequential
+    steps at mpt-125m's shape and at llama-1b's attention shape (GQA 16/4,
+    D=128, 2 layers: the B = 8 chunk regime), each with its planted fault;
+    a speculative batcher (k = 4) against a plain one on 16 templated
+    prompts; and the prefix cache over the same prompts served twice.
+    ``tie``: twice the largest logit difference of two sound engines
+    (the engine phase), the margin under which greedy streams may part."""
+    import copy
+
+    from photon_tpu_torch.config import load_preset
+    from photon_tpu_torch.models.mpt import init_params
+    from photon_tpu_torch.serve.engine import PagedEngine
+
+    rec = {"verify_125m": _verify_grid(torch, np, rpa, cfg, params, "mpt-125m")}
+    lcfg = load_preset("llama-1b")
+    lcfg.photon.serve = copy.deepcopy(cfg.photon.serve)
+    lcfg.model.n_layers = 2  # the attention shape is what is held; depth is cut
+    lparams = init_params(lcfg.model, seed=0, device="cuda")
+    rec["verify_llama1b"] = _verify_grid(torch, np, rpa, lcfg, lparams, "llama-1b")
+    del lparams
+    torch.cuda.empty_cache()
+    for k, v in rec.items():
+        log(f"spec_prefix {k} " + json.dumps(v))
+
+    base = copy.deepcopy(cfg)
+    base.photon.serve.attention_impl = "ragged"
+    rng = np.random.default_rng(6)
+    template = list(map(int, rng.integers(0, cfg.model.vocab_size, 64))) * 5
+    prompts = [template + list(map(int, rng.integers(0, cfg.model.vocab_size, 16)))
+               for _ in range(SPEC_PROMPTS)]
+    plain_eng = PagedEngine(base, params, device="cuda")
+    plain = _batcher_pass(torch, rpa, plain_eng, prompts)
+    scfg = copy.deepcopy(base)
+    scfg.photon.serve.speculative.enabled = True
+    scfg.photon.serve.speculative.k = 4
+    spec_eng = PagedEngine(scfg, params, device="cuda")
+    spec = _batcher_pass(torch, rpa, spec_eng, prompts, scfg.photon.serve.speculative)
+    # sampled traffic: every emitting row draws on the device, and a step
+    # reads its tokens back in one copy, as a greedy one does
+    plain_t = _batcher_pass(torch, rpa, plain_eng, prompts, temperature=SPEC_TEMP)
+    spec_t = _batcher_pass(torch, rpa, spec_eng, prompts, scfg.photon.serve.speculative,
+                           temperature=SPEC_TEMP)
+    del spec_eng
+    st = spec["spec"]
+    if not st["spec_steps"] or not st["drafted"]:
+        fail(f"speculative pass drafted nothing: {st}")
+    diverged = _streams_agree(torch, plain_eng, prompts, spec["outs"], plain["outs"], tie,
+                              "speculative vs plain")
+    rec["speculative"] = {
+        "k_max": 4, "prompts": SPEC_PROMPTS, "new_tokens": SPEC_NEW,
+        "prompt_tokens": len(prompts[0]), "drafted": st["drafted"],
+        "accepted": st["accepted"], "spec_steps": st["spec_steps"],
+        "accept_ewma_end": st["accept_ewma"], "k_end": st["k"],
+        "acceptance_rate": st["accepted"] / st["drafted"],
+        "tokens_per_s_spec": spec["tokens_per_s"], "tokens_per_s_plain": plain["tokens_per_s"],
+        "temperature": SPEC_TEMP, "tokens_per_s_plain_temp": plain_t["tokens_per_s"],
+        "tokens_per_s_spec_temp": spec_t["tokens_per_s"],
+        "drafted_temp": spec_t["spec"]["drafted"], "accepted_temp": spec_t["spec"]["accepted"],
+        "steps_plain_temp": plain_t["steps"], "steps_spec_temp": spec_t["steps"],
+        "steps_spec": spec["steps"], "steps_plain": plain["steps"],
+        "launches_spec": spec["launches"], "launches_plain": plain["launches"],
+        "tie": tie, "streams_diverged_at_a_tie": diverged}
+    log("spec_prefix speculative " + json.dumps(rec["speculative"]))
+
+    pcfg = copy.deepcopy(base)
+    pcfg.photon.serve.prefix_cache = True
+    eng = PagedEngine(pcfg, params, device="cuda")
+    shared_refs = []
+    real_begin = eng.begin
+
+    def begin(slot, prompt, *a, **kw):  # reads the refcounts on the scheduler thread
+        real_begin(slot, prompt, *a, **kw)
+        hit = eng._slot_blocks[slot][: eng._lengths[slot] // eng.block_size]
+        shared_refs.append(max((eng.allocator.refcount(b) for b in hit), default=0))
+
+    eng.begin = begin
+    cold = _batcher_pass(torch, rpa, eng, prompts)
+    after_cold = dict(eng.prefix_stats())
+    refs_cold, shared_refs[:] = list(shared_refs), []
+    warm = _batcher_pass(torch, rpa, eng, prompts)
+    stats = eng.prefix_stats()
+    cached_warm = stats["tokens_cached"] - after_cold["tokens_cached"]
+    if cached_warm <= 0 or max(shared_refs) < 2:
+        fail(f"prefix cache: the second pass cached {cached_warm} tokens, shared blocks "
+             f"at refcount {max(shared_refs)}")
+    diverged_p = _streams_agree(torch, plain_eng, prompts, warm["outs"], cold["outs"], tie,
+                                "cached vs cold")
+    held = eng.n_blocks - eng.free_blocks
+    if held != len(eng.prefix_cache):
+        fail(f"prefix cache: {held} blocks held with {len(eng.prefix_cache)} entries")
+    eng.prefix_cache.flush()
+    if eng.free_blocks != eng.n_blocks:
+        fail(f"prefix cache leaked {eng.n_blocks - eng.free_blocks} blocks")
+    rec["prefix"] = {
+        "prompts": SPEC_PROMPTS, "prompt_tokens": len(prompts[0]),
+        "hit_rate_cold_pass": after_cold["tokens_cached"] / (SPEC_PROMPTS * len(prompts[0])),
+        "hit_rate_cached_pass": cached_warm / (SPEC_PROMPTS * len(prompts[0])),
+        "hit_rate_cumulative": stats["hit_rate"], "entries": held,
+        "max_shared_refcount_cold": max(refs_cold), "max_shared_refcount_cached": max(shared_refs),
+        "mean_ttft_s_cold": cold["mean_ttft_s"], "mean_ttft_s_cached": warm["mean_ttft_s"],
+        "first_wave_ttft_s_cold": cold["first_wave_mean_ttft_s"],
+        "first_wave_ttft_s_cached": warm["first_wave_mean_ttft_s"],
+        "tokens_per_s_cold": cold["tokens_per_s"], "tokens_per_s_cached": warm["tokens_per_s"],
+        "chunk_steps_cold": cold["chunk_steps"], "chunk_steps_cached": warm["chunk_steps"],
+        "launches": [cold["launches"], warm["launches"]],
+        "tie": tie, "streams_diverged_at_a_tie": diverged_p, "leaked_blocks": 0}
+    log("spec_prefix prefix " + json.dumps(rec["prefix"]))
+    rec["launches"] = {"verify_125m": rec["verify_125m"]["launches_verify"],
+                       "speculative": spec["launches"], "plain": plain["launches"],
+                       "sampled": plain_t["launches"] + spec_t["launches"],
+                       "prefix": cold["launches"] + warm["launches"]}
+    del eng, plain_eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 7: server
 # ---------------------------------------------------------------------------
 
@@ -1385,19 +1718,68 @@ def _generate(port, prompt, max_new, stream=False):
     return status, final
 
 
+def _copy_round(src, dst, run: str, rnd: int, to: int | None = None,
+                flip: bool = False) -> float:
+    """Copy round ``rnd`` of ``run`` from store ``src`` into ``dst`` (as
+    round ``to``, default the same), each object by an atomic put (no
+    fsync: nothing here outlives the machine), the manifest last; ``flip``
+    flips one byte of the params object after its checksum was taken (a
+    corrupt round). Returns the wall time at which the manifest landed."""
+    from photon_tpu_torch.checkpoint.server import MANIFEST_FILE, PARAMS_FILE
+
+    prefix, out = f"{run}/server/{rnd}/", f"{run}/server/{rnd if to is None else to}/"
+    for key in src.list(prefix.rstrip("/")):
+        if key.endswith(MANIFEST_FILE):
+            continue
+        data = src.get(key)
+        if flip and key.endswith(PARAMS_FILE):
+            data = bytearray(data)
+            data[len(data) // 2] ^= 0x01
+            data = bytes(data)
+        dst.put(out + key[len(prefix):], data, durable=False)
+    dst.put(out + MANIFEST_FILE, src.get(prefix + MANIFEST_FILE), durable=False)
+    return time.time()
+
+
+def _wait_health(port, pred, timeout_s: float, what: str) -> dict:
+    deadline = time.monotonic() + timeout_s
+    while True:
+        health = json.loads(_request(port, "/healthz")[1])
+        if pred(health):
+            return health
+        if time.monotonic() > deadline:
+            fail(f"server: {what} not reached in {timeout_s} s: {health}")
+        time.sleep(0.05)
+
+
 def server_phase(torch, np, cfg, n_layers, fed):
-    """Serve the round checkpoint the federated phase wrote (its latest
-    round, with the nesterov momentum beside the params, which serving
-    does not read)."""
+    """Serve the federated run as it trains: the server starts on a store
+    copy that holds the run's rounds up to 2 (``--round -1``), with
+    hot-swap, the prefix cache and speculative decoding on. While its 8
+    requests run, round 3 is copied in (manifest last) and must be
+    swapped in with no request dropped; then a round 4 whose params
+    object has one byte flipped must be skipped as corrupt while round 3
+    keeps serving. The nesterov momentum beside the params is not read."""
+    from photon_tpu_torch.checkpoint import FileStore
+
     work = ROOT / ".chip_smoke" / "serve"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    cfg.run_uuid = fed["run_uuid"]
-    cfg.photon.serve.attention_impl = "auto"
+    run, last = fed["run_uuid"], fed["served_round"]
+    src, store = FileStore(fed["store"]), FileStore(work / "store")
+    rounds = sorted({int(k.split("/")[2]) for k in src.list(f"{run}/server")})
+    for r in (r for r in rounds if r < last):
+        _copy_round(src, store, run, r)
+    cfg.run_uuid = run
+    sc = cfg.photon.serve
+    sc.attention_impl = "auto"
+    sc.prefix_cache = sc.hotswap = sc.speculative.enabled = True
+    sc.speculative.k = 4
+    sc.hotswap_poll_s = 0.25
     cfg.to_yaml(work / "resolved.yaml")
     proc = subprocess.Popen(
         [sys.executable, "-m", "photon_tpu_torch.serve", "--config", str(work / "resolved.yaml"),
-         "--store", fed["store"], "--enable", "--port", "0"],
+         "--store", str(work / "store"), "--round", "-1", "--enable", "--port", "0"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
     stderr_tail: list[str] = []
@@ -1414,11 +1796,11 @@ def server_phase(torch, np, cfg, n_layers, fed):
         info = json.loads(first)
         port = info["port"]
         log("server_up " + json.dumps(dict(info, startup_s=time.perf_counter() - t_start)))
-        if info["round"] != fed["served_round"]:
-            fail(f"server loaded round {info['round']}, want the federated phase's "
-                 f"{fed['served_round']}")
-        _, h0 = _request(port, "/healthz")
-        if json.loads(h0)["kernel_launches"]["ragged_paged_attention"] != 0:
+        if info["round"] != last - 1 or not (info["prefix_cache"] and info["hotswap"]):
+            fail(f"server started on round {info['round']} (want {last - 1}) with prefix "
+                 f"cache {info['prefix_cache']}, hot-swap {info['hotswap']}")
+        h0 = json.loads(_request(port, "/healthz")[1])
+        if h0["kernel_launches"]["ragged_paged_attention"] != 0:
             fail("server launched the kernel before any request")
         rng = np.random.default_rng(2)
         vocab = cfg.model.vocab_size
@@ -1428,18 +1810,33 @@ def server_phase(torch, np, cfg, n_layers, fed):
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
             futs = [pool.submit(_generate, port, p, max_new, i == 2) for i, p in enumerate(prompts)]
+            time.sleep(0.2)  # the requests are in flight: round 3 lands now
+            t_manifest = _copy_round(src, store, run, last)
             replies = [f.result() for f in futs]
+        t_replies = time.time()
         wall = time.perf_counter() - t0
         for n, (status, rep) in zip(lengths, replies):
             if status != 200 or rep is None or rep["n_generated"] != max_new \
                     or len(rep["tokens"]) != max_new or rep["n_prompt"] != n:
                 fail(f"prompt of {n}: status {status}, reply {rep}")
-        again = [_generate(port, prompts[3], max_new)[1] for _ in range(2)]
-        if again[0] is None or again[1] is None or again[0]["tokens"] != again[1]["tokens"]:
+        swapped = _wait_health(port, lambda h: h["round"] == last and h["swaps"] == 1, 120,
+                               f"the swap to round {last}")
+        hs = swapped["hotswap"]
+        # round 4: round 3's objects with one byte of the params flipped
+        _copy_round(store, store, run, last, to=last + 1, flip=True)
+        t_corrupt = time.perf_counter()
+        rejected = _wait_health(port, lambda h: h["hotswap"]["rejected_corrupt"] == 1, 60,
+                                f"the corrupt round {last + 1} rejected")
+        if rejected["round"] != last or rejected["swaps"] != 1:
+            fail(f"server left round {last} for a corrupt round: {rejected}")
+        # the repeated greedy prompt: a first request fills the prefix
+        # cache, the next two take the same cached path and must agree
+        again = [_generate(port, prompts[3], max_new)[1] for _ in range(3)]
+        if any(a is None for a in again) or again[1]["tokens"] != again[2]["tokens"]:
             fail("a repeated greedy prompt returned different tokens")
-        _, hz = _request(port, "/healthz")
-        health = json.loads(hz)
-        if health["attn_impl"] != "ragged" or health["status"] != "ok":
+        health = json.loads(_request(port, "/healthz")[1])
+        if health["attn_impl"] != "ragged" or health["status"] != "ok" \
+                or health["round"] != last or health["hotswap"]["rejected_corrupt"] != 1:
             fail(f"/healthz: {health}")
         st = health["stats"]
         launches = health["kernel_launches"]["ragged_paged_attention"]
@@ -1454,10 +1851,23 @@ def server_phase(torch, np, cfg, n_layers, fed):
                "tokens_per_s": len(prompts) * max_new / wall,
                "mean_ttft_s": sum(ttfts) / len(ttfts), "max_ttft_s": max(ttfts),
                "repeat_equal": True,
+               "repeat_cold_equals_cached": again[0]["tokens"] == again[1]["tokens"],
                "repeat_equals_concurrent": again[0]["tokens"] == replies[3][1]["tokens"],
                "server_steps": st["steps"], "server_chunk_steps": st["chunk_steps"],
                "chunk_split_prompts": st["chunk_split_prompts"], "launches": launches,
-               "served": {"run_uuid": fed["run_uuid"], "round": info["round"]}}
+               "swap": {"from_round": info["round"], "to_round": last,
+                        "manifest_to_applied_s": hs["last_swap_at"] - t_manifest,
+                        "manifest_before_last_reply_s": t_replies - t_manifest,
+                        "staged_to_applied_s": hs["last_swap_s"],
+                        "device_bytes_before": hs["swap_bytes_before"],
+                        "device_peak_bytes": hs["swap_peak_bytes"],
+                        "polls": hs["polls"]},
+               "corrupt_round": {"round": last + 1, "rejected_corrupt": 1,
+                                 "detected_s": time.perf_counter() - t_corrupt,
+                                 "still_serving_round": rejected["round"]},
+               "prefix_cache": health.get("prefix_cache"),
+               "speculative": health.get("speculative"),
+               "served": {"run_uuid": run, "rounds": [info["round"], last]}}
         proc.send_signal(signal.SIGTERM)
         try:
             rc = proc.wait(timeout=120)
@@ -2363,6 +2773,11 @@ def main() -> int:
     cfg = serve_config()
     params = init_params(cfg.model, seed=0, device="cuda")
     engine = engine_phase(torch, rpa, np, params, cfg)
+    t0 = time.perf_counter()
+    spec_prefix = spec_prefix_phase(torch, rpa, np, params, cfg,
+                                    tie=2 * engine["max_abs_logit_diff"])
+    spec_prefix["phase_s"] = time.perf_counter() - t0
+    log(f"spec_prefix phase: {spec_prefix['phase_s']:.1f} s")
     profile = profile_phase(torch, np, params, cfg)
     t0 = time.perf_counter()
     decode_rec = decode_phase(torch, np, fa, params, cfg)
@@ -2393,6 +2808,7 @@ def main() -> int:
         "library_ms": main["library_ms"],
         "shapes": main["shapes"],
         "engine_phase_launches": engine["launches"],
+        "spec_prefix_launches": spec_prefix["launches"],
         "moe_engine_launches": moe_engine["launches"],
     }] + [{
         "name": name,
@@ -2420,7 +2836,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "env": env, "kernel_build": built, "kernel_cases": kernel_records, "flash_cases": flash_records,
-        "train": train, "entry": entry, "federated": fed, "engine": engine, "profile": profile,
+        "train": train, "entry": entry, "federated": fed, "engine": engine,
+        "spec_prefix": spec_prefix, "profile": profile,
         "server": server, "decode": decode_rec, "eval": evaluation, "presets": presets,
         "presets_phase_s": presets_s, "d128_grad_gate": d128, "moe_dispatch": moe_dispatch,
         "moe_engine": moe_engine,

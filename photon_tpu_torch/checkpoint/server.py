@@ -190,6 +190,17 @@ class ServerCheckpointManager:
     def valid_rounds(self, state_keys: tuple[str, ...] = ()) -> list[int]:
         return [r for r in self.list_rounds() if self.is_valid_round(r, state_keys)]
 
+    def latest_complete_round(self, run_uuid: str | None = None) -> int | None:
+        """The newest round whose manifest is present, or None: the hot-swap
+        watcher's cheap poll. The manifest is written last and each put is
+        atomic, so a torn round (objects up, manifest not yet) is never
+        reported. Presence only: no object is read; rounds without a
+        manifest are not reported."""
+        for r in reversed(self.list_rounds(run_uuid)):
+            if self.store.exists(f"{self._round_prefix(r, run_uuid)}/{MANIFEST_FILE}"):
+                return r
+        return None
+
     def resolve_resume_round(self, resume_round: int, state_keys: tuple[str, ...] = ()) -> int:
         """Non-negative → that round (checksums verified). Negative → index
         from the latest checksum-valid round (−1 = latest); a round that

@@ -6,15 +6,17 @@
 ``PhotonConfig`` carry the same fields, names and defaults as the JAX
 package's, so a resolved YAML written by either package loads in the
 other with equal fields. The sections of features the port does not run
-(``photon.chaos``, ``telemetry``, ``async_rounds``, ``adapters``, and
-``serve.speculative`` / ``serve.fleet``) are kept as the raw dicts they
-were read as and written back unchanged; only their ``enabled`` flag is
-read, to refuse them.
+(``photon.chaos``, ``telemetry``, ``async_rounds``, ``adapters`` and
+``serve.fleet``) are kept as the raw dicts they were read as and written
+back unchanged; only their ``enabled`` flag is read, to refuse them.
+``serve.speculative`` is a :class:`SpeculativeConfig`, validated with the
+JAX package's ``ValueError`` texts, as are the prefix-cache and hot-swap
+fields of :class:`ServeConfig`.
 
 :meth:`Config.validate` raises ``NotImplementedError`` for the features
 this package does not port yet, so such a config fails at start-up
-instead of running without them: LoRA adapters, speculative decoding,
-the prefix cache, hot-swap and the fleet router everywhere; and for
+instead of running without them: LoRA adapters and the fleet router
+everywhere; and for
 training (``validate(serving=False)``, the default) a mesh of more than
 one device (``mesh.expert > 1`` included), ring attention, the mesh
 autotuner, the collective aggregation plane, wire compression, chaos,
@@ -92,14 +94,39 @@ class ModelConfig:
 
 
 @dataclass
+class SpeculativeConfig:
+    """Self-drafted speculative decoding (same fields as the JAX package;
+    ``serve/draft.py``). Off by default. On, the scheduler drafts up to
+    ``k`` tokens per decoding slot per step from an n-gram / prompt-lookup
+    drafter over the slot's own prompt and output, verifies every row's
+    drafts in one mixed step and emits the longest accepted prefix plus
+    one model token. Greedy output equals the plain engine's; temperature
+    rows use rejection sampling. An accept-rate EWMA throttles ``k`` and
+    falls back to plain decode below ``accept_floor``; while throttled off,
+    one drafted probe runs every ``probe_ticks`` steps (0 = never)."""
+
+    enabled: bool = False
+    k: int = 4  # max draft tokens per decoding row per step
+    draft_budget: int = 64  # per-step draft tokens over all rows
+    max_ngram: int = 3  # the drafter's n-gram orders, longest first
+    min_ngram: int = 1
+    accept_floor: float = 0.30
+    ewma_alpha: float = 0.2
+    probe_ticks: int = 64
+
+
+@dataclass
 class ServeConfig:
     """Continuous-batching serving plane (same fields as the JAX package).
 
     ``attention_impl``: ``"auto"`` and ``"ragged"`` walk each slot's live
     blocks through the hand-written CUDA kernel on the card (its plain
     PyTorch version on the CPU); ``"gather"`` is the full-width dense
-    gather, the oracle. ``speculative`` and ``fleet`` are kept as the raw
-    sections: only their ``enabled`` flag is read, to refuse them.
+    gather, the oracle. ``prefix_cache`` shares full prompt-prefix blocks
+    across requests (``serve/prefix.py``; ``prefix_cache_blocks`` caps the
+    index, 0 = the pool's pressure alone); ``hotswap`` starts a watcher
+    that swaps new rounds in (``serve/hotswap.py``). ``fleet`` is kept as
+    the raw section: only its ``enabled`` flag is read, to refuse it.
     """
 
     enabled: bool = False
@@ -120,7 +147,7 @@ class ServeConfig:
     hotswap: bool = False
     hotswap_poll_s: float = 5.0
     hotswap_statusz_url: str = ""
-    speculative: dict = field(default_factory=dict)
+    speculative: SpeculativeConfig = field(default_factory=SpeculativeConfig)
     fleet: dict = field(default_factory=dict)
 
 
@@ -412,11 +439,16 @@ class Config:
             raise ValueError(f"serve.drain_timeout_s must be > 0, got {srv.drain_timeout_s}")
         if not 0 <= srv.port <= 65535:
             raise ValueError(f"serve.port must be in [0, 65535], got {srv.port}")
+        if srv.prefix_cache_blocks < 0:
+            raise ValueError(
+                f"serve.prefix_cache_blocks must be >= 0 (0 = no cap), got "
+                f"{srv.prefix_cache_blocks}"
+            )
+        if srv.hotswap_poll_s <= 0:
+            raise ValueError(f"serve.hotswap_poll_s must be > 0, got {srv.hotswap_poll_s}")
+        _validate_speculative(srv.speculative)
         for what, on in (
             ("photon.adapters", self.photon.adapters_enabled),
-            ("serve.speculative", bool(srv.speculative.get("enabled", False))),
-            ("serve.prefix_cache", srv.prefix_cache),
-            ("serve.hotswap", srv.hotswap),
             ("serve.fleet", bool(srv.fleet.get("enabled", False))),
         ):
             if on:
@@ -486,6 +518,38 @@ class Config:
                     f"{what} is not ported to photon_tpu_torch yet; turn it off "
                     "or run with photon_tpu"
                 )
+
+
+def _validate_speculative(spec: SpeculativeConfig) -> None:
+    """``serve.speculative``'s bounds, with the JAX package's texts."""
+    if not 1 <= spec.k <= 32:
+        raise ValueError(
+            f"serve.speculative.k must be in [1, 32], got {spec.k} "
+            "(the verify grid runs k+1 columns — a deeper draft than 32 "
+            "is past any n-gram drafter's useful horizon)"
+        )
+    if spec.draft_budget < 1:
+        raise ValueError(
+            f"serve.speculative.draft_budget must be >= 1, got {spec.draft_budget}"
+        )
+    if not 1 <= spec.min_ngram <= spec.max_ngram:
+        raise ValueError(
+            f"serve.speculative needs 1 <= min_ngram <= max_ngram, got "
+            f"{spec.min_ngram}/{spec.max_ngram}"
+        )
+    if not 0.0 <= spec.accept_floor <= 1.0:
+        raise ValueError(
+            f"serve.speculative.accept_floor must be in [0, 1], got {spec.accept_floor}"
+        )
+    if not 0.0 < spec.ewma_alpha <= 1.0:
+        raise ValueError(
+            f"serve.speculative.ewma_alpha must be in (0, 1], got {spec.ewma_alpha}"
+        )
+    if spec.probe_ticks < 0:
+        raise ValueError(
+            f"serve.speculative.probe_ticks must be >= 0 (0 = never probe), got "
+            f"{spec.probe_ticks}"
+        )
 
 
 def _check_ragged_device(device: Any) -> None:

@@ -1,2 +1,3 @@
-"""Continuous-batching serving plane: paged KV cache, engine, scheduler,
-HTTP frontend, and the ``python -m photon_tpu_torch.serve`` entry point."""
+"""Continuous-batching serving plane: paged KV cache, prefix cache,
+drafter, engine, scheduler, checkpoint hot-swap, HTTP frontend, and the
+``python -m photon_tpu_torch.serve`` entry point."""

@@ -19,9 +19,17 @@ Examples::
     # text prompts, tokenized by the server (--tokenizer byte-fallback)
     curl -s localhost:8000/generate -d '{"text": "Hello", "max_new_tokens": 8}'
 
+With ``photon.serve.hotswap`` on, a watcher polls the store every
+``hotswap_poll_s`` seconds and swaps each new checksum-valid round in
+between requests (``serve/hotswap.py``); ``serve.prefix_cache`` and
+``serve.speculative.enabled`` turn on prefix sharing and self-drafted
+speculative decoding.
+
 The first line on stdout is one JSON object with the serving URL, the
-bound port, the round, the model and the pool's shape. SIGTERM drains
-(in-flight requests finish, new ones get 503); SIGINT stops at once.
+bound port, the round, the model, the pool's shape and which of the
+prefix cache and hot-swap are on. SIGTERM closes the watcher, then
+drains (in-flight requests finish, new ones get 503); SIGINT stops at
+once.
 """
 
 from __future__ import annotations
@@ -86,10 +94,20 @@ def main(argv: list[str] | None = None) -> None:
                                          device=args.device)
     batcher = ContinuousBatcher(
         engine, max_queue=sc.max_queue, prefill_token_budget=sc.prefill_token_budget,
-        default_eos_id=sc.eos_id if sc.eos_id >= 0 else None,
+        default_eos_id=sc.eos_id if sc.eos_id >= 0 else None, speculative=sc.speculative,
     ).start()
     frontend = ServeFrontend(batcher, host=sc.host, port=sc.port,
                              max_new_tokens_cap=sc.max_new_tokens, tokenizer=tokenizer)
+    watcher = None
+    if sc.hotswap:
+        from photon_tpu_torch.checkpoint import ServerCheckpointManager
+        from photon_tpu_torch.serve.hotswap import CheckpointWatcher
+
+        watcher = CheckpointWatcher(
+            batcher, ServerCheckpointManager(store, cfg.run_uuid), cfg,
+            poll_s=sc.hotswap_poll_s, statusz_url=sc.hotswap_statusz_url,
+        ).start()
+        frontend.watcher = watcher
     port = frontend.start()
     print(json.dumps({
         "serving": f"http://{sc.host}:{port}",
@@ -101,6 +119,8 @@ def main(argv: list[str] | None = None) -> None:
         "block_size": engine.block_size,
         "device": str(engine.device),
         "attn_impl": engine.attn_impl,
+        "prefix_cache": engine.prefix_cache is not None,
+        "hotswap": watcher is not None,
     }), flush=True)
 
     # SIGTERM = graceful drain; SIGINT (operator ^C) stops at once
@@ -116,6 +136,8 @@ def main(argv: list[str] | None = None) -> None:
     try:
         stop.wait()
     finally:
+        if watcher is not None:  # first: no swap is staged under the drain
+            watcher.close()
         if graceful.is_set():
             frontend.mark_draining()
             batcher.drain(sc.drain_timeout_s)

@@ -72,6 +72,10 @@ class BlockAllocator:
     def held_blocks(self) -> int:
         return len(self._refs)
 
+    def refcount(self, block: int) -> int:
+        """Outstanding references on ``block`` (0 = on the free list)."""
+        return self._refs.get(block, 0)
+
     def alloc(self, n: int) -> list[int] | None:
         """``n`` ids at refcount 1, or None (and nothing allocated) when
         the pool cannot cover the request."""
@@ -165,7 +169,7 @@ def mixed_chunk_step(params: dict, layers: list[dict], state: PagedState,
                      q_valid: torch.Tensor, emit_off: torch.Tensor,
                      lengths_after: torch.Tensor, chunk_slot: int,
                      cfg: ModelConfig, *, n_ctx: int, has_chunk: bool = False,
-                     impl: str = "gather") -> tuple[torch.Tensor, PagedState]:
+                     impl: str = "gather", n_spec: int = 1) -> tuple[torch.Tensor, PagedState]:
     """One serving step over a mixed chunked-prefill batch: every slot
     contributes a row of ``tokens [n_slots, Tq]`` — a decode row puts its
     last emitted token in column 0 (the rest padding), the ``chunk_slot``
@@ -174,6 +178,16 @@ def mixed_chunk_step(params: dict, layers: list[dict], state: PagedState,
     ``n_ctx`` blocks. Returns (logits ``[n_slots, V]`` at each slot's
     ``emit_off`` column, the state updated in place with
     ``lengths_after``).
+
+    ``n_spec > 1`` (speculative verify): a decode row may carry up to
+    ``n_spec`` tokens ``[last, d_1 .. d_K]`` at positions ``len .. len+K``,
+    and the step returns logits ``[n_slots, n_spec, V]`` at every one of
+    the first ``n_spec`` columns. The decode call takes those columns in
+    one attention call, each query masked at its own position, so the
+    keys a later column wrote this step (or a rejected draft left behind)
+    stay invisible to earlier ones. The chunk row's emit column is
+    replicated across the ``n_spec`` axis. ``n_spec == 1`` is the plain
+    step, same call and output shape.
 
     MoE caveat (``cfg.mlp == "moe"``), as in JAX: expert-capacity routing
     is batch-global: every row of the step competes for one capacity pool
@@ -186,8 +200,8 @@ def mixed_chunk_step(params: dict, layers: list[dict], state: PagedState,
     (:func:`models.decode.layer_params`). Each layer first writes every
     real token's k/v at ``(table[slot, pos // bs], pos % bs)`` (padding
     rows write the trash block) and then attends: one call for the decode
-    column of every slot (``T = 1``) and, with a chunk, one for the chunk
-    row (``B = 1``). ``impl`` is ``"ragged"`` (the kernel wrapper) or
+    columns of every slot (``T = n_spec``) and, with a chunk, one for the
+    chunk row (``B = 1``). ``impl`` is ``"ragged"`` (the kernel wrapper) or
     ``"gather"`` (the dense reference over the gathered blocks).
     """
     n_slots, tq = tokens.shape
@@ -200,7 +214,7 @@ def mixed_chunk_step(params: dict, layers: list[dict], state: PagedState,
     phys = torch.where(q_valid, phys, torch.full_like(phys, state.trash_block)).long()
     off = (positions % bs).long()
     rows = state.block_tables[:, :n_ctx]
-    pos0 = positions[:, :1]
+    pos_dec = positions[:, :n_spec]
     if has_chunk:
         row_c = rows[chunk_slot: chunk_slot + 1]
         pos_c = positions[chunk_slot: chunk_slot + 1]
@@ -214,8 +228,11 @@ def mixed_chunk_step(params: dict, layers: list[dict], state: PagedState,
         lidx = torch.full_like(phys, li)
         state.cache_k.index_put_((phys, lidx, off), k_new.to(state.cache_k.dtype))
         state.cache_v.index_put_((phys, lidx, off), v_new.to(state.cache_v.dtype))
-        out_dec = _attend(impl, q[:, :1], state, li, rows, pos0, scale, slopes)
-        attn = out_dec.expand(n_slots, tq, cfg.n_heads, cfg.d_head)
+        out_dec = _attend(impl, q[:, :n_spec], state, li, rows, pos_dec, scale, slopes)
+        attn = out_dec[:, :1].expand(n_slots, tq, cfg.n_heads, cfg.d_head)
+        if n_spec > 1:
+            attn = attn.clone()
+            attn[:, :n_spec] = out_dec.to(attn.dtype)
         if has_chunk:
             out_c = _attend(impl, q[chunk_slot: chunk_slot + 1], state, li, row_c,
                             pos_c, scale, slopes)
@@ -223,9 +240,17 @@ def mixed_chunk_step(params: dict, layers: list[dict], state: PagedState,
             attn[chunk_slot] = out_c[0].to(attn.dtype)
         x = x + _dense(lp, "out_proj", attn.reshape(n_slots, tq, cfg.d_model))
         x, _ = _mlp(lp, x, cfg, token_mask=q_valid)  # pad and idle rows claim no capacity
-    last = x[torch.arange(n_slots, device=x.device), emit_off.long()]  # [B, D]
     state.lengths.copy_(lengths_after)
-    return _logits(params, last, cfg), state
+    if n_spec == 1:
+        last = x[torch.arange(n_slots, device=x.device), emit_off.long()]  # [B, D]
+        return _logits(params, last, cfg), state
+    # the verify grid: decode rows read columns 0 .. n_spec-1; the chunk
+    # row reads its emit column, replicated
+    cols = torch.arange(n_spec, device=x.device).expand(n_slots, n_spec).clone()
+    if has_chunk:
+        cols[chunk_slot] = emit_off[chunk_slot].long()
+    sel = torch.gather(x, 1, cols[:, :, None].expand(n_slots, n_spec, x.shape[-1]))
+    return _logits(params, sel, cfg), state
 
 
 def paged_decode_step(params: dict, layers: list[dict], state: PagedState,

@@ -3,7 +3,7 @@
 The port of ``photon_tpu/serve/frontend.py`` (``/metrics``, ``/statusz``
 and ``/debug/profile`` are not ported). A ``ThreadingHTTPServer`` whose
 handler threads block on the batcher's per-request output queues; the
-scheduler's single driver thread does all engine work.
+scheduler's single thread does all engine work.
 
 ``POST /generate`` accepts JSON::
 
@@ -19,7 +19,9 @@ byte-fallback``; a server without one answers 400), and the reply then
 carries the completion's ``"text"`` too. Blocking responses return one JSON object;
 ``"stream": true`` switches to chunked transfer with one JSON line per
 token, then a final stats line. A full queue answers 429 with a
-``Retry-After`` hint; a draining server answers 503.
+``Retry-After`` hint; a draining server answers 503, as does one whose
+engine was left without params by a failed swap (its ``/healthz`` then
+answers 503 with ``"status": "failed"`` until a later swap succeeds).
 """
 
 from __future__ import annotations
@@ -31,7 +33,12 @@ import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from photon_tpu_torch.ops import ragged_paged_attention as rpa
-from photon_tpu_torch.serve.scheduler import ContinuousBatcher, DrainingError, QueueFullError
+from photon_tpu_torch.serve.scheduler import (
+    ContinuousBatcher,
+    DrainingError,
+    EngineFailedError,
+    QueueFullError,
+)
 
 
 class ServeFrontend:
@@ -51,6 +58,8 @@ class ServeFrontend:
         #: graceful-drain flag (SIGTERM): /healthz says "draining", new
         #: /generate gets 503, in-flight handler threads keep streaming
         self.draining = False
+        #: the hot-swap watcher, when one runs (its counters on /healthz)
+        self.watcher = None
 
     # -- lifecycle --------------------------------------------------------
     def start(self) -> int:
@@ -90,8 +99,9 @@ class ServeFrontend:
                     self._json(404, {"error": f"no route {self.path!r}"})
                     return
                 eng = fe.batcher.engine
-                self._json(200, {
-                    "status": "draining" if fe.draining else "ok",
+                payload = {
+                    "status": "failed" if eng.failed else (
+                        "draining" if fe.draining else "ok"),
                     "round": eng.loaded_round,
                     "model": eng.mc.name,
                     "device": str(eng.device),
@@ -101,11 +111,21 @@ class ServeFrontend:
                     "queue_depth": fe.batcher.queue_depth,
                     "completed": fe.batcher.completed,
                     "rejected": fe.batcher.rejected,
+                    "swaps": fe.batcher.swaps,
                     "load": fe.batcher.load_report(),
                     "stats": fe.batcher.stats(),
                     # CUDA kernel launches since start (0 on the CPU path)
                     "kernel_launches": {"ragged_paged_attention": rpa.launches},
-                })
+                }
+                if (prefix := eng.prefix_stats()) is not None:
+                    payload["prefix_cache"] = prefix
+                if (spec := fe.batcher.spec_stats()) is not None:
+                    payload["speculative"] = spec
+                if fe.watcher is not None:
+                    payload["hotswap"] = fe.watcher.stats()
+                if eng.failed:
+                    payload["error"] = eng.failed
+                self._json(503 if eng.failed else 200, payload)
 
             def do_POST(self) -> None:  # noqa: N802 — http.server API
                 if self.path.rstrip("/") != "/generate":
@@ -138,7 +158,7 @@ class ServeFrontend:
                 except QueueFullError as e:
                     self._json(429, {"error": str(e)}, {"Retry-After": "1"})
                     return
-                except DrainingError as e:
+                except (DrainingError, EngineFailedError) as e:
                     self._json(503, {"error": str(e)}, {"Retry-After": "5"})
                     return
                 except (TypeError, ValueError, RuntimeError) as e:

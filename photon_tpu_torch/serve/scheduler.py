@@ -1,18 +1,25 @@
 """Continuous batching: bounded admission queue + slot-level scheduling.
 
 The port of ``photon_tpu/serve/scheduler.py`` without its telemetry,
-chaos, hot-swap, speculative and autopilot hooks. One driver thread makes
-every engine (and so every CUDA) call, interleaving two phases:
+chaos, adapter and autopilot hooks. One scheduler thread makes every engine
+(and so every CUDA) call, in three phases a tick:
 
-1. **admit** — pop FIFO from the bounded queue into free slots while the
-   pool can cover each request's worst-case block reservation
-   (``engine.begin``: reserve blocks, install the table row — no model
-   compute);
-2. **step** — one mixed engine step: every decoding slot advances one
-   token and the oldest prefilling request's next prompt chunk, at most
-   ``prefill_token_budget`` tokens, rides in the same step. Rows that hit
-   their EOS or ``max_new_tokens`` are evicted at once, so the next admit
-   phase refills their slots mid-flight.
+1. **swap point** — a staged parameter swap (:meth:`request_swap`, the
+   hot-swap watcher's) applies once no slot is active; while one is
+   staged, admission pauses and running requests finish on the old
+   params;
+2. **admit** — pop FIFO from the bounded queue into free slots while the
+   pool can cover each request's worst-case block reservation, counting
+   prefix-cache hits (``engine.begin``: reserve blocks, install the table
+   row — no model compute);
+3. **step** — one mixed engine step: every decoding slot advances and the
+   oldest prefilling request's next prompt chunk, at most
+   ``prefill_token_budget`` tokens, rides in the same step. With
+   speculative decoding on (``serve.speculative``), each decoding row may
+   also carry up to K drafted tokens, verified in the same step: the
+   accepted prefix plus one model token emit at once. Rows that hit their
+   EOS or ``max_new_tokens`` (mid-burst: the rest of the burst is dropped)
+   are evicted at once, so the next admit phase refills their slots.
 
 Backpressure is reject-not-buffer: :meth:`ContinuousBatcher.submit`
 raises :class:`QueueFullError` when ``max_queue`` requests already wait
@@ -29,6 +36,7 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 
+from photon_tpu_torch.serve.draft import Drafter, NGramDrafter, SpecController
 from photon_tpu_torch.serve.engine import PagedEngine
 
 
@@ -38,6 +46,11 @@ class QueueFullError(RuntimeError):
 
 class DrainingError(RuntimeError):
     """The batcher is draining (SIGTERM) — the HTTP frontend's 503."""
+
+
+class EngineFailedError(RuntimeError):
+    """The engine holds no params after a failed swap — the HTTP
+    frontend's 503 until a later swap succeeds."""
 
 
 @dataclass
@@ -82,15 +95,31 @@ class ServeRequest:
 
 
 class ContinuousBatcher:
-    """Single-driver-thread scheduler over a :class:`PagedEngine`."""
+    """Single-thread scheduler over a :class:`PagedEngine`."""
 
     def __init__(self, engine: PagedEngine, *, max_queue: int = 64,
                  prefill_token_budget: int = 2048,
-                 default_eos_id: int | None = None) -> None:
+                 default_eos_id: int | None = None,
+                 speculative=None, drafter: Drafter | None = None) -> None:
         self.engine = engine
         self.max_queue = max_queue
         self.prefill_token_budget = prefill_token_budget
         self.default_eos_id = default_eos_id
+        # speculative decoding: ``speculative`` is a SpeculativeConfig;
+        # ``drafter`` replaces the n-gram drafter. Silently off for MoE,
+        # whose batch-global expert capacity breaks per-row verification
+        # (the prefix cache makes the same call)
+        self._spec: SpecController | None = None
+        self._drafter: Drafter | None = None
+        self._spec_budget = 0
+        if speculative is not None and speculative.enabled \
+                and getattr(getattr(engine, "mc", None), "mlp", None) != "moe":
+            self._drafter = drafter if drafter is not None else NGramDrafter(
+                speculative.max_ngram, speculative.min_ngram)
+            self._spec = SpecController(
+                speculative.k, accept_floor=speculative.accept_floor,
+                ewma_alpha=speculative.ewma_alpha, probe_ticks=speculative.probe_ticks)
+            self._spec_budget = speculative.draft_budget
         self._queue: deque[ServeRequest] = deque()
         self._running: dict[int, ServeRequest] = {}  # slot -> request
         self._lock = threading.Lock()
@@ -103,6 +132,12 @@ class ContinuousBatcher:
         self.rejected = 0
         self.evictions = 0
         self.completed = 0
+        self.swaps = 0
+        self.last_swap_s = 0.0  # the last swap's latency, staged to applied
+        self.last_swap_at = 0.0  # its wall time when applied
+        #: (params, round, done event, t_request) staged by request_swap,
+        #: applied by the scheduler thread with no slot active
+        self._pending_swap: tuple | None = None
         self.steps = 0
         self.tokens_out = 0
         self.chunk_steps = 0
@@ -125,24 +160,81 @@ class ContinuousBatcher:
             self._thread.join(timeout=timeout)
             self._thread = None
 
+    @property
+    def draining(self) -> bool:
+        with self._lock:
+            return self._draining
+
+    def _wait_idle(self, timeout_s: float) -> bool:
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            with self._lock:
+                if not self._queue and not self._running:
+                    return True
+            time.sleep(0.01)
+        return False
+
     def drain(self, timeout_s: float = 30.0) -> bool:
         """Graceful shutdown: refuse new submissions at once, let queued
         and running requests finish within ``timeout_s``, then stop (what
         is still unfinished then fails with "server shutting down").
-        Returns True when nothing was dropped."""
+        A swap staged before the drain is abandoned, not applied (its
+        waiter is released). Returns True when nothing was dropped."""
         with self._work:
             self._draining = True
+            pending, self._pending_swap = self._pending_swap, None
             self._work.notify_all()
-        deadline = time.monotonic() + timeout_s
-        drained = False
-        while time.monotonic() < deadline:
-            with self._lock:
-                if not self._queue and not self._running:
-                    drained = True
-                    break
-            time.sleep(0.01)
+        if pending is not None:
+            pending[2].set()
+        drained = self._wait_idle(timeout_s)
         self.close()
         return drained
+
+    # -- live checkpoint hot-swap -----------------------------------------
+    def request_swap(self, params: dict, loaded_round: int | None = None) -> threading.Event:
+        """Stage a parameter swap; the returned Event is set once the
+        scheduler thread has applied it (or given it up). Admission pauses
+        (queued and new requests wait, none is dropped), running slots
+        finish on the old params, then the engine swaps and flushes its
+        prefix cache. A draining or stopped batcher refuses
+        (:class:`DrainingError`)."""
+        with self._work:
+            if self._stop or self._draining:
+                raise DrainingError("batcher draining/stopped: swap refused")
+            if self._pending_swap is not None:
+                raise RuntimeError("a param swap is already pending")
+            done = threading.Event()
+            self._pending_swap = (params, loaded_round, done, time.monotonic())
+            self._work.notify_all()
+        return done
+
+    @property
+    def swap_pending(self) -> bool:
+        with self._lock:
+            return self._pending_swap is not None
+
+    def _maybe_swap(self) -> None:
+        """The swap point (scheduler thread, between steps): applies a staged
+        swap once no slot is active. The swap is claimed under the lock,
+        so exactly one of apply and a drain's abandon happens."""
+        with self._lock:
+            if self._pending_swap is None or self._running:
+                return
+            params, rnd, done, t0 = self._pending_swap
+            self._pending_swap = None
+        try:
+            self.engine.set_params(params, loaded_round=rnd)
+        except BaseException:
+            # release the waiter (it sees the round unchanged); the loop's
+            # handler fails in-flight requests loudly, and the admit phase
+            # fails queued ones while the engine is left failed
+            done.set()
+            raise
+        with self._lock:
+            self.swaps += 1
+            self.last_swap_s = time.monotonic() - t0
+            self.last_swap_at = time.time()
+        done.set()
 
     # -- submission (any thread) ------------------------------------------
     def submit(self, prompt: list[int], max_new_tokens: int, *,
@@ -168,6 +260,8 @@ class ContinuousBatcher:
                 raise RuntimeError("batcher is shut down")
             if self._draining:
                 raise DrainingError("server draining: not accepting new requests")
+            if self.engine.failed:
+                raise EngineFailedError(self.engine.failed)
             if len(self._queue) >= self.max_queue:
                 self.rejected += 1
                 raise QueueFullError(f"admission queue full ({self.max_queue} waiting)")
@@ -189,6 +283,16 @@ class ContinuousBatcher:
                 "draining": self._draining or self._stop,
             }
 
+    def spec_stats(self) -> dict | None:
+        """Speculative-decoding counters for /healthz (None when off)."""
+        if self._spec is None:
+            return None
+        with self._lock:
+            return {"drafted": self._spec.drafted, "accepted": self._spec.accepted,
+                    "spec_steps": self._spec.spec_steps,
+                    "accept_ewma": round(self._spec.ewma, 4),
+                    "k": self._spec.k_effective()}
+
     def stats(self) -> dict[str, float]:
         with self._lock:
             out = {
@@ -202,19 +306,22 @@ class ContinuousBatcher:
                 "chunk_steps": float(self.chunk_steps),
                 "chunk_tokens": float(self.chunk_tokens),
                 "chunk_split_prompts": float(self.chunk_split_prompts),
+                "swaps": float(self.swaps),
             }
         out.update({f"attn_{k}": v for k, v in self.engine.attn_stats().items()})
         return out
 
-    # -- driver loop -------------------------------------------------------
+    # -- scheduler loop ----------------------------------------------------
     def _loop(self) -> None:
         while True:
             with self._work:
-                while not self._stop and not self._queue and not self._running:
+                while (not self._stop and not self._queue and not self._running
+                       and self._pending_swap is None):
                     self._work.wait(timeout=0.5)
                 if self._stop:
                     break
             try:
+                self._maybe_swap()
                 self._admit_phase()
                 self._step_phase()
             except Exception as e:  # noqa: BLE001 — fail loudly, not silently
@@ -222,13 +329,19 @@ class ContinuousBatcher:
         self._drain_on_stop()
 
     def _admit_phase(self) -> None:
+        if self.engine.failed:
+            self._fail_queued(self.engine.failed)
+            return
+        if self.swap_pending:
+            return  # quiesce toward the swap point: queued requests wait
         while True:
             with self._lock:
                 head = self._queue[0] if self._queue else None
             if head is None:
                 return
             slot = self.engine.free_slot()
-            if slot is None or not self.engine.can_admit(len(head.prompt), head.max_new_tokens):
+            if slot is None or not self.engine.can_admit(
+                    len(head.prompt), head.max_new_tokens, prompt=head.prompt):
                 return  # FIFO head-blocking: nobody overtakes
             with self._lock:
                 req = self._queue.popleft()
@@ -243,14 +356,17 @@ class ContinuousBatcher:
                 req._out.put(None)
                 continue
             self.admitted_order.append(req.rid)
+            if self._drafter is not None:
+                self._drafter.begin(slot, req.prompt)
             with self._lock:
                 self._running[slot] = req
             if self.engine.pending_tokens(slot) > self.prefill_token_budget:
                 self.chunk_split_prompts += 1
 
     def _step_phase(self) -> None:
-        """One mixed step: all decoding slots advance one token; the
-        oldest prefilling request (by rid) contributes its next chunk."""
+        """One mixed step: all decoding slots advance (a drafted row by its
+        accepted drafts and one model token); the oldest prefilling
+        request (by rid) contributes its next chunk."""
         with self._lock:
             running = dict(self._running)
         if not running:
@@ -263,18 +379,64 @@ class ContinuousBatcher:
             chunk = (slot, min(self.engine.pending_tokens(slot), self.prefill_token_budget))
             self.chunk_steps += 1
             self.chunk_tokens += chunk[1]
-        nxt, emitted = self.engine.mixed_step(chunk)
+        if self._spec is None:
+            nxt, emitted = self.engine.mixed_step(chunk)
+            out, n_em = nxt[:, None], emitted.astype(int)
+        else:
+            drafts = self._collect_drafts(running, chunk)
+            out, n_em = self.engine.spec_step(chunk, drafts)
+            with self._lock:
+                self._spec.observe(sum(len(d) for d in drafts.values()),
+                                   sum(max(0, int(n_em[s]) - 1) for s in drafts))
         self.steps += 1
         for slot in sorted(running):
-            if not emitted[slot]:
+            n = int(n_em[slot])
+            if n < 1:
                 continue  # mid-prefill: nothing to stream yet
             req = self._running.get(slot)
             if req is None or req.finished:
                 continue
             if not req.generated:
                 req.t_first = time.monotonic()
-            self.tokens_out += 1
-            self._push_token(slot, req, int(nxt[slot]))
+            burst = []
+            for j in range(n):
+                tok = int(out[slot, j])
+                burst.append(tok)
+                self.tokens_out += 1
+                self._push_token(slot, req, tok)
+                if req.finished:
+                    break  # EOS or max_new mid-burst: the rest is dropped
+            if self._drafter is not None and not req.finished:
+                self._drafter.observe(slot, burst)
+
+    def _collect_drafts(self, running: dict, chunk) -> dict[int, list[int]]:
+        """This step's drafts: the throttle's depth, then the drafter's
+        guess for each decoding slot, under a per-step budget composed
+        with the prefill budget (a step carrying a C-token chunk drafts at
+        most ``min(draft_budget, prefill_token_budget - C)``); a row drafts
+        at most ``remaining - 1`` tokens."""
+        k_eff = self._spec.next_k()
+        if k_eff < 1:
+            return {}
+        budget = self._spec_budget
+        if chunk is not None:
+            budget = min(budget, self.prefill_token_budget - chunk[1])
+        if budget < 1:
+            return {}
+        drafts: dict[int, list[int]] = {}
+        for slot, req in sorted(running.items()):
+            if req.finished or self.engine.pending_tokens(slot) > 0:
+                continue
+            k_s = min(k_eff, req.max_new_tokens - len(req.generated) - 1, budget)
+            if k_s < 1:
+                continue
+            d = self._drafter.propose(slot, k_s)
+            if d:
+                drafts[slot] = d
+                budget -= len(d)
+                if budget < 1:
+                    break
+        return drafts
 
     def _push_token(self, slot: int, req: ServeRequest, tok: int) -> None:
         req.generated.append(tok)
@@ -288,6 +450,8 @@ class ContinuousBatcher:
         req.error = error
         req.t_done = time.monotonic()
         self.engine.evict(slot)
+        if self._drafter is not None:
+            self._drafter.end(slot)
         with self._lock:
             self._running.pop(slot, None)
             self.evictions += 1
@@ -303,13 +467,21 @@ class ContinuousBatcher:
         for slot, req in running:
             self._finish(slot, req, error=msg)
 
-    def _drain_on_stop(self) -> None:
+    def _fail_queued(self, msg: str) -> None:
         with self._lock:
             queued, self._queue = list(self._queue), deque()
-            running = list(self._running.items())
-        for slot, req in running:
-            self._finish(slot, req, error="server shutting down")
         for req in queued:
             req.finished = True
-            req.error = "server shutting down"
+            req.error = msg
             req._out.put(None)
+
+    def _drain_on_stop(self) -> None:
+        with self._lock:
+            running = list(self._running.items())
+            # a swap the stopped loop will never apply: release its waiter
+            pending, self._pending_swap = self._pending_swap, None
+        if pending is not None:
+            pending[2].set()
+        for slot, req in running:
+            self._finish(slot, req, error="server shutting down")
+        self._fail_queued("server shutting down")

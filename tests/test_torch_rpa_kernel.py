@@ -56,11 +56,19 @@ KERNEL_GATES = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     dict(b=1, t=512, h=12, n_kv=12, dh=64, alibi=False),  # mpt-125m chunk
     dict(b=8, t=1, h=16, n_kv=4, dh=128, alibi=False),   # llama-1b decode
     dict(b=1, t=64, h=12, n_kv=12, dh=64, alibi=True),   # ALiBi chunk
+    # speculative verify: each row's [last, drafts] at consecutive
+    # positions, rows at different depths; every key past a query's own
+    # position holds data (a later draft's), which only a per-query mask hides
+    dict(b=8, t=8, h=12, n_kv=12, dh=64, alibi=False, verify=True),  # mpt-125m, split
+    dict(b=8, t=4, h=16, n_kv=4, dh=128, alibi=False, verify=True),  # llama-1b, bf16 chunk
 ])
 def test_kernel_matches_plain(cuda, dtype, shape):
     c = _case(21, b=shape["b"], t=shape["t"], h=shape["h"], n_kv=shape["n_kv"],
               dh=shape["dh"], bs=16, nb=65, n_ctx=32, n_layers=3)
     c["pos"] = np.sort(c["pos"], axis=1)
+    if shape.get("verify"):
+        depth = np.random.default_rng(22).integers(0, 32 * 16 - shape["t"], shape["b"])
+        c["pos"] = (depth[:, None] + np.arange(shape["t"])).astype(np.int32)
     q, kp, vp = (torch.from_numpy(c[k]).to(cuda, dtype) for k in ("q", "kp", "vp"))
     rows, pos = torch.from_numpy(c["rows"]).to(cuda), torch.from_numpy(c["pos"]).to(cuda)
     slopes = alibi_slopes(shape["h"], cuda) if shape["alibi"] else None
@@ -168,4 +176,22 @@ def test_chunk_of_512_tokens(cuda, dtype, alibi):
     out = rpa.ragged_paged_attention(q, kp, vp, 1, rows, pos, slopes=slopes)
     torch.cuda.synchronize()
     ref = rpa.ragged_reference_attention(q, *rpa.live_view(kp, vp, 1, rows), pos, slopes=slopes)
+    assert _rel(out.float().cpu(), ref.float().cpu()) <= KERNEL_GATES[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefix_hit_chunk_shares_blocks(cuda, dtype):
+    """A prefix hit: row 0's chunk starts at depth 3 blocks, and its table
+    maps the same first 3 physical blocks as row 1's (the donor's), whose
+    own chunk runs further on."""
+    c = _case(53, b=2, t=64, h=12, n_kv=12, dh=64, bs=16, nb=65, n_ctx=16, n_layers=2)
+    perm = np.random.default_rng(54).permutation(64).astype(np.int32)
+    c["rows"] = np.stack([perm[:16], np.concatenate([perm[:3], perm[16:29]])])
+    c["pos"] = np.stack([np.arange(48, 112), np.arange(100, 164)]).astype(np.int32)
+    q, kp, vp = (torch.from_numpy(c[k]).to(cuda, dtype) for k in ("q", "kp", "vp"))
+    rows, pos = torch.from_numpy(c["rows"]).to(cuda), torch.from_numpy(c["pos"]).to(cuda)
+    out = rpa.ragged_paged_attention(q, kp, vp, 1, rows, pos)
+    torch.cuda.synchronize()
+    ref = rpa.ragged_reference_attention(q, *rpa.live_view(kp, vp, 1, rows), pos)
     assert _rel(out.float().cpu(), ref.float().cpu()) <= KERNEL_GATES[dtype]

@@ -548,22 +548,52 @@ def test_engine_without_device_raises_without_cuda(monkeypatch):
     assert PagedEngine(_port_cfg(jcfg), tp, device="cpu").device.type == "cpu"
 
 
+#: serving features the port runs: (section path, on-switch, an invalid
+#: value and the JAX package's error text for it)
+PORTED_FEATURES = {
+    "speculative": (("speculative", "enabled"), True, ("speculative", "k"), 0,
+                    "serve.speculative.k must be in"),
+    "prefix_cache": (("prefix_cache",), True, ("prefix_cache_blocks",), -1,
+                     "serve.prefix_cache_blocks must be >= 0"),
+    "hotswap": (("hotswap",), True, ("hotswap_poll_s",), 0.0,
+                "serve.hotswap_poll_s must be > 0"),
+}
+
+
+def _set(d, path, value):
+    for key in path[:-1]:
+        d = d[key]
+    d[path[-1]] = value
+
+
 @pytest.mark.parametrize("feature", ["moe", "adapters", "speculative", "prefix_cache",
                                      "hotswap", "fleet"])
 def test_unported_features_refused(feature):
+    """Features the port does not run are refused with NotImplementedError;
+    the serving features it runs validate when on, and an invalid value
+    raises the JAX package's ValueError (the same text as JAX's)."""
     from photon_tpu_torch.config.schema import Config
 
     d = _jax_cfg("mpt-wpe").to_dict()
+    if feature in PORTED_FEATURES:
+        on, value, bad, bad_value, text = PORTED_FEATURES[feature]
+        _set(d["photon"]["serve"], on, value)
+        JaxConfig.from_dict(d).validate()
+        Config.from_dict(d).validate("cpu")
+        _set(d["photon"]["serve"], bad, bad_value)
+        with pytest.raises(ValueError, match=text):
+            JaxConfig.from_dict(d).validate()
+        with pytest.raises(ValueError, match=text):
+            Config.from_dict(d).validate("cpu")
+        return
     if feature == "moe":  # MoE is ported; an expert mesh is not
         d["model"].update(mlp="moe", moe_num_experts=4)
         Config.from_dict(d).validate("cpu")
         d["mesh"]["expert"] = 2
     elif feature == "adapters":
         d["photon"]["adapters"]["enabled"] = True
-    elif feature in ("speculative", "fleet"):
-        d["photon"]["serve"][feature]["enabled"] = True
     else:
-        d["photon"]["serve"][feature] = True
+        d["photon"]["serve"][feature]["enabled"] = True
     with pytest.raises(NotImplementedError):
         Config.from_dict(d).validate("cpu")
 
