@@ -132,6 +132,37 @@ Right after phase 2 (on a card nothing else holds yet):
     32 greedy steps), gated on the logits in fp32 compute and recorded in
     bf16, K4 launched ``n_layers`` times a step (twice with a chunk).
 
+After 9, on the federated run's last round:
+
+12. adapters: per-cohort LoRA at full width (rank 8, alpha 16, ``wqkv``
+    and ``out_proj``, cohorts a, b and c on a pool of 2 pages). (a) One
+    adapter round in process (``AdapterTrainPlane.run_round`` over a
+    ``ClientRuntime`` on the card): cohorts a and b have 2 clients each,
+    4 local steps at 32 × 2048 on their own shards with the base frozen,
+    K1–K3 launched exactly ``n_layers x n_micro`` per step; the base bit
+    for bit unchanged, each trained cohort's B non-zero and c's zero; the
+    cohorts folded (``grouped_host_fold``) and stepped, the round saved
+    in the JAX layout; one fit step's A/B gradients, kernels vs the plain
+    attention, within ``ADAPTER_GRAD_GATE`` and the shifted-offset fault
+    over it; the fit step's time and tokens/s beside phase 3's full
+    training step, the peak memory, the adapter payload beside the base's.
+    (b) A ragged engine with the round's bank on one mixed batch (a, b
+    and two slots without a cohort; c admitted mid-batch on a's recycled
+    page): every emission within ``ENGINE_LOGIT_GATE`` of contiguous
+    decode with per-row adapters, a planted fault (two slots read each
+    other's adapter row) over it, the no-cohort rows equal to an
+    adapter-free engine's, a replay after every cohort was evicted and
+    reloaded equal to the first run; tokens/s with and without cohorts,
+    kernel launches per decode step with adapters and without. (c)
+    ``python -m photon_tpu_torch.serve`` on the round with the prefix
+    cache and hot-swap on, while a second round trains in this process:
+    every cohort and none answers (their streams equal the round's
+    oracle up to a tie), an unknown cohort gets 400, ``/healthz`` shows
+    the pool; one templated prompt under a, then b, then b again: b maps
+    none of a's blocks and its own the second time; round 2 copied in
+    under 8 requests is swapped in (base and bank) with none dropped, and
+    each cohort's stream after it equals round 2's oracle up to a tie.
+
 The second-last line of stdout is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result. Measurements
@@ -724,8 +755,6 @@ def grad_gate(torch, fa, cfg, params, tokens) -> dict:
 def training_phase(torch, fa, np):
     import copy
 
-    from torch.profiler import ProfilerActivity, profile
-
     from photon_tpu_torch.models.mpt import init_params
     from photon_tpu_torch.train.trainer import Trainer
     from photon_tpu_torch.utils.profiling import model_flops_per_token
@@ -770,19 +799,7 @@ def training_phase(torch, fa, np):
     fpt = model_flops_per_token(cfg.model)
 
     # where a step's time goes: one more step under the profiler
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train_batch(batch)
-        torch.cuda.synchronize()
-    kern_ms, n_launch = {}, 0
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            kern_ms[e.key] = kern_ms.get(e.key, 0.0) + (getattr(e, "self_device_time_total", 0.0)
-                                                        or 0.0) / 1e3
-            n_launch += e.count
-    busy = sum(kern_ms.values())
-    flash_ms = {k: sum(v for n, v in kern_ms.items() if tag in n)
-                for k, (_, tag) in FLASH_KERNELS.items()}
-    top = sorted(kern_ms.items(), key=lambda kv: -kv[1])[:10]
+    profiled = _profiled_step(torch, lambda: trainer.train_batch(batch), step_s)
     rec = {
         "config": "mpt-125m full width (d768, 12 L, 12 H, seq 2048, vocab 50368), bf16 compute, "
                   "fp32 masters, ADOPT lr 6e-4 cosine warmup, clip 1.0, chunked CE 2048",
@@ -793,14 +810,7 @@ def training_phase(torch, fa, np):
         "flops_per_token": fpt, "mfu": tps * fpt / PEAK_FLOPS["bfloat16"],
         "max_memory_allocated_gb": peak_mem / 1e9,
         "launches": launches, "launches_per_step": {k: L * n_micro for k in launches},
-        "profiled_step": {
-            "device_busy_ms": busy if busy > 0 else "not measured",
-            "device_idle_share": (1 - busy / (step_s * 1e3)) if busy > 0 else "not measured",
-            "flash_kernel_ms": flash_ms,
-            "flash_share_of_busy": (sum(flash_ms.values()) / busy) if busy > 0 else None,
-            "kernel_launches": n_launch,
-            "top_kernels_ms": [[k[:80], v] for k, v in top],
-        },
+        "profiled_step": profiled,
     }
     log("train_phase " + json.dumps({k: v for k, v in rec.items() if k != "metrics_by_step"}))
 
@@ -2655,6 +2665,606 @@ FED_1B_ARGS = ["--preset", "mpt-1b", "--nodes", "2", "--rounds", "1", "--device"
                "--set", "photon.checkpoint=false", "--set", "run_uuid=fed-1b"]
 
 
+# ---------------------------------------------------------------------------
+# phase 12: per-cohort LoRA adapters
+# ---------------------------------------------------------------------------
+
+ADAPTER_RUN = "chip-smoke-adapters"
+#: cohort → client ids; c has none, so it keeps its fresh identity adapter
+ADAPTER_COHORTS = {"a": [0, 1], "b": [2, 3], "c": []}
+#: the fits' lr, without warmup: four steps must move B visibly (the
+#: preset's 6e-4 after a 100-step warmup would leave it at ~1e-5)
+ADAPTER_LR = 1e-2
+#: one fit step's A/B gradients, kernels vs the plain dense attention:
+#: the largest per-factor relative L2 (and the loss's relative difference)
+ADAPTER_GRAD_GATE = 4e-2
+#: the engine pair's traffic: (cohort, prompt tokens, tokens to emit). The
+#: pool holds 2 pages, so c is admitted when a's slot frees and recycles
+#: a's page in the middle of the batch
+ADAPTER_REQUESTS = (("a", 300, 8), ("b", 700, 24), (None, 150, 24), (None, 1100, 24),
+                    ("c", 400, 16))
+#: the adapter server's traffic: one prompt of this length under every
+#: cohort and none; a templated prompt (a block of tokens repeated, then a
+#: suffix) under a, b and b again; 8 requests of these lengths, cohorts
+#: a, b, c and none twice over, across the live swap
+ADAPTER_SERVE_PROMPT = 200
+ADAPTER_TEMPLATE = (64, 4, 16)
+ADAPTER_SWAP_PROMPTS = (16, 100, 250, 400, 600, 800, 1100, 1500)
+
+
+def adapter_config():
+    """mpt-125m at full width with the adapters on: rank 8, alpha 16, the
+    default targets (``wqkv`` and ``out_proj`` for MPT), cohorts a, b, c
+    on a pool of 2 pages; 4 clients × 4 local steps at the training
+    phase's batch (32 × 2048 in 2 microbatches)."""
+    cfg = train_config()
+    cfg.run_uuid = ADAPTER_RUN
+    ad = cfg.photon.adapters
+    ad.enabled, ad.rank, ad.alpha, ad.pool_size = True, 8, 16.0, 2
+    ad.cohorts = {k: list(v) for k, v in ADAPTER_COHORTS.items()}
+    cfg.fl.n_total_clients = cfg.fl.n_clients_per_round = 4
+    cfg.fl.local_steps = 4
+    cfg.optimizer.lr, cfg.scheduler.t_warmup = ADAPTER_LR, 0
+    cfg.dataset.synthetic = True
+    return cfg.validate()
+
+
+def _lora_grads_of(torch, cfg, params, tokens):
+    """One step's loss and A/B gradients (the base requires none),
+    averaged over the config's microbatches."""
+    from photon_tpu_torch.codec.params import flatten
+    from photon_tpu_torch.models.mpt import MPTModel
+    from photon_tpu_torch.train.train_step import make_loss_fn
+
+    loss_fn = make_loss_fn(MPTModel(cfg.model), cfg.train.loss_chunk_tokens)
+    flat = flatten(params)
+    names = [n for n in flat if "_lora_" in n]
+    for n, p in flat.items():
+        p.requires_grad_(n in names)
+    n_mb = cfg.train.global_batch_size // cfg.train.device_microbatch_size
+    loss_sum, grads = 0.0, None
+    for mb in tokens.reshape(n_mb, -1, tokens.shape[1]):
+        loss = loss_fn(params, mb)
+        g = torch.autograd.grad(loss, [flat[n] for n in names])
+        loss_sum += float(loss.detach())
+        grads = [x.float() for x in g] if grads is None else [a + x for a, x in zip(grads, g)]
+    return loss_sum / n_mb, {n: g / n_mb for n, g in zip(names, grads)}
+
+
+def _adapter_grad_gate(torch, fa, cfg, params, tokens) -> dict:
+    """One adapter fit step from ``params`` (the base and a trained
+    cohort's factors) three ways: the kernels, the plain dense attention
+    (remat) and the kernels under :func:`_shifted_offset_fault`; the
+    launch counts are left as found (not the main path)."""
+    import copy
+
+    saved = dict(fa.launches)
+    ref_cfg = copy.deepcopy(cfg)
+    ref_cfg.model.attn_impl, ref_cfg.model.remat = "xla", True
+    ref = _lora_grads_of(torch, ref_cfg, params, tokens)
+    sound = _lora_grads_of(torch, cfg, params, tokens)
+    sound_attn = fa.flash_attention
+    fa.flash_attention = _shifted_offset_fault(fa)
+    try:
+        faulty = _lora_grads_of(torch, cfg, params, tokens)
+    finally:
+        fa.flash_attention = sound_attn
+    for key in fa.launches:
+        fa.launches[key] = saved[key]
+
+    def compare(run):
+        per = {n: _rel_l2(run[1][n], ref[1][n]) for n in ref[1]}
+        loss_d = abs(run[0] - ref[0]) / abs(ref[0])
+        return {"loss_rel_diff": loss_d, "factor_grad_rel_l2": per,
+                "worst": max(loss_d, max(per.values()))}
+
+    return {"gate": ADAPTER_GRAD_GATE, "sound": compare(sound), "planted_fault": compare(faulty),
+            "loss_kernel": sound[0], "loss_plain": ref[0]}
+
+
+def _adapter_drive(eng, requests, budget):
+    """The scheduler's loop over ``requests`` (cohort, prompt, tokens to
+    emit) on ``eng``: FIFO admission while a slot, the blocks and the
+    cohort's page are there, one chunk of at most ``budget`` tokens a step
+    (oldest first), eviction at the request's count. Returns each
+    request's emission logits (on the card) and tokens, and the schedule
+    (who ran and which chunk, per step)."""
+    queue, running, schedule = list(enumerate(requests)), {}, []
+    out = {i: ([], []) for i in range(len(requests))}
+    while queue or running:
+        while queue and eng.free_slot() is not None:
+            i, (cohort, prompt, n) = queue[0]
+            if not eng.can_admit(len(prompt), n, prompt=prompt, cohort=cohort):
+                break
+            queue.pop(0)
+            slot = eng.free_slot()
+            eng.begin(slot, prompt, n, cohort=cohort)
+            running[slot] = i
+        pre = [s for s in running if eng.pending_tokens(s) > 0]
+        chunk = None
+        if pre:
+            s = min(pre, key=lambda s: running[s])
+            chunk = (s, min(eng.pending_tokens(s), budget))
+        schedule.append((sorted(running.items()), chunk))
+        nxt, emitted = eng.mixed_step(chunk)
+        for s in sorted(running):
+            if emitted[s]:
+                i = running[s]
+                out[i][0].append(eng.last_logits[s].float().clone())
+                out[i][1].append(int(nxt[s]))
+                if len(out[i][1]) >= requests[i][2]:
+                    eng.evict(s)
+                    del running[s]
+    return out, schedule
+
+
+def _adapter_rows(spec, bank, cohort):
+    """One row's adapter tree for the contiguous oracle (zeros: no cohort)."""
+    import numpy as np
+
+    from photon_tpu_torch.adapters.lora import adapter_metadata, adapter_tree, \
+        stack_adapter_trees
+
+    arrays = bank[cohort] if cohort is not None else [
+        np.zeros(s, np.float32) for s in adapter_metadata(spec).shapes]
+    return stack_adapter_trees([adapter_tree(spec, arrays)])
+
+
+def _adapter_oracle(torch, cp, mc, spec, bank, cohort, prompt, stream):
+    """Contiguous decode of one request with its cohort's adapter, fed the
+    engine's (or server's) token ``stream``: the logits of every emission."""
+    from photon_tpu_torch.models import decode
+
+    adapters = _adapter_rows(spec, bank, cohort)
+    toks = torch.zeros((1, len(prompt) + len(stream) + 1), dtype=torch.long, device="cuda")
+    toks[0, : len(prompt)] = torch.tensor(prompt, device="cuda")
+    with torch.inference_mode():
+        lg, st = decode.prefill(cp, toks, torch.tensor([len(prompt)], device="cuda"), mc,
+                                adapters=adapters, lora_scale=spec.scale)
+        out = [lg[0].float()]
+        for t in stream[:-1]:
+            lg, st = decode.decode_step(cp, st, torch.tensor([t], device="cuda"), mc,
+                                        adapters=adapters, lora_scale=spec.scale)
+            out.append(lg[0].float())
+    return out
+
+
+def _first_untied_mismatch(oracle, tokens, tie):
+    """The first emission whose token differs from the oracle's argmax with
+    a top-2 margin over ``tie`` (None: the stream equals the oracle's up to
+    a tie; after a tie the streams part legitimately and are not read)."""
+    for i, (lg, t) in enumerate(zip(oracle, tokens)):
+        if int(lg.argmax()) != t:
+            top2 = lg.topk(2).values
+            return None if float(top2[0] - top2[1]) <= tie else i
+    return None
+
+
+def _profiled_step(torch, step, step_s):
+    """One ``step()`` under ``torch.profiler``: the device's busy time by
+    kernel, its idle share of an unprofiled step of ``step_s`` seconds,
+    K1-K3's share of the busy time, and the kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kern_ms, n_launch = {}, 0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            kern_ms[e.key] = kern_ms.get(e.key, 0.0) + (getattr(e, "self_device_time_total", 0.0)
+                                                        or 0.0) / 1e3
+            n_launch += e.count
+    busy = sum(kern_ms.values())
+    flash_ms = {k: sum(v for n, v in kern_ms.items() if tag in n)
+                for k, (_, tag) in FLASH_KERNELS.items()}
+    top = sorted(kern_ms.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_busy_ms": busy if busy > 0 else "not measured",
+            "device_idle_share": (1 - busy / (step_s * 1e3)) if busy > 0 else "not measured",
+            "flash_kernel_ms": flash_ms,
+            "flash_share_of_busy": (sum(flash_ms.values()) / busy) if busy > 0 else None,
+            "kernel_launches": n_launch, "top_kernels_ms": [[k[:80], v] for k, v in top]}
+
+
+def _launches_per_step(torch, eng, n=4):
+    """CUDA kernel launches per decode step (``torch.profiler``; it may
+    lose records, so this reads at most the true count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) / n
+
+
+def _adapter_engine_pair(torch, rpa, np, base, bank, cfg) -> dict:
+    """(b): a ragged adapter engine against the contiguous oracle on one
+    mixed batch (a, b, none, none; c admitted mid-batch on a's recycled
+    page), a planted fault (slots 0 and 1 read each other's adapter row),
+    the no-cohort slots against an adapter-free engine, and a replay after
+    the pool evicted and reloaded every cohort."""
+    import copy
+
+    from photon_tpu_torch.models import decode
+    from photon_tpu_torch.serve.engine import PagedEngine
+
+    mc = cfg.model
+    rng = np.random.default_rng(5)
+    requests = [(c, list(map(int, rng.integers(0, mc.vocab_size, n))), m)
+                for c, n, m in ADAPTER_REQUESTS]
+    budget = cfg.photon.serve.prefill_token_budget
+    free_cfg = copy.deepcopy(cfg)
+    free_cfg.photon.adapters.enabled = False
+    eng = PagedEngine(cfg, base, device="cuda", adapter_bank=bank)
+    eng_f = PagedEngine(cfg, base, device="cuda", adapter_bank=bank)
+    eng_0 = PagedEngine(free_cfg, base, device="cuda")
+    spec = eng.adapter_pool.spec
+    rpa.launches = 0  # the counted run starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, sched = _adapter_drive(eng, requests, budget)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rpa.launches  # and ends here
+    steps = len(sched)
+    chunk_steps = sum(c is not None for _, c in sched)
+    if launches != mc.n_layers * (steps + chunk_steps):
+        fail(f"adapter engine launched K4 {launches} times, want "
+             f"{mc.n_layers} x ({steps} + {chunk_steps})")
+    pool = eng.adapter_pool
+    if pool.evictions < 1:
+        fail(f"c's admission recycled no page: {pool.stats()}")
+    # the planted fault: slots 0 and 1 gather each other's page
+    sound_gather = eng_f.adapter_pool.gather
+
+    def swapped(rows):
+        return sound_gather(rows[torch.tensor([1, 0] + list(range(2, len(rows))),
+                                              device=rows.device)])
+
+    eng_f.adapter_pool.gather = swapped
+    before = rpa.launches
+    fault, _ = _adapter_drive(eng_f, requests, budget)
+    free, sched_0 = _adapter_drive(eng_0, [(None, p, m) for _, p, m in requests], budget)
+    rpa.launches = before  # the comparisons are not the main path
+    if sched_0 != sched:
+        fail("the adapter-free engine ran another schedule")
+    cp = decode.compute_params(base, mc, torch.device("cuda"))
+    worst, worst_fault = 0.0, 0.0
+    for i, (cohort, prompt, _) in enumerate(requests):
+        want = _adapter_oracle(torch, cp, mc, spec, bank, cohort, prompt, got[i][1])
+        for lg, fl, w in zip(got[i][0], fault[i][0], want):
+            if not (torch.isfinite(lg).all() and lg.shape == (mc.vocab_size,)):
+                fail(f"request {i}: logits not finite or of shape {tuple(lg.shape)}")
+            worst = max(worst, _rel_l2(lg, w))
+            worst_fault = max(worst_fault, _rel_l2(fl, w))
+    if worst > ENGINE_LOGIT_GATE:
+        fail(f"mixed-cohort engine vs contiguous oracle: {worst:.3e} > {ENGINE_LOGIT_GATE}")
+    if worst_fault <= ENGINE_LOGIT_GATE:
+        fail(f"the logit gate {ENGINE_LOGIT_GATE} misses two slots' swapped adapter rows "
+             f"(reading {worst_fault:.3e})")
+    for i, (cohort, _, _) in enumerate(requests):
+        if cohort is None and not all(torch.equal(x, y) for x, y in zip(got[i][0],
+                                                                         free[i][0])):
+            fail(f"request {i} (no cohort) differs from the adapter-free engine's logits")
+    # the replay: every cohort is evicted and reloaded into another page
+    loads, evictions = pool.loads, pool.evictions
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, _ = _adapter_drive(eng, requests, budget)
+    torch.cuda.synchronize()
+    wall_again = time.perf_counter() - t0
+    if pool.loads - loads < 3 or pool.evictions - evictions < 2:
+        fail(f"the replay reloaded {pool.loads - loads} pages with "
+             f"{pool.evictions - evictions} evictions")
+    for i in range(len(requests)):
+        if not all(torch.equal(x, y) for x, y in zip(got[i][0], again[i][0])):
+            fail(f"request {i}: logits after its cohort's reload differ from the first load's")
+    # steady decode, 4 slots at their first 300 prompt tokens: step time in
+    # turns (adapters, adapter-free, no cohort on the adapter engine, and
+    # back) and launches per step
+    before = rpa.launches
+    eng_f.adapter_pool.gather = sound_gather
+    engines = {"mixed_cohorts": (eng, ("a", "b", None, None)),
+               "no_cohort_adapter_free": (eng_0, (None,) * 4),
+               "no_cohort_adapter_engine": (eng_f, (None,) * 4)}
+    for e, cohorts in engines.values():
+        for slot, c in enumerate(cohorts):
+            e.admit(slot, requests[slot][1][:300], 64, cohort=c)
+        for _ in range(3):
+            e.step()
+    step_ms = {k: [] for k in engines}
+    for tag in ("mixed_cohorts", "no_cohort_adapter_free", "no_cohort_adapter_engine",
+                "no_cohort_adapter_engine", "no_cohort_adapter_free", "mixed_cohorts"):
+        e = engines[tag][0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            e.step()
+        torch.cuda.synchronize()
+        step_ms[tag].append((time.perf_counter() - t0) / 10 * 1e3)
+    per_step = {tag: _launches_per_step(torch, e) for tag, (e, _) in engines.items()}
+    rpa.launches = before
+    n_tokens = sum(m for _, _, m in requests)
+    rec = {"requests": [[c, len(p), m] for c, p, m in requests], "steps": steps,
+           "chunk_steps": chunk_steps, "launches": launches,
+           "worst_logit_rel_l2": worst, "logit_gate": ENGINE_LOGIT_GATE,
+           "planted_fault_rel_l2": worst_fault,
+           "no_cohort_equals_adapter_free": True, "reload_equals_first_load": True,
+           "pool": pool.stats(), "pool_device_bytes": pool.nbytes,
+           "schedule_tokens_per_s": {"first": n_tokens / wall, "replay": n_tokens / wall_again},
+           "decode_step_ms": step_ms,
+           "decode_tokens_per_s": {k: 4 / (statistics.median(v) / 1e3)
+                                   for k, v in step_ms.items()},
+           "launches_per_decode_step": per_step}
+    del eng, eng_f, eng_0, cp
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _adapter_server(torch, np, cfg, work, mgr, plane, runtime, banks, base, tie) -> dict:
+    """(c): ``python -m photon_tpu_torch.serve`` on adapter round 1 with the
+    prefix cache and hot-swap on; round 2 is trained in this process while
+    the server starts, and copied in under load."""
+    from photon_tpu_torch.checkpoint import FileStore
+    from photon_tpu_torch.models import decode
+    from photon_tpu_torch.serve.engine import base_model_config
+
+    serve_store = FileStore(work / "serve_store")
+    _copy_round(mgr.store, serve_store, ADAPTER_RUN, 1)
+    scfg = serve_config()
+    scfg.model = cfg.model  # the training run's resolved config: LoRA knobs and all
+    scfg.photon.adapters = cfg.photon.adapters
+    scfg.run_uuid = ADAPTER_RUN
+    sc = scfg.photon.serve
+    sc.attention_impl, sc.prefix_cache, sc.hotswap, sc.hotswap_poll_s = "auto", True, True, 0.25
+    scfg.to_yaml(work / "resolved.yaml")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "photon_tpu_torch.serve", "--config", str(work / "resolved.yaml"),
+         "--store", str(work / "serve_store"), "--round", "-1", "--enable", "--port", "0"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    stderr_tail: list[str] = []
+    threading.Thread(target=lambda: stderr_tail.extend(proc.stderr), daemon=True).start()
+    watchdog = threading.Timer(900, proc.kill)
+    watchdog.start()
+    try:
+        t_start = time.perf_counter()
+        # round 2 trains while the server starts
+        m2 = plane.run_round(runtime, 2, sorted(plane.cohort_of))
+        plane.save_round(mgr, 2)
+        banks[2] = {c: [a.copy() for a in plane.strategies.params(c)] for c in plane.cohort_names}
+        round2_s = time.perf_counter() - t_start
+        first = proc.stdout.readline()
+        watchdog.cancel()
+        if not first:
+            proc.wait(timeout=30)
+            fail(f"adapter server exited {proc.returncode}: {''.join(stderr_tail)[-3000:]}")
+        info = json.loads(first)
+        port = info["port"]
+        if info["round"] != 1 or info["adapters"] != ["a", "b", "c"] or not info["prefix_cache"]:
+            fail(f"adapter server started as {info}")
+        mc = base_model_config(scfg.model)
+        spec = plane.spec
+        cp = decode.compute_params(base, mc, torch.device("cuda"))
+        rng = np.random.default_rng(7)
+
+        def gen(prompt, cohort, n=16):
+            body = {"tokens": prompt, "max_new_tokens": n}
+            if cohort is not None:
+                body["cohort"] = cohort
+            status, data = _request(port, "/generate", body)
+            return status, json.loads(data)
+
+        def cached():
+            return json.loads(_request(port, "/healthz")[1])["prefix_cache"]["tokens_cached"]
+
+        def check_stream(rnd, cohort, prompt, tokens, what):
+            want = _adapter_oracle(torch, cp, mc, spec, banks[rnd], cohort, prompt, tokens)
+            bad = _first_untied_mismatch(want, tokens, tie)
+            if bad is not None:
+                fail(f"{what}: the stream parts from round {rnd}'s oracle at token {bad} "
+                     "with a clear margin")
+
+        # every cohort and none answers; an unknown one gets 400
+        q = list(map(int, rng.integers(0, mc.vocab_size, ADAPTER_SERVE_PROMPT)))
+        for cohort in ("a", "b", "c", None):
+            status, rep = gen(q, cohort)
+            if status != 200 or rep.get("cohort") != cohort or len(rep["tokens"]) != 16:
+                fail(f"cohort {cohort}: status {status}, reply {rep}")
+            check_stream(1, cohort, q, rep["tokens"], f"round 1, cohort {cohort}")
+        status, rep = gen(q, "zzz")
+        if status != 400 or "unknown adapter cohort" not in rep.get("error", ""):
+            fail(f"an unknown cohort got {status}: {rep}")
+        health = json.loads(_request(port, "/healthz")[1])
+        pool_h = health.get("adapters") or {}
+        if pool_h.get("serving") != ["a", "b", "c"] or pool_h.get("evictions", 0) < 1:
+            fail(f"/healthz adapters: {pool_h}")
+        # one templated prompt under a, then b, then b again
+        n_block, reps, n_tail = ADAPTER_TEMPLATE
+        block = list(map(int, rng.integers(0, mc.vocab_size, n_block)))
+        p = block * reps + list(map(int, rng.integers(0, mc.vocab_size, n_tail)))
+        hits = {}
+        streams = {}
+        for tag, cohort in (("a", "a"), ("b_after_a", "b"), ("b_again", "b")):
+            c0 = cached()
+            status, rep = gen(p, cohort)
+            if status != 200:
+                fail(f"templated prompt under {cohort}: {status} {rep}")
+            hits[tag] = (cached() - c0) / len(p)
+            streams[tag] = rep["tokens"]
+        if hits["b_after_a"] != 0.0 or hits["b_again"] <= 0.0:
+            fail(f"prefix blocks crossed cohorts: hit rates {hits}")
+        check_stream(1, "b", p, streams["b_after_a"], "b after a")
+        # round 2 lands under load: base and bank swap together
+        cohorts = ["a", "b", "c", None] * 2
+        prompts = [list(map(int, rng.integers(0, mc.vocab_size, n)))
+                   for n in ADAPTER_SWAP_PROMPTS]
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as tp:
+            futs = [tp.submit(gen, pr, c, 32) for pr, c in zip(prompts, cohorts)]
+            time.sleep(0.2)
+            t_manifest = _copy_round(mgr.store, serve_store, ADAPTER_RUN, 2)
+            replies = [f.result() for f in futs]
+        wall = time.perf_counter() - t0
+        dropped = sum(s != 200 or len(r.get("tokens", [])) != 32 for s, r in replies)
+        if dropped:
+            fail(f"{dropped} requests dropped across the swap: {[s for s, _ in replies]}")
+        swapped = _wait_health(port, lambda h: h["round"] == 2 and h["swaps"] == 1, 120,
+                               "the swap to adapter round 2")
+        for cohort in ("a", "b", "c", None):
+            status, rep = gen(q, cohort)
+            if status != 200:
+                fail(f"after the swap, cohort {cohort}: {status} {rep}")
+            check_stream(2, cohort, q, rep["tokens"], f"round 2, cohort {cohort}")
+        health = json.loads(_request(port, "/healthz")[1])
+        st = health["stats"]
+        launches = health["kernel_launches"]["ragged_paged_attention"]
+        if launches != mc.n_layers * int(st["steps"] + st["chunk_steps"]) or launches == 0:
+            fail(f"adapter server launched K4 {launches} times for {st}")
+        rec = {"startup_and_round2_overlap_s": time.perf_counter() - t_start,
+               "round2_train_s": round2_s, "round2": {k: v for k, v in m2.items()
+                                                      if k.startswith("server/")},
+               "cohorts_answered": ["a", "b", "c", None], "unknown_cohort_status": 400,
+               "prefix_hit_rate": hits, "b_again_equals_b_after_a":
+                   streams["b_again"] == streams["b_after_a"],
+               "swap": {"requests": len(prompts), "dropped": 0, "wall_s": wall,
+                        "tokens_per_s": len(prompts) * 32 / wall,
+                        "manifest_to_applied_s": swapped["hotswap"]["last_swap_at"] - t_manifest,
+                        "staged_to_applied_s": swapped["hotswap"]["last_swap_s"]},
+               "healthz_adapters": health.get("adapters"), "launches": launches,
+               "server_steps": st["steps"], "server_chunk_steps": st["chunk_steps"]}
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            fail("adapter server did not exit after SIGTERM")
+        if rc != 0:
+            fail(f"adapter server exited {rc} after SIGTERM: {''.join(stderr_tail)[-3000:]}")
+        return rec
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def adapter_phase(torch, rpa, fa, np, fed, train, tie) -> dict:
+    """(a) the adapter round on the federated run's last round as the
+    frozen base, (b) the engine pair, (c) the server; see the module's
+    phase 12."""
+    import copy
+
+    from photon_tpu_torch.adapters import AdapterTrainPlane, configure_adapter_training
+    from photon_tpu_torch.adapters.lora import merge_payload
+    from photon_tpu_torch.checkpoint import FileStore, ServerCheckpointManager
+    from photon_tpu_torch.codec.params import params_from_numpy, strip_momenta
+    from photon_tpu_torch.federation.client_runtime import ClientRuntime
+    from photon_tpu_torch.federation.transport import ParamTransport
+
+    work = ROOT / ".chip_smoke" / "adapters"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        cfg = adapter_config()
+        cfg.photon.save_path = str(work)
+        fed_mgr = ServerCheckpointManager(FileStore(fed["store"]), fed["run_uuid"])
+        base_meta, base_arrays = strip_momenta(*fed_mgr.load_round_params(fed["served_round"]))
+        frozen = [a.copy() for a in base_arrays]
+        plane = AdapterTrainPlane(cfg, base_meta, base_arrays)
+        tcfg = configure_adapter_training(copy.deepcopy(cfg)).validate()
+        L = cfg.model.n_layers
+        n_micro = cfg.train.global_batch_size // cfg.train.device_microbatch_size
+        mgr = ServerCheckpointManager(FileStore(work / "store"), ADAPTER_RUN)
+
+        # (a) the adapter round
+        torch.cuda.reset_peak_memory_stats()
+        runtime = ClientRuntime(tcfg, ParamTransport("inline"), device="cuda")
+        cids = sorted(plane.cohort_of)
+        for key in fa.launches:  # the counted run starts here
+            fa.launches[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m1 = plane.run_round(runtime, 1, cids)
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        launches = dict(fa.launches)  # and ends here
+        want = len(cids) * cfg.fl.local_steps * L * n_micro
+        if launches != {k: want for k in FLASH_KERNELS}:
+            fail(f"the adapter round launched {launches}, want {want} each")
+        peak = torch.cuda.max_memory_allocated()
+        tmeta, tarrays = runtime.trainer.get_parameters()
+        held = dict(zip(tmeta.names, tarrays))
+        if not all(np.array_equal(a, b) and np.array_equal(held[n], b)
+                   for n, a, b in zip(base_meta.names, plane.base_arrays, frozen)):
+            fail("the frozen base moved in the adapter round")
+        banks = {1: {c: [a.copy() for a in plane.strategies.params(c)]
+                     for c in plane.cohort_names}}
+        b_max = {c: max(float(np.abs(a).max()) for n, a in zip(plane.ameta.names, banks[1][c])
+                        if n.endswith("_lora_b")) for c in plane.cohort_names}
+        if not (b_max["a"] > 0 and b_max["b"] > 0 and b_max["c"] == 0):
+            fail(f"the cohorts' largest |B| after the round: {b_max}")
+        plane.save_round(mgr, 1)
+        # the fit step against the full-training step of phase 3 (same shape)
+        batch = np.random.default_rng(4).integers(0, cfg.model.vocab_size, (
+            cfg.train.global_batch_size, cfg.model.max_seq_len)).astype(np.int32)
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runtime.trainer.train_batch(batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        fit_step_s = statistics.median(walls[1:])
+        profiled = _profiled_step(torch, lambda: runtime.trainer.train_batch(batch), fit_step_s)
+        # the A/B gradient gate on cohort a's trained factors
+        merged_meta, merged = merge_payload(base_meta, plane.base_arrays, plane.ameta,
+                                            banks[1]["a"])
+        params = params_from_numpy(merged_meta.names, merged, tcfg.model, "cuda")
+        tokens = torch.from_numpy(batch).long().to("cuda")
+        gate = _adapter_grad_gate(torch, fa, tcfg, params, tokens)
+        del params, tokens
+        torch.cuda.empty_cache()
+        if gate["sound"]["worst"] > ADAPTER_GRAD_GATE:
+            fail(f"adapter fit step, kernels vs plain: {gate['sound']['worst']:.3e} > "
+                 f"{ADAPTER_GRAD_GATE}")
+        if gate["planted_fault"]["worst"] <= ADAPTER_GRAD_GATE:
+            fail(f"the adapter gate misses a causal offset shifted by one tile "
+                 f"({gate['planted_fault']['worst']:.3e})")
+        payload = sum(a.nbytes for a in banks[1]["a"])
+        base_bytes = sum(a.nbytes for a in plane.base_arrays)
+        fit = {"round_s": round_s, "round": {k: v for k, v in m1.items()
+                                             if k.startswith("server/")},
+               "launches": launches, "launches_per_step": {k: L * n_micro for k in launches},
+               "fit_step_s": fit_step_s,
+               "fit_tokens_per_s": batch.size / fit_step_s,
+               "full_training_step_s": train["step_s_median_after_first"],
+               "full_training_tokens_per_s": train["tokens_per_s"],
+               "max_memory_allocated_gb": peak / 1e9, "profiled_step": profiled,
+               "full_training_profiled_step": train.get("profiled_step"),
+               "adapter_payload_bytes": payload, "base_payload_bytes": base_bytes,
+               "payload_ratio": payload / base_bytes, "largest_abs_b": b_max,
+               "grad_gate": gate}
+        log("adapter_round " + json.dumps(fit))
+
+        # (b) the engine pair on round 1's base and bank
+        scfg = serve_config()
+        scfg.photon.adapters = copy.deepcopy(cfg.photon.adapters)
+        scfg.photon.serve.attention_impl, scfg.photon.serve.n_slots = "ragged", 4
+        base = params_from_numpy(base_meta.names, plane.base_arrays, scfg.model, "cuda")
+        pair = _adapter_engine_pair(torch, rpa, np, base, banks[1], scfg)
+        log("adapter_engine_pair " + json.dumps(pair))
+
+        # (c) the server, and round 2 trained while it starts
+        server = _adapter_server(torch, np, tcfg, work, mgr, plane, runtime, banks, base, tie)
+        log("adapter_server " + json.dumps(server))
+        del runtime, base
+        torch.cuda.empty_cache()
+        return {"fit": fit, "engine_pair": pair, "server": server}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def fed_1b() -> int:
     """``python -m photon_tpu_torch.federated`` at mpt-1b: 2 in-process
     nodes on one card, 2 clients a round, 1 local step each (global batch
@@ -2792,6 +3402,10 @@ def main() -> int:
     log(f"eval phase: {evaluation['phase_s']:.1f} s (convert {evaluation['convert']['wall_s']:.1f}"
         f" s, eval CLI {evaluation['cli_wall_s']:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in evaluation["timed_s"].items()) + ")")
+    t0 = time.perf_counter()
+    adapters = adapter_phase(torch, rpa, fa, np, fed, train, tie=2 * engine["max_abs_logit_diff"])
+    adapters["phase_s"] = time.perf_counter() - t0
+    log(f"adapter phase: {adapters['phase_s']:.1f} s")
     shutil.rmtree(ROOT / ".chip_smoke" / "fed", ignore_errors=True)
 
     kernels = {"kernels": [{
@@ -2810,6 +3424,8 @@ def main() -> int:
         "engine_phase_launches": engine["launches"],
         "spec_prefix_launches": spec_prefix["launches"],
         "moe_engine_launches": moe_engine["launches"],
+        "adapter_engine_launches": adapters["engine_pair"]["launches"],
+        "adapter_server_launches": adapters["server"]["launches"],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -2828,6 +3444,7 @@ def main() -> int:
         "federated_resume_launches": fed["runs"][1]["launches"][name],
         "eval_phase_launches": evaluation["launches"][name],
         "presets_phase_launches": {p: r["launches"][name] for p, r in presets.items()},
+        "adapter_round_launches": adapters["fit"]["launches"][name],
     } for name, rec in flash_main.items()]}
     k1 = next(k for k in kernels["kernels"] if k["name"] == "flash_fwd")
     k1["eval_shape"] = flash_eval
@@ -2840,7 +3457,7 @@ def main() -> int:
         "spec_prefix": spec_prefix, "profile": profile,
         "server": server, "decode": decode_rec, "eval": evaluation, "presets": presets,
         "presets_phase_s": presets_s, "d128_grad_gate": d128, "moe_dispatch": moe_dispatch,
-        "moe_engine": moe_engine,
+        "moe_engine": moe_engine, "adapters": adapters,
         "kernels": kernels["kernels"], "total_s": time.perf_counter() - t_all,
     }, indent=1))
     log(f"total {time.perf_counter() - t_all:.1f}s")

@@ -1,7 +1,8 @@
-"""photon-tpu's serving, centralized and federated training, evaluation
-and data preparation paths in PyTorch, with hand-written CUDA kernels.
+"""photon-tpu's serving, centralized and federated training, per-cohort
+LoRA adapters, evaluation and data preparation paths in PyTorch, with
+hand-written CUDA kernels.
 
-The package mirrors ``photon_tpu``'s module names (``config/``,
+The package mirrors ``photon_tpu``'s module names (``adapters/``, ``config/``,
 ``checkpoint/``, ``codec/``, ``data/``, ``eval/``, ``metrics/``,
 ``models/``, ``ops/``, ``optim/``, ``train/``, ``serve/``, ``shm/``,
 ``strategy/``, ``federation/``, ``centralized.py``, ``federated.py``) so each module's

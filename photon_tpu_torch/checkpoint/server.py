@@ -246,6 +246,12 @@ class ServerCheckpointManager:
         self.wait_pending()
         return npz_to_arrays(self.store.get(f"{self._round_prefix(server_round)}/{PARAMS_FILE}"))
 
+    def load_state_npz(self, server_round: int, key: str) -> tuple[ParamsMetadata, list[np.ndarray]]:
+        """One ``{key}.npz`` state object of a round (an adapter round's
+        ``adapter__{cohort}``): no control state, no other object."""
+        self.wait_pending()
+        return npz_to_arrays(self.store.get(f"{self._round_prefix(server_round)}/{key}.npz"))
+
     # -- GC / import -----------------------------------------------------
     def cleanup(self, keep: int, state_keys: tuple[str, ...] = ()) -> list[int]:
         """Delete all but the newest ``keep`` checksum-valid rounds, and

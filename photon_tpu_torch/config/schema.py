@@ -2,25 +2,27 @@
 
 ``ModelConfig``, ``ServeConfig``, ``OptimizerConfig``, ``SchedulerConfig``,
 ``MeshConfig``, ``TrainConfig``, ``DatasetConfig``, ``FLConfig``,
-``CommStackConfig``, ``CompressionConfig``, ``MembershipConfig`` and
-``PhotonConfig`` carry the same fields, names and defaults as the JAX
-package's, so a resolved YAML written by either package loads in the
-other with equal fields. The sections of features the port does not run
-(``photon.chaos``, ``telemetry``, ``async_rounds``, ``adapters`` and
-``serve.fleet``) are kept as the raw dicts they were read as and written
-back unchanged; only their ``enabled`` flag is read, to refuse them.
+``CommStackConfig``, ``CompressionConfig``, ``MembershipConfig``,
+``AdaptersConfig`` and ``PhotonConfig`` carry the same fields, names and
+defaults as the JAX package's, so a resolved YAML written by either
+package loads in the other with equal fields. The sections of features
+the port does not run (``photon.chaos``, ``telemetry``, ``async_rounds``
+and ``serve.fleet``) are kept as the raw dicts they were read as and
+written back unchanged; only their ``enabled`` flag is read, to refuse
+them. ``photon.adapters`` (per-cohort LoRA) and ``model.lora_*`` are
+validated with the JAX package's ``ValueError`` texts.
 ``serve.speculative`` is a :class:`SpeculativeConfig`, validated with the
 JAX package's ``ValueError`` texts, as are the prefix-cache and hot-swap
 fields of :class:`ServeConfig`.
 
 :meth:`Config.validate` raises ``NotImplementedError`` for the features
 this package does not port yet, so such a config fails at start-up
-instead of running without them: LoRA adapters and the fleet router
-everywhere; and for
+instead of running without them: the fleet router everywhere; and for
 training (``validate(serving=False)``, the default) a mesh of more than
 one device (``mesh.expert > 1`` included), ring attention, the mesh
 autotuner, the collective aggregation plane, wire compression, chaos,
-telemetry and asynchronous rounds. ``mlp: moe`` is checked as the JAX
+telemetry and asynchronous rounds (and with them the adapters' collective
+round loop). ``mlp: moe`` is checked as the JAX
 package checks it (its ``ValueError`` texts); ``device_microbatch_size:
 auto`` runs the trainer's probe.
 """
@@ -299,6 +301,35 @@ class FLConfig:
     eval_config: dict = field(default_factory=dict)  # EvaluateRoundConfig knobs
 
 
+#: dense-projection module names LoRA can target (MoE expert weights are
+#: absent: batch-global capacity routing breaks per-slot adapter purity)
+LORA_TARGETABLE = (
+    "wqkv", "q_proj", "k_proj", "v_proj", "out_proj",
+    "up_proj", "down_proj", "gate_proj",
+)
+
+
+@dataclass
+class AdaptersConfig:
+    """Per-cohort LoRA adapters over a frozen federated base (same fields
+    as the JAX package; ``photon_tpu_torch/adapters``). Off by default.
+    On a training config the fit freezes the base and trains rank-``rank``
+    A/B factors, folded per cohort; on a serving config the engine keeps
+    ``pool_size`` cohorts' factors resident on the device beside the KV
+    pool, and ``cohort`` rides ``/generate``. ``cohorts`` maps cohort name
+    → client ids (the serving side reads the names only); a client in no
+    cohort trains and serves the bare base."""
+
+    enabled: bool = False
+    rank: int = 8  # LoRA rank r (> 0 when enabled)
+    alpha: float = 16.0  # delta scale = alpha / rank
+    targets: list = field(default_factory=lambda: [
+        "wqkv", "q_proj", "k_proj", "v_proj", "out_proj",
+    ])
+    cohorts: dict = field(default_factory=dict)  # name -> [cid, ...]
+    pool_size: int = 4  # resident adapter pages on the serving device
+
+
 @dataclass
 class PhotonConfig:
     """Node/process topology (same fields as the JAX package)."""
@@ -321,12 +352,8 @@ class PhotonConfig:
     async_rounds: dict = field(default_factory=dict)  # raw: refused when enabled
     telemetry: dict = field(default_factory=dict)  # raw: refused when enabled
     serve: ServeConfig = field(default_factory=ServeConfig)
-    adapters: dict = field(default_factory=dict)  # raw: refused when enabled
+    adapters: AdaptersConfig = field(default_factory=AdaptersConfig)
     save_path: str = "/tmp/photon_tpu"
-
-    @property
-    def adapters_enabled(self) -> bool:
-        return bool(self.adapters.get("enabled", False))
 
 
 @dataclass
@@ -404,8 +431,7 @@ class Config:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
         if m.rope and m.d_head % 2:
             raise ValueError("rope needs an even d_head")
-        if m.lora_rank > 0:
-            raise NotImplementedError("LoRA adapters (model.lora_rank > 0) are not ported yet")
+        _validate_lora(m)
         if m.attn_impl not in ("pallas", "xla", "ring"):
             raise ValueError(f"bad model.attn_impl {m.attn_impl!r}")
         if not serving:
@@ -447,15 +473,12 @@ class Config:
         if srv.hotswap_poll_s <= 0:
             raise ValueError(f"serve.hotswap_poll_s must be > 0, got {srv.hotswap_poll_s}")
         _validate_speculative(srv.speculative)
-        for what, on in (
-            ("photon.adapters", self.photon.adapters_enabled),
-            ("serve.fleet", bool(srv.fleet.get("enabled", False))),
-        ):
-            if on:
-                raise NotImplementedError(
-                    f"{what} is not served by photon_tpu_torch yet; turn it "
-                    "off or serve with photon_tpu"
-                )
+        _validate_adapters(self)
+        if srv.fleet.get("enabled", False):
+            raise NotImplementedError(
+                "serve.fleet is not served by photon_tpu_torch yet; turn it "
+                "off or serve with photon_tpu"
+            )
         return self
 
 
@@ -549,6 +572,103 @@ def _validate_speculative(spec: SpeculativeConfig) -> None:
         raise ValueError(
             f"serve.speculative.probe_ticks must be >= 0 (0 = never probe), got "
             f"{spec.probe_ticks}"
+        )
+
+
+def _validate_lora(m: ModelConfig) -> None:
+    """``model.lora_*``, with the JAX package's texts."""
+    if m.lora_rank < 0:
+        raise ValueError(f"model.lora_rank must be >= 0, got {m.lora_rank}")
+    if not m.lora_rank:
+        return
+    if m.lora_alpha <= 0:
+        raise ValueError(f"model.lora_alpha must be > 0, got {m.lora_alpha}")
+    bad = [t for t in m.lora_targets if t not in LORA_TARGETABLE]
+    if bad:
+        raise ValueError(
+            f"model.lora_targets {bad} are not adaptable dense modules "
+            f"(choose from {LORA_TARGETABLE})"
+        )
+    if m.mlp == "moe":
+        raise ValueError("model.lora_rank with mlp='moe' is not supported")
+
+
+def _validate_adapters(cfg: "Config") -> None:
+    """``photon.adapters``, with the JAX package's texts (its checks of
+    ``photon_tpu/config/schema.py``)."""
+    ad = cfg.photon.adapters
+    if not ad.enabled:
+        return
+    if ad.rank < 1:
+        raise ValueError(
+            f"photon.adapters.rank must be >= 1 when enabled, got {ad.rank} "
+            "(rank 0 is no adapter at all)"
+        )
+    if ad.alpha <= 0:
+        raise ValueError(
+            f"photon.adapters.alpha must be > 0, got {ad.alpha} "
+            "(the LoRA delta scales by alpha/rank)"
+        )
+    if not ad.targets:
+        raise ValueError(
+            "photon.adapters.targets is empty — name at least one dense module "
+            f"to adapt (choose from {LORA_TARGETABLE})"
+        )
+    bad = [t for t in ad.targets if t not in LORA_TARGETABLE]
+    if bad:
+        raise ValueError(
+            f"photon.adapters.targets {bad} are not adaptable dense modules "
+            f"(choose from {LORA_TARGETABLE})"
+        )
+    if cfg.model.mlp == "moe":
+        raise ValueError(
+            "photon.adapters with model.mlp='moe' is not supported: "
+            "batch-global expert capacity breaks per-slot adapter purity "
+            "(the same reason MoE is prefix-cache-ineligible)"
+        )
+    if ad.pool_size < 1:
+        raise ValueError(f"photon.adapters.pool_size must be >= 1, got {ad.pool_size}")
+    if not isinstance(ad.cohorts, dict):
+        raise ValueError(
+            "photon.adapters.cohorts must map cohort name -> [cid, ...], got "
+            f"{type(ad.cohorts).__name__}"
+        )
+    if not ad.cohorts:
+        raise ValueError(
+            "photon.adapters.enabled needs a non-empty cohorts map (cohort name "
+            "-> [cid, ...]; serve-side configs may use empty cid lists — the "
+            "names select the adapter bank)"
+        )
+    seen: dict[int, str] = {}
+    for name, cids in ad.cohorts.items():
+        if not isinstance(cids, (list, tuple)):
+            raise ValueError(
+                f"photon.adapters.cohorts[{name!r}] must be a list of client ids, "
+                f"got {type(cids).__name__}"
+            )
+        for cid in cids:
+            if not isinstance(cid, int) or cid < 0:
+                raise ValueError(
+                    f"photon.adapters.cohorts[{name!r}] has a bad client id {cid!r} "
+                    "(need ints >= 0)"
+                )
+            if cid in seen:
+                raise ValueError(
+                    f"client id {cid} appears in cohorts {seen[cid]!r} AND {name!r} — "
+                    "cohorts must not overlap (one adapter per client)"
+                )
+            seen[cid] = name
+    if cfg.fl.aggregate_momenta:
+        raise ValueError(
+            "photon.adapters with fl.aggregate_momenta is not supported: the "
+            "adapter wire carries A/B factors only (momenta piggybacking is a "
+            "full-payload feature)"
+        )
+    if cfg.photon.comm_stack.collective_device_optimizer:
+        raise ValueError(
+            "photon.adapters runs the per-cohort server optimizers on host "
+            "(adapter payloads are tiny); set "
+            "comm_stack.collective_device_optimizer=false"
         )
 
 

@@ -21,6 +21,13 @@ forward and the serving engine. On top of them:
   seeded ``torch.Generator`` (other draws than JAX's threefry streams);
   an optional ``eos_id`` freezes finished rows and ends the loop early.
 
+Per-cohort LoRA: ``prefill`` and ``decode_step`` take ``adapters``, one
+adapter a row (``{module: {"a": [B, L, d_in, r], "b": [B, L, r,
+d_out]}}``, scaled by ``lora_scale``), so a mixed-cohort batch decodes in
+one pass; the serving step gathers the same per-row factors from its
+adapter pool, and this path is its contiguous oracle. Without
+``adapters`` the graph is the base model's.
+
 An MoE MLP (``cfg.mlp == "moe"``, ``ops/moe.py``) routes every token of a
 call in one capacity pool, as in JAX: ``prefill`` passes its ``pos <
 lengths`` mask so padding claims no capacity, and the decode steps pass
@@ -121,21 +128,37 @@ def _rope_at(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _dense(lp: dict, name: str, h: torch.Tensor) -> torch.Tensor:
+def _lora_delta(ad: dict, h: torch.Tensor, scale: float) -> torch.Tensor:
+    """The LoRA delta ``(h @ A) @ B · scale``, in ``h``'s dtype. ``ad["a"]``
+    is ``[d_in, r]`` (one adapter for every row: the training model) or
+    ``[B, d_in, r]`` (row b uses row b's adapter: a mixed-cohort serving
+    batch and its contiguous oracle, which compute the same products);
+    ``h`` is ``[B, T, d_in]``."""
+    a, b = ad["a"], ad["b"]
+    delta = (h @ a) @ b if a.dim() == 2 else torch.bmm(torch.bmm(h, a), b)
+    return delta if scale == 1.0 else delta * scale
+
+
+def _dense(lp: dict, name: str, h: torch.Tensor, la: dict | None = None,
+           ls: float = 1.0) -> torch.Tensor:
     y = h @ lp[name]["kernel"]
     if "bias" in lp[name]:
         y = y + lp[name]["bias"]
+    if la is not None and name in la:
+        y = y + _lora_delta(la[name], h, ls)
     return y
 
 
-def _qkv(lp: dict, h: torch.Tensor, cfg: ModelConfig):
-    """Project hidden → (q [..., H, Dh], k/v [..., H_kv, Dh])."""
+def _qkv(lp: dict, h: torch.Tensor, cfg: ModelConfig, la: dict | None = None,
+         ls: float = 1.0):
+    """Project hidden → (q [..., H, Dh], k/v [..., H_kv, Dh]); ``la``: the
+    layer's LoRA factors (:func:`_lora_delta`), scaled by ``ls``."""
     if "wqkv" in lp:
-        q, k, v = torch.chunk(_dense(lp, "wqkv", h), 3, dim=-1)
+        q, k, v = torch.chunk(_dense(lp, "wqkv", h, la, ls), 3, dim=-1)
     else:
-        q = _dense(lp, "q_proj", h)
-        k = _dense(lp, "k_proj", h)
-        v = _dense(lp, "v_proj", h)
+        q = _dense(lp, "q_proj", h, la, ls)
+        k = _dense(lp, "k_proj", h, la, ls)
+        v = _dense(lp, "v_proj", h, la, ls)
     lead = h.shape[:-1]
     return (q.reshape(*lead, cfg.n_heads, cfg.d_head),
             k.reshape(*lead, cfg.kv_heads, cfg.d_head),
@@ -143,7 +166,8 @@ def _qkv(lp: dict, h: torch.Tensor, cfg: ModelConfig):
 
 
 def _mlp(lp: dict, x: torch.Tensor, cfg: ModelConfig,
-         token_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
+         token_mask: torch.Tensor | None = None, la: dict | None = None,
+         ls: float = 1.0) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The MLP half of a block: ``(x + mlp(norm(x)), the MoE aux loss or
     None)``. An MoE layer routes every token of ``x`` in one capacity pool
     (``ops/moe.py``); ``token_mask`` (nonzero = real token) keeps padding
@@ -155,11 +179,11 @@ def _mlp(lp: dict, x: torch.Tensor, cfg: ModelConfig,
                            capacity_factor=cfg.moe_capacity_factor, token_mask=token_mask)
         return x + out, aux
     if cfg.mlp == "swiglu":
-        h = F.silu(_dense(lp, "gate_proj", h)) * _dense(lp, "up_proj", h)
+        h = F.silu(_dense(lp, "gate_proj", h, la, ls)) * _dense(lp, "up_proj", h, la, ls)
     else:
         # the JAX package uses gelu(approximate=True): the tanh form
-        h = F.gelu(_dense(lp, "up_proj", h), approximate="tanh")
-    return x + _dense(lp, "down_proj", h), None
+        h = F.gelu(_dense(lp, "up_proj", h, la, ls), approximate="tanh")
+    return x + _dense(lp, "down_proj", h, la, ls), None
 
 
 def _embed(params: dict, tokens: torch.Tensor, pos: torch.Tensor,
@@ -209,8 +233,27 @@ def _layers(cp: dict, cfg: ModelConfig) -> list[dict]:
     return [layer_params(cp, i) for i in range(cfg.n_layers)]
 
 
+def layer_adapters(adapters: dict | None, n_layers: int, dtype: torch.dtype,
+                   device: torch.device) -> list[dict | None]:
+    """Per-row adapters ``{module: {"a": [B, L, d_in, r], "b": [B, L, r,
+    d_out]}}`` (numpy arrays or tensors) → one ``{module: {"a": [B, d_in,
+    r], "b": [B, r, d_out]}}`` a layer, in ``dtype`` on ``device``, each
+    layer's factors contiguous; ``None`` → ``None`` for every layer."""
+    if adapters is None:
+        return [None] * n_layers
+    out: list[dict] = [{} for _ in range(n_layers)]
+    for module, ab in adapters.items():
+        for key, leaf in ab.items():
+            src = torch.as_tensor(leaf, device=device).transpose(0, 1)
+            t = torch.empty(src.shape, dtype=dtype, device=device).copy_(src)  # one cast+copy
+            for li in range(n_layers):
+                out[li].setdefault(module, {})[key] = t[li]
+    return out
+
+
 def _prefill(cp: dict, layers: list[dict], tokens: torch.Tensor, lengths: torch.Tensor,
-             cfg: ModelConfig) -> tuple[torch.Tensor, DecodeState]:
+             cfg: ModelConfig, las: list | None = None,
+             ls: float = 1.0) -> tuple[torch.Tensor, DecodeState]:
     b, s = tokens.shape
     tokens = tokens.long()
     pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
@@ -219,14 +262,15 @@ def _prefill(cp: dict, layers: list[dict], tokens: torch.Tensor, lengths: torch.
     valid = pos < lengths[:, None]  # [B, S] real tokens
     x = _embed(cp, tokens, pos, cfg)
     ks, vs = [], []
-    for lp in layers:
+    for lp, la in zip(layers, las or [None] * len(layers)):
         h = _norm(x, lp["ln_1"]["scale"], lp["ln_1"].get("bias"), cfg.norm, cfg.norm_eps)
-        q, k, v = _qkv(lp, h, cfg)
+        q, k, v = _qkv(lp, h, cfg, la, ls)
         if cfg.rope:
             q, k = _rope_at(q, pos, cfg.rope_theta), _rope_at(k, pos, cfg.rope_theta)
         attn = multihead_attention(q, k, v, impl=impl, causal=True, alibi=cfg.alibi)
-        x = x + _dense(lp, "out_proj", attn.reshape(b, s, cfg.d_model))
-        x, _ = _mlp(lp, x, cfg, token_mask=valid)  # padding claims no expert capacity
+        x = x + _dense(lp, "out_proj", attn.reshape(b, s, cfg.d_model), la, ls)
+        # padding claims no expert capacity
+        x, _ = _mlp(lp, x, cfg, token_mask=valid, la=la, ls=ls)
         ks.append(k)
         vs.append(v)
     idx = torch.clamp(lengths.long() - 1, 0, s - 1)
@@ -235,13 +279,18 @@ def _prefill(cp: dict, layers: list[dict], tokens: torch.Tensor, lengths: torch.
 
 
 def prefill(params: dict, tokens: torch.Tensor, lengths: torch.Tensor,
-            cfg: ModelConfig) -> tuple[torch.Tensor, DecodeState]:
+            cfg: ModelConfig, adapters: dict | None = None,
+            lora_scale: float = 1.0) -> tuple[torch.Tensor, DecodeState]:
     """Full pass over right-padded prompts ``tokens [B, S]`` → (next-token
     logits ``[B, V]`` at each row's cursor ``lengths - 1``, the filled
     :class:`DecodeState`). ``params``: the fp32 tree or its compute copy,
-    on the tokens' device."""
+    on the tokens' device. ``adapters``: per-row LoRA factors ``{module:
+    {"a": [B, L, d_in, r], "b": [B, L, r, d_out]}}`` scaled by
+    ``lora_scale`` (row b runs with row b's adapter: a mixed-cohort batch
+    in one pass); ``None`` runs the base alone."""
     cp = compute_params(params, cfg, tokens.device)
-    return _prefill(cp, _layers(cp, cfg), tokens, lengths, cfg)
+    las = layer_adapters(adapters, cfg.n_layers, torch_dtype(cfg.compute_dtype), tokens.device)
+    return _prefill(cp, _layers(cp, cfg), tokens, lengths, cfg, las, lora_scale)
 
 
 def _write_cache(cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
@@ -252,7 +301,8 @@ def _write_cache(cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
 
 
 def decode_layers(cp: dict, layers: list[dict], token: torch.Tensor, pos: torch.Tensor,
-                  cfg: ModelConfig, write_and_view: Callable) -> torch.Tensor:
+                  cfg: ModelConfig, write_and_view: Callable, las: list | None = None,
+                  ls: float = 1.0) -> torch.Tensor:
     """One token a row (``token [B]`` at positions ``pos [B]``) through
     every layer → the logits ``[B, V]`` for the following position. Per
     layer ``write_and_view(layer, k_new, v_new)`` stores the token's k/v
@@ -265,22 +315,23 @@ def decode_layers(cp: dict, layers: list[dict], token: torch.Tensor, pos: torch.
     x = _embed(cp, token.long()[:, None], pos.long()[:, None], cfg)  # [B, 1, D]
     scale = 1.0 / math.sqrt(cfg.d_head)
     slopes = alibi_slopes(cfg.n_heads, token.device) if cfg.alibi else None
-    for li, lp in enumerate(layers):
+    for li, (lp, la) in enumerate(zip(layers, las or [None] * len(layers))):
         h = _norm(x, lp["ln_1"]["scale"], lp["ln_1"].get("bias"), cfg.norm, cfg.norm_eps)
-        q, k_new, v_new = _qkv(lp, h, cfg)  # [B, 1, H, Dh]
+        q, k_new, v_new = _qkv(lp, h, cfg, la, ls)  # [B, 1, H, Dh]
         if cfg.rope:
             q = _rope_at(q, pos[:, None], cfg.rope_theta)
             k_new = _rope_at(k_new, pos[:, None], cfg.rope_theta)
         kb, vb = write_and_view(li, k_new[:, 0], v_new[:, 0])
         out = ragged_reference_attention(q, kb, vb, pos[:, None].int(), scale=scale,
                                          slopes=slopes)
-        x = x + _dense(lp, "out_proj", out.reshape(b, 1, cfg.d_model))
-        x, _ = _mlp(lp, x, cfg)  # no mask: every row routes, as the JAX decode step
+        x = x + _dense(lp, "out_proj", out.reshape(b, 1, cfg.d_model), la, ls)
+        x, _ = _mlp(lp, x, cfg, la=la, ls=ls)  # no mask: every row routes, as the JAX decode step
     return _logits(cp, x[:, 0], cfg)
 
 
 def _decode_step(cp: dict, layers: list[dict], state: DecodeState, token: torch.Tensor,
-                 cfg: ModelConfig) -> tuple[torch.Tensor, DecodeState]:
+                 cfg: ModelConfig, las: list | None = None,
+                 ls: float = 1.0) -> tuple[torch.Tensor, DecodeState]:
     rows = torch.arange(token.shape[0], device=token.device)
     # callers keep every cursor below S (``many`` checks)
     wpos = torch.clamp(state.lengths.long(), max=state.cache_k.shape[2] - 1)
@@ -291,18 +342,21 @@ def _decode_step(cp: dict, layers: list[dict], state: DecodeState, token: torch.
         _write_cache(cv, rows, wpos, v_new)
         return ck, cv
 
-    logits = decode_layers(cp, layers, token, state.lengths, cfg, write_and_view)
+    logits = decode_layers(cp, layers, token, state.lengths, cfg, write_and_view, las, ls)
     return logits, DecodeState(state.cache_k, state.cache_v, state.lengths + 1)
 
 
 def decode_step(params: dict, state: DecodeState, token: torch.Tensor,
-                cfg: ModelConfig) -> tuple[torch.Tensor, DecodeState]:
+                cfg: ModelConfig, adapters: dict | None = None,
+                lora_scale: float = 1.0) -> tuple[torch.Tensor, DecodeState]:
     """Place ``token [B]`` at each row's cursor (the caches are written in
     place), attend over keys ``j <= pos``, and return (the logits for the
     following position, the state with every cursor advanced). Each
-    cursor must be below the cache width ``S``."""
+    cursor must be below the cache width ``S``. ``adapters``: per-row LoRA
+    factors as in :func:`prefill`."""
     cp = compute_params(params, cfg, token.device)
-    return _decode_step(cp, _layers(cp, cfg), state, token, cfg)
+    las = layer_adapters(adapters, cfg.n_layers, torch_dtype(cfg.compute_dtype), token.device)
+    return _decode_step(cp, _layers(cp, cfg), state, token, cfg, las, lora_scale)
 
 
 def generate(params: dict, tokens: torch.Tensor, lengths: torch.Tensor,

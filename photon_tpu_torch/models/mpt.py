@@ -7,7 +7,11 @@ Layout, as in the JAX package: flat ``/``-joined names, layers stacked on
 a leading ``[n_layers]`` axis, dense kernels ``[in, out]``, fp32 masters.
 An MoE block (``mlp: moe``) holds ``router [D, E]``, ``moe_up [E, D, H]``,
 ``moe_down [E, H, D]`` (and ``moe_gate`` for SwiGLU experts) in place of
-the dense MLP, and returns its layer's aux loss beside its output.
+the dense MLP, and returns its layer's aux loss beside its output. With
+``lora_rank > 0`` each targeted dense module ``{name}`` also holds
+``{name}_lora_a [L, d_in, r]`` and ``{name}_lora_b [L, r, d_out]``, and
+its projection adds ``(h @ A) @ B · lora_alpha / lora_rank``;
+``lora_rank == 0`` leaves tree and forward as they were.
 
 :class:`MPTModel` is a module without parameters of its own: like
 ``MPTModel.apply`` it takes the parameter tree with the tokens, so the
@@ -83,6 +87,9 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
         out[f"{blk}/{name}/kernel"] = lead + (i, o)
         if not cfg.no_bias:
             out[f"{blk}/{name}/bias"] = lead + (o,)
+        if cfg.lora_rank and name in cfg.lora_targets:
+            out[f"{blk}/{name}_lora_a"] = lead + (i, cfg.lora_rank)
+            out[f"{blk}/{name}_lora_b"] = lead + (cfg.lora_rank, o)
     out.update(_norm_shapes(cfg, f"{blk}/ln_1", lead))
     out.update(_norm_shapes(cfg, f"{blk}/ln_2", lead))
     return dict(sorted(out.items()))
@@ -100,22 +107,29 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     seeded ``torch.Generator``: normal(0, std) for embeddings and dense
     kernels (the residual projections scaled by ``1/sqrt(2L)`` as in the
     JAX init), ones for norm scales, zeros for biases. fp32, like the JAX
-    package's ``param_dtype``."""
+    package's ``param_dtype``. LoRA factors, drawn after every base
+    tensor (so the base is the same with LoRA on or off): A from
+    normal(0, ``emb_init_std``), B zero, as in the JAX init."""
     from photon_tpu_torch.codec.params import unflatten
 
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     flat = {}
-    for name, shape in param_shapes(cfg).items():
-        if name.endswith("/scale"):
+    shapes = param_shapes(cfg)
+    lora = [n for n in shapes if "_lora_" in n]
+    for name, shape in [(n, s) for n, s in shapes.items() if n not in lora] + \
+            [(n, shapes[n]) for n in lora]:
+        if name.endswith("_lora_b"):
+            flat[name] = torch.zeros(shape, device=device)
+        elif name.endswith("/scale"):
             flat[name] = torch.ones(shape, device=device)
         elif name.endswith("/bias"):
             flat[name] = torch.zeros(shape, device=device)
         else:
             w = torch.randn(shape, generator=gen, device=device)
             flat[name] = w.mul_(_init_std(cfg, name))
-    return unflatten(flat)
+    return unflatten(dict(sorted(flat.items())))
 
 
 class MPTBlock(torch.nn.Module):
@@ -130,14 +144,18 @@ class MPTBlock(torch.nn.Module):
         from photon_tpu_torch.ops.attention import multihead_attention
 
         cfg = self.cfg
+        # the layer's LoRA factors, one adapter for every row
+        la = {n[: -len("_lora_a")]: {"a": lp[n], "b": lp[n[: -len("_lora_a")] + "_lora_b"]}
+              for n in lp if n.endswith("_lora_a")} or None
+        ls = cfg.lora_alpha / cfg.lora_rank if la else 1.0
         h = _norm(x, lp["ln_1"]["scale"], lp["ln_1"].get("bias"), cfg.norm, cfg.norm_eps)
-        q, k, v = _qkv(lp, h, cfg)  # a fused wqkv gives strided views: the kernels read them
+        q, k, v = _qkv(lp, h, cfg, la, ls)  # a fused wqkv gives strided views: the kernels read them
         if cfg.rope:  # before any kv repeat, at positions 0 .. S-1
             pos = torch.arange(x.shape[1], device=x.device)[None]
             q, k = _rope_at(q, pos, cfg.rope_theta), _rope_at(k, pos, cfg.rope_theta)
         o = multihead_attention(q, k, v, impl=cfg.attn_impl, causal=True, alibi=cfg.alibi)
-        x = x + _dense(lp, "out_proj", o.reshape(x.shape))
-        return _mlp(lp, x, cfg)
+        x = x + _dense(lp, "out_proj", o.reshape(x.shape), la, ls)
+        return _mlp(lp, x, cfg, la=la, ls=ls)
 
 
 def _layers(blocks: dict) -> list[dict]:

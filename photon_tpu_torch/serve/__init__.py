@@ -1,3 +1,3 @@
 """Continuous-batching serving plane: paged KV cache, prefix cache,
-drafter, engine, scheduler, checkpoint hot-swap, HTTP frontend, and the
-``python -m photon_tpu_torch.serve`` entry point."""
+per-cohort adapter pool, drafter, engine, scheduler, checkpoint hot-swap,
+HTTP frontend, and the ``python -m photon_tpu_torch.serve`` entry point."""

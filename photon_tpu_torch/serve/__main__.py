@@ -19,15 +19,22 @@ Examples::
     # text prompts, tokenized by the server (--tokenizer byte-fallback)
     curl -s localhost:8000/generate -d '{"text": "Hello", "max_new_tokens": 8}'
 
+    # a cohort's LoRA adapter (photon.adapters.enabled, the round's
+    # adapter__{cohort} objects)
+    curl -s localhost:8000/generate -d '{"tokens": [5, 9, 2], "cohort": "a"}'
+
 With ``photon.serve.hotswap`` on, a watcher polls the store every
 ``hotswap_poll_s`` seconds and swaps each new checksum-valid round in
 between requests (``serve/hotswap.py``); ``serve.prefix_cache`` and
 ``serve.speculative.enabled`` turn on prefix sharing and self-drafted
-speculative decoding.
+speculative decoding. With ``photon.adapters.enabled`` (an adapter run's
+resolved YAML) every cohort's adapter is loaded beside the base, and
+``cohort`` on ``/generate`` decodes through it; a hot-swap moves base and
+adapters together.
 
 The first line on stdout is one JSON object with the serving URL, the
-bound port, the round, the model, the pool's shape and which of the
-prefix cache and hot-swap are on. SIGTERM closes the watcher, then
+bound port, the round, the model, the pool's shape, which of the prefix
+cache and hot-swap are on, and the adapter cohorts served (or null). SIGTERM closes the watcher, then
 drains (in-flight requests finish, new ones get 503); SIGINT stops at
 once.
 """
@@ -121,6 +128,8 @@ def main(argv: list[str] | None = None) -> None:
         "attn_impl": engine.attn_impl,
         "prefix_cache": engine.prefix_cache is not None,
         "hotswap": watcher is not None,
+        "adapters": (engine.adapter_pool.cohorts()
+                     if engine.adapter_pool is not None else None),
     }), flush=True)
 
     # SIGTERM = graceful drain; SIGINT (operator ^C) stops at once

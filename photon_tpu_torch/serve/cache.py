@@ -33,6 +33,7 @@ from photon_tpu_torch.models.decode import (
     _qkv,
     _rope_at,
     decode_layers,
+    layer_adapters,
     torch_dtype,
 )
 from photon_tpu_torch.ops.attention import alibi_slopes
@@ -169,7 +170,8 @@ def mixed_chunk_step(params: dict, layers: list[dict], state: PagedState,
                      q_valid: torch.Tensor, emit_off: torch.Tensor,
                      lengths_after: torch.Tensor, chunk_slot: int,
                      cfg: ModelConfig, *, n_ctx: int, has_chunk: bool = False,
-                     impl: str = "gather", n_spec: int = 1) -> tuple[torch.Tensor, PagedState]:
+                     impl: str = "gather", n_spec: int = 1,
+                     adapters: dict | None = None) -> tuple[torch.Tensor, PagedState]:
     """One serving step over a mixed chunked-prefill batch: every slot
     contributes a row of ``tokens [n_slots, Tq]`` — a decode row puts its
     last emitted token in column 0 (the rest padding), the ``chunk_slot``
@@ -203,6 +205,14 @@ def mixed_chunk_step(params: dict, layers: list[dict], state: PagedState,
     columns of every slot (``T = n_spec``) and, with a chunk, one for the
     chunk row (``B = 1``). ``impl`` is ``"ragged"`` (the kernel wrapper) or
     ``"gather"`` (the dense reference over the gathered blocks).
+
+    ``adapters``: per-slot LoRA factors gathered from the adapter pool,
+    ``{module: {"a": [n_slots, L, d_in, r], "b": [n_slots, L, r, d_out]}}``,
+    B carrying alpha/r already (the pool folds it in at load): row b's
+    projections add row b's delta
+    (``models.decode._lora_delta``), so one step decodes requests of
+    different cohorts; a slot without a cohort reads the pool's all-zero
+    page and decodes the bare base. ``None`` runs the base alone.
     """
     n_slots, tq = tokens.shape
     bs = state.block_size
@@ -218,9 +228,10 @@ def mixed_chunk_step(params: dict, layers: list[dict], state: PagedState,
     if has_chunk:
         row_c = rows[chunk_slot: chunk_slot + 1]
         pos_c = positions[chunk_slot: chunk_slot + 1]
-    for li, lp in enumerate(layers):
+    las = layer_adapters(adapters, len(layers), x.dtype, x.device)
+    for li, (lp, la) in enumerate(zip(layers, las)):
         h = _norm(x, lp["ln_1"]["scale"], lp["ln_1"].get("bias"), cfg.norm, cfg.norm_eps)
-        q, k_new, v_new = _qkv(lp, h, cfg)  # q [B, Tq, H, Dh]
+        q, k_new, v_new = _qkv(lp, h, cfg, la)  # q [B, Tq, H, Dh]
         if cfg.rope:
             q = _rope_at(q, positions, cfg.rope_theta)
             k_new = _rope_at(k_new, positions, cfg.rope_theta)
@@ -238,8 +249,9 @@ def mixed_chunk_step(params: dict, layers: list[dict], state: PagedState,
                             pos_c, scale, slopes)
             attn = attn.clone()
             attn[chunk_slot] = out_c[0].to(attn.dtype)
-        x = x + _dense(lp, "out_proj", attn.reshape(n_slots, tq, cfg.d_model))
-        x, _ = _mlp(lp, x, cfg, token_mask=q_valid)  # pad and idle rows claim no capacity
+        x = x + _dense(lp, "out_proj", attn.reshape(n_slots, tq, cfg.d_model), la)
+        # pad and idle rows claim no capacity
+        x, _ = _mlp(lp, x, cfg, token_mask=q_valid, la=la)
     state.lengths.copy_(lengths_after)
     if n_spec == 1:
         last = x[torch.arange(n_slots, device=x.device), emit_off.long()]  # [B, D]

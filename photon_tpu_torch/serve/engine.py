@@ -26,6 +26,19 @@ With ``serve.prefix_cache`` on (never for MoE, whose batch-global expert
 capacity makes a block's KV depend on its batch-mates), full prompt
 blocks are shared across requests through :class:`serve.prefix.PrefixCache`;
 a hit starts the slot's chunk stream at the cached depth.
+
+With ``photon.adapters`` on, a second small pool beside the KV pool holds
+``pool_size`` cohorts' LoRA factors on the device
+(:class:`serve.adapter_pool.AdapterPool`); a request names its cohort at
+:meth:`PagedEngine.begin`, which pins the cohort's page, and every step
+gathers each slot's page once, so one step decodes a mixed-cohort batch
+(a step with no cohort in it skips the adapters).
+The prefix cache is keyed by cohort (:func:`serve.prefix.prefix_hashes`):
+a block's KV carries its cohort's delta on ``wqkv``, so a block one
+cohort cached is never mapped for another. The JAX engine hashes the
+tokens alone there and hands cohort ``b`` the KV cohort ``a`` computed;
+the port deliberately parts from it (a request without a cohort hashes
+the same bytes as JAX's).
 :meth:`PagedEngine.spec_step` verifies drafted tokens of every decoding
 row in one step (speculative decoding); :meth:`PagedEngine.set_params`
 swaps in a new round's params while no slot is active.
@@ -43,16 +56,19 @@ spec_step/evict/set_params; HTTP handler threads only read counters.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
+from photon_tpu_torch.adapters.checkpoint import adapter_key, load_adapter_bank
+from photon_tpu_torch.adapters.lora import adapter_tree, spec_from_params
 from photon_tpu_torch.checkpoint import FileStore, ServerCheckpointManager
 from photon_tpu_torch.codec.params import params_from_numpy, strip_momenta
 from photon_tpu_torch.config.schema import Config, ModelConfig
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.models.decode import compute_params, layer_params
+from photon_tpu_torch.serve.adapter_pool import AdapterPool
 from photon_tpu_torch.serve.cache import (
     BlockAllocator,
     PagedState,
@@ -141,12 +157,27 @@ def _verify_rows(logits: torch.Tensor, tokens: np.ndarray, temps: np.ndarray,
     return out, n_em
 
 
+def base_model_config(mc: ModelConfig) -> ModelConfig:
+    """``mc`` without its LoRA knobs: a round checkpoint holds the base
+    alone (an adapter run saves its factors as separate objects), and a
+    serving config that is a training run's resolved YAML names the
+    LoRA model that trained them."""
+    return replace(mc, lora_rank=0, lora_targets=()) if mc.lora_rank else mc
+
+
 def load_serving_params(cfg: Config, mgr: ServerCheckpointManager,
                         server_round: int) -> dict:
     """Params-only load of a round (no optimizer moments; aggregated
     momenta split off) into the port's fp32 tree on the CPU."""
     meta, arrays = strip_momenta(*mgr.load_round_params(server_round))
-    return params_from_numpy(meta.names, arrays, cfg.model, "cpu")
+    return params_from_numpy(meta.names, arrays, base_model_config(cfg.model), "cpu")
+
+
+def load_serving_bank(cfg: Config, mgr: ServerCheckpointManager,
+                      server_round: int) -> dict | None:
+    """The round's adapter bank (``None`` with the adapters off)."""
+    ad = cfg.photon.adapters
+    return load_adapter_bank(mgr, server_round, ad.cohorts) if ad.enabled else None
 
 
 @dataclass
@@ -163,11 +194,12 @@ class _Prefill:
 class PagedEngine:
     def __init__(self, cfg: Config, params: dict, *,
                  loaded_round: int | None = None,
-                 device: str | torch.device | None = None) -> None:
+                 device: str | torch.device | None = None,
+                 adapter_bank: dict | None = None) -> None:
         self.device = resolve_device(device)
         cfg.validate(self.device, serving=True)
         self.cfg = cfg
-        self.mc: ModelConfig = cfg.model
+        self.mc: ModelConfig = base_model_config(cfg.model)
         sc = cfg.photon.serve
         self.block_size = sc.block_size
         self.n_slots = sc.n_slots
@@ -189,8 +221,19 @@ class PagedEngine:
         self.prefix_cache: PrefixCache | None = None
         if sc.prefix_cache and self.mc.mlp != "moe":
             self.prefix_cache = PrefixCache(self.allocator, max_blocks=sc.prefix_cache_blocks)
-        self._hash_memo: tuple[list[int], int, list[bytes]] | None = None
+        self._hash_memo: tuple[list[int], int, str | None, list[bytes]] | None = None
         self._install_params(params)
+        # the per-cohort LoRA pool (MoE is refused with adapters at validate)
+        self.adapter_pool: AdapterPool | None = None
+        ad = cfg.photon.adapters
+        if ad.enabled:
+            spec = spec_from_params(self.params, ad.rank, ad.alpha, tuple(ad.targets))
+            self.adapter_pool = AdapterPool(spec, ad.pool_size, self.device)
+            if adapter_bank:
+                self.adapter_pool.install_bank(adapter_bank)
+        #: each slot's adapter page (the trash page: no cohort)
+        self._adapter_rows = np.full(self.n_slots, self.adapter_pool.trash_page
+                                     if self.adapter_pool else 0, np.int64)
         self.state: PagedState = init_paged_state(
             self.mc, self.n_slots, self.n_blocks, self.block_size, self.max_blocks,
             self.device,
@@ -221,23 +264,33 @@ class PagedEngine:
                         resume_round: int = -1,
                         device: str | torch.device | None = None) -> "PagedEngine":
         """Serve a federated run: resolve the checksum-valid round, load
-        its params only."""
+        its params only (and, with the adapters on, every cohort's
+        ``adapter__*`` object: a round that lacks one is not valid here,
+        so an older round serves)."""
         store = store or FileStore(cfg.photon.save_path + "/store")
         mgr = ServerCheckpointManager(store, cfg.run_uuid)
-        rnd = mgr.resolve_resume_round(resume_round)
+        ad = cfg.photon.adapters
+        keys = tuple(adapter_key(c) for c in sorted(ad.cohorts)) if ad.enabled else ()
+        rnd = mgr.resolve_resume_round(resume_round, keys)
         return cls(cfg, load_serving_params(cfg, mgr, rnd), loaded_round=rnd,
-                   device=device)
+                   device=device, adapter_bank=load_serving_bank(cfg, mgr, rnd))
 
     def _install_params(self, params: dict) -> None:
         self.params = compute_params(params, self.mc, self.device)
         self._layers = [layer_params(self.params, i) for i in range(self.mc.n_layers)]
 
-    def set_params(self, params: dict, loaded_round: int | None = None) -> None:
+    def set_params(self, params: dict, loaded_round: int | None = None,
+                   adapter_bank: dict | None = None) -> None:
         """Install a new round's params (the hot-swap). Called from the
         scheduler thread with no slot active, so every request
         runs on one round's params. The old compute tensors are released
         before the new ones are made, and the prefix cache is flushed: KV
         computed under the old params is invalid under the new.
+        ``adapter_bank`` replaces the cohorts' adapters in the same call
+        (base and bank move together; every resident page is dropped). It
+        is checked against the pool's spec before anything is released: a
+        bank that does not fit raises with the old base, bank and round
+        still serving.
 
         If making the new tensors fails (an out-of-memory on the card), the
         old ones are already gone: the engine is left :attr:`failed`, with
@@ -248,6 +301,9 @@ class PagedEngine:
                 f"param swap with {int(self._active.sum())} active slots — "
                 "the scheduler must quiesce first"
             )
+        checked = None
+        if self.adapter_pool is not None and adapter_bank is not None:
+            checked = self.adapter_pool.check_bank(adapter_bank)
         cuda = self.device.type == "cuda"
         if cuda:  # the device memory before the swap, and its peak across it
             self.swap_bytes_before = torch.cuda.memory_allocated(self.device)
@@ -261,6 +317,8 @@ class PagedEngine:
                            f"({type(e).__name__}: {e}); no params loaded")
             raise
         self.failed = None
+        if checked is not None:
+            self.adapter_pool.install_bank(checked)
         if cuda:
             self.swap_peak_bytes = torch.cuda.max_memory_allocated(self.device)
         self.loaded_round = loaded_round
@@ -278,45 +336,56 @@ class PagedEngine:
                 and self.blocks_needed(prompt_len, max_new)
                 <= min(self.max_blocks, self.n_blocks))
 
+    def has_cohort(self, cohort: str) -> bool:
+        """Can this engine serve ``cohort`` (adapters on, in the bank)?"""
+        return self.adapter_pool is not None and self.adapter_pool.has_cohort(cohort)
+
     def can_admit(self, prompt_len: int, max_new: int,
-                  prompt: list[int] | None = None) -> bool:
+                  prompt: list[int] | None = None, cohort: str | None = None) -> bool:
         """A free slot, and blocks for the reservation. With ``prompt``
         given and the prefix cache on, cache hits need no fresh blocks and
         blocks only the cache holds count as free (:meth:`begin` evicts
-        them under pressure)."""
+        them under pressure). ``cohort`` also needs a page for its
+        adapter (resident, free, or an unpinned one to evict)."""
         if self.free_slot() is None:
             return False
+        if cohort is not None and (self.adapter_pool is None
+                                   or not self.adapter_pool.can_acquire(cohort)):
+            return False
         hit, fresh_needed, _ = self._prefix_plan(prompt or [], prompt_len, max_new,
-                                                 touch=False)
+                                                 touch=False, cohort=cohort)
         avail = self.allocator.free_blocks
         if self.prefix_cache is not None:
             avail += self.prefix_cache.reclaimable(exclude=set(hit))
         return avail >= fresh_needed
 
     def _prefix_plan(self, prompt: list[int], prompt_len: int, max_new: int,
-                     touch: bool = True) -> tuple[list[int], int, list[bytes]]:
+                     touch: bool = True, cohort: str | None = None
+                     ) -> tuple[list[int], int, list[bytes]]:
         """(cached-prefix blocks, fresh blocks still needed, the prompt's
-        full-block chain hashes). Lookups stop one block short of the
-        prompt's end, so the final prompt token always runs. ``touch=False``
-        peeks without reordering the LRU."""
+        full-block chain hashes under ``cohort``). Lookups stop one block
+        short of the prompt's end, so the final prompt token always runs.
+        ``touch=False`` peeks without reordering the LRU."""
         need = self.blocks_needed(prompt_len, max_new)
         if self.prefix_cache is None or not prompt:
             return [], need, []
-        hashes = self._chain_hashes(prompt, prompt_len)
+        hashes = self._chain_hashes(prompt, prompt_len, cohort)
         hit = self.prefix_cache.lookup(hashes[: (prompt_len - 1) // self.block_size],
                                        touch=touch)
         return hit, need - len(hit), hashes
 
-    def _chain_hashes(self, prompt: list[int], prompt_len: int) -> list[bytes]:
-        """One hash sweep per prompt list object: a single-slot memo keyed
-        by identity (it holds the list, so the id cannot be recycled);
-        covers the can_admit → begin pair and a blocked queue head's
-        retries."""
+    def _chain_hashes(self, prompt: list[int], prompt_len: int,
+                      cohort: str | None = None) -> list[bytes]:
+        """One hash sweep per prompt list object and cohort: a single-slot
+        memo keyed by identity (it holds the list, so the id cannot be
+        recycled); covers the can_admit → begin pair and a blocked queue
+        head's retries."""
         memo = self._hash_memo
-        if memo is not None and memo[0] is prompt and memo[1] == prompt_len:
-            return memo[2]
-        hashes = prefix_hashes(prompt, self.block_size, limit=prompt_len // self.block_size)
-        self._hash_memo = (prompt, prompt_len, hashes)
+        if memo is not None and memo[0] is prompt and memo[1:3] == (prompt_len, cohort):
+            return memo[3]
+        hashes = prefix_hashes(prompt, self.block_size, limit=prompt_len // self.block_size,
+                               cohort=cohort)
+        self._hash_memo = (prompt, prompt_len, cohort, hashes)
         return hashes
 
     def free_slot(self) -> int | None:
@@ -343,6 +412,10 @@ class PagedEngine:
             return None
         return {"entries": len(pc), "hit_rate": round(pc.hit_rate, 4),
                 "evictions": pc.evictions, "tokens_cached": pc.tokens_cached}
+
+    def adapter_stats(self) -> dict[str, float] | None:
+        """Adapter-pool counters for /healthz (None with the adapters off)."""
+        return None if self.adapter_pool is None else self.adapter_pool.stats()
 
     def attn_stats(self) -> dict[str, float]:
         """The live walk width, the pool's live fraction, and whether the
@@ -375,7 +448,7 @@ class PagedEngine:
         return self._ctx_hw
 
     def begin(self, slot: int, prompt: list[int], max_new: int,
-              temperature: float = 0.0, seed: int = 0) -> None:
+              temperature: float = 0.0, seed: int = 0, cohort: str | None = None) -> None:
         """Reserve ``slot`` and its worst-case ``blocks_needed`` blocks up
         front (an admitted request never dies of pool exhaustion), install
         its table row, and stage its prompt for the chunk stream. The step
@@ -384,17 +457,25 @@ class PagedEngine:
         With the prefix cache on, the longest cached full-block prefix is
         mapped into the slot's table (one reference per shared block,
         taken before any eviction can run; never written) and the chunk
-        stream starts at the cached depth. A failed admission frees its
-        fresh blocks and its references."""
+        stream starts at the cached depth (the hashes keyed by ``cohort``).
+        ``cohort`` pins its adapter page first (loading it on a miss). A
+        failed admission frees its fresh blocks, its references and its
+        page pin."""
         if self._active[slot]:
             raise RuntimeError(f"slot {slot} is occupied")
         n = len(prompt)
         if not self.fits(n, max_new):
             raise ValueError(f"request needs {n}+{max_new} tokens > slot capacity {self.s_cap}")
-        hit, fresh_needed, hashes = self._prefix_plan(prompt, n, max_new)
+        apage: int | None = None
+        if cohort is not None:
+            if self.adapter_pool is None:
+                raise ValueError(f"request names cohort {cohort!r} but this server has no "
+                                 "adapter plane (photon.adapters disabled)")
+            apage = self.adapter_pool.acquire(cohort)
         ids: list[int] | None = None
         retained = False
         try:
+            hit, fresh_needed, hashes = self._prefix_plan(prompt, n, max_new, cohort=cohort)
             if hit:
                 self.allocator.retain(hit)
                 retained = True
@@ -413,7 +494,11 @@ class PagedEngine:
                 self.allocator.free(ids)
             if retained:
                 self.allocator.free(hit)
+            if apage is not None:
+                self.adapter_pool.release(apage)
             raise
+        if apage is not None:
+            self._adapter_rows[slot] = apage
         gen = torch.Generator()
         gen.manual_seed(int(seed))
         self._gens[slot] = gen
@@ -521,12 +606,20 @@ class PagedEngine:
                 emit_off[cs] = len(seg) - 1
                 emit_mask[cs] = True
         dev = self.device
+        adapters = None
+        pool = self.adapter_pool
+        # each slot's page, gathered once a step; a step with no cohort
+        # anywhere runs the base alone (the trash page's delta is zero)
+        if pool is not None and (self._adapter_rows != pool.trash_page).any():
+            adapters = adapter_tree(pool.spec, pool.gather(
+                torch.from_numpy(self._adapter_rows).to(dev)))
         logits, self.state = mixed_chunk_step(
             self.params, self._layers, self.state,
             torch.from_numpy(tokens).to(dev).long(), torch.from_numpy(positions).to(dev),
             torch.from_numpy(q_valid).to(dev), torch.from_numpy(emit_off).to(dev),
             torch.from_numpy(lengths_after).to(dev), cs, self.mc,
             n_ctx=self._ctx_width(), has_chunk=bool(seg), impl=self._impl, n_spec=n_spec,
+            adapters=adapters,
         )
         self.last_logits = logits
         if n_spec == 1:
@@ -575,11 +668,11 @@ class PagedEngine:
         return out
 
     def admit(self, slot: int, prompt: list[int], max_new: int,
-              temperature: float = 0.0, seed: int = 0) -> int:
+              temperature: float = 0.0, seed: int = 0, cohort: str | None = None) -> int:
         """Synchronous admission: stage the request and run its whole
         prompt as one chunk, without decode rows, returning the first
         sampled token."""
-        self.begin(slot, prompt, max_new, temperature=temperature, seed=seed)
+        self.begin(slot, prompt, max_new, temperature=temperature, seed=seed, cohort=cohort)
         nxt, emitted = self.mixed_step((slot, self.pending_tokens(slot)),
                                        include_decode=False)
         assert emitted[slot]  # one chunk covers the prompt, so it emits
@@ -594,14 +687,21 @@ class PagedEngine:
         return out
 
     def evict(self, slot: int) -> None:
-        """Return ``slot``'s blocks to the free list — host bookkeeping
-        only: the step sends inactive slots' writes to the trash block and
-        the position mask hides the stale bytes of recycled blocks."""
+        """Return ``slot``'s blocks to the free list and its adapter page
+        pin — host bookkeeping only: the step sends inactive slots' writes
+        to the trash block and the position mask hides the stale bytes of
+        recycled blocks."""
         if not self._active[slot]:
             raise RuntimeError(f"slot {slot} is not active")
         self.allocator.free(self._slot_blocks[slot])
         self._slot_blocks[slot] = []
         self._pending.pop(slot, None)
+        pool = self.adapter_pool
+        if pool is not None and self._adapter_rows[slot] != pool.trash_page:
+            # the page stays resident for the cohort's next request until
+            # LRU pressure evicts it
+            pool.release(int(self._adapter_rows[slot]))
+            self._adapter_rows[slot] = pool.trash_page
         self._gens[slot] = None
         self._temps[slot] = 0.0
         self._active[slot] = False

@@ -12,6 +12,7 @@ scheduler's single thread does all engine work.
      "temperature": 0.0,           # 0 = greedy
      "seed": 0,                    # sampling stream seed
      "eos_id": 256,                # per-request EOS (default: photon.serve)
+     "cohort": "a",                # adapter cohort (photon.adapters); absent = base
      "stream": false}
 
 A ``"text"`` prompt is tokenized by the server's tokenizer (``--tokenizer
@@ -22,6 +23,9 @@ token, then a final stats line. A full queue answers 429 with a
 ``Retry-After`` hint; a draining server answers 503, as does one whose
 engine was left without params by a failed swap (its ``/healthz`` then
 answers 503 with ``"status": "failed"`` until a later swap succeeds).
+A ``cohort`` the server does not serve answers 400; the reply of a
+cohort request names its cohort, and ``/healthz`` carries the adapter
+pool's counters and the cohorts served under ``"adapters"``.
 """
 
 from __future__ import annotations
@@ -121,6 +125,8 @@ class ServeFrontend:
                     payload["prefix_cache"] = prefix
                 if (spec := fe.batcher.spec_stats()) is not None:
                     payload["speculative"] = spec
+                if (ad := eng.adapter_stats()) is not None:
+                    payload["adapters"] = dict(ad, serving=eng.adapter_pool.cohorts())
                 if fe.watcher is not None:
                     payload["hotswap"] = fe.watcher.stats()
                 if eng.failed:
@@ -149,11 +155,15 @@ class ServeFrontend:
                     max_new = min(int(body.get("max_new_tokens", fe.max_new_tokens_cap)),
                                   fe.max_new_tokens_cap)
                     eos = body.get("eos_id")
+                    cohort = body.get("cohort")
+                    if cohort is not None and not isinstance(cohort, str):
+                        raise ValueError("'cohort' must be a string")
                     req = fe.batcher.submit(
                         prompt, max_new,
                         temperature=float(body.get("temperature", 0.0)),
                         seed=int(body.get("seed", 0)),
                         eos_id=None if eos is None else int(eos),
+                        cohort=cohort,
                     )
                 except QueueFullError as e:
                     self._json(429, {"error": str(e)}, {"Retry-After": "1"})
@@ -260,6 +270,8 @@ class ServeFrontend:
             "ttft_s": round(req.ttft_s, 6),
             "total_s": round(max(0.0, req.t_done - req.t_submit), 6),
         }
+        if req.cohort is not None:
+            out["cohort"] = req.cohort
         if self.tokenizer is not None:
             out["text"] = self.tokenizer.decode(tokens)
         return out

@@ -21,7 +21,8 @@ One poll, in order:
 4. **integrity** — ``verify_round`` checks every object's CRC against the
    manifest; a corrupt round is skipped with one warning and counted
    once, and the server keeps serving what it has;
-5. **load** the params on the CPU, **stage** them with
+5. **load** the params on the CPU (and, with the adapters on, the round's
+   adapter bank: base and bank swap together), **stage** them with
    ``ContinuousBatcher.request_swap``, and **resolve**: wait (stop-aware)
    until the scheduler thread applied the swap. The watcher thread never
    touches engine state.
@@ -35,7 +36,7 @@ import time
 import urllib.request
 import warnings
 
-from photon_tpu_torch.serve.engine import load_serving_params
+from photon_tpu_torch.serve.engine import load_serving_bank, load_serving_params
 from photon_tpu_torch.serve.scheduler import ContinuousBatcher, DrainingError
 
 #: how long one poll waits for the scheduler to apply the swap it staged;
@@ -132,12 +133,14 @@ class CheckpointWatcher:
             self._skip(candidate, "corrupt")
             return "skipped-corrupt"
         params = load_serving_params(self.cfg, self.mgr, candidate)
+        # CRC-checked above with the round's other objects
+        bank = load_serving_bank(self.cfg, self.mgr, candidate)
         try:
-            done = self.batcher.request_swap(params, loaded_round=candidate)
+            done = self.batcher.request_swap(params, loaded_round=candidate, adapter_bank=bank)
         except DrainingError:
             self._skip(candidate, "draining", warn=False)
             return "skipped-draining"
-        del params  # the batcher holds the only reference until the swap
+        del params, bank  # the batcher holds the only references until the swap
         self._staged = (candidate, done)
         return self._resolve_staged(wait_s=SWAP_TIMEOUT_S)
 

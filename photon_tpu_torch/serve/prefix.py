@@ -7,8 +7,13 @@ same block as long as neither writes it:
 
 - **chain hashes** (:func:`prefix_hashes`): block ``j``'s key is
   ``blake2b(hash_{j-1} || tokens[j*bs:(j+1)*bs] as int32 bytes)``, so a
-  hash names the whole prefix through block ``j``; the bytes equal the
-  JAX package's.
+  hash names the whole prefix through block ``j``. The chain starts from
+  the request's cohort (``blake2b(cohort)``; the empty string without
+  one, where the bytes equal the JAX package's): a block's KV carries
+  its cohort's LoRA delta, so blocks are shared within a cohort only.
+  The JAX package hashes the tokens alone, also for cohort requests, and
+  maps one cohort's KV for another; the port deliberately parts from it
+  there.
 - **refcounts** (``BlockAllocator.retain/free``): a shared block is held
   once per slot that maps it plus once by this cache; the last reference
   returns it to the free list.
@@ -31,15 +36,16 @@ import hashlib
 import numpy as np
 
 
-def prefix_hashes(prompt: list[int], block_size: int,
-                  limit: int | None = None) -> list[bytes]:
+def prefix_hashes(prompt: list[int], block_size: int, limit: int | None = None,
+                  cohort: str | None = None) -> list[bytes]:
     """Chain hashes of ``prompt``'s full blocks: ``out[j]`` names tokens
-    ``[0, (j+1) * block_size)``. ``limit`` caps the number hashed."""
+    ``[0, (j+1) * block_size)`` under ``cohort`` (None: the base model).
+    ``limit`` caps the number hashed."""
     n_full = len(prompt) // block_size
     if limit is not None:
         n_full = min(n_full, limit)
     out: list[bytes] = []
-    prev = b""
+    prev = b"" if cohort is None else hashlib.blake2b(cohort.encode(), digest_size=16).digest()
     for j in range(n_full):
         block = np.asarray(prompt[j * block_size:(j + 1) * block_size], np.int32).tobytes()
         prev = hashlib.blake2b(prev + block, digest_size=16).digest()

@@ -1,7 +1,7 @@
 """Continuous batching: bounded admission queue + slot-level scheduling.
 
 The port of ``photon_tpu/serve/scheduler.py`` without its telemetry,
-chaos, adapter and autopilot hooks. One scheduler thread makes every engine
+chaos and autopilot hooks. One scheduler thread makes every engine
 (and so every CUDA) call, in three phases a tick:
 
 1. **swap point** — a staged parameter swap (:meth:`request_swap`, the
@@ -10,8 +10,9 @@ chaos, adapter and autopilot hooks. One scheduler thread makes every engine
    params;
 2. **admit** — pop FIFO from the bounded queue into free slots while the
    pool can cover each request's worst-case block reservation, counting
-   prefix-cache hits (``engine.begin``: reserve blocks, install the table
-   row — no model compute);
+   prefix-cache hits and, for a request of a cohort, a page for its
+   adapter (``engine.begin``: pin the page, reserve blocks, install the
+   table row — no model compute);
 3. **step** — one mixed engine step: every decoding slot advances and the
    oldest prefilling request's next prompt chunk, at most
    ``prefill_token_budget`` tokens, rides in the same step. With
@@ -63,6 +64,9 @@ class ServeRequest:
     temperature: float = 0.0
     seed: int = 0
     eos_id: int | None = None
+    #: the adapter cohort whose LoRA factors decode this request; None =
+    #: the bare base model
+    cohort: str | None = None
     t_submit: float = 0.0
     t_admit: float = 0.0
     t_first: float = 0.0
@@ -191,20 +195,23 @@ class ContinuousBatcher:
         return drained
 
     # -- live checkpoint hot-swap -----------------------------------------
-    def request_swap(self, params: dict, loaded_round: int | None = None) -> threading.Event:
+    def request_swap(self, params: dict, loaded_round: int | None = None,
+                     adapter_bank: dict | None = None) -> threading.Event:
         """Stage a parameter swap; the returned Event is set once the
         scheduler thread has applied it (or given it up). Admission pauses
         (queued and new requests wait, none is dropped), running slots
         finish on the old params, then the engine swaps and flushes its
-        prefix cache. A draining or stopped batcher refuses
-        (:class:`DrainingError`)."""
+        prefix cache. ``adapter_bank`` rides the same staged swap, so the
+        base and the cohorts' adapters change together and no request
+        decodes the new base through the old adapters. A draining or
+        stopped batcher refuses (:class:`DrainingError`)."""
         with self._work:
             if self._stop or self._draining:
                 raise DrainingError("batcher draining/stopped: swap refused")
             if self._pending_swap is not None:
                 raise RuntimeError("a param swap is already pending")
             done = threading.Event()
-            self._pending_swap = (params, loaded_round, done, time.monotonic())
+            self._pending_swap = (params, loaded_round, done, time.monotonic(), adapter_bank)
             self._work.notify_all()
         return done
 
@@ -220,10 +227,10 @@ class ContinuousBatcher:
         with self._lock:
             if self._pending_swap is None or self._running:
                 return
-            params, rnd, done, t0 = self._pending_swap
+            params, rnd, done, t0, bank = self._pending_swap
             self._pending_swap = None
         try:
-            self.engine.set_params(params, loaded_round=rnd)
+            self.engine.set_params(params, loaded_round=rnd, adapter_bank=bank)
         except BaseException:
             # release the waiter (it sees the round unchanged); the loop's
             # handler fails in-flight requests loudly, and the admit phase
@@ -239,7 +246,7 @@ class ContinuousBatcher:
     # -- submission (any thread) ------------------------------------------
     def submit(self, prompt: list[int], max_new_tokens: int, *,
                temperature: float = 0.0, seed: int = 0,
-               eos_id: int | None = None) -> ServeRequest:
+               eos_id: int | None = None, cohort: str | None = None) -> ServeRequest:
         if not prompt:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
@@ -249,11 +256,18 @@ class ContinuousBatcher:
                 f"request needs {len(prompt)}+{max_new_tokens} tokens — over "
                 "this server's context capacity"
             )
+        # an unknown cohort is refused here (the HTTP 400): queued, it could
+        # never be admitted and would block the FIFO head for good
+        if cohort is not None and not self.engine.has_cohort(cohort):
+            pool = self.engine.adapter_pool
+            raise ValueError(f"unknown adapter cohort {cohort!r} — this server serves "
+                             f"{pool.cohorts() if pool is not None else []}")
         # eos_id: None → server default; negative → explicitly no EOS
         eos = self.default_eos_id if eos_id is None else (None if eos_id < 0 else int(eos_id))
         req = ServeRequest(
             rid=next(self._rid), prompt=list(prompt), max_new_tokens=max_new_tokens,
-            temperature=temperature, seed=seed, eos_id=eos, t_submit=time.monotonic(),
+            temperature=temperature, seed=seed, eos_id=eos, cohort=cohort,
+            t_submit=time.monotonic(),
         )
         with self._work:
             if self._stop:
@@ -309,6 +323,11 @@ class ContinuousBatcher:
                 "swaps": float(self.swaps),
             }
         out.update({f"attn_{k}": v for k, v in self.engine.attn_stats().items()})
+        if (a := self.engine.adapter_stats()) is not None:
+            out.update({"adapter_residents": a["residents"], "adapter_cohorts": a["cohorts"],
+                        "adapter_loads_total": a["loads"],
+                        "adapter_evictions_total": a["evictions"],
+                        "adapter_hit_rate": a["hit_rate"]})
         return out
 
     # -- scheduler loop ----------------------------------------------------
@@ -341,14 +360,15 @@ class ContinuousBatcher:
                 return
             slot = self.engine.free_slot()
             if slot is None or not self.engine.can_admit(
-                    len(head.prompt), head.max_new_tokens, prompt=head.prompt):
+                    len(head.prompt), head.max_new_tokens, prompt=head.prompt,
+                    cohort=head.cohort):
                 return  # FIFO head-blocking: nobody overtakes
             with self._lock:
                 req = self._queue.popleft()
             req.t_admit = time.monotonic()
             try:
                 self.engine.begin(slot, req.prompt, req.max_new_tokens,
-                                  temperature=req.temperature, seed=req.seed)
+                                  temperature=req.temperature, seed=req.seed, cohort=req.cohort)
             except Exception as e:  # noqa: BLE001 — fail THIS request, keep serving
                 req.finished = True
                 req.error = f"admission failed: {type(e).__name__}: {e}"

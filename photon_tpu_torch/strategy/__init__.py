@@ -1,5 +1,5 @@
-"""Server strategies: the streaming fold and the FedAvg-family server
-optimizers, host-side numpy (cohort strategies are not ported)."""
+"""Server strategies: the streaming fold, the FedAvg-family server
+optimizers and their per-cohort grouping, host-side numpy."""
 
 from photon_tpu_torch.strategy.aggregation import (  # noqa: F401
     aggregate_inplace,
@@ -14,4 +14,9 @@ from photon_tpu_torch.strategy.optimizers import (  # noqa: F401
     FedMom,
     FedNesterov,
     FedYogi,
+)
+from photon_tpu_torch.strategy.grouped import (  # noqa: F401
+    CohortStrategies,
+    cohort_of_map,
+    grouped_host_fold,
 )

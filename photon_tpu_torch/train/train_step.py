@@ -44,7 +44,8 @@ class _ChunkedCE(torch.autograd.Function):
     again, so the whole ``[N, V]`` tensor never exists. Only the rows' LSE
     is kept. The last chunk is shorter (the JAX version pads it and masks
     the pad, which gives the same sum). Logits are the compute-dtype
-    product widened to fp32; the gradient of ``w`` is summed in fp32."""
+    product widened to fp32; the gradient of ``w`` is summed in fp32, and
+    not made at all when ``w`` needs none (a LoRA fit's frozen embedding)."""
 
     @staticmethod
     def forward(ctx, x, w, targets, chunk):
@@ -64,15 +65,17 @@ class _ChunkedCE(torch.autograd.Function):
     def backward(ctx, grad):
         x, w, targets, lse = ctx.saved_tensors
         dx = torch.empty_like(x)
-        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        want_dw = ctx.needs_input_grad[1]
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device) if want_dw else None
         for s in range(0, x.shape[0], ctx.chunk):
             xc, tc = x[s:s + ctx.chunk], targets[s:s + ctx.chunk]
             p = torch.exp((xc @ w.T).float() - lse[s:s + ctx.chunk, None])
             p[torch.arange(len(tc), device=p.device), tc] -= 1.0
             dl = (p * grad).to(x.dtype)
             dx[s:s + ctx.chunk] = dl @ w
-            dw += (dl.T @ xc).float()
-        return dx, dw.to(w.dtype), None, None
+            if want_dw:
+                dw += (dl.T @ xc).float()
+        return dx, dw.to(w.dtype) if want_dw else None, None, None
 
 
 def _chunked_ce_sum(model: MPTModel, params: dict, hidden: torch.Tensor,
@@ -103,8 +106,13 @@ def make_train_step(model: MPTModel, tx: Optimizer, n_microbatches: int = 1,
                     loss_chunk_tokens: int = 2048) -> Callable:
     """``(state, tokens [global_batch, seq]) -> (state, metrics)``: the
     batch splits into ``n_microbatches`` equal chunks whose gradients are
-    averaged; then ``grad_norm`` (over every gradient), the optimizer, and
-    ``param_norm`` of the updated parameters. Metrics are device scalars."""
+    averaged; then ``grad_norm`` (over every gradient computed), the
+    optimizer, and ``param_norm`` of the updated parameters. Gradients are
+    computed for the leaves that require one (:func:`init_train_state`
+    turns that off for the frozen base of a LoRA fit, whose gradients the
+    optimizer would drop: the JAX step computes them and its ``grad_norm``
+    counts them, so under LoRA the two ``grad_norm`` metrics differ).
+    Metrics are device scalars."""
     loss_fn = make_loss_fn(model, loss_chunk_tokens)
 
     def train_step(state: TrainState, tokens: torch.Tensor):
@@ -112,7 +120,8 @@ def make_train_step(model: MPTModel, tx: Optimizer, n_microbatches: int = 1,
         if b % n_microbatches:
             raise ValueError(f"batch {b} not divisible by {n_microbatches} microbatches")
         flat = flatten(state.params)
-        leaves = list(flat.values())
+        names = [n for n, p in flat.items() if p.requires_grad]
+        leaves = [flat[n] for n in names]
         loss_sum, grad_sum = None, None
         for mb in tokens.reshape(n_microbatches, b // n_microbatches, tokens.shape[1]):
             loss = loss_fn(state.params, mb)
@@ -129,11 +138,11 @@ def make_train_step(model: MPTModel, tx: Optimizer, n_microbatches: int = 1,
             for g in grad_sum:
                 g /= n_microbatches
         grad_norm = global_norm(grad_sum)  # before the optimizer clips them in place
-        state.opt_state = tx.apply(dict(zip(flat, grad_sum)), state.opt_state, flat)
+        state.opt_state = tx.apply(dict(zip(names, grad_sum)), state.opt_state, flat)
         del grad_sum
         state.step += 1
         return state, {"loss": loss_sum, "grad_norm": grad_norm,
-                       "param_norm": global_norm(leaves).detach()}
+                       "param_norm": global_norm(flat.values()).detach()}
 
     return train_step
 
@@ -157,8 +166,10 @@ def make_eval_step(model: MPTModel, loss_chunk_tokens: int = 2048) -> Callable:
     return eval_step
 
 
-def init_train_state(tx: Optimizer, params: dict) -> TrainState:
-    """A step-0 state over ``params`` (made leaves that require grad)."""
-    for p in flatten(params).values():
-        p.requires_grad_(True)
+def init_train_state(tx: Optimizer, params: dict, freeze_grads: bool = False) -> TrainState:
+    """A step-0 state over ``params`` (made leaves that require grad).
+    ``freeze_grads`` (a LoRA fit): the leaves the optimizer freezes require
+    none, so their weight gradients are never computed."""
+    for name, p in flatten(params).items():
+        p.requires_grad_(not freeze_grads or tx.trainable(name))
     return TrainState(step=0, params=params, opt_state=tx.init(flatten(params)))

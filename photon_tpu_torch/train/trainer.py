@@ -88,7 +88,8 @@ class Trainer:
         self.effective_global_batch_size = cfg.train.global_batch_size
         self._n_micro = cfg.train.global_batch_size // micro
 
-        self.state: TrainState = init_train_state(self.tx, params)
+        # a LoRA fit computes no gradient for the frozen base
+        self.state: TrainState = init_train_state(self.tx, params, cfg.model.lora_rank > 0)
         self._train_step = make_train_step(self.model, self.tx, n_microbatches=self._n_micro,
                                            loss_chunk_tokens=cfg.train.loss_chunk_tokens)
         self._eval_step = make_eval_step(self.model, loss_chunk_tokens=cfg.train.loss_chunk_tokens)
@@ -132,7 +133,7 @@ class Trainer:
             try:
                 step = make_train_step(self.model, self.tx, n_microbatches=gbs // cand,
                                        loss_chunk_tokens=cfg.train.loss_chunk_tokens)
-                step(init_train_state(self.tx, params), tokens)
+                step(init_train_state(self.tx, params, cfg.model.lora_rank > 0), tokens)
                 self._sync()
                 return cand
             except Exception as e:  # noqa: BLE001 -- only an OOM is retried

@@ -570,8 +570,9 @@ def _set(d, path, value):
                                      "hotswap", "fleet"])
 def test_unported_features_refused(feature):
     """Features the port does not run are refused with NotImplementedError;
-    the serving features it runs validate when on, and an invalid value
-    raises the JAX package's ValueError (the same text as JAX's)."""
+    the features it runs validate when on, and an invalid value raises the
+    JAX package's ValueError (the same text as JAX's). Adapters run; the
+    collective plane (the JAX package's adapter round loop) is refused."""
     from photon_tpu_torch.config.schema import Config
 
     d = _jax_cfg("mpt-wpe").to_dict()
@@ -590,8 +591,16 @@ def test_unported_features_refused(feature):
         d["model"].update(mlp="moe", moe_num_experts=4)
         Config.from_dict(d).validate("cpu")
         d["mesh"]["expert"] = 2
-    elif feature == "adapters":
-        d["photon"]["adapters"]["enabled"] = True
+    elif feature == "adapters":  # adapters are ported; their collective round loop is not
+        d["photon"]["adapters"].update(enabled=True, cohorts={"a": [0]})
+        JaxConfig.from_dict(d).validate()
+        Config.from_dict(d).validate("cpu")
+        d["photon"]["adapters"]["rank"] = 0
+        for cfg in (JaxConfig.from_dict(d), Config.from_dict(d)):
+            with pytest.raises(ValueError, match="rank must be >= 1"):
+                cfg.validate()
+        d["photon"]["adapters"]["rank"] = 8
+        d["photon"]["comm_stack"]["collective"] = True
     else:
         d["photon"]["serve"][feature]["enabled"] = True
     with pytest.raises(NotImplementedError):

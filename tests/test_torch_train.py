@@ -464,8 +464,10 @@ def test_unported_training_features_refused(feature):
         d["mesh"]["expert"] = 2
     elif feature == "mesh_autotune":
         d["photon"]["mesh_autotune"] = True
-    else:
+    else:  # LoRA trains; the collective plane that runs the JAX adapter rounds does not
         d["model"].update(lora_rank=4, lora_targets=["wqkv"])
+        Config.from_dict(d).validate()
+        d["photon"]["comm_stack"]["collective"] = True
     with pytest.raises(NotImplementedError):
         Config.from_dict(d).validate()
     if feature in ("mesh", "auto_micro", "mesh_autotune"):
