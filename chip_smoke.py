@@ -52,6 +52,33 @@ Phases (any failure exits non-zero):
    ``Trainer`` that ran 6 steps on the same stream; a planted fault (the
    cumulative step never injected, 2 rounds × 1 step against the
    Trainer's step 2) must read at least 10× the sound gap;
+5b. federated rounds across processes, beside phase 5's run: (a)
+   ``--multiprocess --nodes 2`` on phase 5's config (2 rounds; each node a
+   spawned process with its own CUDA context on the one card, the objstore
+   plane): round-2 parameters and the eval losses at rounds 0 and 2 within
+   ``FED_GATE`` of phase 5's first run, no CUDA context in the server
+   process (``nvidia-smi --query-compute-apps`` counts the card's
+   contexts); the round breakdown, each node's own peak memory and the
+   card's; a planted fault (a spawned node that seeds its synthetic data
+   with Python's per-process ``hash``) must part the round-0 eval loss
+   over the gate. (b) ``--tcp-listen`` (a child
+   that opens no CUDA context) with ``delta_topk_q8`` and error feedback,
+   ``reset_optimizer`` on each fit, 3 rounds: node0 is ``run_node`` on a
+   thread of this process, node1 a ``python -m
+   photon_tpu_torch.federation.tcp --connect`` child, SIGKILLed in round
+   2's fit and started again under its id. The run must finish within its
+   failure budget with cid 1 retried on node0, at least one readmission,
+   the uplink compressed at least 4x every round and node0's K1–K3 launches
+   exact; its round-3 update (parameters minus round 0's) within
+   ``UPDATE_REL_BOUND`` (relative L2) and ``UPDATE_COS_BOUND`` (cosine) of
+   an uncompressed in-process run's, which a run whose server decode
+   scatters the top-k values one index off must break; and in each round
+   the server's decode of node0's first result (written by the server
+   child) holds the per-client error-feedback identity, decoded − b =
+   (t − b) + residual in − residual out in fp64 per element within fp32
+   rounding, against node0's broadcast b, trained parameters t and
+   residuals, which an in-process run whose server pins the previous
+   round's broadcast as its delta base must break in round 2;
 6. engine: full-width mpt-125m (random weights from seed 0, bf16) in a
    ``PagedEngine`` with ``attention_impl="ragged"`` and one with
    ``"gather"``, stepped through the same mixed chunked-prefill schedule:
@@ -907,25 +934,52 @@ FED_GATE = 1e-6
 FED_FAULT_RATIO = 10.0
 
 
-def _fed_child(out_path: str, cli_args: list[str]) -> int:
+def _fed_child(out_path: str, cli_args: list[str], opts: list[str] = ()) -> int:
     """``python -m photon_tpu_torch.federated`` (its ``main``) in a child
-    process of :func:`federated_phase`, the kernels' launch counts set to 0
-    just before it; writes the run's History, the counts and the peak
-    device memory to ``out_path``."""
+    process of :func:`federated_phase` or :func:`distributed_phase`, the
+    kernels' launch counts set to 0 just before it; writes the run's
+    History, the counts, whether this process initialized CUDA, and its
+    peak device memory to ``out_path``. With ``--measured-nodes`` in
+    ``opts`` the nodes it spawns run :func:`_measured_node_main`; with
+    ``--record-decodes`` the server writes node0's first decoded result of
+    each round to ``$PHOTON_SMOKE_DECODES/<tag>.npy`` (:func:`_record_decodes`)."""
     import torch
 
     sys.path.insert(0, str(ROOT))
     from photon_tpu_torch import federated
     from photon_tpu_torch.ops import flash_attention as fa
 
+    if "--measured-nodes" in opts:
+        from photon_tpu_torch.federation import driver
+
+        driver.node_process_main = _measured_node_main
+    if "--record-decodes" in opts:
+        import os
+
+        import numpy as np
+
+        from photon_tpu_torch.federation import server
+
+        out = pathlib.Path(os.environ["PHOTON_SMOKE_DECODES"])
+        out.mkdir(parents=True, exist_ok=True)
+        real_init = server.ServerApp.__init__
+
+        def init(self, *args, **kwargs):
+            real_init(self, *args, **kwargs)
+            _record_decodes(self, lambda tag, arrays: np.save(
+                out / f"{tag}.npy", np.concatenate([a.ravel() for a in arrays])))
+
+        server.ServerApp.__init__ = init
     for key in fa.launches:
         fa.launches[key] = 0
     t0 = time.perf_counter()
     history = federated.main(cli_args)
+    # a server that never touched the card must not open a context to ask
+    cuda = torch.cuda.is_initialized()
     pathlib.Path(out_path).write_text(json.dumps({
         "history": history.to_dict(), "launches": dict(fa.launches),
-        "wall_s": time.perf_counter() - t0,
-        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}))
+        "wall_s": time.perf_counter() - t0, "cuda_initialized": cuda,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0}))
     return 0
 
 
@@ -967,23 +1021,44 @@ def _round_breakdown(history: dict, rounds: list[int]) -> list[dict]:
     return out
 
 
-def _fed_cli_run(work: pathlib.Path, tag: str, args: list[str], shm_dir: str) -> dict:
+def _fed_cli_start(work: pathlib.Path, tag: str, args: list[str], shm_dir: str | None = None,
+                   opts: tuple[str, ...] = (), env: dict | None = None
+                   ) -> tuple[subprocess.Popen, pathlib.Path, float]:
+    """Start :func:`_fed_child` on ``args`` with ``env`` added to this
+    process's environment; its stdout and stderr go to files in ``work``."""
     import os
 
     out_json = work / f"child-{tag}.json"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--fed-child", str(out_json), "--", *args],
-        cwd=ROOT, capture_output=True, text=True, timeout=900,
-        env=dict(os.environ, PHOTON_SHM_DIR=shm_dir))
-    if proc.returncode != 0:
-        fail(f"federated CLI ({tag}) exited {proc.returncode}: {proc.stderr[-3000:]}")
+    env = dict(os.environ, **(env or {}), **({"PHOTON_SHM_DIR": shm_dir} if shm_dir else {}))
+    with open(work / f"child-{tag}.out", "w") as out, open(work / f"child-{tag}.err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--fed-child", str(out_json), *opts,
+             "--", *args], cwd=ROOT, stdout=out, stderr=err, text=True, env=env)
+    return proc, out_json, time.perf_counter()
+
+
+def _fed_cli_finish(work: pathlib.Path, tag: str, started, timeout: float = 900) -> dict:
+    proc, out_json, t0 = started
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    if rc != 0:
+        fail(f"federated CLI ({tag}) exited {rc}: "
+             f"{(work / f'child-{tag}.err').read_text()[-3000:]}")
     child = json.loads(out_json.read_text())
-    return {"tag": tag, "wall_s": time.perf_counter() - t0,
-            "final_line": json.loads(proc.stdout.strip().splitlines()[-1]),
+    return {"tag": tag, "pid": proc.pid, "wall_s": time.perf_counter() - t0,
+            "final_line": json.loads((work / f"child-{tag}.out").read_text()
+                                     .strip().splitlines()[-1]),
             "history": child["history"], "launches": child["launches"],
-            "child_wall_s": child["wall_s"],
+            "child_wall_s": child["wall_s"], "cuda_initialized": child["cuda_initialized"],
             "max_memory_allocated_gb": child["max_memory_allocated_gb"]}
+
+
+def _fed_cli_run(work: pathlib.Path, tag: str, args: list[str], shm_dir: str) -> dict:
+    return _fed_cli_finish(work, tag, _fed_cli_start(work, tag, args, shm_dir))
 
 
 def _fed_gate(torch, np, cfg, work, initial) -> dict:
@@ -1190,6 +1265,710 @@ def federated_phase(torch, np):
            "store": str(work / "store"), "run_uuid": FED_RUN, "served_round": 3}
     log("federated_phase " + json.dumps({k: v for k, v in rec.items() if k != "runs"}))
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: federated rounds across processes
+# ---------------------------------------------------------------------------
+
+TCP_RUN = "chip-smoke-tcp"
+#: (b): the round-3 update (parameters minus round 0's) of the compressed
+#: TCP run against the uncompressed comparator, over all parameters:
+#: relative L2 at most UPDATE_REL_BOUND and cosine at least
+#: UPDATE_COS_BOUND. After three rounds of top-1/8 with error feedback the
+#: codec has delivered under half of the update (the rest waits in the
+#: clients' residuals), so the sound run reads far from 0: the bounds sit
+#: between the prediction for it (rel 0.6–0.85, cos 0.6–0.8; PERF.md §6)
+#: and the planted fault (top-k values scattered one index off in the
+#: server's decode: rel > 1, cos near 0)
+UPDATE_REL_BOUND = 0.95
+UPDATE_COS_BOUND = 0.5
+#: (b): the per-client error-feedback identity, element by element in
+#: fp64: (decoded − b) = (t − b) + r_in − r_out, with b the broadcast the
+#: node trained from, t its trained parameters and r_in, r_out its
+#: residuals for the cid before and after the encode. Only rounding parts
+#: the two sides: the fp32 cast of the decoded parameter and of the stored
+#: residual (2^-24 of each, doubled here) and the fp64 sums (2^-53,
+#: widened to 2^-48)
+EF_FP32_TOL = 2.0 ** -23
+EF_FP64_TOL = 2.0 ** -48
+EF_SLICE = 1 << 20
+#: (b): seconds into the in-process node's round-2 fit at which the
+#: subprocess node, which received its FitIns at the same moment, is killed
+KILL_AFTER_S = 1.0
+#: how often the GPU memory sampler asks ``nvidia-smi``
+SMI_POLL_S = 0.5
+#: (b): seconds the restarted node1 has to exit after the server's shutdown
+#: (its wait overlaps the comparator runs)
+NODE_EXIT_S = 180.0
+
+
+class _GpuMemory:
+    """Samples ``nvidia-smi`` on a thread: the number of processes with a
+    CUDA context on the card (``--query-compute-apps``: one row each) and
+    the card's memory in use (``--query-gpu=memory.used``), their largest
+    readings and those when sampling began. On the machines this runs on
+    every row reports pid 1 and the card's whole memory, so processes are
+    counted, not named, and per-process memory comes from the processes
+    themselves."""
+
+    def __init__(self) -> None:
+        self.rows = self.rows_before = 0
+        self.used_mib = self.used_mib_before = 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="smi-sampler", daemon=True)
+
+    @staticmethod
+    def _sample() -> tuple[int, float]:
+        def smi(*query):
+            return subprocess.run(["nvidia-smi", *query, "--format=csv,noheader,nounits"],
+                                  capture_output=True, text=True).stdout.strip().splitlines()
+        rows = [ln for ln in smi("--query-compute-apps=pid,used_memory") if ln.strip()]
+        return len(rows), float(smi("--query-gpu=memory.used")[0])
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            rows, used = self._sample()
+            self.rows, self.used_mib = max(self.rows, rows), max(self.used_mib, used)
+            self._stop.wait(SMI_POLL_S)
+
+    def record(self) -> dict:
+        return {"contexts_before": self.rows_before, "contexts_peak": self.rows,
+                "card_used_mib_before": self.used_mib_before, "card_used_mib_peak": self.used_mib}
+
+    def __enter__(self) -> "_GpuMemory":
+        self.rows_before, self.used_mib_before = self._sample()
+        self.rows, self.used_mib = self.rows_before, self.used_mib_before
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+def _connected(pid: int, port: int) -> bool:
+    """Whether process ``pid`` holds an established TCP connection to
+    ``port`` (``/proc``)."""
+    import os
+
+    inodes = set()
+    try:
+        for fd in pathlib.Path(f"/proc/{pid}/fd").iterdir():
+            link = os.readlink(fd)
+            if link.startswith("socket:["):
+                inodes.add(link[8:-1])
+    except OSError:
+        return False
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        for line in pathlib.Path(table).read_text().splitlines()[1:]:
+            f = line.split()
+            if f[3] == "01" and f[9] in inodes and int(f[2].rsplit(":", 1)[1], 16) == port:
+                return True
+    return False
+
+
+def _keep_logs(work: pathlib.Path) -> None:
+    """Copy the tails of a failed run's logs to ``chiprun_out/dist-logs``."""
+    out = ROOT / "chiprun_out" / "dist-logs"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in sorted(work.glob("*.log")) + sorted(work.glob("child-*.err")) \
+            + sorted(work.glob("child-*.out")):
+        (out / f.name).write_bytes(f.read_bytes()[-200_000:])
+
+
+def _measured_node_main(cfg_json, node_id, conn, device):
+    """A spawned node of :func:`distributed_phase`, patched in from outside
+    the package: it writes its peak device memory to
+    ``$PHOTON_SMOKE_NODE_REPORT/<node_id>.json`` when it shuts down. With
+    ``$PHOTON_SMOKE_SALTED_SEED`` set it plants (a)'s fault: it seeds its
+    synthetic client data with Python's per-process ``hash`` in place of
+    the stable CRC32 seed."""
+    import os
+
+    import torch
+
+    from photon_tpu_torch.federation import client_runtime, node
+
+    if os.environ.get("PHOTON_SMOKE_SALTED_SEED"):
+        client_runtime._stable_seed = lambda *parts: hash("/".join(map(str, parts))) & 0x7FFFFFFF
+    node.node_process_main(cfg_json, node_id, conn, device)
+    out = os.environ.get("PHOTON_SMOKE_NODE_REPORT")
+    if out and torch.cuda.is_initialized():
+        pathlib.Path(out, f"{node_id}-{os.getpid()}.json").write_text(json.dumps({
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "max_memory_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}))
+
+
+def _shifted_scatter(block):
+    """Planted fault of (b): the server's decode of a top-k layer scatters
+    each kept value one index past its place."""
+    from photon_tpu_torch.compression.quantize import dequantize_q8
+    from photon_tpu_torch.compression.topk import topk_densify
+
+    import numpy as np
+
+    vals = dequantize_q8(block.segments["q"], block.segments["scales"],
+                         block.q8_block).astype(np.float64)
+    idx = (block.segments["idx"].astype(np.int64) + 1) % block.size
+    return topk_densify(block.size, idx, vals)
+
+
+def _stale_reference(app) -> None:
+    """Planted fault of (b)'s EF identity: the server pins the previous
+    round's broadcast as the delta base it decodes against."""
+    real, pinned = app.transport.set_reference, []
+
+    def stale(arrays):
+        pinned.append([a.copy() for a in arrays])
+        real(pinned[-2] if len(pinned) > 1 else pinned[-1])
+
+    app.transport.set_reference = stale
+
+
+def _fit_tag(tag: str) -> tuple[int, int, str] | None:
+    """``fit-r{round}-c{cid}-{node}`` (a fit result's transport tag) →
+    (round, cid, node)."""
+    import re
+
+    m = re.fullmatch(r"fit-r(\d+)-c(\d+)-(.+)", tag)
+    return (int(m[1]), int(m[2]), m[3]) if m else None
+
+
+class _EfTaps:
+    """The node side of (b)'s EF identity: for the first fit result a node
+    uploads in each round, the delta base its codec pinned, the arrays it
+    encodes, and its residual for the cid before and after the encode, by
+    the result's tag. Wraps the node transport's ``put`` from outside the
+    package."""
+
+    def __init__(self) -> None:
+        self.taps: dict[str, tuple] = {}
+
+    def wrap(self, transport) -> None:
+        put, codec = transport.put, transport.codec
+
+        def tapped(tag, metadata, arrays, compress=False, key=None):
+            fit = _fit_tag(tag)
+            first = compress and fit is not None and fit[0] not in {
+                _fit_tag(t)[0] for t in self.taps}
+            r_in = codec.ef.residual(key) if first else None
+            ptr = put(tag, metadata, arrays, compress=compress, key=key)
+            if first:
+                self.taps[tag] = (codec._reference, list(arrays), r_in, codec.ef.residual(key))
+            return ptr
+
+        transport.put = tapped
+
+
+def _record_decodes(app, sink, node: str = "node0") -> None:
+    """The server side of (b)'s EF identity: the server's decoded
+    parameters of the first fit result ``node`` sends in each round go to
+    ``sink(tag, arrays)`` (the objstore plane names each result's tag in
+    its key). Wraps the server transport's ``get`` and its codec's
+    ``decode`` from outside the package."""
+    import re
+
+    get, codec = app.transport.get, app.transport.codec
+    decode, marked, rounds = codec.decode, {}, set()
+
+    def tagged_get(ptr, decode=True):
+        meta, out = get(ptr, decode=decode)
+        m = re.fullmatch(r"transport/(.+)\.npz", ptr.locator)
+        fit = _fit_tag(m[1]) if m else None
+        if not decode and fit is not None and fit[2] == node and fit[0] not in rounds:
+            rounds.add(fit[0])
+            marked[id(out)] = m[1]
+        return meta, out
+
+    def recorded_decode(payload, pool=None):
+        arrays = decode(payload, pool=pool)
+        tag = marked.pop(id(payload), None)
+        if tag is not None:
+            sink(tag, arrays)
+        return arrays
+
+    app.transport.get, codec.decode = tagged_get, recorded_decode
+
+
+def _ef_identity(np, decoded, tap) -> dict:
+    """(b)'s per-client error-feedback identity for one fit result, in
+    fp64 against the broadcast the node pinned: ``decoded`` (the server's
+    decoded parameters, per layer or flat) minus that broadcast must equal
+    the node's raw delta plus its residual in, minus its residual out,
+    within ``EF_FP32_TOL``/``EF_FP64_TOL`` of each element's magnitudes.
+    Read in slices of ``EF_SLICE`` elements, whose fp64 temporaries stay
+    in the host's cache."""
+    base, trained, r_in, r_out = tap
+    if len(r_out) != len(trained):
+        fail(f"EF identity: {len(r_out)} residual layers for {len(trained)} arrays")
+    worst, over, err_sq, got_sq, off = 0.0, 0, 0.0, 0.0, 0
+    for j, (b_all, t_all) in enumerate(zip(base, trained)):
+        n = t_all.size
+        s_all = decoded[j] if isinstance(decoded, list) else decoded[off:off + n]
+        off += n
+        for lo in range(0, n, EF_SLICE):
+            hi = min(n, lo + EF_SLICE)
+            s = np.asarray(s_all, dtype=np.float32).ravel()[lo:hi].astype(np.float64)
+            b = b_all.ravel()[lo:hi].astype(np.float64)
+            t = t_all.ravel()[lo:hi].astype(np.float64)
+            ri = 0.0 if r_in is None else r_in[j][lo:hi].astype(np.float64)
+            ro = r_out[j][lo:hi].astype(np.float64)
+            got = s - b
+            err = np.abs(got - ((t - b) + ri - ro))
+            tol = EF_FP32_TOL * (np.abs(s) + np.abs(ro)) \
+                + EF_FP64_TOL * (np.abs(t) + np.abs(b) + np.abs(ri) + np.abs(ro)) + 1e-40
+            ratio = err / tol
+            worst = max(worst, float(ratio.max()))
+            over += int(np.count_nonzero(ratio > 1.0))
+            err_sq += float(err @ err)
+            got_sq += float(got @ got)
+    return {"max_err_over_tol": worst, "elements_over": over,
+            "rel_l2": math.sqrt(err_sq / got_sq) if got_sq else math.inf, "ok": over == 0}
+
+
+def _param_rel(np, got, want) -> float:
+    """The largest per-tensor relative L2 of ``got`` against ``want``."""
+    return max(float(np.linalg.norm(g.astype(np.float64) - w) / max(np.linalg.norm(w), 1e-30))
+               for g, w in zip(got, want))
+
+
+def _update_gap(np, params, comparator, initial) -> dict:
+    """Relative L2 and cosine of (params − initial) against (comparator −
+    initial), over all parameters."""
+    dot = nu = nc = nd = 0.0
+    for p, c, i in zip(params, comparator, initial):
+        u = p.astype(np.float64) - i
+        v = c.astype(np.float64) - i
+        dot += float(np.dot(u.ravel(), v.ravel()))
+        nu += float(np.dot(u.ravel(), u.ravel()))
+        nc += float(np.dot(v.ravel(), v.ravel()))
+        nd += float(np.sum((u - v) ** 2))
+    return {"rel_l2": math.sqrt(nd / nc), "cosine": dot / math.sqrt(nu * nc),
+            "norm_ratio": math.sqrt(nu / nc)}
+
+
+def _inprocess_rounds(cfg, work: pathlib.Path, tag: str, compressed: bool,
+                      fault: str | None = None, n_rounds: int = 3, device: str = "cuda",
+                      ef_identity: bool = False):
+    """(b)'s in-process runs: one node, no eval, ``n_rounds`` rounds. The
+    comparator (uncompressed), the shifted-scatter fault run (``fault=
+    "scatter"``) and the stale-reference fault run (``"stale"``). With
+    ``ef_identity`` the planes are objstore (each result's key names its
+    node) and each round's EF identity is read. Returns the last round's
+    parameters, the seconds and the EF identity readings."""
+    import copy
+
+    import numpy as np
+
+    from photon_tpu_torch.checkpoint import FileStore
+    from photon_tpu_torch.federation import InProcessDriver, NodeAgent, ParamTransport, ServerApp
+
+    c = copy.deepcopy(cfg)
+    c.photon.save_path, c.photon.checkpoint = str(work / tag), False
+    c.photon.comm_stack.objstore = c.photon.comm_stack.shm = False
+    c.fl.eval_interval_rounds = 0
+    if not compressed:
+        c.photon.compression.policy = "off"
+    comp = c.photon.compression
+    store = FileStore(work / tag / "plane") if ef_identity else None
+    mode = "inline" if store is None else "objstore"
+    taps, readings = _EfTaps(), []
+
+    def make_agent(nid):
+        agent = NodeAgent(c, nid, lambda: ParamTransport(
+            mode, store=store, compression=comp, host_threads=c.photon.host_threads),
+            device=device)
+        if ef_identity:
+            taps.wrap(agent.runtime.transport)
+        return agent
+
+    driver = InProcessDriver(c, make_agent, n_nodes=1)
+    app = ServerApp(c, driver, ParamTransport(mode, store=store, compression=comp))
+    if fault == "scatter":
+        app.transport.codec._decode_float_layer = _shifted_scatter
+    elif fault == "stale":
+        _stale_reference(app)
+    if ef_identity:
+        _record_decodes(app, lambda t, arrays: readings.append(
+            dict(_ef_identity(np, arrays, taps.taps.pop(t)), round=_fit_tag(t)[0], tag=t)))
+    t0 = time.perf_counter()
+    try:
+        for r in range(1, n_rounds + 1):
+            app.broadcast_parameters(r)
+            app.fit_round(r)
+        return ([a.copy() for a in app.strategy.current_parameters],
+                time.perf_counter() - t0, readings)
+    finally:
+        app.free_transport()
+        driver.shutdown()
+
+
+def _stale_reference_run(cfg, work: pathlib.Path, device: str = "cuda"):
+    """(b)'s planted fault for the EF identity: :func:`_inprocess_rounds`
+    with the server pinning the previous round's broadcast, 2 rounds (round
+    1 has nothing earlier to pin) of one client. The client keeps its
+    local steps: ADOPT's first step moves nothing, and a round-1 update of
+    zero would leave the stale base equal to the true one."""
+    import copy
+
+    one = copy.deepcopy(cfg)
+    one.fl.n_total_clients = one.fl.n_clients_per_round = 1
+    return _inprocess_rounds(one, work, "stale", True, "stale", 2, device, ef_identity=True)
+
+
+def _multiprocess(np, work, fed, base) -> dict:
+    """(a): ``--multiprocess --nodes 2`` on phase 5's config for 2 rounds;
+    the card's contexts and memory sampled, each node's own peak reported."""
+    from photon_tpu_torch.checkpoint import FileStore, ServerCheckpointManager
+
+    reports = work / "mp-nodes"
+    reports.mkdir()
+    with _GpuMemory() as mem:
+        run = _fed_cli_finish(work, "multiprocess", _fed_cli_start(
+            work, "multiprocess", base + ["--multiprocess", "--rounds", "2",
+                                          "--set", f"photon.save_path={work / 'mp'}"],
+            opts=("--measured-nodes",), env={"PHOTON_SMOKE_NODE_REPORT": str(reports)}))
+    run["rounds"] = _round_breakdown(run["history"], [1, 2])
+    # contexts: this process, then the two nodes; the server would be one more
+    run["card"] = mem.record()
+    run["nodes_memory"] = [json.loads(f.read_text()) for f in sorted(reports.iterdir())]
+    ref = fed["runs"][0]["history"]["server/eval_loss"]
+    got = run["history"].get("server/eval_loss", [])
+    want = ServerCheckpointManager(FileStore(fed["store"]), FED_RUN).load_round_params(2)[1]
+    have = ServerCheckpointManager(FileStore(work / "mp" / "store"), FED_RUN).load_round_params(2)[1]
+    run["params_bit_equal"] = all(np.array_equal(a, b) for a, b in zip(have, want))
+    run["params_max_rel_l2"] = _param_rel(np, have, want)
+    run["eval_loss"] = got
+    run["eval_loss_in_process"] = ref
+    if [r for r, _ in got] != [0, 2]:
+        fail(f"multiprocess run evaluated rounds {[r for r, _ in got]}, want [0, 2]")
+    run["eval_loss_max_rel"] = max(abs(g - w) / abs(w) for (_, g), (_, w) in zip(got, ref))
+    if not (run["params_max_rel_l2"] <= FED_GATE and run["eval_loss_max_rel"] <= FED_GATE):
+        fail(f"--multiprocess parts from the in-process run: round-2 params "
+             f"{run['params_max_rel_l2']:.3e}, eval loss {run['eval_loss_max_rel']:.3e} "
+             f"(gate {FED_GATE})")
+    if run["cuda_initialized"] or mem.rows != mem.rows_before + 2 or len(run["nodes_memory"]) != 2:
+        fail(f"--multiprocess: the server initialized CUDA ({run['cuda_initialized']}), or the "
+             f"card held {mem.record()} (want 2 contexts more: the nodes), or the nodes "
+             f"reported {run['nodes_memory']}")
+    return run
+
+
+def _tcp(torch, np, fa, work, cfg) -> dict:
+    """(b): ``--tcp-listen`` with the codec, node1 a ``federation.tcp
+    --connect`` subprocess killed in round 2 and started again, node0
+    ``run_node`` on a thread of this process (its launches counted)."""
+    import signal as signal_mod
+    import socket
+
+    from photon_tpu_torch.checkpoint import FileStore, ServerCheckpointManager
+    from photon_tpu_torch.federation import node as node_mod
+    from photon_tpu_torch.federation import tcp
+
+    cfg.to_yaml(work / "tcp.yaml")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    addr = f"127.0.0.1:{port}"
+    # faulthandler: a node that will not exit dumps its threads on SIGABRT
+    node_cmd = [sys.executable, "-X", "faulthandler", "-m", "photon_tpu_torch.federation.tcp",
+                "--connect", addr, "--node-id", "node1", "--config", str(work / "tcp.yaml")]
+    fits, evals = [], []
+    round2, back = threading.Event(), threading.Event()
+    real_make = node_mod.make_node_agent
+    taps = _EfTaps()
+
+    def make_agent(c, node_id, device):
+        agent = real_make(c, node_id, device)
+        rt = agent.runtime
+        taps.wrap(rt.transport)
+        real_fit, real_eval = rt.fit, rt.evaluate
+
+        def fit(ins, cid):
+            fits.append([ins.server_round, cid])
+            if ins.server_round == 2 and not round2.is_set():
+                # hold until the killed node is back: it then rejoins
+                # while round 2's window still runs
+                round2.set()
+                back.wait(timeout=300)
+            return real_fit(ins, cid)
+
+        def evaluate(ins, cid):
+            evals.append([ins.server_round, cid])
+            return real_eval(ins, cid)
+
+        rt.fit, rt.evaluate = fit, evaluate
+        return agent
+
+    rec: dict = {"port": port}
+    t0 = time.perf_counter()
+    stamps = rec["stamps_s"] = {}  # seconds into this function, for the breakdown
+
+    def stamp(what):
+        stamps[what] = time.perf_counter() - t0
+
+    procs: list[subprocess.Popen] = []
+    torch.cuda.reset_peak_memory_stats()
+    for key in fa.launches:
+        fa.launches[key] = 0
+    node_mod.make_node_agent = make_agent
+    try:
+        with _GpuMemory() as mem, open(work / "node1.log", "w") as log1:
+            stamp("sampler_up")
+            started = _fed_cli_start(work, "tcp", ["--config", str(work / "tcp.yaml"),
+                                                   "--tcp-listen", addr, "--nodes", "2"],
+                                     opts=("--record-decodes",),
+                                     env={"PHOTON_SMOKE_DECODES": str(work / "decoded")})
+            t_start = time.perf_counter()
+            # the nodes dial once the server listens: a node that dials
+            # early backs off exponentially and joins late
+            while "listening on" not in (work / "child-tcp.out").read_text():
+                if time.perf_counter() - t_start > 120 or started[0].poll() is not None:
+                    fail("tcp: the server never listened")
+                time.sleep(0.1)
+            stamp("server_listening")
+            node0 = threading.Thread(target=tcp.run_node, args=(addr, "node0", cfg.to_json()),
+                                     kwargs={"device": "cuda"}, name="tcp-node0", daemon=True)
+            node0.start()
+            procs.append(subprocess.Popen(node_cmd, cwd=ROOT, stdout=log1, stderr=log1))
+            if not round2.wait(timeout=600):
+                fail(f"tcp: round 2 never reached node0 (fits {fits})")
+            stamp("round_2")
+            time.sleep(KILL_AFTER_S)
+            procs[0].send_signal(signal_mod.SIGKILL)
+            procs[0].wait()
+            t_kill = time.perf_counter()
+            procs.append(subprocess.Popen(node_cmd, cwd=ROOT, stdout=log1, stderr=log1))
+            while not _connected(procs[1].pid, port):
+                if time.perf_counter() - t_kill > 300 or procs[1].poll() is not None:
+                    fail("tcp: the restarted node1 never connected")
+                time.sleep(0.05)
+            rec["restart_to_connect_s"] = time.perf_counter() - t_kill
+            time.sleep(0.5)  # its HELLO lands
+            back.set()
+            stamp("node1_back")
+            run = _fed_cli_finish(work, "tcp", started)
+            stamp("server_done")
+            node0.join(timeout=60)
+            if node0.is_alive():
+                fail("tcp: node0 did not return after the server's shutdown")
+            rec["wall_s"] = time.perf_counter() - t_start
+            # node1 exits on the server's shutdown too; the caller waits for
+            # it later, so a slow teardown overlaps the next runs
+            rec["node1"], rec["server_done_at"] = procs[1], time.perf_counter()
+    except BaseException:
+        _keep_logs(work)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        raise
+    finally:
+        node_mod.make_node_agent = real_make
+        back.set()
+    stamp("sampler_down")
+    rec.update(run)
+    rec["launches"] = dict(fa.launches)
+    rec["fits_on_node0"], rec["evals_on_node0"] = fits, evals
+    # contexts: this process (node0) before; then node1, and after its kill
+    # its restart, one at a time; the server would be one more
+    rec["card"] = mem.record()
+    rec["node0_max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    hist = run["history"]
+    rec["rounds"] = _round_breakdown(hist, [1, 2, 3])
+    ratios = dict(map(tuple, hist.get("server/wire_compression_ratio", [])))
+    rec["wire_compression_ratio"] = ratios
+    rec["nodes_readmitted_total"] = run["final_line"].get("server/nodes_readmitted_total", 0.0)
+    if sorted(ratios) != [1, 2, 3] or min(ratios.values()) < 4.0:
+        fail(f"tcp: wire compression ratios {ratios}, want >= 4 in rounds 1-3")
+    if not rec["nodes_readmitted_total"] >= 1 or hist.get("server/round_failed"):
+        fail(f"tcp: readmitted {rec['nodes_readmitted_total']}, "
+             f"failed rounds {hist.get('server/round_failed')}")
+    if [2, 1] not in fits:
+        fail(f"tcp: the killed node's cid 1 was not retried on node0 (fits {fits})")
+    if run["cuda_initialized"] or mem.rows != mem.rows_before + 1:
+        fail(f"tcp: the server initialized CUDA ({run['cuda_initialized']}) or the card held "
+             f"{mem.record()} (want 1 context more: node1)")
+    L = cfg.model.n_layers
+    per_fit = L * (cfg.train.global_batch_size // cfg.train.device_microbatch_size) \
+        * cfg.fl.local_steps
+    want = {"flash_fwd": per_fit * len(fits) + L * cfg.train.eval_batches * len(evals),
+            "flash_bwd_dq": per_fit * len(fits), "flash_bwd_dkv": per_fit * len(fits)}
+    if rec["launches"] != want:
+        fail(f"tcp: node0 launched {rec['launches']}, want {want} "
+             f"({len(fits)} fits, {len(evals)} evals)")
+    rec["round_3_params"] = ServerCheckpointManager(
+        FileStore(work / "tcp" / "store"), TCP_RUN).load_round_params(3)[1]
+    rec["ef_taps"] = taps.taps
+    stamp("params_read")
+    return rec
+
+
+def _tcp_ef_identity(np, work, taps: dict) -> list[dict]:
+    """(b)'s EF identity on the TCP run: node0's taps against the server
+    child's decoded results, one per round."""
+    out = []
+    for tag, tap in sorted(taps.items()):
+        path = work / "decoded" / f"{tag}.npy"
+        if not path.exists():
+            fail(f"tcp: the server recorded no decode of {tag}")
+        out.append(dict(_ef_identity(np, np.load(path, mmap_mode="r"), tap),
+                        round=_fit_tag(tag)[0], tag=tag))
+    taps.clear()
+    return out
+
+
+def distributed_phase(torch, np, fa, fed) -> dict:
+    """Phase 5b, on phase 5's config and beside its in-process run:
+
+    (a) ``python -m photon_tpu_torch.federated --multiprocess --nodes 2``
+        (a child; each node a spawned process with its own CUDA context on
+        the one card) for 2 rounds: round-2 parameters and the eval losses
+        at rounds 0 and 2 within ``FED_GATE`` of phase 5's first run (the
+        same bits expected), no CUDA context in the server (the card's
+        contexts counted); the round breakdown, each node's own peak
+        memory and the card's; a planted fault (a spawned node that seeds
+        its synthetic data with Python's per-process ``hash``, patched in
+        from outside; one node, round 0 only) must part the round-0 eval
+        loss over the gate;
+    (b) ``--tcp-listen`` (a child that opens no CUDA context) with
+        ``delta_topk_q8`` and error feedback, ``reset_optimizer`` on every
+        fit (a fit's result then does not depend on the node that ran it),
+        3 rounds: node0 is ``run_node`` on a thread here, node1 a
+        ``python -m photon_tpu_torch.federation.tcp --connect`` child,
+        SIGKILLed ``KILL_AFTER_S`` into round 2's fits and started again
+        under its id (node0's round-2 fit waits for it to connect). The run
+        must finish with cid 1 retried on node0, at least one readmission,
+        the uplink compressed >= 4x every round, node0's K1–K3 launches
+        exact; its round-3 update against an uncompressed in-process run
+        within ``UPDATE_REL_BOUND``/``UPDATE_COS_BOUND``, and a run whose
+        server decode scatters top-k values one index off over them; in
+        every round, the server's decode of node0's first result holds the
+        per-client error-feedback identity against node0's broadcast,
+        raw delta and residuals (:func:`_ef_identity`), and an in-process
+        run whose server pins the previous round's broadcast as its delta
+        base breaks it in round 2."""
+    from photon_tpu_torch.centralized import _apply_override
+
+    work = ROOT / ".chip_smoke" / "dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    fed_work = pathlib.Path(fed["store"]).parent
+    base = ["--config", str(fed_work / "in.yaml"), "--device", "cuda", "--nodes", "2"]
+    for s in FED_SETS:
+        base += ["--set", s]
+    rec: dict = {}
+    t0 = time.perf_counter()
+    rec["multiprocess"] = _multiprocess(np, work, fed, base)
+    rec["multiprocess_s"] = time.perf_counter() - t0
+    log("dist_multiprocess " + json.dumps({k: v for k, v in rec["multiprocess"].items()
+                                           if k != "history"}))
+
+    cfg = train_config()
+    for s in FED_SETS:
+        _apply_override(cfg, *s.split("=", 1))
+    cfg.run_uuid, cfg.photon.save_path = TCP_RUN, str(work / "tcp")
+    cfg.dataset.synthetic = True
+    cfg.fl.n_rounds = 3
+    cfg.fl.fit_config = {"reset_optimizer": True}
+    cfg.photon.compression.policy = "delta_topk_q8"
+    cfg.photon.compression.error_feedback = True
+    cfg.photon.comm_stack.objstore, cfg.photon.comm_stack.shm = True, False
+    cfg.validate()
+    t0 = time.perf_counter()
+    tcp_rec = _tcp(torch, np, fa, work, cfg)
+    rec["tcp_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    sound, taps = tcp_rec.pop("round_3_params"), tcp_rec.pop("ef_taps")
+    node1, server_done_at = tcp_rec.pop("node1"), tcp_rec.pop("server_done_at")
+    log("dist_tcp " + json.dumps({k: v for k, v in tcp_rec.items() if k != "history"}))
+    exited: dict = {}
+
+    def watch():
+        node1.wait()
+        exited["at"] = time.perf_counter()
+
+    watcher = threading.Thread(target=watch, name="node1-exit", daemon=True)
+    watcher.start()
+    try:
+        _dist_checks(torch, np, work, fed, base, cfg, rec, tcp_rec, sound, taps)
+    finally:
+        watcher.join(timeout=max(0.0, server_done_at + NODE_EXIT_S - time.perf_counter()))
+        if "at" not in exited:
+            node1.send_signal(signal.SIGABRT)  # faulthandler: its threads go to node1.log
+            node1.wait(timeout=30)
+            _keep_logs(work)
+            fail(f"tcp: the restarted node1 did not exit in {NODE_EXIT_S} s of the "
+                 "server's shutdown")
+    tcp_rec["node1_exit_after_server_s"] = exited["at"] - server_done_at
+    rec["tcp"] = tcp_rec
+    log("dist_checks " + json.dumps({"update": tcp_rec["update"],
+                                     "ef_identity": tcp_rec["ef_identity"],
+                                     "ef_identity_stale_reference":
+                                         tcp_rec["ef_identity_stale_reference"],
+                                     "multiprocess_fault": rec["multiprocess"]["planted_fault"],
+                                     "checks_s": rec["checks_s"],
+                                     "node1_exit_after_server_s":
+                                         tcp_rec["node1_exit_after_server_s"]}))
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def _dist_checks(torch, np, work, fed, base, cfg, rec, tcp_rec, sound, taps) -> None:
+    """(b)'s comparator, shifted-scatter and stale-reference runs (threads
+    here) and the EF identity of the TCP run beside (a)'s planted fault (a
+    child); the gates on both."""
+    import concurrent.futures as cf
+
+    from photon_tpu_torch.codec.params import params_to_ndarrays
+    from photon_tpu_torch.models.mpt import init_params
+
+    # the in-process runs share the card (threads here), beside (a)'s
+    # planted fault (a child)
+    t0 = time.perf_counter()
+    # one node evaluates both clients: the same round-0 loss when sound
+    mp_fault = _fed_cli_start(work, "multiprocess-fault", base + [
+        "--multiprocess", "--nodes", "1", "--rounds", "0",
+        "--set", f"photon.save_path={work / 'mp-fault'}"],
+        opts=("--measured-nodes",), env={"PHOTON_SMOKE_SALTED_SEED": "1"})
+    with cf.ThreadPoolExecutor(4) as pool:
+        comp = pool.submit(_inprocess_rounds, cfg, work, "comparator", False)
+        bad = pool.submit(_inprocess_rounds, cfg, work, "fault", True, "scatter")
+        stale = pool.submit(_stale_reference_run, cfg, work)
+        ident = pool.submit(_tcp_ef_identity, np, work, taps)
+        (comparator, comp_s, _), (faulty, fault_s, _) = comp.result(), bad.result()
+        _, stale_s, stale_ef = stale.result()
+        tcp_rec["ef_identity"] = ident.result()
+    fault_run = _fed_cli_finish(work, "multiprocess-fault", mp_fault)
+    rec["checks_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    initial = params_to_ndarrays(init_params(cfg.model, seed=cfg.seed))[1]
+    update = {"sound": _update_gap(np, sound, comparator, initial),
+              "planted_fault": _update_gap(np, faulty, comparator, initial),
+              "rel_bound": UPDATE_REL_BOUND, "cos_bound": UPDATE_COS_BOUND,
+              "comparator_s": comp_s, "fault_s": fault_s}
+    tcp_rec["update"] = update
+    ok = lambda g: g["rel_l2"] <= UPDATE_REL_BOUND and g["cosine"] >= UPDATE_COS_BOUND  # noqa: E731
+    if not ok(update["sound"]):
+        fail(f"tcp: round-3 update vs the uncompressed comparator {update['sound']}, "
+             f"bounds rel <= {UPDATE_REL_BOUND}, cos >= {UPDATE_COS_BOUND}")
+    if ok(update["planted_fault"]):
+        fail(f"tcp: the shifted-scatter fault reads {update['planted_fault']}, within the bounds")
+    ef = tcp_rec["ef_identity"]
+    tcp_rec["ef_identity_stale_reference"] = {"rounds": stale_ef, "seconds": stale_s}
+    if [r["round"] for r in ef] != [1, 2, 3] or not all(r["ok"] for r in ef):
+        fail(f"tcp: the EF identity of node0's results reads {ef}, want it held in rounds 1-3")
+    if [r["round"] for r in stale_ef] != [1, 2] or not stale_ef[0]["ok"] or stale_ef[1]["ok"]:
+        fail(f"tcp: the stale-reference fault reads {stale_ef}, want the EF identity held in "
+             "round 1 (no earlier broadcast to pin) and broken in round 2")
+    fault_loss = fault_run["history"].get("server/eval_loss", [])
+    want0 = fed["runs"][0]["history"]["server/eval_loss"][0][1]
+    mp_fault_rec = {"eval_loss": fault_loss, "wall_s": fault_run["wall_s"],
+                    "eval_loss_rel": abs(fault_loss[0][1] - want0) / abs(want0)
+                    if fault_loss else None}
+    rec["multiprocess"]["planted_fault"] = mp_fault_rec
+    if not (mp_fault_rec["eval_loss_rel"] or 0.0) > FED_GATE:
+        fail(f"--multiprocess: the salted-seed fault reads {mp_fault_rec}, within {FED_GATE}")
 
 
 # ---------------------------------------------------------------------------
@@ -3303,8 +4082,9 @@ def fed_1b() -> int:
 # ---------------------------------------------------------------------------
 
 def main() -> int:
-    if sys.argv[1:2] == ["--fed-child"]:  # a child of the federated phase
-        return _fed_child(sys.argv[2], sys.argv[4:])
+    if sys.argv[1:2] == ["--fed-child"]:  # a child of the federated phases
+        cut = sys.argv.index("--")
+        return _fed_child(sys.argv[2], sys.argv[cut + 1:], sys.argv[3:cut])
     if sys.argv[1:2] == ["--fed-1b"]:
         return fed_1b()
     import torch
@@ -3379,6 +4159,11 @@ def main() -> int:
     t0 = time.perf_counter()
     fed = federated_phase(torch, np)
     fed["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dist = distributed_phase(torch, np, fa, fed)
+    dist["phase_s"] = time.perf_counter() - t0
+    log(f"distributed phase: {dist['phase_s']:.1f} s (multiprocess {dist['multiprocess_s']:.1f}"
+        f" s, tcp {dist['tcp_s']:.1f} s, comparator + faults {dist['checks_s']:.1f} s)")
 
     cfg = serve_config()
     params = init_params(cfg.model, seed=0, device="cuda")
@@ -3442,6 +4227,7 @@ def main() -> int:
         "train_phase_launches": train["launches"][name],
         "entry_phase_launches": entry["runs"][0]["launches"][name],
         "federated_resume_launches": fed["runs"][1]["launches"][name],
+        "tcp_node_launches": dist["tcp"]["launches"][name],
         "eval_phase_launches": evaluation["launches"][name],
         "presets_phase_launches": {p: r["launches"][name] for p, r in presets.items()},
         "adapter_round_launches": adapters["fit"]["launches"][name],
@@ -3453,7 +4239,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "env": env, "kernel_build": built, "kernel_cases": kernel_records, "flash_cases": flash_records,
-        "train": train, "entry": entry, "federated": fed, "engine": engine,
+        "train": train, "entry": entry, "federated": fed, "distributed": dist, "engine": engine,
         "spec_prefix": spec_prefix, "profile": profile,
         "server": server, "decode": decode_rec, "eval": evaluation, "presets": presets,
         "presets_phase_s": presets_s, "d128_grad_gate": d128, "moe_dispatch": moe_dispatch,

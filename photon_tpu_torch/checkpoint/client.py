@@ -21,12 +21,12 @@ from photon_tpu_torch.checkpoint.serialization import (
     npz_to_arrays,
     state_to_bytes,
 )
-from photon_tpu_torch.checkpoint.store import FileStore
+from photon_tpu_torch.checkpoint.store import ObjectStore
 from photon_tpu_torch.codec.params import ParamsMetadata
 
 
 class ClientCheckpointManager:
-    def __init__(self, store: FileStore, run_uuid: str) -> None:
+    def __init__(self, store: ObjectStore, run_uuid: str) -> None:
         self.store = store
         self.run_uuid = run_uuid
 

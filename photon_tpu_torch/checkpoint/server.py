@@ -29,7 +29,7 @@ from photon_tpu_torch.checkpoint.serialization import (
     npz_to_arrays,
     state_to_bytes,
 )
-from photon_tpu_torch.checkpoint.store import FileStore
+from photon_tpu_torch.checkpoint.store import ObjectStore
 from photon_tpu_torch.codec.params import ParamsMetadata
 
 PARAMS_FILE = "current_server_parameters.npz"
@@ -38,7 +38,7 @@ MANIFEST_FILE = "manifest.json"
 
 
 class ServerCheckpointManager:
-    def __init__(self, store: FileStore, run_uuid: str) -> None:
+    def __init__(self, store: ObjectStore, run_uuid: str) -> None:
         self.store = store
         self.run_uuid = run_uuid
         # at most ONE background write in flight; save/resume/load wait on it

@@ -20,8 +20,8 @@ this package does not port yet, so such a config fails at start-up
 instead of running without them: the fleet router everywhere; and for
 training (``validate(serving=False)``, the default) a mesh of more than
 one device (``mesh.expert > 1`` included), ring attention, the mesh
-autotuner, the collective aggregation plane, wire compression, chaos,
-telemetry and asynchronous rounds (and with them the adapters' collective
+autotuner, the collective aggregation plane, chaos, telemetry and
+asynchronous rounds (and with them the adapters' collective
 round loop). ``mlp: moe`` is checked as the JAX
 package checks it (its ``ValueError`` texts); ``device_microbatch_size:
 auto`` runs the trainer's probe.
@@ -33,6 +33,7 @@ import dataclasses
 import json
 import pathlib
 import typing
+import warnings
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -223,7 +224,7 @@ class DatasetConfig:
 
 #: server strategies (``photon_tpu.config.schema.StrategyName``)
 STRATEGY_NAMES = ("fedavg", "nesterov", "fedmom", "fedadam", "fedyogi")
-#: wire-codec policies the JAX package knows; only "off" is ported
+#: wire-codec policies (``photon_tpu_torch/compression``)
 COMPRESSION_POLICIES = ("off", "delta", "delta_q8", "delta_topk_q8")
 
 
@@ -249,8 +250,8 @@ class CommStackConfig:
 
 @dataclass
 class CompressionConfig:
-    """The uplink wire codec (same fields as the JAX package); only
-    ``policy: off`` runs here."""
+    """The uplink wire codec (same fields as the JAX package;
+    ``photon_tpu_torch/compression``)."""
 
     policy: str = "off"
     topk_ratio: float = 0.125
@@ -261,8 +262,9 @@ class CompressionConfig:
 
 @dataclass
 class MembershipConfig:
-    """Node liveness between rounds (same fields as the JAX package);
-    ``enabled`` gates the ping sweep only."""
+    """Node liveness between rounds and the TCP node's redial backoff
+    (same fields as the JAX package); ``enabled`` gates the ping sweep
+    only."""
 
     enabled: bool = True
     ping_interval_rounds: int = 1
@@ -519,8 +521,23 @@ class Config:
             raise ValueError(f"bad client_count_scaling {fl.client_count_scaling}")
         if ph.host_threads < 0:
             raise ValueError(f"photon.host_threads must be >= 0 (0 = auto), got {ph.host_threads}")
-        if ph.compression.policy not in COMPRESSION_POLICIES:
-            raise ValueError(f"unknown compression.policy {ph.compression.policy!r}")
+        comp = ph.compression
+        if comp.policy not in COMPRESSION_POLICIES:
+            raise ValueError(f"unknown compression.policy {comp.policy!r}")
+        if comp.policy == "delta":
+            warnings.warn(
+                "compression.policy='delta' is lossless but INFLATES the "
+                "wire ~2x on fp32 payloads (float64 deltas); use delta_q8 "
+                "or delta_topk_q8 to actually reduce bytes",
+                stacklevel=3,
+            )
+        if not 0.0 < comp.topk_ratio <= 1.0:
+            raise ValueError(f"compression.topk_ratio must be in (0, 1], got {comp.topk_ratio}")
+        if comp.q8_block_size < 1:
+            raise ValueError(f"compression.q8_block_size must be >= 1, got {comp.q8_block_size}")
+        if comp.ef_max_clients < 1:
+            raise ValueError(
+                f"compression.ef_max_clients must be >= 1, got {comp.ef_max_clients}")
         mem = ph.membership
         if mem.ping_interval_rounds < 0 or mem.ping_timeout_s < 0:
             raise ValueError("membership ping knobs must be >= 0")
@@ -529,9 +546,20 @@ class Config:
                 "membership needs 1 <= suspect_after_misses <= dead_after_misses, got "
                 f"{mem.suspect_after_misses}/{mem.dead_after_misses}"
             )
+        if mem.reconnect_backoff_base_s <= 0 or mem.reconnect_backoff_max_s < mem.reconnect_backoff_base_s:
+            raise ValueError(
+                "membership reconnect backoff needs 0 < base_s <= max_s, got "
+                f"{mem.reconnect_backoff_base_s}/{mem.reconnect_backoff_max_s}"
+            )
+        if not 0.0 <= mem.reconnect_backoff_jitter < 1.0:
+            raise ValueError(
+                f"membership.reconnect_backoff_jitter must be in [0, 1), got "
+                f"{mem.reconnect_backoff_jitter}"
+            )
+        if mem.reconnect_max_attempts < 0:
+            raise ValueError("membership.reconnect_max_attempts must be >= 0 (0 = unlimited)")
         for what, on in (
             ("photon.comm_stack.collective", ph.comm_stack.collective),
-            ("photon.compression (policy != 'off')", ph.compression.policy != "off"),
             ("photon.chaos", bool(ph.chaos.get("enabled", False))),
             ("photon.telemetry", bool(ph.telemetry.get("enabled", False))),
             ("photon.async_rounds", bool(ph.async_rounds.get("enabled", False))),

@@ -1,15 +1,16 @@
-"""Federation layer: the server round loop, node agents, the in-process
-driver, the parameter transport and membership (the port of
-``photon_tpu/federation``; the multiprocess and TCP drivers, the
-collective and async round runners are not ported)."""
+"""Federation layer: the server round loop, node agents, the in-process,
+multiprocess and TCP drivers (``federation.tcp``), the parameter transport
+and membership (the port of ``photon_tpu/federation``; the collective and
+async round runners are not ported)."""
 
 from photon_tpu_torch.federation.client_runtime import ClientRuntime
-from photon_tpu_torch.federation.driver import Driver, InProcessDriver
-from photon_tpu_torch.federation.membership import LivenessTracker
+from photon_tpu_torch.federation.driver import Driver, InProcessDriver, MultiprocessDriver
+from photon_tpu_torch.federation.membership import LivenessTracker, ReconnectPolicy
 from photon_tpu_torch.federation.messages import (
     Ack,
     Broadcast,
     ClientState,
+    Envelope,
     EvaluateIns,
     EvaluateRes,
     FitIns,
@@ -25,7 +26,9 @@ __all__ = [
     "ClientRuntime",
     "Driver",
     "InProcessDriver",
+    "MultiprocessDriver",
     "LivenessTracker",
+    "ReconnectPolicy",
     "NodeAgent",
     "ServerApp",
     "TooManyFailuresError",
@@ -33,6 +36,7 @@ __all__ = [
     "Ack",
     "Broadcast",
     "ClientState",
+    "Envelope",
     "EvaluateIns",
     "EvaluateRes",
     "FitIns",

@@ -15,7 +15,9 @@ device (the port of ``photon_tpu/federation/client_runtime.py``).
   pseudo-gradient norms, and eval with the unigram-normalized metrics
   where a client's frequency dictionary exists.
 
-It trains on ``cuda`` unless the caller passes ``device="cpu"``. The JAX
+Fit results upload through the transport's wire codec when the run has
+one (its residuals are node-resident, keyed by cid). It trains on
+``cuda`` unless the caller passes ``device="cpu"``. The JAX
 package's telemetry spans and chaos hooks are left out: both features are
 refused at ``validate()``.
 """
@@ -78,10 +80,20 @@ class ClientRuntime:
         self.transport = transport
         self.node_id = node_id
         self.ckpt_mgr = ckpt_mgr
-        self.trainer = Trainer(cfg, device=device)
+        self._device = device
+        self._trainer: Trainer | None = None
         self._loaders: dict[tuple[int, str], StreamingLoader] = {}
         self._current_params: tuple[ParamsMetadata, list[np.ndarray]] | None = None
         self._personal: dict[int, list[np.ndarray]] = {}  # per-cid personalized layers
+
+    @property
+    def trainer(self) -> Trainer:
+        """The node's one Trainer, built on first use: a node that cannot
+        get its device fails its first fit or eval (an error result the
+        server retries and charges to its budget), not its start."""
+        if self._trainer is None:
+            self._trainer = Trainer(self.cfg, device=self._device)
+        return self._trainer
 
     # -- data ------------------------------------------------------------
     def _loader(self, cid: int, split: str, batch_size: int) -> StreamingLoader:
@@ -114,19 +126,23 @@ class ClientRuntime:
 
     # -- params ----------------------------------------------------------
     def set_broadcast_params(self, ptr) -> None:
-        """Cache the round's global params."""
+        """Cache the round's global params. They are also the wire codec's
+        delta base: this round's fit results upload as ``w_new − w_global``
+        against exactly these arrays."""
         self._current_params = self.transport.get(ptr)
+        self.transport.set_reference(self._current_params[1])
 
     def _resolve_params(self, ptr) -> tuple[ParamsMetadata, list[np.ndarray]]:
         if ptr is not None:
             self._current_params = self.transport.get(ptr)
+            self.transport.set_reference(self._current_params[1])
         if self._current_params is None:
             raise RuntimeError("no parameters: neither FitIns pointer nor prior broadcast")
         return self._current_params
 
     def _error(self, e: Exception) -> str:
         msg = f"{type(e).__name__}: {e}"
-        if is_oom(e) and self.trainer.device.type == "cuda":
+        if is_oom(e) and self._trainer is not None and self._trainer.device.type == "cuda":
             import torch
 
             peak = torch.cuda.max_memory_allocated(self.trainer.device) / 1e9
@@ -227,7 +243,10 @@ class ClientRuntime:
                         meta: ParamsMetadata, arrays: list[np.ndarray], n_samples: int,
                         metrics: dict[str, float], t_start: float) -> FitRes:
         t_put = time.monotonic()
-        ptr = self.transport.put(f"fit-r{ins.server_round}-c{cid}-{self.node_id}", meta, arrays)
+        # the uplink goes through the wire codec when there is one (a delta
+        # against this round's broadcast, error-feedback residuals by cid)
+        ptr = self.transport.put(f"fit-r{ins.server_round}-c{cid}-{self.node_id}", meta, arrays,
+                                 compress=True, key=cid)
         wall = time.monotonic()
         put_s, wall = wall - t_put, wall - t_start
         new_state = ClientState(

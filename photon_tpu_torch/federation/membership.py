@@ -1,11 +1,17 @@
-"""Node liveness between rounds (the port of ``LivenessTracker`` and
-``hello_backoff_total`` of ``photon_tpu/federation/membership.py``).
+"""Elastic membership (the port of ``photon_tpu/federation/membership.py``).
 
-A ping sweep between rounds moves each node through ``live → suspect →
-dead``; a dead node whose id reappears in the driver's registry, or that
-answers a ping, is readmitted. The tracker talks to nodes only through
-the driver interface. The JAX package's membership events are telemetry,
-which is not ported; the round metrics are.
+- :class:`LivenessTracker` (server side): a ping sweep between rounds
+  moves each node through ``live → suspect → dead``; a dead node whose id
+  reappears in the driver's registry (a TCP re-HELLO, a multiprocess
+  respawn), or that answers a ping, is readmitted, and the sliding window
+  readmits a node that died mid-round and came back. The tracker talks to
+  nodes only through the driver interface.
+- :class:`ReconnectPolicy` (node side): jittered exponential backoff for
+  the TCP node's redial supervisor (``tcp.run_node``), deterministic under
+  a seeded rng.
+
+The JAX package's membership events are telemetry, which is not ported;
+the round metrics are.
 """
 
 from __future__ import annotations
@@ -29,9 +35,43 @@ DEAD = "dead"
 
 
 @dataclasses.dataclass
+class ReconnectPolicy:
+    """``delay(k) = min(max_s, base_s · 2^k) · (1 ± jitter)``. ``rng`` needs
+    only ``.random()``; ``max_attempts`` bounds consecutive failed dials
+    (0 = unlimited); a successful dial resets the count."""
+
+    base_s: float = 0.5
+    max_s: float = 30.0
+    jitter: float = 0.25
+    max_attempts: int = 0
+    rng: object = None  # .random() in [0, 1); default: the random module
+
+    @classmethod
+    def from_config(cls, mem, rng=None) -> "ReconnectPolicy":
+        return cls(base_s=mem.reconnect_backoff_base_s, max_s=mem.reconnect_backoff_max_s,
+                   jitter=mem.reconnect_backoff_jitter,
+                   max_attempts=mem.reconnect_max_attempts, rng=rng)
+
+    def delay(self, attempt: int) -> float:
+        """Backoff before dial ``attempt`` (0-based); the exponent is
+        clamped so an unlimited supervisor never overflows a float."""
+        raw = min(self.max_s, self.base_s * (2.0 ** min(max(0, attempt), 63)))
+        if not self.jitter:
+            return raw
+        rng = self.rng
+        if rng is None:
+            import random as rng
+        return raw * (1.0 + self.jitter * (2.0 * rng.random() - 1.0))
+
+    def exhausted(self, attempt: int) -> bool:
+        return self.max_attempts > 0 and attempt >= self.max_attempts
+
+
+@dataclasses.dataclass
 class NodeHealth:
     state: str = LIVE
     misses: int = 0
+    readmissions: int = 0
     # seen GONE from the registry since last live: the condition for a
     # readmission by presence (a wedged node whose id stays must not
     # oscillate dead → readmitted)
@@ -47,6 +87,7 @@ class LivenessTracker:
         self.ping_timeout_s = ping_timeout_s
         self.clock = clock
         self.nodes: dict[str, NodeHealth] = {}
+        self.readmitted_total = 0
         self._readmitted_round = 0
 
     def _track(self, nid: str) -> NodeHealth:
@@ -58,7 +99,7 @@ class LivenessTracker:
     def observe_alive(self, nid: str) -> None:
         h = self._track(nid)
         if h.state == DEAD:
-            self._readmitted_round += 1
+            self._readmit(h)
         h.state = LIVE
         h.misses = 0
 
@@ -70,6 +111,25 @@ class LivenessTracker:
         elif h.misses >= self.suspect_after:
             h.state = SUSPECT
 
+    def touch(self, nid: str) -> None:
+        """Start tracking an id (a new node joining mid-round) without the
+        absence bookkeeping of :meth:`register_present`."""
+        self._track(nid)
+
+    def note_readmitted(self, nid: str) -> None:
+        """A node died mid-round and came back (respawn or re-HELLO), got
+        the broadcast again and is back in rotation. Always counts: the
+        scheduler sees a death before the ping sweep moves its state."""
+        h = self._track(nid)
+        self._readmit(h)
+        h.state = LIVE
+        h.misses = 0
+
+    def _readmit(self, h: NodeHealth) -> None:
+        h.readmissions += 1
+        self.readmitted_total += 1
+        self._readmitted_round += 1
+
     def register_present(self, ids: Iterable[str]) -> list[str]:
         """Record the driver's registry; a dead id that left it and came
         back is readmitted. Returns the readmitted ids."""
@@ -80,7 +140,7 @@ class LivenessTracker:
         for nid in id_set:
             h = self._track(nid)
             if h.state == DEAD and h.absent:
-                self._readmitted_round += 1
+                self._readmit(h)
                 h.state = LIVE
                 h.misses = 0
                 readmitted.append(nid)
@@ -145,3 +205,10 @@ def hello_backoff_total(hello_stats: dict[str, dict] | None) -> float:
     if not hello_stats:
         return 0.0
     return float(sum(float(s.get("backoff_s", 0.0)) for s in hello_stats.values()))
+
+
+def iter_new_nodes(current: Iterable[str], tracked: Iterable[str]) -> list[str]:
+    """Node ids the driver lists that the scheduler does not track: a
+    mid-round join or readmission."""
+    tracked_set = set(tracked)
+    return [nid for nid in current if nid not in tracked_set]

@@ -4,14 +4,18 @@ Control-plane messages carry round metadata and *pointer records* to bulk
 tensors, never the tensors themselves (except the ``inline`` transport,
 for tests and tiny models): a :class:`ParamPointer` names a shm segment or
 an object-store key, and the transport plane resolves it. Messages are
-plain dataclasses. The JAX package's telemetry fields (piggybacked spans
-and events) and its process envelope are left out: telemetry and the
-multiprocess driver are not ported.
+plain dataclasses, pickled between the port's own processes (a pipe or
+a socket; the trust model is the JAX package's: a private network). An
+:class:`Envelope` carries each message with its correlation id. The JAX
+package's telemetry fields (piggybacked spans and events, the envelope's
+trace context) are left out: telemetry is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import time
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -19,12 +23,18 @@ from typing import Any
 @dataclass
 class ParamPointer:
     """Where the bulk tensors live. ``metadata_json`` is the payload's
-    ``ParamsMetadata`` (names, shapes, dtypes)."""
+    ``ParamsMetadata`` (names, shapes, dtypes); a payload that went through
+    the wire codec adds a ``codec`` key (``policy``, ``version``,
+    ``wire_nbytes``) that ``ParamsMetadata.from_json`` ignores."""
 
     kind: str  # "shm" | "objstore" | "inline"
     locator: str  # shm segment name or store key ("" for inline)
     metadata_json: str
     inline: list | None = None  # only for kind="inline"
+
+    def codec_info(self) -> dict | None:
+        """The codec header, or None for a raw payload."""
+        return json.loads(self.metadata_json).get("codec")
 
 
 @dataclass
@@ -108,3 +118,13 @@ class Query:
     """Control query: ``free_resources`` | ``ping`` | ``shutdown`` | ``refresh``."""
 
     action: str
+
+
+@dataclass
+class Envelope:
+    """A message and its correlation id on a pipe or socket; the reply
+    carries the request's ``msg_id``."""
+
+    msg: Any
+    msg_id: int
+    sent_at: float = field(default_factory=time.time)

@@ -5,11 +5,16 @@ Prometheus endpoint and retrace sentinel, none of which is ported).
 - client sampling by ``random.Random(sample_seed)``, fast-forwarded on
   resume, so both packages sample the same cids in every round;
 - sliding-window scheduling: one outstanding cid per node, refilled as
-  replies arrive; a failed cid is retried once, and more failures than
-  ``accept_failures_cnt`` raise :class:`TooManyFailuresError` unless
-  ``ignore_failed_rounds``;
+  replies arrive; a failed or timed-out cid is retried once, and more
+  failures than ``accept_failures_cnt`` raise
+  :class:`TooManyFailuresError` unless ``ignore_failed_rounds``; a node
+  whose request timed out is quarantined until its stale reply drains,
+  and a node that died and came back (a multiprocess respawn, a TCP
+  re-HELLO) gets the round's broadcast again and is readmitted;
+- a liveness sweep before each round's broadcast (``membership.py``);
 - streaming aggregation: client results are fetched, folded into the
-  running average and freed one at a time;
+  running average and freed one at a time; with a wire codec they stay
+  compressed until the fold decodes them against the round's broadcast;
 - round checkpoints (in the background when ``async_checkpoint``),
   resume with negative indexing, GC, cross-run import; client-state and
   ``server_steps_cumulative`` bookkeeping; the JAX package's metric names.
@@ -30,7 +35,11 @@ from photon_tpu_torch.codec.params import ParamsMetadata
 from photon_tpu_torch.config.schema import Config
 from photon_tpu_torch.federation.configs import EvaluateRoundConfig, FitRoundConfig
 from photon_tpu_torch.federation.driver import Driver
-from photon_tpu_torch.federation.membership import LivenessTracker, hello_backoff_total
+from photon_tpu_torch.federation.membership import (
+    LivenessTracker,
+    hello_backoff_total,
+    iter_new_nodes,
+)
 from photon_tpu_torch.federation.messages import (
     Ack,
     Broadcast,
@@ -96,9 +105,17 @@ class ServerApp:
         self.ckpt_mgr = ckpt_mgr
         self.history = history or History()
         self.strategy = dispatch_strategy(cfg.fl)
-        # one bounded pool (photon.host_threads) for the aggregation fold
+        # one bounded pool (photon.host_threads) for the codec's per-layer
+        # work, the aggregation fold and its one-client decode-ahead
         self.host_pool = HostPool(cfg.photon.host_threads)
+        transport.host_pool = self.host_pool
         self.strategy.host_pool = self.host_pool
+        if transport.codec is not None:
+            # compressed fit results reach the strategy undecoded; the fold
+            # decodes one client at a time against the reference that
+            # broadcast_parameters pins each round
+            codec = transport.codec
+            self.strategy.payload_decoder = lambda p: codec.decode(p, pool=self.host_pool)
         self._wire_snapshot = transport.stats.snapshot()
         # a misspelled per-round knob fails here, not in every client
         FitRoundConfig.from_dict(cfg.fl.fit_config)
@@ -199,9 +216,15 @@ class ServerApp:
         assert self.strategy.current_parameters is not None
         ptr = self.transport.put(f"bcast-r{server_round}-{uuid_mod.uuid4().hex[:8]}",
                                  self.metadata, self.strategy.current_parameters)
+        # the broadcast is the round's delta base: compressed client
+        # results (w_new − w_global) decode against these arrays
+        self.transport.set_reference(self.strategy.current_parameters)
         msg = Broadcast(server_round, ptr)
         acks = self.driver.broadcast(msg, on_stale=self._free_stale_reply)
-        bad = [nid for nid, a in acks.items() if not a.ok]
+        # a node dying at broadcast time is churn, not a failure: it leaves
+        # the registry (TCP) or respawns without params (multiprocess), and
+        # the window sends it the broadcast again when it is back
+        bad = [nid for nid, a in acks.items() if not a.ok and "node died" not in (a.detail or "")]
         if bad:
             raise RuntimeError(f"broadcast failed on nodes {bad}: {[acks[n].detail for n in bad]}")
         # every node has copied the new payload: the previous one can go
@@ -240,45 +263,117 @@ class ServerApp:
                         make_ins: Callable[[list[int]], object], timeout: float) -> Iterator[object]:
         """One outstanding cid per node; a failed or timed-out cid is
         retried once (on whichever node frees up first); results are
-        yielded as they arrive. The JAX package's quarantine of timed-out
-        nodes and its readmission of restarted ones serve the multiprocess
-        and TCP drivers, which are not ported."""
+        yielded as they arrive."""
         queue: deque[int] = deque(cids)
         retried: set[int] = set()
         inflight: dict[int, tuple[str, int]] = {}
         free: deque[str] = deque(self.driver.node_ids())
         failures: list[tuple[int, str]] = []
+        # nodes whose request timed out, by the abandoned message id: they
+        # stay out of rotation until that stale reply drains (a node still
+        # busy with it would time out the next cid too)
+        suspect: dict[int, str] = {}
+        # nodes written off after a whole extra window without the stale
+        # reply: kept out of the rejoin scan until it finally drains
+        wedged: set[str] = set()
+        # message ids already consumed: a repeated reply carries the pointer
+        # the fold is reading, so it is dropped, never freed
+        consumed: set[int] = set()
 
-        def retry_or_fail(cid: int, why: str) -> None:
-            if cid not in retried:
-                retried.add(cid)
-                queue.append(cid)
-            else:
-                failures.append((cid, why))
+        def rejoin(nid: str) -> None:
+            """A node without the round's params: send the broadcast again
+            (its ack drains as a stale reply) before a cid lands there."""
+            if self._last_broadcast is not None:
+                self.driver.send(nid, self._last_broadcast)
 
         while queue or inflight:
+            # a node id no structure here tracks just (re)joined mid-round:
+            # a re-HELLO after a crash, or a new registration
+            tracked = set(free)
+            tracked.update(n for n, _ in inflight.values())
+            tracked.update(suspect.values())
+            tracked.update(wedged)
+            for nid in iter_new_nodes(self.driver.node_ids(), tracked):
+                rejoin(nid)
+                free.append(nid)
+                if nid in self.membership.nodes:
+                    # a known node came back; a new one is scale-up, not churn
+                    self.membership.note_readmitted(nid)
+                else:
+                    self.membership.touch(nid)
             while queue and free:
                 nid, cid = free.popleft(), queue.popleft()
                 inflight[self.driver.send(nid, make_ins([cid]))] = (nid, cid)
-            if not inflight:
+            if not inflight and not suspect:
+                # every node died: the remaining cids can never run
                 failures.extend((cid, "no live nodes") for cid in queue)
+                queue.clear()
                 break
             try:
                 nid, mid, reply = self.driver.recv_any(timeout=timeout)
             except TimeoutError:
-                for n, cid in inflight.values():
-                    retry_or_fail(cid, f"timeout after {timeout}s on node {n}")
+                live = set(self.driver.node_ids())
+                for mid, (n, cid) in inflight.items():
+                    if cid not in retried and live:
+                        retried.add(cid)
+                        queue.append(cid)
+                    else:
+                        failures.append((cid, f"timeout after {timeout}s on node {n}"))
+                    if n in live:
+                        suspect[mid] = n
+                if not inflight and suspect:
+                    # a pure drain-wait on quarantined nodes that stayed
+                    # silent a whole extra window: stop waiting on them
+                    wedged.update(suspect.values())
+                    suspect.clear()
                 inflight.clear()
+                if not free and queue and not suspect:
+                    failures.extend((cid, "no live nodes") for cid in queue)
+                    queue.clear()
                 continue
             if mid not in inflight:
+                if mid in consumed:
+                    continue  # a repeated delivery: the first copy owns the payload
+                consumed.add(mid)
                 self._free_stale_reply(reply)
+                drained = suspect.pop(mid, None)
+                if drained is None and nid in wedged:
+                    wedged.discard(nid)  # a written-off node answered: it recovered
+                    drained = nid
+                if drained is not None and drained in self.driver.node_ids():
+                    if any(isinstance(r, Ack) and "node died" in (r.detail or "")
+                           for r in (reply if isinstance(reply, list) else [reply])):
+                        # a re-HELLO's dead letter, not a late reply: the
+                        # restarted process has no round params
+                        rejoin(drained)
+                        self.membership.note_readmitted(drained)
+                    free.append(drained)
                 continue
             _, cid = inflight.pop(mid)
-            free.append(nid)
-            for res in (reply if isinstance(reply, list) else [reply]):
+            consumed.add(mid)
+            replies = reply if isinstance(reply, list) else [reply]
+            node_died = any(isinstance(r, Ack) and "node died" in (r.detail or "") for r in replies)
+            if node_died and nid in self.driver.node_ids():
+                # respawned under the same id (multiprocess) or re-HELLO'd
+                # (TCP): no round params until the broadcast is sent again
+                rejoin(nid)
+                free.append(nid)
+                self.membership.note_readmitted(nid)
+            elif not node_died:
+                free.append(nid)
+            # else the node is gone (TCP evicted it): out of rotation
+            for res in replies:
                 err = res.detail if isinstance(res, Ack) else getattr(res, "error", None)
                 if isinstance(res, Ack) or err:
-                    retry_or_fail(cid, err or "unknown")
+                    if err and "no parameters" in err and nid in self.driver.node_ids():
+                        # an externally restarted node came back under its
+                        # old id without the round's broadcast
+                        rejoin(nid)
+                    if cid not in retried and self.driver.node_ids():
+                        retried.add(cid)
+                        queue.append(cid)
+                    else:
+                        failures.append((cid, err or "unknown"))
                     continue
                 yield res
 
@@ -314,7 +409,9 @@ class ServerApp:
             for res in self._sliding_window(server_round, cids, make_ins,
                                             timeout=self.cfg.fl.fit_timeout_s):
                 assert isinstance(res, FitRes)
-                _, arrays = self.transport.get(res.params)
+                # decode=False: a compressed payload stays compressed until
+                # the streaming fold decodes it, one client at a time
+                _, arrays = self.transport.get(res.params, decode=False)
                 if res.client_state:
                     self.client_states[res.cid] = res.client_state
                 g = res.metrics.get(CLIENT_PSEUDO_GRAD_NORM)

@@ -4,14 +4,17 @@ with a plain C interface → ``ctypes``).
 Each source under ``ops/csrc/`` is compiled on first use, for ``sm_90a``
 only, into ``ops/build/`` (listed in ``.gitignore``). The library's name
 carries a hash of its source, so an edited kernel is rebuilt and a stale
-one is never loaded; the build writes to a temp name and renames, so two
-processes building at once never load a half-written file. Nothing is
-compiled or loaded when this module is imported.
+one is never loaded. Processes that build one source at once (node
+processes spawned together) take turns on a file lock in ``ops/build/``:
+the first runs nvcc, the others find its library; the build writes to a
+temp name and renames, so no process loads a half-written file. Nothing
+is compiled or loaded when this module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -29,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
-#: seconds each library took to build in this process (0.0 = found built)
+#: seconds each library took to build in this process (0.0 = found built,
+#: also after waiting for another process's build)
 build_seconds: dict[str, float] = {}
 #: the compiler's report for each library built in this process
 build_log: dict[str, str] = {}
@@ -58,6 +62,15 @@ def build(source: str) -> pathlib.Path:
         build_seconds.setdefault(source, 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if out.exists():  # another process built it while this one waited
+            build_seconds.setdefault(source, 0.0)
+            return out
+        return _compile(source, out)
+
+
+def _compile(source: str, out: pathlib.Path) -> pathlib.Path:
     tmp = out.with_suffix(f".tmp-{os.getpid()}.so")
     t0 = time.perf_counter()
     proc = subprocess.run(

@@ -9,7 +9,10 @@ client's tensors are resident beyond the running average, maintaining
 per layer in an fp64 accumulator (a fused, chunked, in-place pass: no
 full-payload fp64 copy of a client). With a :class:`HostPool` of more than
 one thread the per-array folds run in parallel and ONE lookahead worker
-fetches the next result while the current one folds. Every mode applies
+fetches (and decodes) the next result while the current one folds. A
+result may be a compressed payload, decoded here one client at a time
+through the ``decode`` hook, so memory stays O(1) in client count. Every
+mode applies
 the same per-element operations in the same order as the JAX package, so
 the average is bit-identical across modes and across the two packages.
 """
@@ -17,7 +20,7 @@ the average is bit-identical across modes and across the two packages.
 from __future__ import annotations
 
 import time
-from typing import Iterable, Iterator
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
 
@@ -45,31 +48,45 @@ def _fold_into(acc: np.ndarray, y: np.ndarray, w_prev: float, w_cur: float) -> N
 
 
 def aggregate_inplace(
-    results: Iterable[tuple[list[np.ndarray], int]],
+    results: Iterable[tuple[object, int]],
+    decode: Callable[[object], list[np.ndarray]] | None = None,
     pool: HostPool | None = None,
     timings: dict[str, float] | None = None,
 ) -> tuple[list[np.ndarray], int]:
     """Streaming sample-weighted mean over ``(arrays, n_samples)`` results;
-    returns (averaged fp32 arrays, total samples).
+    returns (averaged fp32 arrays, total samples). A result's first element
+    may instead be a compressed payload when ``decode`` is given.
 
     ``pool`` with ``threads > 1`` runs the per-array folds in parallel and
-    lets one lookahead worker pull the next result while the current one
-    folds (only that worker advances ``results``). ``timings`` accumulates
-    ``decode_s`` (the fetch of a result, its wait for the client excluded)
-    and ``fold_s``."""
+    lets one lookahead worker pull and decode the next result while the
+    current one folds (only that worker advances ``results``). ``timings``
+    accumulates ``decode_s`` (the decode of a result, its wait for the
+    client excluded) and ``fold_s``."""
+
+    def _arrays(item) -> list[np.ndarray]:
+        if isinstance(item, (list, tuple)):
+            return list(item)
+        if decode is None:
+            raise TypeError(
+                f"aggregate_inplace got a {type(item).__name__} result but "
+                "no decode callback — pass decode= to consume compressed "
+                "payload streams"
+            )
+        return decode(item)
+
     t_decode = [0.0]
     t_fold = [0.0]
     it: Iterator = iter(results)
 
     def _fetch() -> tuple[list[np.ndarray], int] | None:
-        """The next result, or None at the end (StopIteration must not
-        cross a future)."""
+        """The next result, decoded, or None at the end (StopIteration must
+        not cross a future)."""
         try:
             item, n_cur = next(it)
         except StopIteration:
             return None
         t0 = time.monotonic()
-        arrays = list(item)
+        arrays = _arrays(item)
         t_decode[0] += time.monotonic() - t0
         return arrays, n_cur
 

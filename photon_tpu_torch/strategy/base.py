@@ -41,10 +41,12 @@ from photon_tpu_torch.utils.profiling import (
 
 @dataclasses.dataclass
 class ClientResult:
-    """One client's round output."""
+    """One client's round output. ``arrays`` is the flat ndarray list or,
+    with the wire codec on, a still-compressed payload that the streaming
+    fold decodes (one client resident at a time)."""
 
     cid: int
-    arrays: list[np.ndarray]
+    arrays: list[np.ndarray]  # or a CompressedPayload
     n_samples: int
     metrics: dict[str, float] = dataclasses.field(default_factory=dict)
 
@@ -73,6 +75,9 @@ class Strategy:
         #: shared host thread pool (``photon.host_threads``, set by the
         #: server); None = fully serial aggregation
         self.host_pool = None
+        #: compressed payload → arrays (set by the server when its
+        #: transport carries a wire codec); None = raw arrays only
+        self.payload_decoder = None
 
     def initialize(self, parameters: list[np.ndarray],
                    state: dict[str, list[np.ndarray]] | None = None) -> None:
@@ -105,7 +110,8 @@ class Strategy:
                 yield r.arrays, r.n_samples
 
         timings: dict[str, float] = {}
-        avg, n_total = aggregate_inplace(stream(), pool=self.host_pool, timings=timings)
+        avg, n_total = aggregate_inplace(stream(), decode=self.payload_decoder,
+                                         pool=self.host_pool, timings=timings)
         t_update = time.monotonic()
         metrics = self.apply_average(server_round, avg, n_total, len(seen))
         metrics[SERVER_UPDATE_TIME] = time.monotonic() - t_update

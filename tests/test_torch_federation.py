@@ -27,8 +27,8 @@ across as numpy, inline transport unless a case says otherwise:
 6. config and CLI: a port-written ``config.yaml`` loads in JAX with equal
    ``fl``/``photon`` fields; ``python -m photon_tpu_torch.federated
    --device cpu`` prints the JAX CLI's keys, and its History times each
-   phase of a round; every unported feature is refused with
-   ``NotImplementedError``.
+   phase of a round; every unported feature (the collective plane, chaos,
+   telemetry, async rounds) is refused with ``NotImplementedError``.
 """
 
 import contextlib
@@ -671,26 +671,13 @@ def test_cli_history_times_each_phase_of_a_round(tmp_path, monkeypatch):
                                                if k != "node_training_time_s")
 
 
-@pytest.mark.parametrize("feature", ["collective", "compression", "chaos", "telemetry",
-                                     "async_rounds", "multiprocess", "tcp_listen"])
+@pytest.mark.parametrize("feature", ["collective", "chaos", "telemetry", "async_rounds"])
 def test_unported_federation_features_refused(tmp_path, feature):
     from photon_tpu_torch.config.schema import Config
-    from photon_tpu_torch.federated import build_app, main
 
     d = _jax_cfg(tmp_path).to_dict()
-    if feature in ("multiprocess", "tcp_listen"):
-        cfg = Config.from_dict(d).validate()
-        kw = {"multiprocess": True} if feature == "multiprocess" else {"tcp_listen": ":0"}
-        with pytest.raises(NotImplementedError):
-            build_app(cfg, device="cpu", **kw)
-        flag = ["--multiprocess"] if feature == "multiprocess" else ["--tcp-listen", ":0"]
-        with pytest.raises(NotImplementedError):
-            main(["--device", "cpu", "--set", f"photon.save_path={tmp_path}", *flag])
-        return
     if feature == "collective":
         d["photon"]["comm_stack"]["collective"] = True
-    elif feature == "compression":
-        d["photon"]["compression"]["policy"] = "delta_q8"
     else:
         d["photon"][feature]["enabled"] = True
     with pytest.raises(NotImplementedError):
