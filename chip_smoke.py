@@ -190,6 +190,43 @@ After 9, on the federated run's last round:
     under 8 requests is swapped in (base and bank) with none dropped, and
     each cohort's stream after it equals round 2's oracle up to a tie.
 
+After 12, on the adapter run's store (kept until this phase ends):
+
+13. fleet: three ``python -m photon_tpu_torch.serve --fleet-connect``
+    replicas (``FleetSupervisor``; each its own context on the card, 8
+    slots, block 16, the prefix cache on, hot-swap on) behind a
+    ``FleetRouter`` in this process, on the adapter run's round 1
+    (cohorts a, b, c); beside them one engine of 24 slots (``python -m
+    photon_tpu_torch.serve``), and in this process a ``PagedEngine`` on
+    the same round and bank. 48 greedy requests of 32 tokens from 4
+    client threads, a third each templated (4 templates of 4 full
+    blocks, then a suffix), under cohorts a, b, c, and shorter than a
+    block. (a) Every routed stream equals the in-process engine's up to
+    a tie; the router counts every templated request as ``prefix`` and
+    every cohort one as ``cohort``; each template and each cohort lands
+    on one replica. (b) Each replica's K4 launches (its ``/healthz``)
+    equal ``n_layers`` × (steps + chunk steps). (c) Under traffic from 4
+    threads the replica holding cohort a's pin is SIGKILLed: the router
+    marks it dead within its liveness ladder's bound (dead after 2
+    missed reports, each poll ``report_poll_s`` + ``report_timeout_s``),
+    a re-pins to a survivor whose stream for a's request equals the one
+    before the kill up to a tie, and every request not in flight on the
+    victim at the kill answers 200. (d) Round 2 is copied in (manifest
+    last) and ``rolling_hotswap`` runs under traffic from 2 threads: each
+    survivor answers ``swapped`` when asked (the replicas keep the adapter
+    server's 0.25 s poll, so one that swapped on its own timer fails) and
+    ends on round 2, their swap windows (staged → applied, from
+    ``/healthz`` sampled every 50 ms) do not overlap, and no request is
+    dropped. (e) The same templated traffic under
+    ``AffinityRouter(mode="random")`` must spread a template over more
+    than one replica (so (a)'s affinity check can fail). Recorded: the
+    fleet's tokens/s and TTFT against the 24-slot engine on the same
+    requests at 4 and at 24 clients, the fleet-wide prefix hit rate under
+    affinity and under random placement, the card's memory and contexts
+    (``nvidia-smi`` rows) with the replicas and the single engine up,
+    with the replicas alone and after the kill, each replica's device
+    bytes from its own ``/healthz``, and the phase's time.
+
 The second-last line of stdout is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result. Measurements
@@ -230,6 +267,13 @@ KERNEL_GATE = {"float32": 1e-5, "bfloat16": 2e-2}
 #: many runs; a reading above the counters fails at once. The counters
 #: themselves are exact gates on every run.
 PROFILER_READINGS = 3
+#: ``torch.profiler`` keeps a device record only if its time, converted to
+#: the host's clock, falls inside the profiled window, and that conversion
+#: can place a kernel milliseconds before its own launch (the phases'
+#: ``profiler_min_launch_to_kernel_us``); a kernel launched just after the
+#: window opens is then dropped. So every profiled region starts and ends
+#: with the card idle for this long.
+PROFILER_MARGIN_S = 0.1
 #: engine phase: per-step relative L2 between the ragged and gather
 #: engines' logits (bf16 activations through 12 layers). On an H100 the
 #: sound engines read at most 1.2e-2 and an engine that drops each row's
@@ -330,16 +374,37 @@ def _time_ms(torch, fn, flush, reps=15, warm=3, host=False) -> float:
     return statistics.median(times)
 
 
-def _kernel_names(torch, fn) -> list[str]:
-    """The device kernels one call of ``fn`` launches (``torch.profiler``;
-    empty if the profiler sees no device activity)."""
+@contextlib.contextmanager
+def _profiled(torch):
+    """``torch.profiler`` over the block, CPU + CUDA (with CUDA alone it can
+    lose whole buffers of device records), the card idle for
+    ``PROFILER_MARGIN_S`` at both ends of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    # CPU + CUDA: with CUDA alone the profiler can lose device records
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        time.sleep(PROFILER_MARGIN_S)
+        yield prof
         torch.cuda.synchronize()
+        time.sleep(PROFILER_MARGIN_S)
+
+
+def _launch_to_kernel_us(prof) -> float | None:
+    """The least time from a launch call's start to its kernel's start over
+    the window, in µs; below 0 where the profiler's clocks disagree."""
+    events = list(prof.profiler.kineto_results.events())
+    launch = {e.correlation_id(): e.start_ns() for e in events
+              if not str(e.device_type()).endswith("CUDA") and "Launch" in e.name()}
+    gaps = [e.start_ns() - launch[e.correlation_id()] for e in events
+            if str(e.device_type()).endswith("CUDA") and e.correlation_id() in launch]
+    return min(gaps) / 1e3 if gaps else None
+
+
+def _kernel_names(torch, fn) -> list[str]:
+    """The device kernels one call of ``fn`` launches (``torch.profiler``;
+    empty if the profiler sees no device activity)."""
+    with _profiled(torch) as prof:
+        fn()
     return sorted({e.key[:90] for e in prof.key_averages()
                    if str(getattr(e, "device_type", "")).endswith("CUDA")
                    and (getattr(e, "self_device_time_total", 0.0) or 0.0) > 0})
@@ -1071,8 +1136,6 @@ def _fed_gate(torch, np, cfg, work, initial) -> dict:
     client stream, read at steps 2 and 6."""
     import copy
 
-    from torch.profiler import ProfilerActivity, profile
-
     from photon_tpu_torch.codec.params import params_from_numpy
     from photon_tpu_torch.data import ShardedDataset, StreamingLoader
     from photon_tpu_torch.federation import InProcessDriver, NodeAgent, ParamTransport, ServerApp
@@ -1092,7 +1155,7 @@ def _fed_gate(torch, np, cfg, work, initial) -> dict:
 
     def profiled_fit(batches, steps, **kw):
         before = dict(fa.launches)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with _profiled(torch) as prof:
             out = sound_fit(batches, steps, **kw)
         counter = {k: (fa.launches[k] - before[k]) / steps for k in before}
         per = {k: sum(e.count for e in prof.key_averages()
@@ -1101,6 +1164,8 @@ def _fed_gate(torch, np, cfg, work, initial) -> dict:
         counted.setdefault("counter_launches_per_step", []).append(counter)
         readings = counted.setdefault("profiler_launches_per_step", [])
         readings.append(per if any(per.values()) else "not measured")
+        counted.setdefault("profiler_min_launch_to_kernel_us", []).append(
+            _launch_to_kernel_us(prof))
         # the profiler can lose device records (see eval_phase): a reading
         # short of the counter is taken again on the next fit
         if readings[-1] in ("not measured", counter) or len(readings) == PROFILER_READINGS:
@@ -1254,7 +1319,8 @@ def federated_phase(torch, np):
     prof = gate["profiler_launches_per_step"]
     if any(p != "not measured" and any(p[k] > per_step for k in p) for p in prof) \
             or prof[-1] not in ("not measured", want):
-        fail(f"the profiler saw {prof} kernel launches per step, want {per_step} each")
+        fail(f"the profiler saw {prof} kernel launches per step, want {per_step} each (least "
+             f"launch-to-kernel µs {gate['profiler_min_launch_to_kernel_us']})")
     if not gate["sound"] <= FED_GATE:
         fail(f"single-client FedAvg vs centralized: {gate['sound']:.3e} > {FED_GATE}")
     if not gate["planted_fault"] >= max(FED_FAULT_RATIO * gate["sound"], FED_GATE):
@@ -2137,8 +2203,6 @@ def profile_phase(torch, np, params, cfg):
     busy time by kernel. Device busy and idle shares are per step."""
     import copy
 
-    from torch.profiler import ProfilerActivity, profile
-
     from photon_tpu_torch.serve.engine import PagedEngine
 
     c = copy.deepcopy(cfg)
@@ -2155,7 +2219,7 @@ def profile_phase(torch, np, params, cfg):
     for _ in range(n):
         eng.step()  # each step ends in the one device-to-host token copy
     step_ms = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profiled(torch) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             eng.step()
@@ -2912,8 +2976,6 @@ def eval_phase(torch, cfg, fed):
         read again on a second counted run). The checkpoint load, the
         ``Trainer``, the val loss and the gauntlet are timed (wrappers
         patched in from outside the package)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from photon_tpu_torch.data import ShardedDataset, convert
     from photon_tpu_torch.eval import __main__ as eval_cli
     from photon_tpu_torch.eval import gauntlet
@@ -2962,13 +3024,11 @@ def eval_phase(torch, cfg, fed):
         for key in fa.launches:  # the counted run starts here
             fa.launches[key] = 0
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        # with the CPU activity on too: with CUDA alone the profiler lost
-        # whole buffers of device records here (K1 and every other kernel)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with _profiled(torch) as prof:
+            t0 = time.perf_counter()
             out, line = _run_cli(eval_cli.main, args)
             torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
+            cli_s = time.perf_counter() - t0
         launches = dict(fa.launches)
         if launches != want:
             fail(f"the eval launched {launches}, want {want} ({n_fwd} forwards)")
@@ -2976,10 +3036,12 @@ def eval_phase(torch, cfg, fed):
                   if str(getattr(e, "device_type", "")).endswith("CUDA")
                   and (getattr(e, "self_device_time_total", 0.0) or 0.0) > 0]
         k1 = sum(e.count for e in events if "::fwd_" in e.key) if events else "not measured"
+        skews.append(_launch_to_kernel_us(prof))
         if k1 != "not measured" and k1 > L * n_fwd:
             fail(f"the profiler saw {k1} K1 launches, more than the {L * n_fwd} counted")
         return out, line, cli_s, launches, events, k1
 
+    skews: list[float | None] = []
     try:
         out, line, cli_s, launches, events, profiler_k1 = counted_run()
         # Should device records still be lost, a count that falls short is
@@ -3005,10 +3067,11 @@ def eval_phase(torch, cfg, fed):
     if len(accs) != forwards["tasks"] or not all(0.0 <= v <= 1.0 for v in scores.values()):
         fail(f"eval scores out of [0, 1] or tasks missing: {scores}")
     if profiler_k1 not in ("not measured", L * n_fwd):
-        fail(f"the profiler saw {profiler_k1_runs} K1 launches, want {L * n_fwd}")
+        fail(f"the profiler saw {profiler_k1_runs} K1 launches, want {L * n_fwd} (least "
+             f"launch-to-kernel µs {skews})")
     rec = {"convert": dict(summary, client_samples=sizes, wall_s=convert_s),
            "forwards": forwards, "launches": launches, "profiler_k1": profiler_k1,
-           "profiler_k1_runs": profiler_k1_runs,
+           "profiler_k1_runs": profiler_k1_runs, "profiler_min_launch_to_kernel_us": skews,
            "profiler_k1_ms": sum(e.self_device_time_total for e in events
                                  if "::fwd_" in e.key) / 1e3,
            "cli_wall_s": cli_s, "timed_s": times,
@@ -3241,8 +3304,6 @@ def moe_dispatch_gate(torch, np, params, mc):
     aux within ``MOE_AUX_GATE``; capacity claimed token-major must break
     the set gate. Times both (CUDA events) and lists the index path's
     device time by kernel (``torch.profiler``, one call)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from photon_tpu_torch.models.decode import compute_params, layer_params
     from photon_tpu_torch.ops import moe
 
@@ -3285,11 +3346,11 @@ def moe_dispatch_gate(torch, np, params, mc):
         t_plain = _time_ms(torch, lambda: moe.moe_mlp_plain(x, lp["router"], **w, **kw), flush,
                            reps=3, warm=1)
         del flush
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with _profiled(torch) as prof:
             moe.moe_mlp(x, lp["router"], **w, **kw)
-            torch.cuda.synchronize()
         by_kernel = sorted(((e.key[:80], e.self_device_time_total / 1e3) for e in prof.key_averages()
-                            if (getattr(e, "self_device_time_total", 0.0) or 0.0) > 0),
+                            if str(getattr(e, "device_type", "")).endswith("CUDA")
+                            and (getattr(e, "self_device_time_total", 0.0) or 0.0) > 0),
                            key=lambda kv: -kv[1])
     rec = {"N": n, "D": d, "H": mc.hidden, "E": e, "top_k": mc.moe_top_k,
            "capacity_factor": mc.moe_capacity_factor, "capacity": cap,
@@ -3623,11 +3684,8 @@ def _profiled_step(torch, step, step_s):
     """One ``step()`` under ``torch.profiler``: the device's busy time by
     kernel, its idle share of an unprofiled step of ``step_s`` seconds,
     K1-K3's share of the busy time, and the kernel launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profiled(torch) as prof:
         step()
-        torch.cuda.synchronize()
     kern_ms, n_launch = {}, 0
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -3648,12 +3706,9 @@ def _profiled_step(torch, step, step_s):
 def _launches_per_step(torch, eng, n=4):
     """CUDA kernel launches per decode step (``torch.profiler``; it may
     lose records, so this reads at most the true count)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _profiled(torch) as prof:
         for _ in range(n):
             eng.step()
-        torch.cuda.synchronize()
     return sum(e.count for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")) / n
 
@@ -4039,8 +4094,555 @@ def adapter_phase(torch, rpa, fa, np, fed, train, tie) -> dict:
         log("adapter_server " + json.dumps(server))
         del runtime, base
         torch.cuda.empty_cache()
-        return {"fit": fit, "engine_pair": pair, "server": server}
+        # the store stays for the fleet phase, which removes it
+        return {"fit": fit, "engine_pair": pair, "server": server,
+                "fleet_source": {"store": str(work / "store"), "run": ADAPTER_RUN,
+                                 "config": str(work / "resolved.yaml")}}
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+
+
+# ---------------------------------------------------------------------------
+# phase 13: a fleet of replicas behind one router
+# ---------------------------------------------------------------------------
+
+FLEET_REPLICAS = 3
+#: requests of each kind in the traffic: templated, cohort and short
+FLEET_PER_KIND = 16
+#: templates, and full blocks of shared prefix in each (the router's
+#: ``prefix_affinity_blocks``, so the routing key is the template)
+FLEET_TEMPLATES = (4, 4)
+FLEET_NEW = 32
+FLEET_CLIENTS = 4
+#: the cohort requests' prompt lengths are drawn from [lo, hi)
+FLEET_COHORT_PROMPT = (100, 600)
+#: one engine with the fleet's total slots, for the comparison
+FLEET_SINGLE_SLOTS = 24
+#: traffic this long before the SIGKILL, and again after the router saw it
+FLEET_KILL_AFTER_S = 1.0
+#: the SIGKILL waits for a stream placed on the victim this long ago (so
+#: its tokens flow: a request killed before its first response byte is
+#: placed again, a stream killed after it is lost)
+FLEET_KILL_STREAM_AGE_S = 0.1
+FLEET_SWAP_SAMPLE_S = 0.05
+FLEET_START_S = 600.0
+
+
+def fleet_config(config_path, n_slots: int = 8):
+    """The adapter server's resolved config as a fleet replica's: ``n_slots``
+    slots, the prefix cache on, hot-swap on at the adapter server's poll
+    (a replica polls only when a rolling pass asks it to), the fleet on
+    with ``FLEET_REPLICAS`` replicas."""
+    from photon_tpu_torch.config.schema import Config
+
+    cfg = Config.from_yaml(config_path)
+    sc = cfg.photon.serve
+    sc.enabled, sc.n_slots, sc.n_blocks, sc.prefix_cache = True, n_slots, 0, True
+    sc.hotswap = True
+    sc.fleet.enabled, sc.fleet.replicas = True, FLEET_REPLICAS
+    return cfg
+
+
+def _fleet_traffic(np, rng, vocab: int, block: int) -> list[dict]:
+    """``FLEET_PER_KIND`` requests of each kind, interleaved: a templated
+    prompt (a template's full blocks, then a suffix of less than a block),
+    a prompt under cohort a, b or c in turn, and a prompt shorter than a
+    block (no routing key: power-of-two choices)."""
+    n_t, n_b = FLEET_TEMPLATES
+    templates = [list(map(int, rng.integers(0, vocab, n_b * block))) for _ in range(n_t)]
+
+    def toks(n):
+        return list(map(int, rng.integers(0, vocab, n)))
+
+    reqs = []
+    for i in range(FLEET_PER_KIND):
+        reqs.append({"kind": "template", "key": i % n_t, "cohort": None,
+                     "tokens": templates[i % n_t] + toks(int(rng.integers(1, block)))})
+        reqs.append({"kind": "cohort", "key": "abc"[i % 3], "cohort": "abc"[i % 3],
+                     "tokens": toks(int(rng.integers(*FLEET_COHORT_PROMPT)))})
+        reqs.append({"kind": "p2c", "key": None, "cohort": None,
+                     "tokens": toks(int(rng.integers(1, block)))})
+    return reqs
+
+
+def _fleet_post(port, req: dict, max_new: int) -> dict:
+    """One ``/generate``: its status, tokens, the replica's TTFT, the
+    client's latency and its start and end (``time.monotonic``)."""
+    body = {"tokens": req["tokens"], "max_new_tokens": max_new,
+            "stream": bool(req.get("stream"))}
+    if req["cohort"] is not None:
+        body["cohort"] = req["cohort"]
+    t0 = time.monotonic()
+    try:
+        status, data = _request(port, "/generate", body, timeout=300)
+        rep = json.loads(data.strip().splitlines()[-1]) if data.strip() else {}
+        if req.get("stream") and status == 200 and not rep.get("done"):
+            status, rep = -1, {"error": f"a stream without its end: {rep}"}
+    except (OSError, ValueError, http.client.HTTPException) as e:
+        status, rep = -1, {"error": f"{type(e).__name__}: {e}"}
+    t1 = time.monotonic()
+    return {"status": status, "tokens": rep.get("tokens"), "ttft_s": rep.get("ttft_s"),
+            "latency_s": t1 - t0, "t0": t0, "t1": t1, "error": rep.get("error")}
+
+
+def _fleet_clients(port, reqs: list[dict], n_clients: int) -> tuple[list[dict], float]:
+    """``reqs`` from ``n_clients`` threads, each taking the next request
+    in order; the replies and the wall time."""
+    import queue
+
+    todo: queue.Queue = queue.Queue()
+    for i in range(len(reqs)):
+        todo.put(i)
+    out: list = [None] * len(reqs)
+
+    def client():
+        while True:
+            try:
+                i = todo.get_nowait()
+            except queue.Empty:
+                return
+            out[i] = _fleet_post(port, reqs[i], FLEET_NEW)
+
+    threads = [threading.Thread(target=client, daemon=True) for _ in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    bad = [i for i, r in enumerate(out)
+           if r is None or r["status"] != 200 or len(r["tokens"] or []) != FLEET_NEW]
+    if bad:
+        fail(f"fleet: {len(bad)} of {len(reqs)} requests failed: "
+             f"{[out[i] and (out[i]['status'], out[i]['error']) for i in bad[:4]]}")
+    return out, wall
+
+
+def _serving_summary(res: list[dict], wall: float) -> dict:
+    ttft = sorted(r["ttft_s"] for r in res)
+    lat = sorted(r["latency_s"] for r in res)
+    return {"requests": len(res), "wall_s": wall, "tokens_per_s": len(res) * FLEET_NEW / wall,
+            "ttft_mean_s": statistics.fmean(ttft), "ttft_p50_s": ttft[len(ttft) // 2],
+            "ttft_p90_s": ttft[int(0.9 * (len(ttft) - 1))],
+            "latency_mean_s": statistics.fmean(lat), "latency_p90_s": lat[int(0.9 * (len(lat) - 1))]}
+
+
+def _tap_placements(router) -> list[dict]:
+    """Record every placement ``router`` makes (its retries included)."""
+    log: list[dict] = []
+    place = router.place
+
+    def tapped(prompt, cohort, exclude=()):
+        rid, reason = place(prompt, cohort, exclude)
+        log.append({"key": (tuple(prompt) if prompt is not None else None, cohort),
+                    "rid": rid, "reason": reason, "t": time.monotonic()})
+        return rid, reason
+
+    router.place = tapped
+    return log
+
+
+def _placed(log: list[dict], req: dict, t0: float, t1: float) -> list[str]:
+    """The replicas a request sent between ``t0`` and ``t1`` was placed on."""
+    key = (tuple(req["tokens"]), req["cohort"])
+    return [p["rid"] for p in list(log) if p["key"] == key and t0 <= p["t"] <= t1]
+
+
+def _scattered(log, reqs, res, kind) -> dict:
+    """Each key of ``kind`` (a template, a cohort) → the replicas its
+    requests went to, for the keys that went to more than one."""
+    where: dict = {}
+    for req, r in zip(reqs, res):
+        if req["kind"] == kind:
+            where.setdefault(req["key"], set()).update(_placed(log, req, r["t0"], r["t1"]))
+    return {k: sorted(v) for k, v in where.items() if len(v) != 1}
+
+
+def _replica_health(router, rid) -> dict:
+    st = router.replicas[rid]
+    return json.loads(_request(st.port, "/healthz", timeout=30)[1])
+
+
+def _fleet_tokens_cached(router) -> float:
+    """The prompt tokens whose prefill a prefix-cache hit skipped, summed
+    over the live replicas."""
+    return float(sum(_replica_health(router, rid)["prefix_cache"]["tokens_cached"]
+                     for rid in router.live_replicas()))
+
+
+def _fleet_streams_agree(eng, reqs, got, want, tie, what) -> list:
+    """As :func:`_streams_agree`, under each request's cohort: a stream may
+    part from ``want`` only where ``eng``'s top-2 margin over the prompt
+    and the common prefix is a tie."""
+    diverged = []
+    for i, (req, a, b) in enumerate(zip(reqs, got, want)):
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        eng.admit(0, req["tokens"] + b[:j], 1, cohort=req["cohort"])
+        top2 = eng.last_logits[0].float().topk(2).values
+        eng.evict(0)
+        margin = float(top2[0] - top2[1])
+        if margin > tie:
+            fail(f"{what}: request {i} parts from one engine's stream at token {j} where the "
+                 f"top-2 margin {margin:.4f} is clear (tie {tie:.4f})")
+        diverged.append([i, j, margin])
+    return diverged
+
+
+def _launch_rule(health: dict, n_layers: int, what: str) -> int:
+    """K4 launched ``n_layers`` × (steps + chunk steps) in a server (card
+    only: on the CPU the plain version runs)."""
+    st, n = health["stats"], health["kernel_launches"]["ragged_paged_attention"]
+    if n != n_layers * int(st["steps"] + st["chunk_steps"]):
+        fail(f"{what} launched K4 {n} times for {st['steps']} steps and {st['chunk_steps']} "
+             "chunk steps")
+    return n
+
+
+def _traffic_thread(port, np, seed: int, vocab: int, block: int, log: list,
+                    stop: threading.Event, current: dict | None = None) -> threading.Thread:
+    """Requests one after another until ``stop``: templated, cohort
+    (streamed) and short prompts in turn, each prompt of its own (its
+    first two tokens name the thread and the count). ``current[seed]``
+    holds the request in flight and its start."""
+    def run():
+        rng = np.random.default_rng(seed)
+        n = 0
+        while not stop.is_set():
+            kind = ("template", "cohort", "p2c")[n % 3]
+            head = [1 + seed % (vocab - 1), 1 + n % (vocab - 1)]
+            if kind == "template":
+                req = {"kind": kind, "cohort": None, "tokens": [7] * (FLEET_TEMPLATES[1] * block)
+                       + head}
+            elif kind == "cohort":
+                req = {"kind": kind, "cohort": "abc"[n // 3 % 3], "stream": True,
+                       "tokens": head + list(map(int, rng.integers(
+                           0, vocab, int(rng.integers(*FLEET_COHORT_PROMPT)))))}
+            else:
+                req = {"kind": kind, "cohort": None, "tokens": head[: block - 1]}
+            if current is not None:
+                current[seed] = (req, time.monotonic())
+            r = _fleet_post(port, req, FLEET_NEW)
+            if current is not None:
+                current[seed] = None
+            r["req"] = req
+            log.append(r)
+            n += 1
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def _smi_sample(cuda: bool) -> dict | None:
+    if not cuda:
+        return None
+    rows, used = _GpuMemory._sample()
+    return {"contexts": rows, "card_used_mib": used}
+
+
+def fleet_phase(torch, rpa, np, src: dict, tie: float, device: str = "cuda") -> dict:
+    """Phase 13: three ``python -m photon_tpu_torch.serve --fleet-connect``
+    replicas behind a ``FleetRouter`` in this process, on the adapter
+    run's round 1 (``src``: its ``store``, ``run`` and resolved
+    ``config``); see the module's docstring."""
+    import os
+
+    from photon_tpu_torch.checkpoint import FileStore, ServerCheckpointManager
+    from photon_tpu_torch.federation.membership import DEAD
+    from photon_tpu_torch.serve.engine import PagedEngine, load_serving_bank, load_serving_params
+    from photon_tpu_torch.serve.fleet import FleetSupervisor
+    from photon_tpu_torch.serve.router import AffinityRouter, FleetRouter
+    from photon_tpu_torch.serve.scheduler import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    work = pathlib.Path(src["store"]).parent / "fleet"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    run, src_store = src["run"], FileStore(src["store"])
+    store = FileStore(work / "store")
+    _copy_round(src_store, store, run, 1)
+    cfg = fleet_config(src["config"])
+    cfg.to_yaml(work / "fleet.yaml")
+    single_cfg = fleet_config(src["config"], n_slots=FLEET_SINGLE_SLOTS)
+    single_cfg.photon.serve.hotswap = single_cfg.photon.serve.fleet.enabled = False
+    single_cfg.to_yaml(work / "single.yaml")
+    sc, fc = cfg.photon.serve, cfg.photon.serve.fleet
+    n_layers, vocab, block = cfg.model.n_layers, cfg.model.vocab_size, sc.block_size
+    env = {"PYTHONPATH": os.pathsep.join([str(ROOT)] + [p for p in [os.environ.get(
+        "PYTHONPATH")] if p])}
+    rec: dict = {"replicas": fc.replicas, "slots_per_replica": sc.n_slots,
+                 "single_slots": FLEET_SINGLE_SLOTS, "block_size": block,
+                 "report_poll_s": fc.report_poll_s, "report_timeout_s": fc.report_timeout_s}
+    if cuda:
+        torch.cuda.empty_cache()
+    memory = {"before": _smi_sample(cuda)}
+    router = FleetRouter(fc, block_size=block)
+    placements = _tap_placements(router)
+    port = router.start()
+    t_start = time.perf_counter()
+    sup = FleetSupervisor(str(work / "fleet.yaml"), f"{fc.host}:{router.control_port}",
+                          fc.replicas, extra_args=("--device", device, "--store",
+                                                   str(work / "store")), env=env)
+    single = subprocess.Popen(
+        [sys.executable, "-m", "photon_tpu_torch.serve", "--config", str(work / "single.yaml"),
+         "--store", str(work / "store"), "--enable", "--port", "0", "--device", device],
+        cwd=ROOT, env=dict(os.environ, **env), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    single_err: list[str] = []
+    threading.Thread(target=lambda: single_err.extend(single.stderr), daemon=True).start()
+    watchdog = threading.Timer(FLEET_START_S, single.kill)
+    watchdog.start()
+    eng = None
+    try:
+        # one engine in this process on the same round and bank, while
+        # the replicas start: the streams the routed ones are held to
+        rng = np.random.default_rng(11)
+        reqs = _fleet_traffic(np, rng, vocab, block)
+        mgr = ServerCheckpointManager(src_store, run)
+        eng = PagedEngine(cfg, load_serving_params(cfg, mgr, 1), loaded_round=1, device=device,
+                          adapter_bank=load_serving_bank(cfg, mgr, 1))
+        b = ContinuousBatcher(eng, max_queue=len(reqs),
+                              prefill_token_budget=sc.prefill_token_budget)
+        subs = [b.submit(r["tokens"], FLEET_NEW, cohort=r["cohort"]) for r in reqs]
+        rpa.launches = 0
+        b.start()
+        want = [s.result(timeout=600) for s in subs]
+        b.close()
+        st = b.stats()
+        if cuda and rpa.launches != n_layers * int(st["steps"] + st["chunk_steps"]):
+            fail(f"the fleet's reference engine launched K4 {rpa.launches} times for {st}")
+
+        try:
+            router.wait_for_replicas(timeout=FLEET_START_S)
+        except TimeoutError as e:
+            fail(f"fleet: {e}; replica output: "
+                 + json.dumps({r: list(lines)[-20:] for r, lines in sup.logs.items()}))
+        first = single.stdout.readline()
+        watchdog.cancel()
+        if not first:
+            single.wait(timeout=30)
+            fail(f"the single engine exited {single.returncode}: {''.join(single_err)[-3000:]}")
+        single_port = json.loads(first)["port"]
+        rec["startup_s"] = time.perf_counter() - t_start
+        cohorts = sorted(cfg.photon.adapters.cohorts)
+        for rid, lines in sup.logs.items():
+            info = json.loads(lines[0]) if lines else {}
+            if (info.get("replica_id"), info.get("round"), info.get("adapters")) != \
+                    (rid, 1, cohorts):
+                fail(f"replica {rid} started as {info}")
+        memory["replicas_and_single"] = _smi_sample(cuda)
+
+        # (a) the traffic: streams, reasons, affinity
+        before = router.fleet_status()["fleet"]["routed"]
+        res, wall = _fleet_clients(port, reqs, FLEET_CLIENTS)
+        after = router.fleet_status()["fleet"]["routed"]
+        diverged = _fleet_streams_agree(eng, reqs, [r["tokens"] for r in res], want, tie,
+                                        "routed")
+        n_kind = {k: sum(r["kind"] == k for r in reqs) for k in ("template", "cohort", "p2c")}
+        routed = {k: after[k] - before[k] for k in ("requests", "prefix", "cohort", "p2c",
+                                                    "reroutes")}
+        if routed["prefix"] < n_kind["template"] or routed["cohort"] != n_kind["cohort"]:
+            fail(f"fleet: routed {routed} for {n_kind}")
+        for kind in ("template", "cohort"):
+            if (bad := _scattered(placements, reqs, res, kind)):
+                fail(f"fleet: {kind} keys spread over replicas: {bad}")
+        per_replica = {}
+        for rid in router.live_replicas():
+            per_replica[rid] = sum(rid in _placed(placements, q, r["t0"], r["t1"])
+                                   for q, r in zip(reqs, res))
+        rec["traffic"] = dict(_serving_summary(res, wall), routed=routed, kinds=n_kind,
+                              requests_per_replica=per_replica, diverged_at_ties=diverged)
+        # (b) each replica's K4 launches
+        if cuda:
+            rec["replica_launches"] = {rid: _launch_rule(_replica_health(router, rid),
+                                                         n_layers, rid)
+                                       for rid in router.live_replicas()}
+            if not sum(rec["replica_launches"].values()):
+                fail("no replica launched K4")
+        log("fleet_traffic " + json.dumps(rec["traffic"]))
+
+        # prefix hit rates under affinity, then (e) under random placement
+        def locality(seed, policy):
+            t_reqs = [q for q in _fleet_traffic(np, np.random.default_rng(seed), vocab, block)
+                      if q["kind"] == "template"]
+            kept = router.policy
+            router.policy = policy or kept
+            try:
+                c0 = _fleet_tokens_cached(router)
+                t_res, _ = _fleet_clients(port, t_reqs, FLEET_CLIENTS)
+                c1 = _fleet_tokens_cached(router)
+            finally:
+                router.policy = kept
+            return {"hit_rate": (c1 - c0) / sum(len(q["tokens"]) for q in t_reqs),
+                    "scattered_templates": _scattered(placements, t_reqs, t_res, "template")}
+
+        rec["affinity_pass"] = locality(12, None)
+        rec["random_pass"] = locality(13, AffinityRouter(block_size=block, mode="random"))
+        if rec["affinity_pass"]["scattered_templates"]:
+            fail(f"fleet: templates spread under affinity: {rec['affinity_pass']}")
+        if not rec["random_pass"]["scattered_templates"]:
+            fail("fleet: random placement kept every template on one replica, so the "
+                 "affinity gate cannot tell placements apart")
+
+        # the single engine with the fleet's total slots, on the same
+        # traffic: cold (its first requests), then both warm at 4 clients
+        # and at as many clients as slots
+        sres, swall = _fleet_clients(single_port, reqs, FLEET_CLIENTS)
+        rec["single"] = dict(_serving_summary(sres, swall), equal_streams=sum(
+            r["tokens"] == w for r, w in zip(sres, want)))
+        rec["warm"] = {}
+        for clients in (FLEET_CLIENTS, FLEET_SINGLE_SLOTS):
+            rec["warm"][clients] = {
+                "fleet": _serving_summary(*_fleet_clients(port, reqs, clients)),
+                "single": _serving_summary(*_fleet_clients(single_port, reqs, clients))}
+        single.send_signal(signal.SIGTERM)
+        if single.wait(timeout=120) != 0:
+            fail(f"the single engine exited {single.returncode}: {''.join(single_err)[-3000:]}")
+        memory["replicas"] = _smi_sample(cuda)
+        log("fleet_vs_single " + json.dumps({k: rec[k] for k in ("single", "warm")}))
+
+        # (c) SIGKILL the replica that holds cohort a's pin, under traffic
+        victim = router.policy.pins["a"]
+        i_a = next(i for i, q in enumerate(reqs) if q["cohort"] == "a")
+        kill_log: list[dict] = []
+        current: dict = {}
+        stop = threading.Event()
+        threads = [_traffic_thread(port, np, 100 + k, vocab, block, kill_log, stop, current)
+                   for k in range(FLEET_CLIENTS)]
+        time.sleep(FLEET_KILL_AFTER_S)
+        # kill while a stream is in flight on the victim (if one comes
+        # within the wait): its loss is the one the gate allows
+        deadline = time.monotonic() + 10 * FLEET_KILL_AFTER_S
+        while time.monotonic() < deadline and not any(
+                c is not None and c[0].get("stream") and victim in _placed(
+                    placements, c[0], c[1], time.monotonic() - FLEET_KILL_STREAM_AGE_S)
+                for c in list(current.values())):
+            time.sleep(0.002)
+        t_kill = time.monotonic()
+        sup.kill_replica(victim)
+        bound = router.tracker.dead_after * (fc.report_poll_s + fc.report_timeout_s)
+        while router.tracker.nodes[victim].state != DEAD:
+            if time.monotonic() - t_kill > 3 * bound:
+                break
+            time.sleep(0.01)
+        dead_s = time.monotonic() - t_kill
+        time.sleep(FLEET_KILL_AFTER_S)
+        stop.set()
+        for t in threads:
+            t.join(timeout=600)
+        if dead_s > bound:
+            fail(f"fleet: {victim} was marked dead {dead_s:.2f} s after the SIGKILL "
+                 f"(the ladder's bound {bound:.2f} s)")
+        inflight = [r for r in kill_log if r["t0"] < t_kill < r["t1"]
+                    and victim in _placed(placements, r["req"], r["t0"], t_kill)]
+        lost = [r for r in kill_log if r["status"] != 200 or len(r["tokens"] or []) != FLEET_NEW]
+        if any(not any(r is x for x in inflight) for r in lost):
+            fail(f"fleet: a request not in flight on {victim} failed: "
+                 f"{[(r['status'], r['error']) for r in lost][:4]}")
+        new_pin = router.policy.pins.get("a")
+        if new_pin == victim or new_pin not in router.live_replicas():
+            fail(f"fleet: cohort a pinned to {new_pin} after {victim} died")
+        again = _fleet_post(port, reqs[i_a], FLEET_NEW)
+        if again["status"] != 200:
+            fail(f"fleet: cohort a after the kill: {again}")
+        repin_diverged = _fleet_streams_agree(eng, [reqs[i_a]], [again["tokens"]],
+                                              [res[i_a]["tokens"]], tie, "cohort a re-pinned")
+        rec["kill"] = {"victim": victim, "dead_after_s": dead_s, "ladder_bound_s": bound,
+                       "requests": len(kill_log), "inflight_on_victim": len(inflight),
+                       "streams_inflight_on_victim": sum(bool(r["req"].get("stream"))
+                                                         for r in inflight),
+                       "lost": len(lost), "new_pin": new_pin,
+                       "rerouted": router.fleet_status()["fleet"]["routed"]["reroutes"]
+                       - after["reroutes"], "repinned_stream_diverged": repin_diverged,
+                       "live": router.live_replicas()}
+        memory["survivors"] = _smi_sample(cuda)
+        log("fleet_kill " + json.dumps(rec["kill"]))
+
+        # (d) round 2 lands; a rolling hot-swap under traffic
+        survivors = router.live_replicas()
+        t_manifest = _copy_round(src_store, store, run, 2)
+        samples: list = []
+        stop_s = threading.Event()
+
+        def sampler():
+            while not stop_s.is_set():
+                for rid in survivors:
+                    h = _replica_health(router, rid)
+                    samples.append((time.time(), rid, h["round"],
+                                    h["hotswap"]["last_swap_at"], h["hotswap"]["last_swap_s"]))
+                stop_s.wait(FLEET_SWAP_SAMPLE_S)
+
+        swap_log: list[dict] = []
+        stop = threading.Event()
+        threads = [threading.Thread(target=sampler, daemon=True)] + [
+            _traffic_thread(port, np, 200 + k, vocab, block, swap_log, stop) for k in range(2)]
+        threads[0].start()
+        time.sleep(0.2)
+        t0 = time.perf_counter()
+        results = router.rolling_hotswap(timeout_s=600)
+        swap_s = time.perf_counter() - t0
+        time.sleep(0.2)
+        stop.set()
+        stop_s.set()
+        for t in threads:
+            t.join(timeout=600)
+        if [(r["replica"], r["ok"], r.get("swapped"), r.get("round")) for r in results] != \
+                [(rid, True, True, 2) for rid in survivors]:
+            fail(f"fleet: the rolling hot-swap gave {results}")
+        dropped = [r for r in swap_log if r["status"] != 200
+                   or len(r["tokens"] or []) != FLEET_NEW]
+        if dropped or not swap_log:
+            fail(f"fleet: {len(dropped)} of {len(swap_log)} requests dropped across the "
+                 f"rolling swap: {[(r['status'], r['error']) for r in dropped][:4]}")
+        last = {}
+        for t, rid, rnd, at, dur in samples:
+            last[rid] = (rnd, at, dur)
+        if any(last.get(rid, (0,))[0] != 2 for rid in survivors):
+            fail(f"fleet: the survivors' rounds after the swap: {last}")
+        windows = sorted((at - dur, at, rid) for rid, (_, at, dur) in last.items())
+        for (_, end_a, a), (start_b, _, b2) in zip(windows, windows[1:]):
+            if end_a > start_b:
+                fail(f"fleet: {a} and {b2} were mid-swap at once: {windows}")
+        flips = {rid: min((t for t, r, rnd, *_ in samples if r == rid and rnd == 2), default=None)
+                 for rid in survivors}
+        final = {rid: _replica_health(router, rid) for rid in survivors}
+        if cuda:
+            for rid, h in final.items():
+                rec["replica_launches"][rid] = _launch_rule(h, n_layers, rid)
+        rec["rolling_swap"] = {
+            "results": results, "swap_s": swap_s, "requests": len(swap_log), "dropped": 0,
+            "windows": [[s, e, r] for s, e, r in windows],
+            "manifest_to_first_flip_s": {r: (f - t_manifest if f else None)
+                                         for r, f in flips.items()},
+            "samples": len(samples),
+            "replica_bytes_before_swap": {r: h["hotswap"]["swap_bytes_before"]
+                                          for r, h in final.items()},
+            "replica_peak_bytes_across_swap": {r: h["hotswap"]["swap_peak_bytes"]
+                                               for r, h in final.items()}}
+        log("fleet_rolling_swap " + json.dumps(rec["rolling_swap"]))
+
+        sup.close(timeout=120)
+        codes = {rid: p.returncode for rid, p in sup.procs.items()}
+        if codes != {rid: (-signal.SIGKILL if rid == victim else 0) for rid in sup.procs}:
+            fail(f"fleet: replica exit codes {codes}: "
+                 + json.dumps({r: list(lines)[-20:] for r, lines in sup.logs.items()}))
+        rec["router"] = router.fleet_status()["fleet"]["routed"]
+        memory["after"] = _smi_sample(cuda)
+        rec["memory"] = memory
+        rec["phase_s"] = time.perf_counter() - t_phase
+        return rec
     finally:
+        watchdog.cancel()
+        sup.close(timeout=30)
+        if single.poll() is None:
+            single.kill()
+            single.wait(timeout=30)
+        router.close()
+        del eng
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -4191,6 +4793,12 @@ def main() -> int:
     adapters = adapter_phase(torch, rpa, fa, np, fed, train, tie=2 * engine["max_abs_logit_diff"])
     adapters["phase_s"] = time.perf_counter() - t0
     log(f"adapter phase: {adapters['phase_s']:.1f} s")
+    try:
+        fleet = fleet_phase(torch, rpa, np, adapters.pop("fleet_source"),
+                            tie=2 * engine["max_abs_logit_diff"])
+    finally:
+        shutil.rmtree(ROOT / ".chip_smoke" / "adapters", ignore_errors=True)
+    log(f"fleet phase: {fleet['phase_s']:.1f} s")
     shutil.rmtree(ROOT / ".chip_smoke" / "fed", ignore_errors=True)
 
     kernels = {"kernels": [{
@@ -4211,6 +4819,7 @@ def main() -> int:
         "moe_engine_launches": moe_engine["launches"],
         "adapter_engine_launches": adapters["engine_pair"]["launches"],
         "adapter_server_launches": adapters["server"]["launches"],
+        "fleet_replica_launches": fleet["replica_launches"],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -4243,7 +4852,7 @@ def main() -> int:
         "spec_prefix": spec_prefix, "profile": profile,
         "server": server, "decode": decode_rec, "eval": evaluation, "presets": presets,
         "presets_phase_s": presets_s, "d128_grad_gate": d128, "moe_dispatch": moe_dispatch,
-        "moe_engine": moe_engine, "adapters": adapters,
+        "moe_engine": moe_engine, "adapters": adapters, "fleet": fleet,
         "kernels": kernels["kernels"], "total_s": time.perf_counter() - t_all,
     }, indent=1))
     log(f"total {time.perf_counter() - t_all:.1f}s")

@@ -6,18 +6,20 @@
 ``AdaptersConfig`` and ``PhotonConfig`` carry the same fields, names and
 defaults as the JAX package's, so a resolved YAML written by either
 package loads in the other with equal fields. The sections of features
-the port does not run (``photon.chaos``, ``telemetry``, ``async_rounds``
-and ``serve.fleet``) are kept as the raw dicts they were read as and
+the port does not run (``photon.chaos``, ``telemetry`` and
+``async_rounds``) are kept as the raw dicts they were read as and
 written back unchanged; only their ``enabled`` flag is read, to refuse
 them. ``photon.adapters`` (per-cohort LoRA) and ``model.lora_*`` are
 validated with the JAX package's ``ValueError`` texts.
-``serve.speculative`` is a :class:`SpeculativeConfig`, validated with the
-JAX package's ``ValueError`` texts, as are the prefix-cache and hot-swap
-fields of :class:`ServeConfig`.
+``serve.speculative`` is a :class:`SpeculativeConfig` and ``serve.fleet``
+a :class:`FleetConfig`, validated with the JAX package's ``ValueError``
+texts, as are the prefix-cache and hot-swap fields of
+:class:`ServeConfig`.
 
 :meth:`Config.validate` raises ``NotImplementedError`` for the features
 this package does not port yet, so such a config fails at start-up
-instead of running without them: the fleet router everywhere; and for
+instead of running without them: a ``model.param_dtype`` other than
+``float32`` everywhere (the port keeps fp32 parameters); and for
 training (``validate(serving=False)``, the default) a mesh of more than
 one device (``mesh.expert > 1`` included), ring attention, the mesh
 autotuner, the collective aggregation plane, chaos, telemetry and
@@ -119,6 +121,33 @@ class SpeculativeConfig:
 
 
 @dataclass
+class FleetConfig:
+    """N serving replicas behind one router (same fields and defaults as
+    the JAX package; ``serve/router.py`` and ``serve/fleet.py``). Off by
+    default. Each replica is a ``python -m photon_tpu_torch.serve
+    --fleet-connect HOST:PORT`` daemon that dials the router's control
+    port; the router places each ``/generate`` by cohort pin, then by the
+    prompt's first ``prefix_affinity_blocks`` chain-hashed blocks (0 =
+    prefix affinity off), then by power-of-two choices on the replicas'
+    queue depths. One poll every ``report_poll_s`` asks each replica for
+    its load report, which doubles as the liveness ping
+    (``report_timeout_s`` bounds the replies); a proxy that fails before
+    any response byte is tried on up to ``route_retries`` other
+    replicas."""
+
+    enabled: bool = False
+    replicas: int = 2
+    host: str = "127.0.0.1"
+    port: int = 0  # the router's HTTP port; 0 = ephemeral
+    control_port: int = 0  # the router's TCP control port; 0 = ephemeral
+    prefix_affinity_blocks: int = 4
+    cohort_affinity: bool = True
+    report_poll_s: float = 0.5
+    report_timeout_s: float = 2.0
+    route_retries: int = 2
+
+
+@dataclass
 class ServeConfig:
     """Continuous-batching serving plane (same fields as the JAX package).
 
@@ -128,8 +157,8 @@ class ServeConfig:
     gather, the oracle. ``prefix_cache`` shares full prompt-prefix blocks
     across requests (``serve/prefix.py``; ``prefix_cache_blocks`` caps the
     index, 0 = the pool's pressure alone); ``hotswap`` starts a watcher
-    that swaps new rounds in (``serve/hotswap.py``). ``fleet`` is kept as
-    the raw section: only its ``enabled`` flag is read, to refuse it.
+    that swaps new rounds in (``serve/hotswap.py``); ``fleet`` sets up a
+    fleet of replicas behind a router (``serve/router.py``).
     """
 
     enabled: bool = False
@@ -151,7 +180,7 @@ class ServeConfig:
     hotswap_poll_s: float = 5.0
     hotswap_statusz_url: str = ""
     speculative: SpeculativeConfig = field(default_factory=SpeculativeConfig)
-    fleet: dict = field(default_factory=dict)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
 
 
 @dataclass
@@ -434,6 +463,13 @@ class Config:
         if m.rope and m.d_head % 2:
             raise ValueError("rope needs an even d_head")
         _validate_lora(m)
+        if m.param_dtype != "float32":
+            # JAX builds every parameter in param_dtype; the port keeps fp32
+            # masters, so its parameter list would part from JAX's
+            raise NotImplementedError(
+                f"model.param_dtype={m.param_dtype!r} is not ported to photon_tpu_torch "
+                "yet; set float32 or run with photon_tpu"
+            )
         if m.attn_impl not in ("pallas", "xla", "ring"):
             raise ValueError(f"bad model.attn_impl {m.attn_impl!r}")
         if not serving:
@@ -476,11 +512,7 @@ class Config:
             raise ValueError(f"serve.hotswap_poll_s must be > 0, got {srv.hotswap_poll_s}")
         _validate_speculative(srv.speculative)
         _validate_adapters(self)
-        if srv.fleet.get("enabled", False):
-            raise NotImplementedError(
-                "serve.fleet is not served by photon_tpu_torch yet; turn it "
-                "off or serve with photon_tpu"
-            )
+        _validate_fleet(srv.fleet)
         return self
 
 
@@ -601,6 +633,28 @@ def _validate_speculative(spec: SpeculativeConfig) -> None:
             f"serve.speculative.probe_ticks must be >= 0 (0 = never probe), got "
             f"{spec.probe_ticks}"
         )
+
+
+def _validate_fleet(flt: FleetConfig) -> None:
+    """``serve.fleet``'s bounds, with the JAX package's texts."""
+    if flt.replicas < 1:
+        raise ValueError(f"serve.fleet.replicas must be >= 1, got {flt.replicas}")
+    for pname in ("port", "control_port"):
+        pv = getattr(flt, pname)
+        if not 0 <= pv <= 65535:
+            raise ValueError(f"serve.fleet.{pname} must be in [0, 65535], got {pv}")
+    if flt.prefix_affinity_blocks < 0:
+        raise ValueError(
+            f"serve.fleet.prefix_affinity_blocks must be >= 0 (0 = no "
+            f"prefix affinity), got {flt.prefix_affinity_blocks}"
+        )
+    if flt.report_poll_s <= 0 or flt.report_timeout_s <= 0:
+        raise ValueError(
+            f"serve.fleet needs report_poll_s > 0 and report_timeout_s "
+            f"> 0, got {flt.report_poll_s}/{flt.report_timeout_s}"
+        )
+    if flt.route_retries < 0:
+        raise ValueError(f"serve.fleet.route_retries must be >= 0, got {flt.route_retries}")
 
 
 def _validate_lora(m: ModelConfig) -> None:

@@ -106,8 +106,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """Random weights in the serving tree's names and shapes, from a
     seeded ``torch.Generator``: normal(0, std) for embeddings and dense
     kernels (the residual projections scaled by ``1/sqrt(2L)`` as in the
-    JAX init), ones for norm scales, zeros for biases. fp32, like the JAX
-    package's ``param_dtype``. LoRA factors, drawn after every base
+    JAX init), ones for norm scales, zeros for biases. fp32, the JAX
+    package's default ``param_dtype`` (``Config.validate`` refuses any
+    other). LoRA factors, drawn after every base
     tensor (so the base is the same with LoRA on or off): A from
     normal(0, ``emb_init_std``), B zero, as in the JAX init."""
     from photon_tpu_torch.codec.params import unflatten

@@ -32,11 +32,25 @@ resolved YAML) every cohort's adapter is loaded beside the base, and
 ``cohort`` on ``/generate`` decodes through it; a hot-swap moves base and
 adapters together.
 
+A fleet replica (``serve/fleet.py``) adds ``--fleet-connect HOST:PORT
+--replica-id ID`` (the two go together): it dials that router's control
+port and reports its bound data port there, so N replicas started with
+``--port 0`` need no port bookkeeping. A replica's hot-swap watcher runs
+no loop: it polls its store only when the router's ``rolling_hotswap``
+asks, so the fleet moves to a new round one replica at a time. The router (``serve/router.py``'s
+``FleetRouter``) is built in code, as in the JAX package::
+
+    router = FleetRouter(cfg.photon.serve.fleet, block_size=cfg.photon.serve.block_size)
+    port = router.start()  # then start the replicas with
+    # --fleet-connect 127.0.0.1:{router.control_port}, and
+    router.wait_for_replicas()
+
 The first line on stdout is one JSON object with the serving URL, the
-bound port, the round, the model, the pool's shape, which of the prefix
-cache and hot-swap are on, and the adapter cohorts served (or null). SIGTERM closes the watcher, then
-drains (in-flight requests finish, new ones get 503); SIGINT stops at
-once.
+bound port, the replica id (or null), the round, the model, the pool's
+shape, which of the prefix cache and hot-swap are on, and the adapter
+cohorts served (or null). SIGTERM closes the watcher, leaves the fleet,
+then drains (in-flight requests finish, new ones get 503); SIGINT stops
+at once.
 """
 
 from __future__ import annotations
@@ -45,6 +59,9 @@ import argparse
 import json
 import signal
 import threading
+
+#: how often the main thread wakes to run a signal handler that is due
+_SIGNAL_POLL_S = 0.5
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -65,7 +82,15 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--tokenizer", default=None,
                     help="enable 'text' prompts (byte-fallback, the only one taken)")
+    ap.add_argument("--fleet-connect", default=None, metavar="HOST:PORT",
+                    help="dial this fleet router's control port and serve as one "
+                         "replica of its fleet")
+    ap.add_argument("--replica-id", default=None,
+                    help="the replica's stable id for --fleet-connect (the router's "
+                         "cohort pins and liveness key on it)")
     args = ap.parse_args(argv)
+    if bool(args.fleet_connect) != bool(args.replica_id):
+        ap.error("--fleet-connect and --replica-id go together")
 
     from photon_tpu_torch.checkpoint import FileStore
     from photon_tpu_torch.config import load_preset
@@ -113,12 +138,22 @@ def main(argv: list[str] | None = None) -> None:
         watcher = CheckpointWatcher(
             batcher, ServerCheckpointManager(store, cfg.run_uuid), cfg,
             poll_s=sc.hotswap_poll_s, statusz_url=sc.hotswap_statusz_url,
-        ).start()
+        )
+        if not args.fleet_connect:  # a replica swaps when its router asks
+            watcher.start()
         frontend.watcher = watcher
     port = frontend.start()
+    agent = None
+    if args.fleet_connect:
+        from photon_tpu_torch.serve.fleet import ReplicaAgent
+
+        agent = ReplicaAgent(args.fleet_connect, args.replica_id, batcher=batcher,
+                             frontend=frontend, watcher=watcher,
+                             drain_timeout_s=sc.drain_timeout_s).start()
     print(json.dumps({
         "serving": f"http://{sc.host}:{port}",
         "port": port,
+        "replica_id": args.replica_id,
         "round": engine.loaded_round,
         "model": cfg.model.name,
         "n_slots": engine.n_slots,
@@ -143,10 +178,16 @@ def main(argv: list[str] | None = None) -> None:
     signal.signal(signal.SIGTERM, _sigterm)
     signal.signal(signal.SIGINT, lambda *_: stop.set())
     try:
-        stop.wait()
+        # a timed wait: a signal the kernel hands to another thread (the
+        # scheduler's, say) only trips a flag, and its handler runs when
+        # this thread next executes; an untimed wait never would
+        while not stop.wait(_SIGNAL_POLL_S):
+            pass
     finally:
         if watcher is not None:  # first: no swap is staged under the drain
             watcher.close()
+        if agent is not None:  # leave the fleet, so the router routes elsewhere
+            agent.stop()
         if graceful.is_set():
             frontend.mark_draining()
             batcher.drain(sc.drain_timeout_s)

@@ -95,6 +95,20 @@ class AdapterPool:
             self.allocator.free([page])
         self._pages.clear()
 
+    def shrink(self) -> int:
+        """Evict every resident page that no live slot pins, so unlike
+        :meth:`flush` this is safe under traffic; an evicted cohort reloads
+        from the host bank at its next admission. Returns the pages
+        evicted."""
+        dropped = 0
+        for cohort, page in list(self._pages.items()):
+            if self.allocator.refcount(page) != 1:
+                continue
+            self.allocator.free([self._pages.pop(cohort)])
+            self.evictions += 1
+            dropped += 1
+        return dropped
+
     def has_cohort(self, cohort: str) -> bool:
         return cohort in self._bank
 

@@ -194,6 +194,31 @@ class ContinuousBatcher:
         self.close()
         return drained
 
+    def recycle(self, timeout_s: float = 30.0) -> bool:
+        """Soft restart (a fleet replica's ``restart`` action): refuse new
+        requests, wait at most ``timeout_s`` for queued and running work
+        to finish, flush the prefix cache and shrink the adapter pool's
+        unpinned pages, then take requests again. Unlike :meth:`drain`
+        the scheduler thread keeps running. Returns True when the engine
+        went idle within the bound (the caches are reclaimed either way:
+        a block or page a running slot holds keeps its slot's reference)."""
+        with self._work:
+            if self._stop:
+                return False
+            self._draining = True
+            self._work.notify_all()
+        idle = self._wait_idle(timeout_s)
+        try:
+            if self.engine.prefix_cache is not None:
+                self.engine.prefix_cache.flush()
+            if self.engine.adapter_pool is not None:
+                self.engine.adapter_pool.shrink()
+        finally:
+            with self._work:
+                self._draining = False
+                self._work.notify_all()
+        return idle
+
     # -- live checkpoint hot-swap -----------------------------------------
     def request_swap(self, params: dict, loaded_round: int | None = None,
                      adapter_bank: dict | None = None) -> threading.Event:
@@ -363,13 +388,16 @@ class ContinuousBatcher:
                     len(head.prompt), head.max_new_tokens, prompt=head.prompt,
                     cohort=head.cohort):
                 return  # FIFO head-blocking: nobody overtakes
-            with self._lock:
-                req = self._queue.popleft()
+            # the head stays queued until it runs (only this thread pops),
+            # so an idle check (drain, recycle) never sees it in neither
+            req = head
             req.t_admit = time.monotonic()
             try:
                 self.engine.begin(slot, req.prompt, req.max_new_tokens,
                                   temperature=req.temperature, seed=req.seed, cohort=req.cohort)
             except Exception as e:  # noqa: BLE001 — fail THIS request, keep serving
+                with self._lock:
+                    self._queue.popleft()
                 req.finished = True
                 req.error = f"admission failed: {type(e).__name__}: {e}"
                 req.t_first = req.t_done = time.monotonic()
@@ -379,6 +407,7 @@ class ContinuousBatcher:
             if self._drafter is not None:
                 self._drafter.begin(slot, req.prompt)
             with self._lock:
+                self._queue.popleft()
                 self._running[slot] = req
             if self.engine.pending_tokens(slot) > self.prefill_token_budget:
                 self.chunk_split_prompts += 1

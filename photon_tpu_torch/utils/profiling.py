@@ -1,8 +1,9 @@
 """Metric names, bytes-on-wire accounting, throughput and MFU.
 
 The port of the parts of ``photon_tpu/utils/profiling.py`` that training
-and the federated round read: the ``server/*`` and ``client/*`` metric
-names (the same strings, so a History reads the same in both packages),
+and the federated round read: the ``server/*``, ``client/*`` and fleet
+router (``router/*``, ``serve/fleet_*``) metric names (the same strings,
+so a History reads the same in both packages),
 :class:`WireStats`, :func:`is_oom`, the FLOP count per token and
 :class:`SpeedMonitor`.
 :func:`model_flops_per_token` keeps the JAX formula unchanged, so an MFU
@@ -58,6 +59,27 @@ NODES_SUSPECT = "server/nodes_suspect"
 NODES_DEAD = "server/nodes_dead"
 NODES_READMITTED = "server/nodes_readmitted"
 RECONNECT_BACKOFF_S = "server/reconnect_backoff_s"
+
+# -- the fleet router (serve/router.py), recorded into its History --------
+#: cumulative /generate requests the router accepted for routing
+ROUTER_REQUESTS_TOTAL = "router/requests_total"
+#: requests placed by the prefix key, the cohort pin, power-of-two choices
+ROUTER_ROUTED_PREFIX = "router/routed_prefix_total"
+ROUTER_ROUTED_COHORT = "router/routed_cohort_total"
+ROUTER_ROUTED_P2C = "router/routed_p2c_total"
+#: requests placed again after a connect failure (before any response byte)
+ROUTER_REROUTES = "router/reroutes_total"
+#: requests that no live replica accepted
+ROUTER_PROXY_ERRORS = "router/proxy_errors_total"
+#: replicas the liveness ladder counts live / suspect / dead
+ROUTER_REPLICAS_LIVE = "router/replicas_live"
+ROUTER_REPLICAS_SUSPECT = "router/replicas_suspect"
+ROUTER_REPLICAS_DEAD = "router/replicas_dead"
+#: cumulative cohort pins moved off a dead replica
+ROUTER_COHORT_REPINS = "router/cohort_repins_total"
+#: replicas the router knows of, and its rolling hot-swap passes
+SERVE_FLEET_REPLICAS = "serve/fleet_replicas"
+SERVE_FLEET_ROLLING_SWAPS = "serve/fleet_rolling_swaps_total"
 
 # -- client (federation/client_runtime.py, train/trainer.py) ---------------
 CLIENT_FIT_TIME = "client/fit_time"

@@ -345,6 +345,65 @@ def test_frozen_base_fit_matches_jax_trainer():
             np.testing.assert_array_equal(x, y, err_msg=name)
 
 
+def test_lora_grad_norm_parts_from_jax():
+    """Where the packages part under LoRA: the port's frozen base makes no
+    gradient, so its ``grad_norm`` is the A/B factors' norm; the JAX step
+    computes the base gradients too (then zeroes their updates), and its
+    ``grad_norm`` counts them. Both clip on the A/B norm (JAX's clip sits
+    inside ``multi_transform``'s trainable partition): with the clip
+    between the two norms neither clips, and each lands its factors where
+    an unclipped step does. ``eps = 1`` makes the step follow the
+    gradient's scale (``g / (|g| + 1)``), so a clip on the larger norm
+    would show."""
+    from photon_tpu.train.trainer import Trainer as JaxTrainer
+    from photon_tpu_torch.adapters import configure_adapter_training
+    from photon_tpu_torch.codec.params import flatten
+    from photon_tpu_torch.models.mpt import MPTModel
+    from photon_tpu_torch.train.train_step import make_loss_fn
+    from photon_tpu_torch.train.trainer import Trainer
+
+    jcfg = _fit_cfg()
+    jcfg.optimizer.eps = 1.0
+    pcfg = configure_adapter_training(_port(jcfg)).validate()
+    batch = np.random.default_rng(0).integers(0, 64, (4, 16)).astype(np.int32)
+    # both norms by autograd: every leaf, over the config's 2 microbatches
+    _, tp, (meta, arrays) = _lora_weights(jcfg)
+    leaves = [p.requires_grad_(True) for p in flatten(tp).values()]
+    loss_fn = make_loss_fn(MPTModel(pcfg.model), pcfg.train.loss_chunk_tokens)
+    loss = sum(loss_fn(tp, mb) for mb in torch.from_numpy(batch).long().reshape(2, 2, 16)) / 2
+    grads = dict(zip(flatten(tp), torch.autograd.grad(loss, leaves)))
+    ab = float(torch.sqrt(sum((g.double() ** 2).sum() for n, g in grads.items()
+                              if "_lora_" in n)))
+    full = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values())))
+    tau = (ab * full) ** 0.5
+    assert tau / full < 0.95  # a clip on the full norm would scale the step visibly
+
+    def fit(package, clip):
+        jc = dataclasses.replace(jcfg)
+        jc.optimizer = dataclasses.replace(jcfg.optimizer, grad_clip_norm=clip)
+        jp, tp, _ = _lora_weights(jcfg)
+        if package == "jax":
+            t = JaxTrainer(jc, params=jp)
+        else:
+            t = Trainer(configure_adapter_training(_port(jc)).validate(), params=tp,
+                        device="cpu")
+        m = t.fit([batch], 1)
+        moved = {n: x - a0 for n, x, a0 in zip(meta.names, t.get_parameters()[1], arrays)
+                 if "_lora_" in n}
+        return m["grad_norm"], moved
+
+    pn, p_moved = fit("port", tau)
+    jn, j_moved = fit("jax", tau)
+    np.testing.assert_allclose(pn, ab, rtol=1e-5)
+    np.testing.assert_allclose(jn, full, rtol=1e-4)
+    assert pn < jn
+    _, free = fit("port", 1e9)  # a clip that never fires
+    for name, want in free.items():
+        for got in (p_moved[name], j_moved[name]):
+            rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+            assert rel <= 1e-3, (name, rel)
+
+
 # ---------------------------------------------------------------------------
 # 5. the per-cohort folds and strategies
 # ---------------------------------------------------------------------------

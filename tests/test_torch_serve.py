@@ -518,6 +518,8 @@ def test_port_imports_no_jax_or_reference_package():
                 if top in ("jax", "jaxlib", "flax", "optax", "photon_tpu"):
                     bad.append(f"{f.relative_to(ROOT)}:{node.lineno} {m}")
     assert len(files) > 15 and not bad, bad
+    assert {ROOT / "photon_tpu_torch/serve/router.py", ROOT / "photon_tpu_torch/serve/fleet.py"} \
+        <= set(files)
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -526,7 +528,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "photon_tpu_torch.train.trainer, photon_tpu_torch.ops.flash_attention, "
             "photon_tpu_torch.federated, photon_tpu_torch.eval.__main__, "
             "photon_tpu_torch.data.convert, photon_tpu_torch.models.decode, "
-            "photon_tpu_torch.ops.moe, photon_tpu_torch.config; "
+            "photon_tpu_torch.ops.moe, photon_tpu_torch.config, "
+            "photon_tpu_torch.serve.router, photon_tpu_torch.serve.fleet; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'photon_tpu')))")
     out = subprocess.run([sys.executable, "-S", "-c", code], cwd=ROOT, capture_output=True,
@@ -557,6 +560,8 @@ PORTED_FEATURES = {
                      "serve.prefix_cache_blocks must be >= 0"),
     "hotswap": (("hotswap",), True, ("hotswap_poll_s",), 0.0,
                 "serve.hotswap_poll_s must be > 0"),
+    "fleet": (("fleet", "enabled"), True, ("fleet", "replicas"), 0,
+              "serve.fleet.replicas must be >= 1"),
 }
 
 
@@ -571,8 +576,9 @@ def _set(d, path, value):
 def test_unported_features_refused(feature):
     """Features the port does not run are refused with NotImplementedError;
     the features it runs validate when on, and an invalid value raises the
-    JAX package's ValueError (the same text as JAX's). Adapters run; the
-    collective plane (the JAX package's adapter round loop) is refused."""
+    JAX package's ValueError (the same text as JAX's). Adapters and the
+    fleet run; the collective plane (the JAX package's adapter round loop)
+    is refused."""
     from photon_tpu_torch.config.schema import Config
 
     d = _jax_cfg("mpt-wpe").to_dict()
@@ -605,6 +611,31 @@ def test_unported_features_refused(feature):
         d["photon"]["serve"][feature]["enabled"] = True
     with pytest.raises(NotImplementedError):
         Config.from_dict(d).validate("cpu")
+
+
+def test_param_dtype_other_than_float32_refused():
+    """JAX builds every parameter in ``model.param_dtype``; the port keeps
+    fp32 parameters, so it refuses any other value (its parameter list
+    would part from JAX's). At float32 the two packages' parameter lists
+    carry the same dtypes."""
+    from photon_tpu.codec.params import params_to_ndarrays
+    from photon_tpu.models.mpt import init_params as jax_init
+    from photon_tpu_torch.codec.params import params_to_ndarrays as port_to_ndarrays
+    from photon_tpu_torch.config.schema import Config
+    from photon_tpu_torch.models.mpt import init_params
+
+    jcfg = _jax_cfg("mpt-wpe")
+    jcfg.model.param_dtype = "bfloat16"
+    jmeta, _ = params_to_ndarrays(jax_init(jcfg.validate().model, seed=0))
+    assert "bfloat16" in jmeta.dtypes
+    for serving in (False, True):
+        with pytest.raises(NotImplementedError, match="model.param_dtype='bfloat16'"):
+            Config.from_dict(jcfg.to_dict()).validate("cpu", serving=serving)
+    jcfg.model.param_dtype = "float32"
+    jmeta, _ = params_to_ndarrays(jax_init(jcfg.validate().model, seed=0))
+    pmeta, _ = port_to_ndarrays(init_params(_port_cfg(jcfg).model, seed=0))
+    assert pmeta.names == jmeta.names and pmeta.dtypes == jmeta.dtypes
+    assert set(pmeta.dtypes) == {"float32"}
 
 
 def test_config_reads_jax_yaml_and_presets(tmp_path):
