@@ -33,8 +33,8 @@ Phases (any failure exits non-zero):
    kernels' causal offset shifted by one tile, patched in from outside
    the package) must break that gate;
 4. entry point: ``photon_tpu_torch.centralized.main`` in process, 3 steps
-   on synthetic data at full width, then again to step 5, resuming from
-   its checkpoint;
+   on synthetic data at full width (``ENTRY_LAYERS`` layers), then again
+   to step 5, resuming from its checkpoint;
 5. federated round: ``python -m photon_tpu_torch.federated`` (its
    ``main`` in a child process; 2 nodes in it share the card) on the same
    config, 2 rounds of 2 clients × 4 local steps with the preset's
@@ -46,7 +46,8 @@ Phases (any failure exits non-zero):
    Per round, from the run's History: the broadcast, per client
    set_parameters / train loop / get_parameters / put, the fold, the
    server update, eval, the checkpoint, and the share of the round in
-   which the card trains. In process: one client fit under
+   which the card trains. In process, at ``FED_GATE_LAYERS`` layers: one
+   client fit under
    ``torch.profiler`` (K1, K2, K3 each ``n_layers x n_micro`` per step),
    and one client under FedAvg (η = 1) for 2 rounds × 3 steps against a
    ``Trainer`` that ran 6 steps on the same stream; a planted fault (the
@@ -61,7 +62,7 @@ Phases (any failure exits non-zero):
    contexts); the round breakdown, each node's own peak memory and the
    card's; a planted fault (a spawned node that seeds its synthetic data
    with Python's per-process ``hash``) must part the round-0 eval loss
-   over the gate. (b) ``--tcp-listen`` (a child
+   over the gate. (b) at ``TCP_LAYERS`` layers, ``--tcp-listen`` (a child
    that opens no CUDA context) with ``delta_topk_q8`` and error feedback,
    ``reset_optimizer`` on each fit, 3 rounds: node0 is ``run_node`` on a
    thread of this process, node1 a ``python -m
@@ -227,6 +228,39 @@ After 12, on the adapter run's store (kept until this phase ends):
     with the replicas alone and after the kill, each replica's device
     bytes from its own ``/healthz``, and the phase's time.
 
+After 13, side by side (14 on a thread of this process, 15 in its
+children; they share no launch counter, file or port):
+
+14. interop: llama-1b (d2048, 22 layers, GQA 16/4 of 128, vocab 32000;
+    random weights from seed 0) through ``python -m
+    photon_tpu_torch.checkpoint.hf_export --format llama`` and ``python -m
+    photon_tpu_torch.checkpoint.hf_import`` (children that open no CUDA
+    context): the imported npz equals the original bit for bit (names,
+    order, dtypes, bytes); a bf16 copy of the export, written here as two
+    safetensors shards and their index, imports equal to the bf16-rounded
+    original; the imported tree in a ragged engine (bf16) gives the
+    original tree's 8 greedy streams of 32 tokens token for token, with K4
+    launched ``n_layers`` × (steps + chunk steps), and an import with one
+    layer's q_proj left untransposed parts the last-position logits over
+    ``INTEROP_FAULT_BOUND``. Seconds and file sizes recorded; the files
+    are deleted;
+15. chaos: 3 federated rounds of full-width mpt-125m (``FED_SETS``) over
+    TCP with ``photon.chaos`` on (``CHAOS_SEED``: the server drops round 1's
+    ping to node1 and corrupts its FitIns; node1 crashes mid-fit in round
+    2 through ``os._exit(137)`` and is started again): a ``--tcp-listen``
+    server child and two ``federation.tcp`` node children. The rounds
+    finish within the failure budget, node1 exits 137 exactly once, at
+    least one readmission, at least one ``tcp_drop`` and one
+    ``tcp_corrupt`` fired, every corrupted frame was refused by its CRC and
+    never decoded, the final parameters are finite and node0's K1–K3
+    launches are exact.
+
+To keep the whole smoke within 800 s with phases 14 and 15, three earlier
+paths run mpt-125m's width at 2 of its 12 layers: phase 4
+(``ENTRY_LAYERS``), phase 5's in-process comparison (``FED_GATE_LAYERS``)
+and phase 5b (b) (``TCP_LAYERS``: its TCP run, comparator and both
+planted faults); phase 5's CLI runs and 5b (a) keep the full depth.
+
 The second-last line of stdout is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result. Measurements
@@ -274,6 +308,17 @@ PROFILER_READINGS = 3
 #: window opens is then dropped. So every profiled region starts and ends
 #: with the card idle for this long.
 PROFILER_MARGIN_S = 0.1
+#: ``torch.profiler`` (torch 2.11 with CUPTI, on an H100) also drops the
+#: device records of a window's first launches, and more of them the more
+#: windows the process has opened; the first K1 launches of a short
+#: profiled fit were among them (1–3 of 12 at 2 layers). So every window
+#: opens with this many launches of ``torch.cuda._sleep``'s kernel
+#: (``PROFILER_PAD_KERNEL``) before its margin; the readers never see the
+#: pad's records, and each window's count of lost pad records is kept in
+#: ``profiler_pad_lost``.
+PROFILER_PAD = 256
+PROFILER_PAD_KERNEL = "spin_kernel"
+profiler_pad_lost: list[int] = []
 #: engine phase: per-step relative L2 between the ragged and gather
 #: engines' logits (bf16 activations through 12 layers). On an H100 the
 #: sound engines read at most 1.2e-2 and an engine that drops each row's
@@ -374,19 +419,52 @@ def _time_ms(torch, fn, flush, reps=15, warm=3, host=False) -> float:
     return statistics.median(times)
 
 
+class _Window:
+    """A profiled window's records, the pad's device records left out of
+    ``key_averages()``."""
+
+    def __init__(self, prof):
+        self._prof = prof
+        self._averages = None
+
+    @property
+    def profiler(self):
+        return self._prof.profiler
+
+    def _all(self):
+        if self._averages is None:
+            self._averages = self._prof.key_averages()
+        return self._averages
+
+    def key_averages(self) -> list:
+        return [e for e in self._all() if PROFILER_PAD_KERNEL not in e.key]
+
+    @property
+    def pad_lost(self) -> int:
+        return PROFILER_PAD - sum(e.count for e in self._all() if PROFILER_PAD_KERNEL in e.key
+                                  and str(getattr(e, "device_type", "")).endswith("CUDA"))
+
+
 @contextlib.contextmanager
 def _profiled(torch):
     """``torch.profiler`` over the block, CPU + CUDA (with CUDA alone it can
-    lose whole buffers of device records), the card idle for
-    ``PROFILER_MARGIN_S`` at both ends of the window."""
+    lose whole buffers of device records): the window opens with
+    ``PROFILER_PAD`` pad launches, and the card is idle for
+    ``PROFILER_MARGIN_S`` at both ends of the block. Yields a
+    :class:`_Window`."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILER_MARGIN_S)
-        yield prof
+        for _ in range(PROFILER_PAD):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
         time.sleep(PROFILER_MARGIN_S)
+        window = _Window(prof)
+        yield window
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_MARGIN_S)
+    profiler_pad_lost.append(window.pad_lost)
 
 
 def _launch_to_kernel_us(prof) -> float | None:
@@ -927,10 +1005,17 @@ def training_phase(torch, fa, np):
 # phase 4: the training entry point
 # ---------------------------------------------------------------------------
 
+#: the entry point's depth: mpt-125m's width at 2 of its 12 layers (cut
+#: in PR 12 to keep the smoke within 800 s; the resume and the launch
+#: counts read the same at any depth, and phase 3 times full-depth steps)
+ENTRY_LAYERS = 2
+
+
 def entry_phase(torch, fa):
-    """``python -m photon_tpu_torch.centralized`` in process at full width:
-    3 steps with a checkpoint per step, then a second run to step 5 that
-    must resume from step 3 (params, optimizer state, loader position)."""
+    """``python -m photon_tpu_torch.centralized`` in process at full width
+    and ``ENTRY_LAYERS`` layers: 3 steps with a checkpoint per step, then a
+    second run to step 5 that must resume from step 3 (params, optimizer
+    state, loader position)."""
     import contextlib
     import io
 
@@ -940,6 +1025,7 @@ def entry_phase(torch, fa):
     work = ROOT / ".chip_smoke" / "central"
     shutil.rmtree(work, ignore_errors=True)
     cfg = train_config()
+    cfg.model.n_layers = ENTRY_LAYERS
     cfg.photon.save_path = str(work)
     cfg.dataset.synthetic = True
     cfg.train.eval_batches = 2
@@ -997,6 +1083,11 @@ FED_SETS = ["fl.n_total_clients=2", "fl.n_clients_per_round=2", "fl.local_steps=
 #: at least FED_FAULT_RATIO times the sound gap and over the gate.
 FED_GATE = 1e-6
 FED_FAULT_RATIO = 10.0
+#: the depth of that comparison (c, d): mpt-125m's width at 2 of its 12
+#: layers, cut in PR 12 to keep the smoke within 800 s; the gap is a
+#: property of the round loop and the optimizer, not of the depth, and
+#: both its readings are taken at this one
+FED_GATE_LAYERS = 2
 
 
 def _fed_child(out_path: str, cli_args: list[str], opts: list[str] = ()) -> int:
@@ -1007,12 +1098,17 @@ def _fed_child(out_path: str, cli_args: list[str], opts: list[str] = ()) -> int:
     peak device memory to ``out_path``. With ``--measured-nodes`` in
     ``opts`` the nodes it spawns run :func:`_measured_node_main`; with
     ``--record-decodes`` the server writes node0's first decoded result of
-    each round to ``$PHOTON_SMOKE_DECODES/<tag>.npy`` (:func:`_record_decodes`)."""
+    each round to ``$PHOTON_SMOKE_DECODES/<tag>.npy`` (:func:`_record_decodes`);
+    with ``--frame-audit`` its frames are audited (:func:`_frame_audit`) and
+    its chaos injector's counters written too."""
     import torch
 
     sys.path.insert(0, str(ROOT))
-    from photon_tpu_torch import federated
+    from photon_tpu_torch import chaos, federated
     from photon_tpu_torch.ops import flash_attention as fa
+
+    if "--frame-audit" in opts:
+        _frame_audit(pathlib.Path(out_path).with_suffix(".audit.jsonl"))
 
     if "--measured-nodes" in opts:
         from photon_tpu_torch.federation import driver
@@ -1041,8 +1137,10 @@ def _fed_child(out_path: str, cli_args: list[str], opts: list[str] = ()) -> int:
     history = federated.main(cli_args)
     # a server that never touched the card must not open a context to ask
     cuda = torch.cuda.is_initialized()
+    inj = chaos.active()
     pathlib.Path(out_path).write_text(json.dumps({
         "history": history.to_dict(), "launches": dict(fa.launches),
+        "chaos_counts": inj.counts if inj is not None else None,
         "wall_s": time.perf_counter() - t0, "cuda_initialized": cuda,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0}))
     return 0
@@ -1118,6 +1216,7 @@ def _fed_cli_finish(work: pathlib.Path, tag: str, started, timeout: float = 900)
             "final_line": json.loads((work / f"child-{tag}.out").read_text()
                                      .strip().splitlines()[-1]),
             "history": child["history"], "launches": child["launches"],
+            "chaos_counts": child["chaos_counts"],
             "child_wall_s": child["wall_s"], "cuda_initialized": child["cuda_initialized"],
             "max_memory_allocated_gb": child["max_memory_allocated_gb"]}
 
@@ -1166,6 +1265,7 @@ def _fed_gate(torch, np, cfg, work, initial) -> dict:
         readings.append(per if any(per.values()) else "not measured")
         counted.setdefault("profiler_min_launch_to_kernel_us", []).append(
             _launch_to_kernel_us(prof))
+        counted.setdefault("profiler_pad_lost", []).append(prof.pad_lost)
         # the profiler can lose device records (see eval_phase): a reading
         # short of the counter is taken again on the next fit
         if readings[-1] in ("not measured", counter) or len(readings) == PROFILER_READINGS:
@@ -1243,7 +1343,8 @@ def federated_phase(torch, np):
         set_parameters / train loop / get_parameters / put, the fold, the
         server update, eval, the checkpoint, and the card's training share
         of the round;
-    (c) + (d): :func:`_fed_gate`."""
+    (c) + (d): :func:`_fed_gate`, at ``FED_GATE_LAYERS`` layers."""
+    import copy
     import tempfile
 
     from photon_tpu_torch.codec.params import params_to_ndarrays
@@ -1304,14 +1405,17 @@ def federated_phase(torch, np):
         fail(f"federated CLI: eval losses {evals_1}, final line {first['final_line']}")
 
     # (c) + (d): one client in process against centralized training
-    init = init_params(cfg.model, seed=0, device="cuda")
+    gcfg = copy.deepcopy(cfg)
+    gcfg.model.n_layers = FED_GATE_LAYERS
+    init = init_params(gcfg.model, seed=0, device="cuda")
     initial = params_to_ndarrays(init)
     del init
     t0 = time.perf_counter()
-    gate = _fed_gate(torch, np, cfg, work / "gate", initial)
+    gate = _fed_gate(torch, np, gcfg.validate(), work / "gate", initial)
     gate["wall_s"] = time.perf_counter() - t0
+    gate["n_layers"] = FED_GATE_LAYERS
     log("fed_gate " + json.dumps(gate))
-    per_step = L * n_micro
+    per_step = FED_GATE_LAYERS * n_micro
     want = {k: per_step for k in FLASH_KERNELS}
     if any(c != want for c in gate["counter_launches_per_step"]):
         fail(f"a client fit launched {gate['counter_launches_per_step']} per step, "
@@ -1320,7 +1424,8 @@ def federated_phase(torch, np):
     if any(p != "not measured" and any(p[k] > per_step for k in p) for p in prof) \
             or prof[-1] not in ("not measured", want):
         fail(f"the profiler saw {prof} kernel launches per step, want {per_step} each (least "
-             f"launch-to-kernel µs {gate['profiler_min_launch_to_kernel_us']})")
+             f"launch-to-kernel µs {gate['profiler_min_launch_to_kernel_us']}, pad records "
+             f"lost {gate['profiler_pad_lost']} of {PROFILER_PAD})")
     if not gate["sound"] <= FED_GATE:
         fail(f"single-client FedAvg vs centralized: {gate['sound']:.3e} > {FED_GATE}")
     if not gate["planted_fault"] >= max(FED_FAULT_RATIO * gate["sound"], FED_GATE):
@@ -1338,6 +1443,14 @@ def federated_phase(torch, np):
 # ---------------------------------------------------------------------------
 
 TCP_RUN = "chip-smoke-tcp"
+#: (b)'s depth: its TCP run, the uncompressed comparator and both planted
+#: faults run mpt-125m's width at 2 of its 12 layers. Cut to keep the
+#: whole smoke within 800 s once phases 14 and 15 joined it; (b)'s gates
+#: (readmission, the wire ratio, launches, the update gap against its
+#: shifted-scatter fault, the EF identity against its stale-reference
+#: fault) read the same things at any depth, and every sound and fault
+#: reading is taken anew at this one
+TCP_LAYERS = 2
 #: (b): the round-3 update (parameters minus round 0's) of the compressed
 #: TCP run against the uncompressed comparator, over all parameters:
 #: relative L2 at most UPDATE_REL_BOUND and cosine at least
@@ -1361,7 +1474,7 @@ EF_FP64_TOL = 2.0 ** -48
 EF_SLICE = 1 << 20
 #: (b): seconds into the in-process node's round-2 fit at which the
 #: subprocess node, which received its FitIns at the same moment, is killed
-KILL_AFTER_S = 1.0
+KILL_AFTER_S = 0.5
 #: how often the GPU memory sampler asks ``nvidia-smi``
 SMI_POLL_S = 0.5
 #: (b): seconds the restarted node1 has to exit after the server's shutdown
@@ -1897,7 +2010,8 @@ def distributed_phase(torch, np, fa, fed) -> dict:
         its synthetic data with Python's per-process ``hash``, patched in
         from outside; one node, round 0 only) must part the round-0 eval
         loss over the gate;
-    (b) ``--tcp-listen`` (a child that opens no CUDA context) with
+    (b) at ``TCP_LAYERS`` layers, ``--tcp-listen`` (a child that opens no
+        CUDA context) with
         ``delta_topk_q8`` and error feedback, ``reset_optimizer`` on every
         fit (a fit's result then does not depend on the node that ran it),
         3 rounds: node0 is ``run_node`` on a thread here, node1 a
@@ -1934,6 +2048,7 @@ def distributed_phase(torch, np, fa, fed) -> dict:
     for s in FED_SETS:
         _apply_override(cfg, *s.split("=", 1))
     cfg.run_uuid, cfg.photon.save_path = TCP_RUN, str(work / "tcp")
+    cfg.model.n_layers = TCP_LAYERS
     cfg.dataset.synthetic = True
     cfg.fl.n_rounds = 3
     cfg.fl.fit_config = {"reset_optimizer": True}
@@ -3037,11 +3152,13 @@ def eval_phase(torch, cfg, fed):
                   and (getattr(e, "self_device_time_total", 0.0) or 0.0) > 0]
         k1 = sum(e.count for e in events if "::fwd_" in e.key) if events else "not measured"
         skews.append(_launch_to_kernel_us(prof))
+        pads_lost.append(prof.pad_lost)
         if k1 != "not measured" and k1 > L * n_fwd:
             fail(f"the profiler saw {k1} K1 launches, more than the {L * n_fwd} counted")
         return out, line, cli_s, launches, events, k1
 
     skews: list[float | None] = []
+    pads_lost: list[int] = []
     try:
         out, line, cli_s, launches, events, profiler_k1 = counted_run()
         # Should device records still be lost, a count that falls short is
@@ -3068,10 +3185,11 @@ def eval_phase(torch, cfg, fed):
         fail(f"eval scores out of [0, 1] or tasks missing: {scores}")
     if profiler_k1 not in ("not measured", L * n_fwd):
         fail(f"the profiler saw {profiler_k1_runs} K1 launches, want {L * n_fwd} (least "
-             f"launch-to-kernel µs {skews})")
+             f"launch-to-kernel µs {skews}, pad records lost {pads_lost} of {PROFILER_PAD})")
     rec = {"convert": dict(summary, client_samples=sizes, wall_s=convert_s),
            "forwards": forwards, "launches": launches, "profiler_k1": profiler_k1,
            "profiler_k1_runs": profiler_k1_runs, "profiler_min_launch_to_kernel_us": skews,
+           "profiler_pad_lost": pads_lost,
            "profiler_k1_ms": sum(e.self_device_time_total for e in events
                                  if "::fwd_" in e.key) / 1e3,
            "cli_wall_s": cli_s, "timed_s": times,
@@ -4646,6 +4764,612 @@ def fleet_phase(torch, rpa, np, src: dict, tie: float, device: str = "cuda") -> 
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: checkpoint interop (hf_export / hf_import) at llama-1b
+# ---------------------------------------------------------------------------
+
+INTEROP_PRESET = "llama-1b"
+#: the imported tree's greedy streams: prompt lengths and new tokens
+INTEROP_PROMPTS = (16, 100, 250, 400, 600, 800, 1100, 1500)
+INTEROP_NEW = 32
+#: the planted fault: this layer's q_proj (square, 2048 × 2048) left
+#: untransposed by the import; its last-position logits must part from the
+#: original tree's by a relative L2 over INTEROP_FAULT_BOUND. The sound
+#: import reads exactly 0 (the same bits through the same schedule), so the
+#: bound only has to sit above 0
+INTEROP_FAULT_LAYER = 11
+INTEROP_FAULT_BOUND = 1e-3
+#: host disk the phase's files take at their peak (two fp32 copies and the
+#: export, ~4.4 GB each at llama-1b), with room to spare
+INTEROP_DISK_BYTES = 16e9
+
+
+def _interop_dir(need: float, home: pathlib.Path) -> pathlib.Path:
+    """A directory with ``need`` bytes free: under ``home`` on the
+    checkout's disk, else in ``/dev/shm``."""
+    import tempfile
+
+    home.mkdir(parents=True, exist_ok=True)
+    for base in (home, pathlib.Path("/dev/shm")):
+        if base.is_dir() and shutil.disk_usage(base).free >= need:
+            return pathlib.Path(tempfile.mkdtemp(prefix="interop-", dir=base))
+    fail(f"interop: no directory with {need / 1e9:.0f} GB free (checkout "
+         f"{shutil.disk_usage(home).free / 1e9:.1f} GB)")
+
+
+def _write_bf16_shards(torch, bin_path: pathlib.Path, out: pathlib.Path, n_shards: int = 2) -> dict:
+    """A bf16 copy of an HF state dict as ``n_shards`` safetensors files and
+    ``model.safetensors.index.json`` (the layout public llamas ship),
+    written here: an 8-byte little-endian header length, the JSON header
+    (dtype, shape, data offsets), the raw bytes. Tensor by tensor, from a
+    memory-mapped load."""
+    import struct
+
+    sd = torch.load(bin_path, map_location="cpu", mmap=True, weights_only=True)
+    names = list(sd)
+    per = -(-len(names) // n_shards)
+    weight_map, total = {}, 0
+    for s in range(n_shards):
+        part = names[s * per:(s + 1) * per]
+        fname = f"model-{s + 1:05d}-of-{n_shards:05d}.safetensors"
+        header, off = {}, 0
+        for n in part:
+            nbytes = sd[n].numel() * 2
+            header[n] = {"dtype": "BF16", "shape": list(sd[n].shape),
+                         "data_offsets": [off, off + nbytes]}
+            off += nbytes
+            weight_map[n] = fname
+        blob = json.dumps(header).encode()
+        blob += b" " * (-len(blob) % 8)
+        with open(out / fname, "wb") as f:
+            f.write(struct.pack("<Q", len(blob)))
+            f.write(blob)
+            for n in part:
+                sd[n].to(torch.bfloat16).contiguous().view(torch.int16).numpy().tofile(f)
+        total += off
+    (out / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return {"shards": n_shards, "tensors": len(names), "bytes": total}
+
+
+def _host_cli_child(out_path: str, argv: list[str]) -> int:
+    """``python -m MODULE ARGS`` (``argv``) run as ``__main__`` in a child
+    of :func:`interop_phase`; writes to ``out_path`` whether the CLI
+    initialized CUDA in its process."""
+    import runpy
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    sys.argv = list(argv)
+    runpy.run_module(argv[0], run_name="__main__", alter_sys=True)
+    pathlib.Path(out_path).write_text(json.dumps({"cuda_initialized":
+                                                  torch.cuda.is_initialized()}))
+    return 0
+
+
+def _cli_child(work: pathlib.Path, tag: str, module: str, args: list[str]) -> float:
+    """``python -m module args`` in a child (:func:`_host_cli_child`), which
+    must open no CUDA context; returns its wall seconds."""
+    t0 = time.perf_counter()
+    with open(work / f"{tag}.log", "w") as out:
+        rc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--host-cli",
+                             str(work / f"{tag}.json"), "--", module, *args], cwd=ROOT,
+                            stdout=out, stderr=subprocess.STDOUT, timeout=900).returncode
+    if rc != 0:
+        fail(f"interop: {module} exited {rc}: {(work / f'{tag}.log').read_text()[-3000:]}")
+    if json.loads((work / f"{tag}.json").read_text())["cuda_initialized"]:
+        fail(f"interop: {module} opened a CUDA context")
+    return time.perf_counter() - t0
+
+
+def _same_arrays(np, got: tuple, want: tuple, what: str) -> None:
+    """(metadata, arrays) pairs: names, order, dtypes and bytes equal."""
+    (gm, ga), (wm, wa) = got, want
+    if gm.names != wm.names or gm.dtypes != wm.dtypes or gm.shapes != wm.shapes:
+        fail(f"interop: {what} names, dtypes or shapes differ")
+    bad = [n for n, a, b in zip(wm.names, ga, wa) if not np.array_equal(a.view(np.uint8),
+                                                                        b.view(np.uint8))]
+    if bad:
+        fail(f"interop: {what} differs in {len(bad)} arrays, first {bad[:3]}")
+
+
+def _interop_streams(torch, rpa, eng, prompts, new: int) -> dict:
+    """Greedy streams of ``prompts`` through a ``ContinuousBatcher``
+    (submitted before it starts: one FIFO schedule for every engine),
+    K4 counted; then each prompt's last-position logits, in a second pass
+    that stops at each row's first emission."""
+    from photon_tpu_torch.serve.scheduler import ContinuousBatcher
+
+    b = ContinuousBatcher(eng, max_queue=len(prompts),
+                          prefill_token_budget=eng.cfg.photon.serve.prefill_token_budget)
+    reqs = [b.submit(p, new) for p in prompts]
+    rpa.launches = 0
+    t0 = time.perf_counter()
+    b.start()
+    outs = [r.result(timeout=600) for r in reqs]
+    wall = time.perf_counter() - t0
+    launches = rpa.launches
+    b.close()
+    st = b.stats()
+    return {"outs": outs, "wall_s": wall, "launches": launches, "steps": int(st["steps"]),
+            "chunk_steps": int(st["chunk_steps"]), "last_logits": _last_logits(torch, eng, prompts)}
+
+
+def _last_logits(torch, eng, prompts):
+    """Each prompt's logits at its last position (its first emission), the
+    prompts admitted and prefilled in order on the engine's chunk budget."""
+    budget = eng.cfg.photon.serve.prefill_token_budget
+    queue, running, out = list(enumerate(prompts)), {}, {}
+    while queue or running:
+        while queue and eng.free_slot() is not None and eng.can_admit(len(queue[0][1]), 1):
+            i, p = queue.pop(0)
+            slot = eng.free_slot()
+            eng.begin(slot, p, 1)
+            running[slot] = i
+        pre = [s for s in running if eng.pending_tokens(s) > 0]
+        chunk = None
+        if pre:
+            s = min(pre, key=lambda s: running[s])
+            chunk = (s, min(eng.pending_tokens(s), budget))
+        _, emitted = eng.mixed_step(chunk)
+        for s in sorted(running):
+            if emitted[s]:
+                out[running[s]] = eng.last_logits[s].float().clone()
+                eng.evict(s)
+                del running[s]
+    return torch.stack([out[i] for i in range(len(prompts))])
+
+
+def interop_phase(torch, rpa, np, cfg=None, device: str = "cuda",
+                  prompts=INTEROP_PROMPTS, new: int = INTEROP_NEW,
+                  fault_layer: int = INTEROP_FAULT_LAYER,
+                  home: pathlib.Path = ROOT / ".chip_smoke") -> dict:
+    """Phase 14, llama-1b at full width and depth (random weights, seed 0):
+    (a) the tree's npz → ``python -m photon_tpu_torch.checkpoint.hf_export
+    --format llama`` → ``python -m photon_tpu_torch.checkpoint.hf_import``
+    (each a child that opens no CUDA context) → an npz equal to the
+    original bit for bit; (b) a bf16 copy of the export as two safetensors
+    shards and their index, written here, imported (``load_hf_llama`` in
+    this process) equal to the bf16-rounded original; (c) the imported tree in a ragged engine on the
+    card (bf16): 8 greedy prompts × 32 tokens equal the original tree's
+    token for token, K4 launched ``n_layers`` × (steps + chunk steps), and
+    the planted fault (layer ``fault_layer``'s q_proj left untransposed)
+    parts the last-position logits over ``INTEROP_FAULT_BOUND``. Host
+    copies are freed as the phase goes; its files are deleted."""
+    from photon_tpu_torch.checkpoint.hf_import import load_hf_llama
+    from photon_tpu_torch.checkpoint.serialization import arrays_to_npz, npz_to_arrays
+    from photon_tpu_torch.codec.params import (
+        ParamsMetadata,
+        flatten,
+        params_from_numpy,
+        params_to_ndarrays,
+    )
+    from photon_tpu_torch.models.mpt import init_params
+    from photon_tpu_torch.serve.engine import PagedEngine
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    cfg = cfg or serve_config(INTEROP_PRESET)
+    L = cfg.model.n_layers
+    work = _interop_dir(INTEROP_DISK_BYTES if cuda else 0, home)
+    rec: dict = {"preset": cfg.model.name, "dir": str(work), "prompts": list(prompts),
+                 "new_tokens": new, "fault_layer": fault_layer}
+    try:
+        cfg.to_yaml(work / "model.yaml")
+        meta, arrays = params_to_ndarrays(init_params(cfg.model, seed=0, device=device))
+        if cuda:
+            torch.cuda.empty_cache()
+        rec["n_params"] = int(sum(a.size for a in arrays))
+        orig = work / "orig.npz"
+        orig.write_bytes(arrays_to_npz(meta, arrays))
+        rec["export_s"] = _cli_child(work, "export", "photon_tpu_torch.checkpoint.hf_export", [
+            "--params-npz", str(orig), "--config", str(work / "model.yaml"),
+            "--out", str(work / "hf"), "--format", "llama"])
+        rec["import_s"] = _cli_child(work, "import", "photon_tpu_torch.checkpoint.hf_import", [
+            "--hf-dir", str(work / "hf"), "--out", str(work / "imported.npz"),
+            "--config", str(work / "model.yaml")])
+        rec["bytes"] = {"orig_npz": orig.stat().st_size,
+                        "pytorch_model_bin": (work / "hf" / "pytorch_model.bin").stat().st_size,
+                        "imported_npz": (work / "imported.npz").stat().st_size}
+        imported = npz_to_arrays((work / "imported.npz").read_bytes())
+        _same_arrays(np, imported, (meta, arrays), "the imported npz")
+        rec["roundtrip_bit_equal"] = True
+        for p in (orig, work / "imported.npz"):
+            p.unlink()
+
+        # (b) bf16 shards under an index
+        (work / "bf16").mkdir()
+        shutil.copy(work / "hf" / "config.json", work / "bf16" / "config.json")
+        t0 = time.perf_counter()
+        rec["bf16_shards"] = _write_bf16_shards(torch, work / "hf" / "pytorch_model.bin",
+                                                work / "bf16")
+        rec["bf16_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, tree = load_hf_llama(str(work / "bf16"), cfg.model)
+        flat = flatten(tree)
+        del tree
+        got = [t.numpy() for t in flat.values()]
+        rec["bf16_import_s"] = time.perf_counter() - t0
+        rounded = [torch.from_numpy(a).to(torch.bfloat16).float().numpy() for a in arrays]
+        _same_arrays(np, (ParamsMetadata.from_ndarrays(flat, got), got), (meta, rounded),
+                     "the bf16 import")
+        rec["bf16_import_equals_rounded"] = True
+        del flat, got, rounded
+        shutil.rmtree(work / "bf16")
+
+        # (c) the imported tree served through K4 against the original's
+        rng = np.random.default_rng(14)
+        ps = [list(map(int, rng.integers(0, cfg.model.vocab_size, n))) for n in prompts]
+        runs = {}
+        fault_arrays = list(imported[1])
+        q = meta.names.index("blocks/block/q_proj/kernel")
+        fault_arrays[q] = fault_arrays[q].copy()
+        fault_arrays[q][fault_layer] = fault_arrays[q][fault_layer].T
+        for tag, arrs in (("original", arrays), ("imported", imported[1]),
+                          ("fault", fault_arrays)):
+            eng = PagedEngine(cfg, params_from_numpy(meta.names, arrs, cfg.model, device),
+                              device=device)
+            if cuda and eng.attn_impl != "ragged":
+                fail(f"interop: the engine runs {eng.attn_impl}, not K4")
+            runs[tag] = _interop_streams(torch, rpa, eng, ps, new) if tag != "fault" \
+                else {"last_logits": _last_logits(torch, eng, ps)}
+            del eng
+            if cuda:
+                torch.cuda.empty_cache()
+        del arrays, imported, fault_arrays
+        o, i, f = runs["original"], runs["imported"], runs["fault"]
+        parted = [k for k, (a, b) in enumerate(zip(i["outs"], o["outs"])) if a != b]
+        if parted or any(len(x) != new for x in i["outs"]):
+            fail(f"interop: the imported tree's streams part from the original's in rows {parted}")
+        want = L * (i["steps"] + i["chunk_steps"])
+        if cuda and (i["launches"] != want or want == 0):
+            fail(f"interop: K4 launched {i['launches']} times, want {want}")
+        sound = _rel_l2(i["last_logits"], o["last_logits"])
+        fault = _rel_l2(f["last_logits"], o["last_logits"])
+        if not (torch.isfinite(i["last_logits"]).all() and sound <= INTEROP_FAULT_BOUND < fault):
+            fail(f"interop: last-position logits sound {sound:.3e}, untransposed q_proj "
+                 f"{fault:.3e}, bound {INTEROP_FAULT_BOUND}")
+        rec["serve"] = {"streams_equal": True, "launches": i["launches"], "steps": i["steps"],
+                        "chunk_steps": i["chunk_steps"], "wall_s": i["wall_s"],
+                        "original_wall_s": o["wall_s"],
+                        "tokens_per_s": len(prompts) * new / i["wall_s"],
+                        "logits_rel_l2_sound": sound, "logits_rel_l2_fault": fault,
+                        "fault_bound": INTEROP_FAULT_BOUND}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("interop_phase " + json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 15: seeded faults under federated rounds over TCP
+# ---------------------------------------------------------------------------
+
+CHAOS_RUN = "chip-smoke-chaos"
+#: small per-frame fault probabilities (``photon.chaos``)
+CHAOS_KNOBS = {"tcp_drop_p": 0.02, "tcp_corrupt_p": 0.02, "tcp_duplicate_p": 0.05,
+               "tcp_delay_p": 0.1}
+#: a seed found by :func:`chaos_seed_plan` over seeds 0–2,000,000 on the
+#: CPU (the first of two): the server's stream drops its 6th envelope (round
+#: 1's liveness ping to node1) and corrupts its 10th (round 1's FitIns to
+#: node1); no other drop or corrupt in the server's first CHAOS_CLEAN
+#: frames, whatever the corrupted frame's length does to the stream after
+#: it, nor in the nodes'. A drop is survivable only on a ping (a lost
+#: broadcast or its ack would time the run out), so the seed is chosen, not
+#: searched for on the card.
+CHAOS_SEED = 528453
+CHAOS_PLAN = {"drop": 6, "corrupt": 10}
+#: the server's envelope sends, in order, without faults: round 0's
+#: broadcast (1, 2) and EvaluateIns (3, 4); round 1's pings (5, 6),
+#: broadcast (7, 8) and FitIns (9, 10). Frames checked clean per scope
+#: (the run sends ~40, ~20 and ~8 + ~8)
+CHAOS_DROP_FRAMES, CHAOS_CORRUPT_FRAMES = (5, 6), (9, 10)
+CHAOS_CLEAN = {"server": 48, "node0": 24, "node1": 16}
+#: bound on a lost frame's wait (a fit or eval reply), and on a ping's
+CHAOS_TIMEOUT_S, CHAOS_PING_S = 60.0, 2.0
+CHAOS_WAIT_S = 600.0
+
+
+def _tcp_fault(plan) -> str:
+    return "drop" if plan.drop else "corrupt" if plan.corrupt else ""
+
+
+def chaos_seed_plan(seed: int, knobs: dict = CHAOS_KNOBS) -> dict | None:
+    """Replays the port's ``FaultInjector`` for the scopes ``server``,
+    ``node0`` and ``node1``: ``{"drop": i, "corrupt": j}`` when the server's
+    stream drops exactly its i-th envelope (in CHAOS_DROP_FRAMES), then
+    corrupts its j-th (in CHAOS_CORRUPT_FRAMES), and no other envelope of
+    the server's first CHAOS_CLEAN frames is dropped or corrupted (checked
+    for 2–12 draws taken by the corruption's two ``randrange`` calls, whose
+    count depends on the frame's length), nor any of the nodes'; else None."""
+    from photon_tpu_torch.chaos.injector import FaultInjector
+    from photon_tpu_torch.config.schema import ChaosConfig
+
+    cfg = ChaosConfig(enabled=True, seed=seed, **knobs)
+    for scope in ("node0", "node1"):
+        inj = FaultInjector(cfg, scope=scope)
+        if any(_tcp_fault(inj.tcp_plan()) for _ in range(CHAOS_CLEAN[scope])):
+            return None
+    inj = FaultInjector(cfg, scope="server")
+    drop = None
+    for frame in range(1, CHAOS_CLEAN["server"] + 1):
+        kind = _tcp_fault(inj.tcp_plan())
+        if kind == "drop":
+            if drop is not None or frame not in CHAOS_DROP_FRAMES:
+                return None
+            drop = frame
+        elif kind == "corrupt":
+            if drop is None or frame not in CHAOS_CORRUPT_FRAMES:
+                return None
+            state = inj.rng.getstate()
+            for taken in range(2, 13):
+                inj.rng.setstate(state)
+                for _ in range(taken):
+                    inj.rng.getrandbits(32)
+                if any(_tcp_fault(inj.tcp_plan())
+                       for _ in range(frame + 1, CHAOS_CLEAN["server"] + 1)):
+                    return None
+            return {"drop": drop, "corrupt": frame}
+    return None
+
+
+def _frame_audit(path: pathlib.Path) -> None:
+    """Patched in from outside the package in a chaos child: every frame a
+    ``SocketConn`` unpickles, every frame its CRC refuses, every payload the
+    injector corrupts and every TCP plan that fired, each a JSON line in
+    ``path`` written at once (so a crashed process keeps its record); the
+    CRC32 of each payload identifies it across processes."""
+    import pickle
+    import zlib
+
+    from photon_tpu_torch.chaos import injector
+    from photon_tpu_torch.federation import tcp
+
+    sink = open(path, "a", buffering=1)
+
+    def note(**ev):
+        sink.write(json.dumps(ev) + "\n")
+
+    real_corrupt, real_plan, real_recv = (injector.FaultInjector.corrupt_bytes,
+                                          injector.FaultInjector.tcp_plan, tcp.SocketConn.recv)
+
+    def corrupt_bytes(self, data):
+        out = real_corrupt(self, data)
+        note(event="corrupted", crc=zlib.crc32(out), scope=self.scope)
+        return out
+
+    def tcp_plan(self):
+        plan = real_plan(self)
+        if _tcp_fault(plan):
+            note(event=_tcp_fault(plan), scope=self.scope)
+        return plan
+
+    def recv(self):
+        try:
+            return real_recv(self)
+        except tcp.CorruptFrameError as e:
+            if "CRC" in str(e):
+                note(event="refused")
+            raise
+
+    class _Pickle:
+        HIGHEST_PROTOCOL = pickle.HIGHEST_PROTOCOL
+        dumps = staticmethod(pickle.dumps)
+
+        @staticmethod
+        def loads(data):
+            note(event="decoded", crc=zlib.crc32(data))
+            return pickle.loads(data)
+
+    injector.FaultInjector.corrupt_bytes = corrupt_bytes
+    injector.FaultInjector.tcp_plan = tcp_plan
+    tcp.SocketConn.recv = recv
+    tcp.pickle = _Pickle
+
+
+def _tcp_node_child(out_path: str, cli_args: list[str]) -> int:
+    """``python -m photon_tpu_torch.federation.tcp`` (its ``main``) in a
+    child of :func:`chaos_phase`, the launch counts set to 0 just before
+    it and :func:`_frame_audit` on; writes the counts, the fits and evals
+    this node ran and its injector's counters to ``out_path`` when it
+    exits (a chaos crash exits before that)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from photon_tpu_torch import chaos
+    from photon_tpu_torch.federation import node as node_mod
+    from photon_tpu_torch.federation import tcp
+    from photon_tpu_torch.ops import flash_attention as fa
+
+    _frame_audit(pathlib.Path(out_path).with_suffix(".audit.jsonl"))
+    fits, evals = [], []
+    real_make = node_mod.make_node_agent
+
+    def make_agent(c, node_id, device):
+        agent = real_make(c, node_id, device)
+        rt = agent.runtime
+        real_fit, real_eval = rt.fit, rt.evaluate
+
+        def fit(ins, cid):
+            res = real_fit(ins, cid)
+            fits.append([ins.server_round, cid, res.error is None])
+            return res
+
+        def evaluate(ins, cid):
+            res = real_eval(ins, cid)
+            evals.append([ins.server_round, cid, res.error is None])
+            return res
+
+        rt.fit, rt.evaluate = fit, evaluate
+        return agent
+
+    node_mod.make_node_agent = make_agent
+    for key in fa.launches:
+        fa.launches[key] = 0
+    tcp.main(cli_args)
+    inj = chaos.active()
+    pathlib.Path(out_path).write_text(json.dumps({
+        "launches": dict(fa.launches), "fits": fits, "evals": evals,
+        "chaos_counts": inj.counts if inj is not None else None,
+        "cuda_initialized": torch.cuda.is_initialized()}))
+    return 0
+
+
+def _read_audit(work: pathlib.Path) -> dict:
+    events = [json.loads(ln) for p in sorted(work.glob("*.audit.jsonl"))
+              for ln in p.read_text().splitlines() if ln.strip()]
+    corrupted = {e["crc"] for e in events if e["event"] == "corrupted"}
+    decoded = {e["crc"] for e in events if e["event"] == "decoded"}
+    return {"fired": {k: sum(e["event"] == k for e in events) for k in ("drop", "corrupt")},
+            "corrupted": len(corrupted), "refused": sum(e["event"] == "refused" for e in events),
+            "decoded": len(decoded), "corrupted_and_decoded": sorted(corrupted & decoded)}
+
+
+def chaos_phase(torch, np, fa, cfg=None, device: str = "cuda",
+                work: pathlib.Path = ROOT / ".chip_smoke" / "chaos") -> dict:
+    """Phase 15, full-width mpt-125m under phase 5's ``FED_SETS``: 3
+    federated rounds over TCP with ``photon.chaos`` on (``CHAOS_SEED``,
+    ``CHAOS_KNOBS``; a mid-fit crash of node1 in round 2 with a marker
+    file): a ``--tcp-listen`` server child (no CUDA context) and two
+    ``federation.tcp`` node children (:func:`_tcp_node_child`); node1 is
+    started again after its ``os._exit(137)``. Gates: the 3 rounds finish
+    with no round failed; node1 exits 137 exactly once and the marker
+    exists; at least one readmission; across the processes' counters at
+    least one ``tcp_drop`` and one ``tcp_corrupt``; every corrupted frame
+    refused by the CRC and none decoded (:func:`_frame_audit`); the final
+    parameters finite; node0's K1–K3 launches exact for the fits and evals
+    it ran. Store faults stay in the CPU tests."""
+    import socket
+
+    from photon_tpu_torch.centralized import _apply_override
+    from photon_tpu_torch.checkpoint import FileStore, ServerCheckpointManager
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    plan = chaos_seed_plan(CHAOS_SEED)
+    if plan != CHAOS_PLAN:
+        fail(f"chaos: seed {CHAOS_SEED} replays as {plan}, want {CHAOS_PLAN}")
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    if cfg is None:
+        cfg = train_config()
+        for s in FED_SETS:
+            _apply_override(cfg, *s.split("=", 1))
+    cfg.run_uuid, cfg.photon.save_path = CHAOS_RUN, str(work / "run")
+    cfg.dataset.synthetic = True
+    cfg.fl.n_rounds, cfg.fl.accept_failures_cnt = 3, 1
+    cfg.fl.fit_timeout_s = cfg.fl.eval_timeout_s = CHAOS_TIMEOUT_S
+    cfg.photon.membership.ping_timeout_s = CHAOS_PING_S
+    cfg.photon.comm_stack.objstore, cfg.photon.comm_stack.shm = True, False
+    ch = cfg.photon.chaos
+    ch.enabled, ch.seed = True, CHAOS_SEED
+    for k, v in CHAOS_KNOBS.items():
+        setattr(ch, k, v)
+    ch.crash_phase, ch.crash_round, ch.crash_node_id = "mid-fit", 2, "node1"
+    ch.crash_marker = str(work / "crash_marker")
+    cfg.validate()
+    cfg.to_yaml(work / "chaos.yaml")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    addr = f"127.0.0.1:{port}"
+    rec: dict = {"seed": CHAOS_SEED, "plan": plan, "knobs": CHAOS_KNOBS, "port": port}
+
+    def node(nid: str, tag: str) -> subprocess.Popen:
+        with open(work / f"{tag}.log", "w") as out:
+            return subprocess.Popen(
+                [sys.executable, "-X", "faulthandler", str(ROOT / "chip_smoke.py"),
+                 "--tcp-node-child", str(work / f"{tag}.json"), "--", "--connect", addr,
+                 "--node-id", nid, "--config", str(work / "chaos.yaml"), "--device", device],
+                cwd=ROOT, stdout=out, stderr=out)
+
+    procs: dict[str, subprocess.Popen] = {}
+    try:
+        started = _fed_cli_start(work, "server", ["--config", str(work / "chaos.yaml"),
+                                                  "--tcp-listen", addr, "--nodes", "2"],
+                                 opts=("--frame-audit",))
+        t0 = time.perf_counter()
+        while "listening on" not in (work / "child-server.out").read_text():
+            if time.perf_counter() - t0 > 120 or started[0].poll() is not None:
+                fail("chaos: the server never listened")
+            time.sleep(0.1)
+        procs["node0"], procs["node1"] = node("node0", "node0"), node("node1", "node1-a")
+        while procs["node1"].poll() is None:
+            if time.perf_counter() - t0 > CHAOS_WAIT_S or started[0].poll() is not None:
+                fail(f"chaos: node1 never crashed (server {started[0].poll()})")
+            time.sleep(0.05)
+        rec["node1_first_exit"] = procs["node1"].returncode
+        rec["crash_at_s"] = time.perf_counter() - t0
+        if procs["node1"].returncode != 137:
+            fail(f"chaos: node1 exited {procs['node1'].returncode}, want 137: "
+                 f"{(work / 'node1-a.log').read_text()[-3000:]}")
+        procs["node1b"] = node("node1", "node1-b")
+        run = _fed_cli_finish(work, "server", started, timeout=CHAOS_WAIT_S)
+        rec["wall_s"] = time.perf_counter() - t0
+        for name in ("node0", "node1b"):
+            rc = procs[name].wait(timeout=120)
+            if rc != 0:
+                fail(f"chaos: {name} exited {rc} after the server's shutdown")
+    except BaseException:
+        _keep_logs(work)
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+        raise
+    hist = run["history"]
+    node0 = json.loads((work / "node0.json").read_text())
+    node1b = json.loads((work / "node1-b.json").read_text())
+    counts = {k: sum((c or {}).get(k, 0) for c in (run["chaos_counts"], node0["chaos_counts"],
+                                                   node1b["chaos_counts"]))
+              for k in ("tcp_drop", "tcp_delay", "tcp_duplicate", "tcp_corrupt", "crash")}
+    audit = _read_audit(work)
+    rounds = [r for r, _ in hist.get("server/n_clients", [])]
+
+    def fired(child: dict) -> dict:
+        return {k: v for k, v in (child["chaos_counts"] or {}).items() if v}
+
+    final = ServerCheckpointManager(FileStore(work / "run" / "store"), CHAOS_RUN)
+    params = final.load_round_params(3)[1]
+    rec.update({
+        "rounds": _round_breakdown(hist, [1, 2, 3]), "n_clients": hist.get("server/n_clients"),
+        "eval_loss": hist.get("server/eval_loss"),
+        "nodes_readmitted_total": run["final_line"].get("server/nodes_readmitted_total", 0.0),
+        "chaos_counts": {"server": fired(run), "node0": fired(node0),
+                         "node1_restarted": fired(node1b), "total": counts},
+        "audit": audit, "node0_fits": node0["fits"], "node0_evals": node0["evals"],
+        "launches": node0["launches"], "server_cuda_initialized": run["cuda_initialized"],
+        "params_finite": bool(all(np.isfinite(a).all() for a in params))})
+    if rounds != [1, 2, 3] or hist.get("server/round_failed"):
+        fail(f"chaos: rounds {rounds}, failed {hist.get('server/round_failed')}")
+    if not (work / "crash_marker").exists() or not rec["nodes_readmitted_total"] >= 1:
+        fail(f"chaos: crash marker {(work / 'crash_marker').exists()}, readmitted "
+             f"{rec['nodes_readmitted_total']}")
+    if counts["tcp_drop"] < 1 or counts["tcp_corrupt"] < 1:
+        fail(f"chaos: the processes' counters {counts}: want a tcp_drop and a tcp_corrupt")
+    if audit["refused"] != audit["corrupted"] or audit["corrupted"] < 1 \
+            or audit["corrupted_and_decoded"]:
+        fail(f"chaos: frames {audit}: every corrupted frame must be refused by its CRC, none "
+             "decoded")
+    if not rec["params_finite"] or run["cuda_initialized"]:
+        fail(f"chaos: params finite {rec['params_finite']}, server CUDA {run['cuda_initialized']}")
+    L = cfg.model.n_layers
+    per_fit = L * (cfg.train.global_batch_size // cfg.train.device_microbatch_size) \
+        * cfg.fl.local_steps
+    n_fit = sum(ok for *_, ok in node0["fits"])
+    n_eval = sum(ok for *_, ok in node0["evals"])
+    want = {"flash_fwd": per_fit * n_fit + L * cfg.train.eval_batches * n_eval,
+            "flash_bwd_dq": per_fit * n_fit, "flash_bwd_dkv": per_fit * n_fit}
+    if cuda and (node0["launches"] != want or n_fit == 0):
+        fail(f"chaos: node0 launched {node0['launches']}, want {want} ({n_fit} fits, "
+             f"{n_eval} evals)")
+    shutil.rmtree(work, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("chaos_phase " + json.dumps({k: v for k, v in rec.items() if k != "rounds"}))
+    return rec
+
+
 def fed_1b() -> int:
     """``python -m photon_tpu_torch.federated`` at mpt-1b: 2 in-process
     nodes on one card, 2 clients a round, 1 local step each (global batch
@@ -4687,6 +5411,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--fed-child"]:  # a child of the federated phases
         cut = sys.argv.index("--")
         return _fed_child(sys.argv[2], sys.argv[cut + 1:], sys.argv[3:cut])
+    if sys.argv[1:2] == ["--host-cli"]:  # an interop CLI
+        return _host_cli_child(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
+    if sys.argv[1:2] == ["--tcp-node-child"]:  # a node of the chaos phase
+        return _tcp_node_child(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
     if sys.argv[1:2] == ["--fed-1b"]:
         return fed_1b()
     import torch
@@ -4800,6 +5528,16 @@ def main() -> int:
         shutil.rmtree(ROOT / ".chip_smoke" / "adapters", ignore_errors=True)
     log(f"fleet phase: {fleet['phase_s']:.1f} s")
     shutil.rmtree(ROOT / ".chip_smoke" / "fed", ignore_errors=True)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # phase 14 beside phase 15, whose work is in its children: the two
+        # share no launch counter (15's are the children's), no file and
+        # no port, and 14's gates do not depend on time
+        interop_run = pool.submit(interop_phase, torch, rpa, np)
+        chaos_rec = chaos_phase(torch, np, fa)
+        interop = interop_run.result()
+    log(f"interop phase: {interop['phase_s']:.1f} s, chaos phase: {chaos_rec['phase_s']:.1f} s, "
+        f"side by side {time.perf_counter() - t0:.1f} s")
 
     kernels = {"kernels": [{
         "name": "ragged_paged_attention",
@@ -4820,6 +5558,7 @@ def main() -> int:
         "adapter_engine_launches": adapters["engine_pair"]["launches"],
         "adapter_server_launches": adapters["server"]["launches"],
         "fleet_replica_launches": fleet["replica_launches"],
+        "interop_engine_launches": interop["serve"]["launches"],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -4840,6 +5579,7 @@ def main() -> int:
         "eval_phase_launches": evaluation["launches"][name],
         "presets_phase_launches": {p: r["launches"][name] for p, r in presets.items()},
         "adapter_round_launches": adapters["fit"]["launches"][name],
+        "chaos_node0_launches": chaos_rec["launches"][name],
     } for name, rec in flash_main.items()]}
     k1 = next(k for k in kernels["kernels"] if k["name"] == "flash_fwd")
     k1["eval_shape"] = flash_eval
@@ -4852,9 +5592,12 @@ def main() -> int:
         "spec_prefix": spec_prefix, "profile": profile,
         "server": server, "decode": decode_rec, "eval": evaluation, "presets": presets,
         "presets_phase_s": presets_s, "d128_grad_gate": d128, "moe_dispatch": moe_dispatch,
-        "moe_engine": moe_engine, "adapters": adapters, "fleet": fleet,
-        "kernels": kernels["kernels"], "total_s": time.perf_counter() - t_all,
+        "moe_engine": moe_engine, "adapters": adapters, "fleet": fleet, "interop": interop,
+        "chaos": chaos_rec, "kernels": kernels["kernels"], "profiler_pad_lost": profiler_pad_lost,
+        "total_s": time.perf_counter() - t_all,
     }, indent=1))
+    log(f"profiler windows {len(profiler_pad_lost)}, pad records lost in each (of "
+        f"{PROFILER_PAD}): {profiler_pad_lost}")
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

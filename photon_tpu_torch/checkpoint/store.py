@@ -1,5 +1,5 @@
 """Object stores for checkpoints and the bulk parameter plane (the port's
-copy of ``photon_tpu/checkpoint/store.py``, without its chaos hooks).
+copy of ``photon_tpu/checkpoint/store.py``).
 
 - :class:`ObjectStore`: the contract every backend keeps. Keys are
   ``/``-separated paths; a put is atomic (a reader polling ``exists``
@@ -8,6 +8,9 @@ copy of ``photon_tpu/checkpoint/store.py``, without its chaos hooks).
   Writes go to a temp file renamed into place; durable writes (the
   default) fsync the file before the rename and the directory after it,
   transient ones (the transport's per-round payloads) skip the flushes.
+  Under ``photon.chaos`` its writes and reads can be slow, partial or
+  bit-flipped (:mod:`photon_tpu_torch.chaos`); the manifest's checksums
+  catch the last two.
 - :class:`S3Store`: a bucket through a boto3 S3 client. The client is
   injected (the contract tests pass an in-memory fake); without one,
   boto3 is imported when the store is made and refused when absent.
@@ -20,6 +23,8 @@ import os
 import pathlib
 import shutil
 import time
+
+from photon_tpu_torch import chaos
 
 
 class ObjectStore:
@@ -45,6 +50,11 @@ class ObjectStore:
 
     def copy(self, src_key: str, dst_key: str) -> None:
         self.put(dst_key, self.get(src_key))
+
+    def get_to_file(self, key: str, path: str | pathlib.Path) -> None:
+        p = pathlib.Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(self.get(key))
 
     def wait_for(self, key: str, timeout: float = 120.0, poll: float = 0.1) -> None:
         """Poll until ``key`` exists."""
@@ -73,6 +83,18 @@ class FileStore(ObjectStore):
         p = self._path(key)
         p.parent.mkdir(parents=True, exist_ok=True)
         tmp = p.parent / f".{p.name}.tmp-{os.getpid()}"
+        inj = chaos.active()
+        if inj is not None:
+            plan = inj.store_plan()
+            if plan.delay_s:
+                time.sleep(plan.delay_s)
+            if plan.bitflip:
+                data = inj.corrupt_bytes(data)
+            if plan.partial:
+                # a torn upload: the temp file lands, truncated, and is
+                # never renamed into place, so ``exists`` stays false
+                tmp.write_bytes(data[: max(0, len(data) // 2)])
+                return
         if not durable:
             tmp.write_bytes(data)
             os.rename(tmp, p)
@@ -94,7 +116,19 @@ class FileStore(ObjectStore):
             os.close(dirfd)
 
     def get(self, key: str) -> bytes:
-        return self._path(key).read_bytes()
+        data = self._path(key).read_bytes()
+        inj = chaos.active()
+        if inj is not None:
+            # a slow, short or bit-flipped read while the object at rest
+            # stays intact (get_to_file reads through here too)
+            plan = inj.store_read_plan()
+            if plan.delay_s:
+                time.sleep(plan.delay_s)
+            if plan.partial:
+                data = data[: len(data) // 2]
+            if plan.bitflip:
+                data = inj.corrupt_bytes(data)
+        return data
 
     def delete(self, key: str) -> None:
         p = self._path(key)

@@ -3,14 +3,14 @@
 ``ModelConfig``, ``ServeConfig``, ``OptimizerConfig``, ``SchedulerConfig``,
 ``MeshConfig``, ``TrainConfig``, ``DatasetConfig``, ``FLConfig``,
 ``CommStackConfig``, ``CompressionConfig``, ``MembershipConfig``,
-``AdaptersConfig`` and ``PhotonConfig`` carry the same fields, names and
-defaults as the JAX package's, so a resolved YAML written by either
-package loads in the other with equal fields. The sections of features
-the port does not run (``photon.chaos``, ``telemetry`` and
+``AdaptersConfig``, ``ChaosConfig`` and ``PhotonConfig`` carry the same
+fields, names and defaults as the JAX package's, so a resolved YAML
+written by either package loads in the other with equal fields. The
+sections of features the port does not run (``telemetry`` and
 ``async_rounds``) are kept as the raw dicts they were read as and
 written back unchanged; only their ``enabled`` flag is read, to refuse
-them. ``photon.adapters`` (per-cohort LoRA) and ``model.lora_*`` are
-validated with the JAX package's ``ValueError`` texts.
+them. ``photon.adapters`` (per-cohort LoRA), ``model.lora_*`` and
+``photon.chaos`` are validated with the JAX package's texts.
 ``serve.speculative`` is a :class:`SpeculativeConfig` and ``serve.fleet``
 a :class:`FleetConfig`, validated with the JAX package's ``ValueError``
 texts, as are the prefix-cache and hot-swap fields of
@@ -22,7 +22,7 @@ instead of running without them: a ``model.param_dtype`` other than
 ``float32`` everywhere (the port keeps fp32 parameters); and for
 training (``validate(serving=False)``, the default) a mesh of more than
 one device (``mesh.expert > 1`` included), ring attention, the mesh
-autotuner, the collective aggregation plane, chaos, telemetry and
+autotuner, the collective aggregation plane, telemetry and
 asynchronous rounds (and with them the adapters' collective
 round loop). ``mlp: moe`` is checked as the JAX
 package checks it (its ``ValueError`` texts); ``device_microbatch_size:
@@ -341,6 +341,51 @@ LORA_TARGETABLE = (
 
 
 @dataclass
+class ChaosConfig:
+    """Deterministic fault injection (``photon_tpu_torch/chaos``): the JAX
+    package's fields and defaults. Off by default, and it must stay off in
+    production configs; disabled, every hook site is a ``None`` check."""
+
+    enabled: bool = False
+    seed: int = 1234  # each process's stream is seeded by (seed, scope)
+    # control plane: per-envelope-frame fault probabilities (federation/tcp.py)
+    tcp_drop_p: float = 0.0
+    tcp_delay_p: float = 0.0
+    tcp_delay_max_s: float = 0.05
+    tcp_duplicate_p: float = 0.0
+    tcp_corrupt_p: float = 0.0  # one bit flipped; refused by the CRC32 framing
+    # object store: per-access fault probabilities (checkpoint/store.py)
+    store_slow_p: float = 0.0
+    store_slow_max_s: float = 0.05
+    store_partial_p: float = 0.0  # the temp file written, never renamed into place
+    store_bitflip_p: float = 0.0  # caught by the manifest's checksums
+    # node crash: os._exit(137) at a phase of fit handling
+    crash_phase: str = ""  # "" | pre-fit | mid-fit | pre-reply (the collective
+    #                      # round's pre-exchange | mid-exchange | pre-update too)
+    crash_round: int = 0  # only at this server round (0 = any)
+    crash_node_id: str = ""  # only on this node ("" = any)
+    # a file that makes the crash happen once: a restarted node sees it
+    crash_marker: str = ""
+    # cap on the corrupting store faults (partial, bitflip; reads and
+    # writes) of one process's injector; 0 = unlimited
+    store_fault_max: int = 0
+    # a NaN in a client's shipped fit result at this round (0 = off)
+    nan_delta_round: int = 0
+    nan_delta_cid: int = -1  # -1 = every client of that round
+    # kill one serving replica after the router placed this many requests
+    replica_kill_after_requests: int = 0  # 0 = off
+    replica_kill_id: str = ""  # "" = a seeded pick among the live replicas
+    # a client's fit slowdown factor: 0 = off; >= 1 = the factor (the full
+    # factor on fit_delay_cid, or a seeded one in [1, factor] on every cid)
+    fit_delay_factor: float = 0.0
+    fit_delay_cid: int = -1
+    # seconds of stall per token a serving step carried (0 = off)
+    serve_stall_per_token_s: float = 0.0
+    # the n-th serving device-memory sample inflated by 1 + frac * n (0 = off)
+    serve_hbm_ramp_frac: float = 0.0
+
+
+@dataclass
 class AdaptersConfig:
     """Per-cohort LoRA adapters over a frozen federated base (same fields
     as the JAX package; ``photon_tpu_torch/adapters``). Off by default.
@@ -379,7 +424,7 @@ class PhotonConfig:
     comm_stack: CommStackConfig = field(default_factory=CommStackConfig)
     compression: CompressionConfig = field(default_factory=CompressionConfig)
     membership: MembershipConfig = field(default_factory=MembershipConfig)
-    chaos: dict = field(default_factory=dict)  # raw: refused when enabled
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
     async_rounds: dict = field(default_factory=dict)  # raw: refused when enabled
     telemetry: dict = field(default_factory=dict)  # raw: refused when enabled
     serve: ServeConfig = field(default_factory=ServeConfig)
@@ -512,6 +557,7 @@ class Config:
             raise ValueError(f"serve.hotswap_poll_s must be > 0, got {srv.hotswap_poll_s}")
         _validate_speculative(srv.speculative)
         _validate_adapters(self)
+        _validate_chaos(self.photon.chaos)
         _validate_fleet(srv.fleet)
         return self
 
@@ -592,7 +638,6 @@ class Config:
             raise ValueError("membership.reconnect_max_attempts must be >= 0 (0 = unlimited)")
         for what, on in (
             ("photon.comm_stack.collective", ph.comm_stack.collective),
-            ("photon.chaos", bool(ph.chaos.get("enabled", False))),
             ("photon.telemetry", bool(ph.telemetry.get("enabled", False))),
             ("photon.async_rounds", bool(ph.async_rounds.get("enabled", False))),
         ):
@@ -601,6 +646,23 @@ class Config:
                     f"{what} is not ported to photon_tpu_torch yet; turn it off "
                     "or run with photon_tpu"
                 )
+
+
+def _validate_chaos(ch: ChaosConfig) -> None:
+    """``photon.chaos``'s bounds, and the JAX package's warning for knobs
+    set while chaos is off."""
+    from photon_tpu_torch.chaos.injector import validate_chaos_config
+
+    validate_chaos_config(ch)
+    if not ch.enabled and (ch.crash_phase or any(getattr(ch, p) > 0.0 for p in (
+            "tcp_drop_p", "tcp_delay_p", "tcp_duplicate_p", "tcp_corrupt_p",
+            "store_slow_p", "store_partial_p", "store_bitflip_p",
+            "serve_stall_per_token_s", "serve_hbm_ramp_frac"))):
+        warnings.warn(
+            "photon.chaos knobs are set but chaos.enabled=False — no "
+            "faults will be injected",
+            stacklevel=3,
+        )
 
 
 def _validate_speculative(spec: SpeculativeConfig) -> None:

@@ -13,8 +13,10 @@ sums it up::
 Local ``.txt`` / ``.jsonl`` files are the only source (one document per
 line; jsonl reads its ``text`` field). ``--hf-dataset`` and
 ``--dataset-key`` read Hugging Face datasets over the network and are
-refused, as is any tokenizer but ``byte-fallback``. The freq dicts are
-counted on ``--device`` (default ``cuda``; the CPU only when asked for).
+refused. ``--tokenizer`` is ``byte-fallback`` or a local Hugging Face
+tokenizer directory (``transformers`` needed; a hub name is refused, it
+would need a download). The freq dicts are counted on ``--device``
+(default ``cuda``; the CPU only when asked for).
 """
 
 from __future__ import annotations

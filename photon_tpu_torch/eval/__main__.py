@@ -24,7 +24,9 @@ min(max_seq_len, 512)``; on the card each runs the flash forward kernel
         --gauntlet-yaml photon_tpu_torch/eval/configs/eval_gauntlet_v0.3.yaml \\
         --tasks-root photon_tpu/eval/local_data
 
-Only the ``byte-fallback`` tokenizer is taken (others need a download).
+``--tokenizer`` is ``byte-fallback`` (the default) or a local Hugging
+Face tokenizer directory (``transformers`` needed); a hub name is refused,
+since it would need a download.
 """
 
 from __future__ import annotations

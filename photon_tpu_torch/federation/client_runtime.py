@@ -18,8 +18,11 @@ device (the port of ``photon_tpu/federation/client_runtime.py``).
 Fit results upload through the transport's wire codec when the run has
 one (its residuals are node-resident, keyed by cid). It trains on
 ``cuda`` unless the caller passes ``device="cpu"``. The JAX
-package's telemetry spans and chaos hooks are left out: both features are
-refused at ``validate()``.
+package's telemetry spans are left out (refused at ``validate()``). Under
+``photon.chaos`` a node can crash ``mid-fit`` (parameters set, loader
+placed, no step run), a fit reports its seeded slowdown factor
+(``client/fit_delay_factor``), and a NaN can poison the copy of a result
+that ships (never the trainer's own arrays).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import zlib
 
 import numpy as np
 
+from photon_tpu_torch import chaos
 from photon_tpu_torch.checkpoint.client import ClientCheckpointManager
 from photon_tpu_torch.codec.params import ParamsMetadata
 from photon_tpu_torch.config.schema import Config
@@ -52,6 +56,7 @@ from photon_tpu_torch.train.param_ops import (
 )
 from photon_tpu_torch.train.trainer import Trainer
 from photon_tpu_torch.utils.profiling import (
+    CLIENT_FIT_DELAY_FACTOR,
     CLIENT_FIT_INIT_TIME,
     CLIENT_GET_PARAMETERS_TIME,
     CLIENT_PARAM_NORM,
@@ -213,6 +218,9 @@ class ClientRuntime:
             loader.skip_samples(state_in.samples_cumulative)
 
         t_fit0 = time.monotonic()
+        # a crash here loses real work and leaves the loader and optimizer
+        # state that only a fit again rebuilds
+        chaos.crash_point("mid-fit", ins.server_round, self.node_id)
         fit_metrics = self.trainer.fit(loader, ins.local_steps, log_every=cfg.train.log_interval)
         # init = everything before the train loop; the loop reports
         # client/fit_time, and client/fit_set_parameters_time the hand-off
@@ -242,6 +250,18 @@ class ClientRuntime:
     def _package_result(self, ins: FitIns, cid: int, state_in: ClientState,
                         meta: ParamsMetadata, arrays: list[np.ndarray], n_samples: int,
                         metrics: dict[str, float], t_start: float) -> FitRes:
+        inj = chaos.active()
+        if inj is not None:
+            # the seeded slowdown factor rides the fit metrics; the
+            # asynchronous round loop scales the fit's duration by it
+            f = inj.fit_delay_plan(cid)
+            if f != 1.0:
+                metrics = {**metrics, CLIENT_FIT_DELAY_FACTOR: f}
+            if inj.nan_delta_plan(ins.server_round, cid):
+                # one NaN in the copy that ships; the trainer's arrays stay
+                poisoned = np.array(arrays[0], copy=True)
+                poisoned.reshape(-1)[:1] = np.nan
+                arrays = [poisoned, *arrays[1:]]
         t_put = time.monotonic()
         # the uplink goes through the wire codec when there is one (a delta
         # against this round's broadcast, error-feedback residuals by cid)

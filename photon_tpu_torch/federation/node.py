@@ -1,8 +1,9 @@
 """NodeAgent: the per-node agent that runs federation tasks on a
 :class:`ClientRuntime` (the port of ``photon_tpu/federation/node.py``,
-without its chaos hooks and telemetry piggyback). FitIns / EvaluateIns /
-Broadcast / Query in, results and Acks out; ``Query("refresh")`` rebuilds
-the runtime.
+without its telemetry piggyback). FitIns / EvaluateIns / Broadcast / Query
+in, results and Acks out; ``Query("refresh")`` rebuilds the runtime. Under
+``photon.chaos`` a node can crash before a fit (``pre-fit``) or with its
+fit results done but not yet sent (``pre-reply``).
 
 :meth:`NodeAgent.serve` is the request loop over a pipe or a socket (any
 object with ``send``/``recv``); :func:`node_process_main` is the entry of
@@ -15,6 +16,7 @@ import traceback
 from collections import deque
 from typing import Any, Callable
 
+from photon_tpu_torch import chaos
 from photon_tpu_torch.config.schema import Config
 from photon_tpu_torch.federation.client_runtime import ClientRuntime
 from photon_tpu_torch.federation.messages import (
@@ -23,6 +25,7 @@ from photon_tpu_torch.federation.messages import (
     Envelope,
     EvaluateIns,
     FitIns,
+    FitRes,
     Query,
 )
 from photon_tpu_torch.federation.transport import ParamTransport
@@ -48,6 +51,7 @@ class NodeAgent:
 
     def handle(self, msg: Any) -> Any:
         if isinstance(msg, FitIns):
+            chaos.crash_point("pre-fit", msg.server_round, self.node_id)
             return [self.runtime.fit(msg, cid) for cid in msg.cids]
         if isinstance(msg, EvaluateIns):
             return [self.runtime.evaluate(msg, cid) for cid in msg.cids]
@@ -105,6 +109,12 @@ class NodeAgent:
             except Exception as e:  # noqa: BLE001 — never end the loop silently
                 reply = Ack(ok=False, detail=f"{type(e).__name__}: {e}\n{traceback.format_exc()}",
                             node_id=self.node_id)
+            if isinstance(reply, list) and any(isinstance(r, FitRes) for r in reply):
+                # the work done, the result not yet on the wire: the server
+                # must charge the cid to its budget, and the restarted
+                # node must not report it twice
+                chaos.crash_point("pre-reply", getattr(env.msg, "server_round", 0),
+                                  self.node_id)
             conn.send(Envelope(reply, env.msg_id))
             if isinstance(env.msg, Query) and env.msg.action == "shutdown":
                 return True
@@ -138,5 +148,7 @@ def node_process_main(cfg_json: str, node_id: str, conn, device: str | None = No
     """Entry of a spawned node process. ``device`` is where its trainer
     runs (``cuda`` unless the caller asks for ``cpu``); a node that cannot
     get it fails each fit with the reason, and never trains elsewhere."""
-    agent = make_node_agent(Config.from_json(cfg_json), node_id, device)
+    cfg = Config.from_json(cfg_json)
+    chaos.install(cfg.photon.chaos, scope=node_id)
+    agent = make_node_agent(cfg, node_id, device)
     agent.serve(conn)

@@ -1,6 +1,6 @@
 """ServerApp: the federated round loop (the port of
-``photon_tpu/federation/server.py``, without its telemetry, chaos,
-Prometheus endpoint and retrace sentinel, none of which is ported).
+``photon_tpu/federation/server.py``, without its telemetry, Prometheus
+endpoint and retrace sentinel, none of which is ported).
 
 - client sampling by ``random.Random(sample_seed)``, fast-forwarded on
   resume, so both packages sample the same cids in every round;
@@ -17,7 +17,10 @@ Prometheus endpoint and retrace sentinel, none of which is ported).
   compressed until the fold decodes them against the round's broadcast;
 - round checkpoints (in the background when ``async_checkpoint``),
   resume with negative indexing, GC, cross-run import; client-state and
-  ``server_steps_cumulative`` bookkeeping; the JAX package's metric names.
+  ``server_steps_cumulative`` bookkeeping; the JAX package's metric names;
+- the ``photon.chaos`` injector installed for the process under the scope
+  ``server`` (its crash faults neutered under the in-process driver,
+  whose nodes are this process).
 """
 
 from __future__ import annotations
@@ -25,11 +28,13 @@ from __future__ import annotations
 import random
 import time
 import uuid as uuid_mod
+import warnings
 from collections import deque
 from typing import Callable, Iterator
 
 import numpy as np
 
+from photon_tpu_torch import chaos
 from photon_tpu_torch.checkpoint.server import ServerCheckpointManager
 from photon_tpu_torch.codec.params import ParamsMetadata
 from photon_tpu_torch.config.schema import Config
@@ -127,6 +132,23 @@ class ServerApp:
             dead_after_misses=mem.dead_after_misses,
             ping_timeout_s=mem.ping_timeout_s,
         )
+        # the injector is process-global; a config with chaos off clears
+        # whatever a previous config left installed
+        crash_fn = None
+        if cfg.photon.chaos.enabled and cfg.photon.chaos.crash_phase:
+            from photon_tpu_torch.federation.driver import InProcessDriver
+
+            if isinstance(driver, InProcessDriver):
+                # in-process nodes are this process: a real crash would end
+                # the run with no budget or restart to absorb it
+                warnings.warn(
+                    "chaos.crash_phase with the in-process driver would kill "
+                    "the server itself — crash injection disabled (use the "
+                    "multiprocess or TCP driver for kill scenarios)",
+                    stacklevel=2,
+                )
+                crash_fn = lambda code: None  # noqa: E731
+        chaos.install(cfg.photon.chaos, scope="server", crash_fn=crash_fn)
         self.server_steps_cumulative = 0
         self.client_states: dict[int, dict] = {}
         self.start_round = 1

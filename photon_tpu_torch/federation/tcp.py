@@ -1,5 +1,5 @@
 """TCP control plane: the multi-host driver (the port of
-``photon_tpu/federation/tcp.py``, without its chaos hooks and telemetry).
+``photon_tpu/federation/tcp.py``, without its telemetry).
 
 The server listens; node agents dial in and announce a node id (a HELLO
 frame); envelopes flow as length + CRC32 prefixed pickles (``<QI`` header,
@@ -8,7 +8,9 @@ messages carry :class:`ParamPointer`s into the objstore plane on shared
 storage. Trust model: pickles between the run's own processes on a private
 network; do not expose the port. Pickles name their classes' module, so a
 port node joins a port server only (the frame layout and the objstore
-payloads are the JAX package's bytes).
+payloads are the JAX package's bytes). Under ``photon.chaos`` an envelope
+send may be dropped, delayed, sent twice or have a payload bit flipped
+after its CRC was computed; HELLO frames are never faulted.
 
 Usage::
 
@@ -35,6 +37,7 @@ import zlib
 from collections import deque
 from typing import Any
 
+from photon_tpu_torch import chaos
 from photon_tpu_torch.federation.driver import Driver
 from photon_tpu_torch.federation.membership import ReconnectPolicy
 from photon_tpu_torch.federation.messages import Ack, Envelope, Query
@@ -89,8 +92,26 @@ class SocketConn:
 
     def send(self, obj: Any) -> None:
         data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        header = _FRAME.pack(len(data), zlib.crc32(data))
+        repeat = 1
+        inj = chaos.active()
+        if inj is not None and isinstance(obj, Envelope):
+            # envelopes only: HELLO frames stay exempt, so the injector
+            # cannot wedge membership
+            plan = inj.tcp_plan()
+            if plan.drop:
+                return
+            if plan.delay_s:
+                time.sleep(plan.delay_s)
+            if plan.corrupt:
+                # a payload bit flipped after the CRC: the receiver's
+                # checksum must refuse the frame
+                data = inj.corrupt_bytes(data)
+            if plan.duplicate:
+                repeat = 2
         with self._wlock:
-            self.sock.sendall(_FRAME.pack(len(data), zlib.crc32(data)) + data)
+            for _ in range(repeat):
+                self.sock.sendall(header + data)
 
     def _read_exact(self, n: int) -> bytes:
         buf = bytearray()
@@ -340,6 +361,7 @@ def run_node(server_addr: str, node_id: str, cfg_json: str, sleep=time.sleep,
 
     host, _, port = server_addr.rpartition(":")
     cfg = Config.from_json(cfg_json)
+    chaos.install(cfg.photon.chaos, scope=node_id)
     policy = ReconnectPolicy.from_config(cfg.photon.membership,
                                          rng=random.Random(zlib.crc32(node_id.encode())))
     agent = make_node_agent(cfg, node_id, device)

@@ -16,7 +16,8 @@ Examples::
 
     curl -s localhost:8000/generate -d '{"tokens": [5, 9, 2], "max_new_tokens": 8}'
 
-    # text prompts, tokenized by the server (--tokenizer byte-fallback)
+    # text prompts, tokenized by the server (--tokenizer byte-fallback, or a
+    # local Hugging Face tokenizer directory)
     curl -s localhost:8000/generate -d '{"text": "Hello", "max_new_tokens": 8}'
 
     # a cohort's LoRA adapter (photon.adapters.enabled, the round's
@@ -81,7 +82,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--port", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--tokenizer", default=None,
-                    help="enable 'text' prompts (byte-fallback, the only one taken)")
+                    help="enable 'text' prompts: byte-fallback or a local Hugging Face "
+                         "tokenizer directory (hub names are refused)")
     ap.add_argument("--fleet-connect", default=None, metavar="HOST:PORT",
                     help="dial this fleet router's control port and serve as one "
                          "replica of its fleet")

@@ -32,7 +32,8 @@ its connection; the JAX agent keeps its 10 s dial timeout on the socket
 it then reads from, and so redials whenever the router is quiet longer.
 
 :class:`InProcessFleet` runs N replicas as threads of one process behind
-a router (tests). :class:`FleetSupervisor` runs N ``python -m
+a router (tests); its emulated SIGKILL is the router's ``kill_hook``, so
+``photon.chaos``'s replica kill can take one down mid-traffic. :class:`FleetSupervisor` runs N ``python -m
 photon_tpu_torch.serve --fleet-connect`` daemons as child processes; it
 reads each child's output on a thread, so a child never blocks on a full
 pipe, and keeps the last lines.
@@ -236,7 +237,7 @@ class InProcessFleet:
 
         sc = cfg.photon.serve
         fc = sc.fleet
-        self.router = FleetRouter(fc, block_size=sc.block_size)
+        self.router = FleetRouter(fc, block_size=sc.block_size, kill_hook=self.kill_replica)
         control_addr = f"{fc.host}:{self.router.control_port}"
         self.replicas: dict[str, dict] = {}
         for i in range(fc.replicas):

@@ -43,9 +43,10 @@ Not ported yet, each a no-op in the JAX package while its feature is off:
 the telemetry events, health plane and replica-restart autopilot
 (``telemetry.emit_event``, ``health_active``, ``metrics_active``,
 ``autopilot_active``) and the ``/metrics`` exposition wait for the
-telemetry port; the chaos injector's replica kill in :meth:`FleetRouter.place`
-and its ``kill_hook`` wait for the chaos port. ``/statusz`` answers as
-the JAX router does with telemetry off.
+telemetry port. ``/statusz`` answers as the JAX router does with
+telemetry off. Under ``photon.chaos``, :meth:`FleetRouter.place` asks the
+injector whether to kill a replica after N placements and hands the
+victim to ``kill_hook``.
 """
 
 from __future__ import annotations
@@ -59,7 +60,9 @@ import threading
 import time
 import warnings
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable
 
+from photon_tpu_torch import chaos
 from photon_tpu_torch.federation.membership import DEAD, LivenessTracker
 from photon_tpu_torch.federation.messages import Ack, Query
 from photon_tpu_torch.federation.tcp import TcpServerDriver
@@ -198,8 +201,12 @@ class FleetRouter:
     :meth:`rolling_hotswap` and :meth:`drain_fleet` take turns with the
     poll on ``_ctl_lock``."""
 
-    def __init__(self, fleet_cfg, *, block_size: int) -> None:
+    def __init__(self, fleet_cfg, *, block_size: int,
+                 kill_hook: Callable[[str], None] | None = None) -> None:
         self.fc = fleet_cfg
+        #: kills a replica by id for chaos's replica kill (the in-process
+        #: fleet passes its emulated SIGKILL); None: no kill capability
+        self.kill_hook = kill_hook
         self.driver = TcpServerDriver(fleet_cfg.host, fleet_cfg.control_port,
                                       expected_nodes=fleet_cfg.replicas)
         self.tracker = LivenessTracker(ping_timeout_s=fleet_cfg.report_timeout_s)
@@ -406,6 +413,12 @@ class FleetRouter:
                 self.routed_cohort += 1
             elif reason == "p2c":
                 self.routed_p2c += 1
+            n_requests = self.requests_total
+        inj = chaos.active()
+        if inj is not None and self.kill_hook is not None and not exclude:
+            victim = inj.replica_kill_plan(n_requests, live)
+            if victim is not None:
+                self.kill_hook(victim)
         return rid, reason
 
     # -- HTTP front door ---------------------------------------------------

@@ -1,8 +1,10 @@
 """Continuous batching: bounded admission queue + slot-level scheduling.
 
-The port of ``photon_tpu/serve/scheduler.py`` without its telemetry,
-chaos and autopilot hooks. One scheduler thread makes every engine
-(and so every CUDA) call, in three phases a tick:
+The port of ``photon_tpu/serve/scheduler.py`` without its telemetry
+and autopilot hooks (``photon.chaos``'s stall per token stepped is
+kept; its device-memory ramp waits for the health plane). One scheduler
+thread makes every engine (and so every CUDA) call, in three phases a
+tick:
 
 1. **swap point** — a staged parameter swap (:meth:`request_swap`, the
    hot-swap watcher's) applies once no slot is active; while one is
@@ -37,6 +39,7 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 
+from photon_tpu_torch import chaos
 from photon_tpu_torch.serve.draft import Drafter, NGramDrafter, SpecController
 from photon_tpu_torch.serve.engine import PagedEngine
 
@@ -437,6 +440,12 @@ class ContinuousBatcher:
             with self._lock:
                 self._spec.observe(sum(len(d) for d in drafts.values()),
                                    sum(max(0, int(n_em[s]) - 1) for s in drafts))
+        inj = chaos.active()
+        if inj is not None:
+            # a stall in proportion to the tokens this step carried
+            stall = inj.serve_stall_plan((chunk[1] if chunk else 0) + sum(int(x) for x in n_em))
+            if stall > 0.0:
+                time.sleep(stall)
         self.steps += 1
         for slot in sorted(running):
             n = int(n_em[slot])

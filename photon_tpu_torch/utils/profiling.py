@@ -2,8 +2,9 @@
 
 The port of the parts of ``photon_tpu/utils/profiling.py`` that training
 and the federated round read: the ``server/*``, ``client/*`` and fleet
-router (``router/*``, ``serve/fleet_*``) metric names (the same strings,
-so a History reads the same in both packages),
+router (``router/*``, ``serve/fleet_*``) metric names and the chaos
+event prefix (the same strings, so a History reads the same in both
+packages),
 :class:`WireStats`, :func:`is_oom`, the FLOP count per token and
 :class:`SpeedMonitor`.
 :func:`model_flops_per_token` keeps the JAX formula unchanged, so an MFU
@@ -96,6 +97,13 @@ CLIENT_SKIPPED_ROUND = "client/skipped_round"
 #: transport (this package only)
 CLIENT_GET_PARAMETERS_TIME = "client/get_parameters_time"
 CLIENT_PUT_TIME = "client/put_time"
+#: the slowdown factor chaos's ``fit_delay_plan`` gave this fit (1.0 = no
+#: injected skew); it rides the fit metrics for the asynchronous round
+#: loop, which scales a fit's duration by it
+CLIENT_FIT_DELAY_FACTOR = "client/fit_delay_factor"
+#: fault-injector firings are ``chaos/<plan kind>`` (the injector's
+#: counter keys: tcp_drop, store_bitflip, crash, ...)
+CHAOS_EVENT_PREFIX = "chaos/"
 
 
 @dataclasses.dataclass

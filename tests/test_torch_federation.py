@@ -27,8 +27,9 @@ across as numpy, inline transport unless a case says otherwise:
 6. config and CLI: a port-written ``config.yaml`` loads in JAX with equal
    ``fl``/``photon`` fields; ``python -m photon_tpu_torch.federated
    --device cpu`` prints the JAX CLI's keys, and its History times each
-   phase of a round; every unported feature (the collective plane, chaos,
-   telemetry, async rounds) is refused with ``NotImplementedError``.
+   phase of a round; every unported feature (the collective plane,
+   telemetry, async rounds) is refused with ``NotImplementedError``
+   (``photon.chaos`` is ported: ``tests/test_torch_chaos.py``).
 """
 
 import contextlib
@@ -671,7 +672,7 @@ def test_cli_history_times_each_phase_of_a_round(tmp_path, monkeypatch):
                                                if k != "node_training_time_s")
 
 
-@pytest.mark.parametrize("feature", ["collective", "chaos", "telemetry", "async_rounds"])
+@pytest.mark.parametrize("feature", ["collective", "telemetry", "async_rounds"])
 def test_unported_federation_features_refused(tmp_path, feature):
     from photon_tpu_torch.config.schema import Config
 
