@@ -36,7 +36,7 @@ Phases (any failure exits non-zero):
    on synthetic data at full width (``ENTRY_LAYERS`` layers), then again
    to step 5, resuming from its checkpoint;
 5. federated round: ``python -m photon_tpu_torch.federated`` (its
-   ``main`` in a child process; 2 nodes in it share the card) on the same
+   ``main`` in this process; 2 nodes in it share the card) on the same
    config, 2 rounds of 2 clients × 4 local steps with the preset's
    nesterov strategy, the shm plane (in a directory of this run's own,
    removed after) and checkpoints, eval at rounds 0 and 2; then a resume
@@ -228,8 +228,8 @@ After 12, on the adapter run's store (kept until this phase ends):
     with the replicas alone and after the kill, each replica's device
     bytes from its own ``/healthz``, and the phase's time.
 
-After 13, side by side (14 on a thread of this process, 15 in its
-children; they share no launch counter, file or port):
+After 13, side by side (14 on a thread of this process, 15 and then 16
+in their children; they share no launch counter, file or port):
 
 14. interop: llama-1b (d2048, 22 layers, GQA 16/4 of 128, vocab 32000;
     random weights from seed 0) through ``python -m
@@ -255,11 +255,39 @@ children; they share no launch counter, file or port):
     never decoded, the final parameters are finite and node0's K1–K3
     launches are exact.
 
+After 15, beside the rest of 14 (its decode passes wait for 14's end):
+
+16. telemetry: (a) 2 federated rounds of full-width mpt-125m (2 clients ×
+    2 local steps, eval at rounds 0 and 2) over TCP with
+    ``photon.telemetry`` on, a ``prom_port`` and ``profile_rounds: 1``: a
+    ``--tcp-listen`` server child and two ``federation.tcp`` node children.
+    The merged ``trace-{run}.json`` loads and holds spans of the three
+    processes; every node ``client/fit`` and ``client/evaluate`` span
+    parents to the server's fit-round or eval-round span of its round in
+    the same trace; the event log holds each node's membership
+    transition; every ``/metrics`` scrape while the run trains passes the
+    exposition check (``telemetry.prom.validate_exposition``), one counts
+    ``tcp/send_bytes`` frames, and ``/statusz`` reads ok to the end; the
+    round-1 ``torch.profiler`` artifact parses; node0's K1–K3 launches
+    are exact; the server opens no CUDA context. (b) ``python -m
+    photon_tpu_torch.serve`` with telemetry on, on (a)'s round 2 (8
+    slots, block 16, budget 512): 16 greedy requests of 16–1500 tokens ×
+    32 answer 200; K4 = ``n_layers`` × (steps + chunk steps) on
+    ``/healthz``; the ``serve/ttft_s`` histogram counts 16 and its
+    OpenMetrics exemplars carry trace ids; ``/statusz`` ok and
+    ``serve/hbm_bytes_in_use`` > 0; ``serve/backend_compiles_total`` flat
+    between two scrapes after warm-up; ``POST /debug/profile`` for 8 ticks
+    writes a capture that parses and holds a K4 kernel record. Recorded:
+    the trace's size and span count, and the decode step's wall with
+    telemetry off and on (in this process, off, on, on, off).
+
 To keep the whole smoke within 800 s with phases 14 and 15, three earlier
 paths run mpt-125m's width at 2 of its 12 layers: phase 4
 (``ENTRY_LAYERS``), phase 5's in-process comparison (``FED_GATE_LAYERS``)
 and phase 5b (b) (``TCP_LAYERS``: its TCP run, comparator and both
-planted faults); phase 5's CLI runs and 5b (a) keep the full depth.
+planted faults); phase 5's CLI runs and 5b (a) keep the full depth. With
+phase 16 joining, phase 5's two CLI runs moved into this process (a child
+spends ~10 s starting) and 16 runs beside 14's end.
 
 The second-last line of stdout is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -1100,11 +1128,13 @@ def _fed_child(out_path: str, cli_args: list[str], opts: list[str] = ()) -> int:
     ``--record-decodes`` the server writes node0's first decoded result of
     each round to ``$PHOTON_SMOKE_DECODES/<tag>.npy`` (:func:`_record_decodes`);
     with ``--frame-audit`` its frames are audited (:func:`_frame_audit`) and
-    its chaos injector's counters written too."""
+    its chaos injector's counters written too. With telemetry on it also
+    writes the health rollup (``/statusz``) and the profile controller's
+    status as the run ended."""
     import torch
 
     sys.path.insert(0, str(ROOT))
-    from photon_tpu_torch import chaos, federated
+    from photon_tpu_torch import chaos, federated, telemetry
     from photon_tpu_torch.ops import flash_attention as fa
 
     if "--frame-audit" in opts:
@@ -1138,9 +1168,12 @@ def _fed_child(out_path: str, cli_args: list[str], opts: list[str] = ()) -> int:
     # a server that never touched the card must not open a context to ask
     cuda = torch.cuda.is_initialized()
     inj = chaos.active()
+    health, prof = telemetry.health_active(), telemetry.profiler_active()
     pathlib.Path(out_path).write_text(json.dumps({
         "history": history.to_dict(), "launches": dict(fa.launches),
         "chaos_counts": inj.counts if inj is not None else None,
+        "statusz": health.statusz() if health is not None else None,
+        "profile": prof.status() if prof is not None else None,
         "wall_s": time.perf_counter() - t0, "cuda_initialized": cuda,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0}))
     return 0
@@ -1216,13 +1249,52 @@ def _fed_cli_finish(work: pathlib.Path, tag: str, started, timeout: float = 900)
             "final_line": json.loads((work / f"child-{tag}.out").read_text()
                                      .strip().splitlines()[-1]),
             "history": child["history"], "launches": child["launches"],
-            "chaos_counts": child["chaos_counts"],
+            "chaos_counts": child["chaos_counts"], "statusz": child["statusz"],
+            "profile": child["profile"],
             "child_wall_s": child["wall_s"], "cuda_initialized": child["cuda_initialized"],
             "max_memory_allocated_gb": child["max_memory_allocated_gb"]}
 
 
 def _fed_cli_run(work: pathlib.Path, tag: str, args: list[str], shm_dir: str) -> dict:
     return _fed_cli_finish(work, tag, _fed_cli_start(work, tag, args, shm_dir))
+
+
+def _fed_cli_inprocess(torch, tag: str, args: list[str], shm_dir: str) -> dict:
+    """``federated.main`` on ``args`` in this process, the launch counts set
+    to 0 just before it, ``PHOTON_SHM_DIR`` set to ``shm_dir`` for it: the
+    record :func:`_fed_cli_finish` returns for a child, without a child's
+    ~10 s start (the cut that kept the smoke within its time once phase 16
+    joined it)."""
+    import gc
+    import os
+
+    from photon_tpu_torch import federated
+    from photon_tpu_torch.ops import flash_attention as fa
+
+    for key in fa.launches:
+        fa.launches[key] = 0
+    torch.cuda.reset_peak_memory_stats()
+    before, os.environ["PHOTON_SHM_DIR"] = os.environ.get("PHOTON_SHM_DIR"), shm_dir
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            history = federated.main(args)
+    finally:
+        if before is None:
+            os.environ.pop("PHOTON_SHM_DIR", None)
+        else:
+            os.environ["PHOTON_SHM_DIR"] = before
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()  # the run's trainers, before the next phase needs the card
+    torch.cuda.empty_cache()
+    return {"tag": tag, "pid": os.getpid(), "wall_s": wall,
+            "final_line": json.loads(out.getvalue().strip().splitlines()[-1]),
+            "history": history.to_dict(), "launches": launches, "chaos_counts": None,
+            "child_wall_s": wall, "cuda_initialized": True, "statusz": None, "profile": None,
+            "max_memory_allocated_gb": peak}
 
 
 def _fed_gate(torch, np, cfg, work, initial) -> dict:
@@ -1329,8 +1401,8 @@ def _fed_gate(torch, np, cfg, work, initial) -> dict:
 def federated_phase(torch, np):
     """The federated round at full width on the card:
 
-    (a) ``python -m photon_tpu_torch.federated`` (a child process, 2
-        in-process nodes sharing the card, the preset's nesterov strategy,
+    (a) ``python -m photon_tpu_torch.federated`` (its ``main`` in this
+        process, 2 in-process nodes sharing the card, the preset's nesterov strategy,
         the shm plane in a directory of this run's own, checkpoints on)
         for 2 rounds of 2 clients × 4 local steps with eval at rounds 0
         and 2, then again with ``photon.resume_round=-1`` to round 3, which
@@ -1373,9 +1445,10 @@ def federated_phase(torch, np):
         base = ["--config", str(work / "in.yaml"), "--device", "cuda", "--nodes", "2"]
         for s in FED_SETS:
             base += ["--set", s]
-        first = _fed_cli_run(work, "rounds-1-2", base + ["--rounds", "2"], shm_dir)
-        second = _fed_cli_run(work, "resume-to-3", base + ["--rounds", "3", "--set",
-                                                            "photon.resume_round=-1"], shm_dir)
+        first = _fed_cli_inprocess(torch, "rounds-1-2", base + ["--rounds", "2"], shm_dir)
+        second = _fed_cli_inprocess(torch, "resume-to-3", base + ["--rounds", "3", "--set",
+                                                                  "photon.resume_round=-1"],
+                                    shm_dir)
         left = sorted(p.name for p in pathlib.Path(shm_dir).iterdir())
     finally:
         shutil.rmtree(shm_dir, ignore_errors=True)
@@ -5370,6 +5443,408 @@ def chaos_phase(torch, np, fa, cfg=None, device: str = "cuda",
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the telemetry plane
+# ---------------------------------------------------------------------------
+
+TEL_RUN = "chip-smoke-telemetry"
+#: (a): 2 rounds × 2 clients × 2 local steps over TCP, eval at rounds 0 and
+#: 2 (FED_SETS' interval), a torch.profiler capture over round 1
+TEL_ROUNDS, TEL_LOCAL_STEPS = 2, 2
+#: (b): 16 greedy requests of 16–1500 prompt tokens × 32 new tokens
+TEL_PROMPTS = (16, 100, 250, 400, 600, 800, 1100, 1500) * 2
+TEL_NEW = 32
+#: (b): scheduler ticks the on-demand capture covers, and the requests
+#: that drive them (8 slots decoding at once)
+TEL_PROFILE_TICKS = 8
+TEL_PROFILE_PROMPTS = (100,) * 8
+#: K4's kernels, as a demangled profiler record names them
+TEL_K4_KERNELS = ("rpa_split_kernel", "rpa_combine_kernel", "rpa_chunk_kernel")
+#: (b), recorded: ms per decode step with telemetry off and on, in this
+#: process on (a)'s round 2: 8 slots at TEL_AB_PROMPT tokens of context,
+#: the step counter read TEL_AB_WINDOW_S apart once every prompt decodes;
+#: an untimed pass first (on the card a fresh engine's first pass read 28 %
+#: slow), then off, on, on, off
+TEL_AB_PROMPT, TEL_AB_NEW, TEL_AB_WINDOW_S = 512, 160, 0.5
+TEL_WAIT_S = 600.0
+#: how often (a) scrapes the server's /metrics and /statusz
+TEL_SCRAPE_S = 0.25
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _scrape(port: int, path: str, accept: str | None = None) -> str:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("GET", path, headers={"Accept": accept} if accept else {})
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        if resp.status != 200:
+            raise OSError(f"GET {path}: {resp.status}")
+        return body
+    finally:
+        conn.close()
+
+
+def _validated(text: str, what: str) -> dict:
+    from photon_tpu_torch.telemetry.prom import validate_exposition
+
+    try:
+        return validate_exposition(text)
+    except ValueError as e:
+        fail(f"telemetry: {what} fails the exposition check: {e}")
+
+
+def _telemetry_fed(cfg, device: str, work: pathlib.Path) -> dict:
+    """(a): a ``--tcp-listen`` server child (no CUDA context) and two
+    ``federation.tcp`` node children (:func:`_tcp_node_child`) with
+    ``photon.telemetry`` on, a ``prom_port`` and ``profile_rounds: 1``;
+    ``/metrics`` and ``/statusz`` scraped while the run trains."""
+    from photon_tpu_torch.telemetry.events import read_events_jsonl
+    from photon_tpu_torch.telemetry.export import load_chrome_trace, span_index
+
+    tel = cfg.photon.telemetry
+    tel.enabled, tel.prom_port, tel.profile_rounds = True, _free_port(), 1
+    tel.dir = str(work / "telemetry")
+    cfg.validate()
+    cfg.to_yaml(work / "fed.yaml")
+    addr = f"127.0.0.1:{_free_port()}"
+
+    def node(nid: str) -> subprocess.Popen:
+        with open(work / f"{nid}.log", "w") as out:
+            return subprocess.Popen(
+                [sys.executable, "-X", "faulthandler", str(ROOT / "chip_smoke.py"),
+                 "--tcp-node-child", str(work / f"{nid}.json"), "--", "--connect", addr,
+                 "--node-id", nid, "--config", str(work / "fed.yaml"), "--device", device],
+                cwd=ROOT, stdout=out, stderr=out)
+
+    procs: dict[str, subprocess.Popen] = {}
+    scrapes: list[dict] = []
+    try:
+        # the nodes start with the server and redial until it listens
+        t0 = time.perf_counter()
+        started = _fed_cli_start(work, "server", ["--config", str(work / "fed.yaml"),
+                                                  "--tcp-listen", addr, "--nodes", "2"])
+        procs = {nid: node(nid) for nid in ("node0", "node1")}
+        while started[0].poll() is None:
+            if time.perf_counter() - t0 > TEL_WAIT_S:
+                fail("telemetry: the traced run did not finish")
+            try:
+                metrics = _scrape(tel.prom_port, "/metrics")
+                statusz = json.loads(_scrape(tel.prom_port, "/statusz"))
+            except (OSError, http.client.HTTPException, json.JSONDecodeError):
+                time.sleep(TEL_SCRAPE_S)  # not up yet, or closing
+                continue
+            fams = _validated(metrics, "a mid-run scrape of the server")
+            scrapes.append({
+                "at_s": time.perf_counter() - t0,
+                "last_round": fams["photon_last_round"]["value"],
+                "tcp_send_count": fams.get("photon_tcp_send_bytes", {}).get("count", 0.0),
+                "families": len(fams), "statusz": statusz["status"]})
+            time.sleep(TEL_SCRAPE_S)
+        run = _fed_cli_finish(work, "server", started, timeout=TEL_WAIT_S)
+        rec = {"wall_s": time.perf_counter() - t0}
+        for nid, p in procs.items():
+            rc = p.wait(timeout=120)
+            if rc != 0:
+                fail(f"telemetry: {nid} exited {rc}: {(work / f'{nid}.log').read_text()[-3000:]}")
+    except BaseException:
+        _keep_logs(work)
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+        raise
+    tdir = pathlib.Path(tel.dir)
+    trace_path = tdir / f"trace-{TEL_RUN}.json"
+    trace = load_chrome_trace(trace_path)
+    pid_names = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"] if e.get("ph") == "M"}
+    complete = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    procs_seen = sorted({pid_names[e["pid"]] for e in complete})
+    idx = span_index(trace)
+    orphans = []
+    counted = {}
+    for name, parent in (("client/fit", "server/fit_round_time"),
+                         ("client/evaluate", "server/eval_round")):
+        spans = [e for e in complete if e["name"] == name]
+        counted[name] = len(spans)
+        for sp in spans:
+            up = idx.get(sp["args"].get("parent_id"))
+            if up is None or up["name"] != parent or pid_names[up["pid"]] != "server" \
+                    or up["args"].get("round") != sp["args"].get("round") \
+                    or up["args"]["trace_id"] != sp["args"]["trace_id"]:
+                orphans.append([name, pid_names[sp["pid"]], sp["args"].get("round"),
+                                None if up is None else up["name"]])
+    events = read_events_jsonl(str(tdir / f"events-{TEL_RUN}.jsonl"))
+    members = sorted({e["attrs"].get("node") for e in events
+                      if e["kind"] == "membership/transition"})
+    done = (run["profile"] or {}).get("completed") or []
+    artifact = pathlib.Path(done[0]["dir"]) / "trace.json" if done else None
+    profile = json.loads(artifact.read_text()) if artifact and artifact.exists() else None
+    node0 = json.loads((work / "node0.json").read_text())
+    hist = run["history"]
+    rec.update({
+        "trace_bytes": trace_path.stat().st_size, "trace_spans": len(complete),
+        "trace_events": sum(e.get("ph") == "i" for e in trace["traceEvents"]),
+        "processes": procs_seen, "spans_by_name": counted, "orphans": orphans,
+        "event_log_lines": len(events), "membership_nodes": members,
+        "scrapes": len(scrapes), "scrape_first": scrapes[0] if scrapes else None,
+        "scrape_last": scrapes[-1] if scrapes else None,
+        "statusz_end": run["statusz"]["status"] if run["statusz"] else None,
+        "profile": {"artifact": str(artifact) if artifact else None,
+                    "bytes": artifact.stat().st_size if profile else 0,
+                    "records": len(profile["traceEvents"]) if profile else 0,
+                    "last_error": (run["profile"] or {}).get("last_error")},
+        "server_cuda_initialized": run["cuda_initialized"], "launches": node0["launches"],
+        "node0_fits": node0["fits"], "node0_evals": node0["evals"],
+        "rounds": [r for r, _ in hist.get("server/n_clients", [])],
+        "round_wall_s": [v for _, v in hist.get("server/round_time", [])]})
+    if rec["rounds"] != list(range(1, TEL_ROUNDS + 1)):
+        fail(f"telemetry: rounds {rec['rounds']}")
+    if procs_seen != ["node0", "node1", "server"]:
+        fail(f"telemetry: the merged trace holds spans from {procs_seen}")
+    n_clients = cfg.fl.n_clients_per_round
+    if counted["client/fit"] != TEL_ROUNDS * n_clients or counted["client/evaluate"] != \
+            2 * cfg.fl.n_total_clients or orphans:
+        fail(f"telemetry: node spans {counted}, not under their round's server span: {orphans}")
+    if members != ["node0", "node1"]:
+        fail(f"telemetry: membership transitions for {members}")
+    if not scrapes or not any(s["tcp_send_count"] > 0 for s in scrapes) \
+            or any(s["statusz"] != "ok" for s in scrapes) or rec["statusz_end"] != "ok":
+        fail(f"telemetry: scrapes {scrapes}, /statusz at the end {rec['statusz_end']}")
+    if profile is None or rec["profile"]["last_error"] or done[0]["tag"] != "startup":
+        fail(f"telemetry: the round-1 profile {run['profile']}")
+    if run["cuda_initialized"]:
+        fail("telemetry: the --tcp-listen server opened a CUDA context")
+    L = cfg.model.n_layers
+    per_fit = L * (cfg.train.global_batch_size // cfg.train.device_microbatch_size) \
+        * cfg.fl.local_steps
+    n_fit = sum(ok for *_, ok in node0["fits"])
+    n_eval = sum(ok for *_, ok in node0["evals"])
+    want = {"flash_fwd": per_fit * n_fit + L * cfg.train.eval_batches * n_eval,
+            "flash_bwd_dq": per_fit * n_fit, "flash_bwd_dkv": per_fit * n_fit}
+    if device == "cuda" and (node0["launches"] != want or n_fit == 0):
+        fail(f"telemetry: node0 launched {node0['launches']}, want {want} ({n_fit} fits, "
+             f"{n_eval} evals)")
+    return rec
+
+
+def _decode_ms_per_step(eng, prompts: list, new: int, traced: bool, window_s: float) -> float:
+    """One ``ContinuousBatcher`` pass over ``prompts`` (all in slots at
+    once), telemetry on or off: the wall per scheduler step once every
+    prompt decodes, from the step counter read ``window_s`` apart (no
+    chunk step and no finished request inside the window)."""
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.config.schema import TelemetryConfig
+    from photon_tpu_torch.serve.scheduler import ContinuousBatcher
+
+    telemetry.install(TelemetryConfig(enabled=traced), scope="serve")
+    b = ContinuousBatcher(eng, max_queue=64,
+                          prefill_token_budget=eng.cfg.photon.serve.prefill_token_budget)
+    try:
+        reqs = [b.submit(p, new) for p in prompts]
+        b.start()
+        deadline = time.monotonic() + TEL_WAIT_S
+        while any(not r.generated for r in reqs):
+            if time.monotonic() > deadline:
+                fail("telemetry: the decode passes never decoded")
+            time.sleep(0.005)
+        s0, c0, t0 = b.steps, b.chunk_steps, time.perf_counter()
+        time.sleep(window_s)
+        s1, c1, t1 = b.steps, b.chunk_steps, time.perf_counter()
+        whole = not any(r.finished for r in reqs)
+        for r in reqs:
+            r.result(timeout=TEL_WAIT_S)
+        if c1 != c0 or not whole or s1 <= s0:
+            fail(f"telemetry: the timing window held {s1 - s0} steps, {c1 - c0} of them with a "
+                 f"chunk, every slot decoding: {whole}")
+        return (t1 - t0) / (s1 - s0) * 1e3
+    finally:
+        b.close()
+        telemetry.uninstall()
+
+
+def _telemetry_serve(np, scfg, device: str, work: pathlib.Path, store: pathlib.Path,
+                     before_ab=None, ab_prompt: int = TEL_AB_PROMPT, ab_new: int = TEL_AB_NEW,
+                     ab_window_s: float = TEL_AB_WINDOW_S) -> dict:
+    """(b): ``python -m photon_tpu_torch.serve`` on (a)'s round 2 with
+    ``photon.telemetry`` on; then, recorded, the decode step's wall with
+    telemetry off and on in this process (off, on, on, off), once
+    ``before_ab()`` returned (a phase still running beside this one must
+    not share the process's launch counters or the host with it)."""
+    import re
+
+    from photon_tpu_torch.checkpoint import FileStore
+    from photon_tpu_torch.serve.engine import PagedEngine
+
+    tel = scfg.photon.telemetry
+    tel.enabled, tel.dir = True, str(work / "serve_telemetry")
+    scfg.run_uuid = TEL_RUN
+    scfg.photon.serve.attention_impl = "auto"
+    scfg.to_yaml(work / "serve.yaml")
+    cmd = [sys.executable, "-m", "photon_tpu_torch.serve", "--config", str(work / "serve.yaml"),
+           "--store", str(store), "--round", "-1", "--enable", "--port", "0",
+           "--device", device]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    stderr_tail: list[str] = []
+    threading.Thread(target=lambda: stderr_tail.extend(proc.stderr), daemon=True).start()
+    watchdog = threading.Timer(TEL_WAIT_S, proc.kill)
+    watchdog.start()
+    cuda = device == "cuda"
+    try:
+        t0 = time.perf_counter()
+        first = proc.stdout.readline()
+        if not first:
+            proc.wait(timeout=30)
+            fail(f"telemetry: the serve CLI exited {proc.returncode}: "
+                 f"{''.join(stderr_tail)[-3000:]}")
+        info = json.loads(first)
+        port = info["port"]
+        rec: dict = {"startup_s": time.perf_counter() - t0, "round": info["round"]}
+        if info["round"] != TEL_ROUNDS:
+            fail(f"telemetry: the serve CLI loaded round {info['round']}, want {TEL_ROUNDS}")
+        rng = np.random.default_rng(16)
+        vocab = scfg.model.vocab_size
+        prompts = [list(map(int, rng.integers(0, vocab, n))) for n in TEL_PROMPTS]
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as pool:
+            replies = list(pool.map(lambda p: _generate(port, p, TEL_NEW), prompts))
+        rec["requests_wall_s"] = time.perf_counter() - t1
+        bad = [[n, s] for n, (s, r) in zip(TEL_PROMPTS, replies)
+               if s != 200 or r is None or len(r["tokens"]) != TEL_NEW]
+        if bad:
+            fail(f"telemetry: serve requests answered {bad}")
+        health = json.loads(_request(port, "/healthz")[1])
+        st = health["stats"]
+        launches = health["kernel_launches"]["ragged_paged_attention"]
+        want = scfg.model.n_layers * int(st["steps"] + st["chunk_steps"])
+        if cuda and (launches != want or launches == 0):
+            fail(f"telemetry: the serve CLI launched K4 {launches} times, want {want}")
+        plain = _scrape(port, "/metrics")
+        fams = _validated(plain, "the serve CLI's scrape")
+        om = _scrape(port, "/metrics", accept="application/openmetrics-text")
+        _validated(om, "the serve CLI's OpenMetrics scrape")
+        ttft = fams.get("photon_serve_ttft_s", {})
+        exemplars = re.findall(r'photon_serve_ttft_s_bucket\{[^}]*\} \d+ # \{trace_id="'
+                               r'([0-9a-f]{16})"', om)
+        hbm = fams.get("photon_serve_hbm_bytes_in_use", {}).get("value", 0.0)
+        compiles = fams.get("photon_serve_backend_compiles_total", {}).get("value")
+        statusz = json.loads(_scrape(port, "/statusz"))
+        rec.update({"steps": st["steps"], "chunk_steps": st["chunk_steps"], "launches": launches,
+                    "ttft_count": ttft.get("count"), "exemplar_trace_ids": len(exemplars),
+                    "families": len(fams), "hbm_bytes_in_use": hbm, "compiles": compiles,
+                    "statusz": statusz["status"], "scrape_bytes": len(plain),
+                    "openmetrics_bytes": len(om)})
+        if ttft.get("count") != len(prompts) or not exemplars or '# EOF' not in om:
+            fail(f"telemetry: serve/ttft_s count {ttft.get('count')} (want {len(prompts)}), "
+                 f"{len(exemplars)} exemplars with a trace id")
+        if statusz["status"] != "ok" or (cuda and not hbm > 0):
+            fail(f"telemetry: /statusz {statusz['status']}, serve/hbm_bytes_in_use {hbm}")
+        # an on-demand capture over TEL_PROFILE_TICKS scheduler ticks
+        status, body = _request(port, "/debug/profile", {"units": TEL_PROFILE_TICKS,
+                                                         "tag": "serve"})
+        if status != 202:
+            fail(f"telemetry: POST /debug/profile answered {status}: {body}")
+        t2 = time.perf_counter()
+        more = [list(map(int, rng.integers(0, vocab, n))) for n in TEL_PROFILE_PROMPTS]
+        with concurrent.futures.ThreadPoolExecutor(len(more)) as pool:
+            replies = list(pool.map(lambda p: _generate(port, p, TEL_NEW), more))
+        if any(s != 200 for s, _ in replies):
+            fail(f"telemetry: the profiled requests answered {[s for s, _ in replies]}")
+        while not (prof := json.loads(_scrape(port, "/statusz"))["profile"])["completed"]:
+            if time.perf_counter() - t2 > 120 or prof["last_error"]:
+                fail(f"telemetry: the serve capture never completed: {prof}")
+            time.sleep(0.1)
+        rec["profile_wall_s"] = time.perf_counter() - t2
+        artifact = pathlib.Path(prof["completed"][0]["dir"]) / "trace.json"
+        trace = json.loads(artifact.read_text())
+        names = sorted({e.get("name", "") for e in trace["traceEvents"]
+                        if e.get("cat") == "kernel"})
+        plain_names = _demangle(names)
+        k4 = sorted({k for n in names for k in TEL_K4_KERNELS if k in plain_names[n]})
+        rec["profile"] = {"bytes": artifact.stat().st_size, "records": len(trace["traceEvents"]),
+                          "kernel_names": len(names), "k4_kernels": k4,
+                          "last_error": prof["last_error"]}
+        if prof["last_error"] or (cuda and not k4):
+            fail(f"telemetry: the serve capture holds no K4 kernel: {rec['profile']}, "
+                 f"kernels {names[:20]}")
+        again = _validated(_scrape(port, "/metrics"), "the serve CLI's second scrape")
+        rec["compiles_after"] = again.get("photon_serve_backend_compiles_total", {}).get("value")
+        if rec["compiles_after"] != compiles or compiles is None or (cuda and compiles < 1):
+            fail(f"telemetry: serve/backend_compiles_total moved after warm-up: {compiles} → "
+                 f"{rec['compiles_after']}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            fail(f"telemetry: the serve CLI exited {rc} after SIGTERM: "
+                 f"{''.join(stderr_tail)[-3000:]}")
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    # recorded: the decode step's wall, telemetry off and on, one engine
+    if before_ab is not None:
+        before_ab()
+    eng = PagedEngine.from_checkpoint(scfg, store=FileStore(store), resume_round=-1,
+                                      device=device)
+    rng = np.random.default_rng(17)
+    prompts = [list(map(int, rng.integers(0, scfg.model.vocab_size, ab_prompt)))
+               for _ in range(eng.n_slots)]
+    warm = _decode_ms_per_step(eng, prompts, ab_new, False, ab_window_s)
+    passes = [(traced, _decode_ms_per_step(eng, prompts, ab_new, traced, ab_window_s))
+              for traced in (False, True, True, False)]
+    off = [ms for traced, ms in passes if not traced]
+    on = [ms for traced, ms in passes if traced]
+    rec["decode_ms_per_step"] = {"warm_up": warm, "off": off, "on": on,
+                                 "order": "off, on, on, off",
+                                 "on_over_off": statistics.mean(on) / statistics.mean(off),
+                                 "slots": eng.n_slots, "context_tokens": ab_prompt}
+    del eng
+    return rec
+
+
+def telemetry_phase(np, cfg=None, scfg=None, device: str = "cuda",
+                    work: pathlib.Path = ROOT / ".chip_smoke" / "telemetry", **serve_kw) -> dict:
+    """Phase 16: (a) a traced federated run over TCP at full-width mpt-125m
+    (:func:`_telemetry_fed`), then (b) the serve CLI with telemetry on its
+    round 2 (:func:`_telemetry_serve`; ``serve_kw`` go there)."""
+    from photon_tpu_torch.centralized import _apply_override
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    if cfg is None:
+        cfg = train_config()
+        for s in FED_SETS:
+            _apply_override(cfg, *s.split("=", 1))
+    cfg.run_uuid, cfg.photon.save_path = TEL_RUN, str(work / "run")
+    cfg.dataset.synthetic = True
+    cfg.fl.n_rounds, cfg.fl.local_steps = TEL_ROUNDS, TEL_LOCAL_STEPS
+    cfg.photon.comm_stack.objstore, cfg.photon.comm_stack.shm = True, False
+    try:
+        t0 = time.perf_counter()
+        fed = _telemetry_fed(cfg, device, work)
+        fed["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve = _telemetry_serve(np, scfg if scfg is not None else serve_config(), device,
+                                 work, work / "run" / "store", **serve_kw)
+        serve["phase_s"] = time.perf_counter() - t0
+    except BaseException:
+        _keep_logs(work)
+        raise
+    shutil.rmtree(work, ignore_errors=True)
+    rec = {"fed": fed, "serve": serve, "phase_s": time.perf_counter() - t_phase}
+    log("telemetry_phase " + json.dumps(rec))
+    return rec
+
+
 def fed_1b() -> int:
     """``python -m photon_tpu_torch.federated`` at mpt-1b: 2 in-process
     nodes on one card, 2 clients a round, 1 local step each (global batch
@@ -5530,14 +6005,19 @@ def main() -> int:
     shutil.rmtree(ROOT / ".chip_smoke" / "fed", ignore_errors=True)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        # phase 14 beside phase 15, whose work is in its children: the two
-        # share no launch counter (15's are the children's), no file and
-        # no port, and 14's gates do not depend on time
+        # phase 14 beside phases 15 and 16, whose work is in their children:
+        # they share no launch counter (15's and 16's are the children's;
+        # 16's in-process decode passes wait for 14), no file and no port,
+        # and 14's gates do not depend on time. 16 starts once 15 ended:
+        # 15's seeded faults land on a ping only while its frames keep their
+        # order, which a ping answered late could change
         interop_run = pool.submit(interop_phase, torch, rpa, np)
         chaos_rec = chaos_phase(torch, np, fa)
+        tel = telemetry_phase(np, before_ab=interop_run.result)
         interop = interop_run.result()
     log(f"interop phase: {interop['phase_s']:.1f} s, chaos phase: {chaos_rec['phase_s']:.1f} s, "
-        f"side by side {time.perf_counter() - t0:.1f} s")
+        f"telemetry phase: {tel['phase_s']:.1f} s (traced run {tel['fed']['phase_s']:.1f} s, "
+        f"serve {tel['serve']['phase_s']:.1f} s), side by side {time.perf_counter() - t0:.1f} s")
 
     kernels = {"kernels": [{
         "name": "ragged_paged_attention",
@@ -5559,6 +6039,7 @@ def main() -> int:
         "adapter_server_launches": adapters["server"]["launches"],
         "fleet_replica_launches": fleet["replica_launches"],
         "interop_engine_launches": interop["serve"]["launches"],
+        "telemetry_serve_launches": tel["serve"]["launches"],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -5580,6 +6061,7 @@ def main() -> int:
         "presets_phase_launches": {p: r["launches"][name] for p, r in presets.items()},
         "adapter_round_launches": adapters["fit"]["launches"][name],
         "chaos_node0_launches": chaos_rec["launches"][name],
+        "telemetry_node0_launches": tel["fed"]["launches"][name],
     } for name, rec in flash_main.items()]}
     k1 = next(k for k in kernels["kernels"] if k["name"] == "flash_fwd")
     k1["eval_shape"] = flash_eval
@@ -5593,7 +6075,8 @@ def main() -> int:
         "server": server, "decode": decode_rec, "eval": evaluation, "presets": presets,
         "presets_phase_s": presets_s, "d128_grad_gate": d128, "moe_dispatch": moe_dispatch,
         "moe_engine": moe_engine, "adapters": adapters, "fleet": fleet, "interop": interop,
-        "chaos": chaos_rec, "kernels": kernels["kernels"], "profiler_pad_lost": profiler_pad_lost,
+        "chaos": chaos_rec, "telemetry": tel, "kernels": kernels["kernels"],
+        "profiler_pad_lost": profiler_pad_lost,
         "total_s": time.perf_counter() - t_all,
     }, indent=1))
     log(f"profiler windows {len(profiler_pad_lost)}, pad records lost in each (of "

@@ -22,6 +22,9 @@ import random
 import zlib
 from typing import Callable
 
+from photon_tpu_torch import telemetry
+from photon_tpu_torch.utils.profiling import CHAOS_EVENT_PREFIX
+
 # fit-handling phases (node processes) and the collective round's phases
 # (accepted by the schema; the collective round is not ported yet)
 _PHASES = (
@@ -87,12 +90,11 @@ class FaultInjector:
         self._store_faults = 0
 
     def _fired(self, kind: str, **attrs) -> None:
-        """Count a fired fault. This is the one place where the telemetry
-        plane's ``CHAOS_EVENT_PREFIX + kind`` event, with ``scope`` and
-        ``attrs``, is emitted once telemetry is ported; until then the
-        counters are the record."""
-        del attrs
+        """Count a fired fault and emit its ``chaos/<kind>`` telemetry event
+        with trace correlation, so the event log places it in the span it
+        hit (a None check with telemetry off)."""
         self.counts[kind] += 1
+        telemetry.emit_event(CHAOS_EVENT_PREFIX + kind, scope=self.scope, **attrs)
 
     # -- TCP control plane ----------------------------------------------
     def tcp_plan(self) -> TcpFaultPlan:

@@ -9,7 +9,9 @@ control state: history, client states, cumulative server steps, sampled
 rounds) and ``manifest.json`` (per-object CRC32s, written last, so its
 presence marks the round complete). A round is valid when its params,
 its control state and every declared state key are present; resume
-verifies the checksums and falls back past a corrupt round.
+verifies the checksums and falls back past a corrupt round (a
+``store`` health alert with telemetry on). A background write is a
+``server/ckpt_async_write_s`` span under the round that asked for it.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Any
 
 import numpy as np
 
+from photon_tpu_torch import telemetry
 from photon_tpu_torch.checkpoint.serialization import (
     arrays_to_npz,
     bytes_to_state,
@@ -31,6 +34,7 @@ from photon_tpu_torch.checkpoint.serialization import (
 )
 from photon_tpu_torch.checkpoint.store import ObjectStore
 from photon_tpu_torch.codec.params import ParamsMetadata
+from photon_tpu_torch.utils.profiling import CKPT_ASYNC_WRITE_S
 
 PARAMS_FILE = "current_server_parameters.npz"
 STATE_FILE = "state.bin"
@@ -92,14 +96,18 @@ class ServerCheckpointManager:
         params = list(parameters)
         state = {k: list(v) for k, v in (strategy_state or {}).items()}
         server = dict(server_state or {})
+        # the writer thread has no span context: the write parents to the
+        # round that enqueued it, captured now
+        trace_ctx = telemetry.current_context()
         t_enqueue = time.monotonic()
 
         def _write() -> None:
             t0 = time.monotonic()
             try:
-                self.save_round(server_round, metadata, params, state, server)
-                if cleanup_keep is not None:
-                    self.cleanup(*cleanup_keep)
+                with telemetry.span(CKPT_ASYNC_WRITE_S, parent=trace_ctx, round=server_round):
+                    self.save_round(server_round, metadata, params, state, server)
+                    if cleanup_keep is not None:
+                        self.cleanup(*cleanup_keep)
             except BaseException as e:  # noqa: BLE001 — re-raised at the barrier
                 self._pending_error = e
             finally:
@@ -222,6 +230,12 @@ class ServerCheckpointManager:
             if not self.verify_round(r):
                 warnings.warn(f"round {r} checkpoint failed checksum verification — skipping it",
                               stacklevel=2)
+                # a corrupt round the resume survived is still a storage
+                # incident /statusz shows
+                health = telemetry.health_active()
+                if health is not None:
+                    health.note_store_corruption(round=r, run_uuid=self.run_uuid,
+                                                 stage="resume")
                 continue
             seen_ok += 1
             if seen_ok == want:

@@ -3,14 +3,15 @@
 ``ModelConfig``, ``ServeConfig``, ``OptimizerConfig``, ``SchedulerConfig``,
 ``MeshConfig``, ``TrainConfig``, ``DatasetConfig``, ``FLConfig``,
 ``CommStackConfig``, ``CompressionConfig``, ``MembershipConfig``,
-``AdaptersConfig``, ``ChaosConfig`` and ``PhotonConfig`` carry the same
-fields, names and defaults as the JAX package's, so a resolved YAML
-written by either package loads in the other with equal fields. The
-sections of features the port does not run (``telemetry`` and
-``async_rounds``) are kept as the raw dicts they were read as and
-written back unchanged; only their ``enabled`` flag is read, to refuse
-them. ``photon.adapters`` (per-cohort LoRA), ``model.lora_*`` and
-``photon.chaos`` are validated with the JAX package's texts.
+``AdaptersConfig``, ``ChaosConfig``, ``TelemetryConfig`` and
+``PhotonConfig`` carry the same fields, names and defaults as the JAX
+package's, so a resolved YAML written by either package loads in the
+other with equal fields. The sections of features the port does not run
+(``async_rounds`` and ``telemetry.autopilot``) are kept as the raw dicts
+they were read as and written back unchanged; only their ``enabled``
+flag is read, to refuse them. ``photon.adapters`` (per-cohort LoRA),
+``model.lora_*``, ``photon.chaos`` and ``photon.telemetry`` are validated
+with the JAX package's texts.
 ``serve.speculative`` is a :class:`SpeculativeConfig` and ``serve.fleet``
 a :class:`FleetConfig`, validated with the JAX package's ``ValueError``
 texts, as are the prefix-cache and hot-swap fields of
@@ -22,9 +23,9 @@ instead of running without them: a ``model.param_dtype`` other than
 ``float32`` everywhere (the port keeps fp32 parameters); and for
 training (``validate(serving=False)``, the default) a mesh of more than
 one device (``mesh.expert > 1`` included), ring attention, the mesh
-autotuner, the collective aggregation plane, telemetry and
-asynchronous rounds (and with them the adapters' collective
-round loop). ``mlp: moe`` is checked as the JAX
+autotuner, the collective aggregation plane and asynchronous rounds (and
+with them the adapters' collective round loop); and everywhere the
+telemetry plane's SLO autopilot. ``mlp: moe`` is checked as the JAX
 package checks it (its ``ValueError`` texts); ``device_microbatch_size:
 auto`` runs the trainer's probe.
 """
@@ -386,6 +387,36 @@ class ChaosConfig:
 
 
 @dataclass
+class TelemetryConfig:
+    """Distributed tracing + structured telemetry plane
+    (``photon_tpu_torch/telemetry``; the JAX package's fields, defaults and
+    checks).
+
+    OFF by default; disabled cost is a single ``None`` check per hook site
+    (the same discipline as ``photon.chaos``). Enabled, the server merges
+    its own round-phase spans with node spans shipped back on
+    ``FitRes``/``EvaluateRes``/``Ack`` into one Perfetto/Chrome-trace JSON
+    under ``dir``, writes a structured JSONL event log beside it, and —
+    with ``prom_port`` set — serves ``/metrics``, ``/statusz`` and
+    ``POST /debug/profile`` on ``127.0.0.1:{prom_port}``. ``autopilot`` (the
+    SLO controller) is kept as the raw dict it was read as and refused
+    when enabled: it is not ported yet.
+    """
+
+    enabled: bool = False
+    dir: str = ""  # "" → {photon.save_path}/telemetry
+    prom_port: int = 0  # 0 = no /metrics endpoint
+    max_buffered_spans: int = 4096  # per-process cap; overflow drops oldest
+    #: capture a torch.profiler trace covering the FIRST N rounds of the run
+    #: (0 = off; the same controller also serves on-demand POST
+    #: /debug/profile requests). Artifacts land beside trace-{run}.json.
+    profile_rounds: int = 0
+    #: per-instrument ring-buffer samples the typed-metric hub retains
+    metrics_retention: int = 512
+    autopilot: dict = field(default_factory=dict)  # raw: refused when enabled
+
+
+@dataclass
 class AdaptersConfig:
     """Per-cohort LoRA adapters over a frozen federated base (same fields
     as the JAX package; ``photon_tpu_torch/adapters``). Off by default.
@@ -426,7 +457,7 @@ class PhotonConfig:
     membership: MembershipConfig = field(default_factory=MembershipConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     async_rounds: dict = field(default_factory=dict)  # raw: refused when enabled
-    telemetry: dict = field(default_factory=dict)  # raw: refused when enabled
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     adapters: AdaptersConfig = field(default_factory=AdaptersConfig)
     save_path: str = "/tmp/photon_tpu"
@@ -559,6 +590,7 @@ class Config:
         _validate_adapters(self)
         _validate_chaos(self.photon.chaos)
         _validate_fleet(srv.fleet)
+        _validate_telemetry(self.photon.telemetry)
         return self
 
 
@@ -638,7 +670,6 @@ class Config:
             raise ValueError("membership.reconnect_max_attempts must be >= 0 (0 = unlimited)")
         for what, on in (
             ("photon.comm_stack.collective", ph.comm_stack.collective),
-            ("photon.telemetry", bool(ph.telemetry.get("enabled", False))),
             ("photon.async_rounds", bool(ph.async_rounds.get("enabled", False))),
         ):
             if on:
@@ -646,6 +677,43 @@ class Config:
                     f"{what} is not ported to photon_tpu_torch yet; turn it off "
                     "or run with photon_tpu"
                 )
+
+
+def _validate_telemetry(tel: TelemetryConfig) -> None:
+    """``photon.telemetry``'s bounds with the JAX package's texts; the SLO
+    autopilot is refused (the next slice of the port)."""
+    if not 0 <= tel.prom_port <= 65535:
+        raise ValueError(
+            f"telemetry.prom_port must be in [0, 65535] (0 = off), got "
+            f"{tel.prom_port}"
+        )
+    if tel.max_buffered_spans < 1:
+        raise ValueError(
+            f"telemetry.max_buffered_spans must be >= 1, got "
+            f"{tel.max_buffered_spans}"
+        )
+    if tel.profile_rounds < 0:
+        raise ValueError(
+            f"telemetry.profile_rounds must be >= 0 (0 = off), got "
+            f"{tel.profile_rounds}"
+        )
+    if tel.metrics_retention < 1:
+        raise ValueError(
+            f"telemetry.metrics_retention must be >= 1, got "
+            f"{tel.metrics_retention}"
+        )
+    if tel.profile_rounds and not tel.enabled:
+        warnings.warn(
+            "telemetry.profile_rounds is set but telemetry.enabled=False "
+            "— no profile will be captured",
+            stacklevel=3,
+        )
+    if (tel.autopilot or {}).get("enabled", False):
+        raise NotImplementedError(
+            "photon.telemetry.autopilot (the SLO autopilot) is not ported to "
+            "photon_tpu_torch yet — it is the next slice of the port's "
+            "telemetry; turn it off or run with photon_tpu"
+        )
 
 
 def _validate_chaos(ch: ChaosConfig) -> None:

@@ -17,8 +17,10 @@ device (the port of ``photon_tpu/federation/client_runtime.py``).
 
 Fit results upload through the transport's wire codec when the run has
 one (its residuals are node-resident, keyed by cid). It trains on
-``cuda`` unless the caller passes ``device="cpu"``. The JAX
-package's telemetry spans are left out (refused at ``validate()``). Under
+``cuda`` unless the caller passes ``device="cpu"``. With
+``photon.telemetry`` on, a fit is a ``client/fit`` span over its
+``client/resolve_params``, ``client/train``, ``client/encode`` and
+``client/package`` phases, and an eval a ``client/evaluate`` span. Under
 ``photon.chaos`` a node can crash ``mid-fit`` (parameters set, loader
 placed, no step run), a fit reports its seeded slowdown factor
 (``client/fit_delay_factor``), and a NaN can poison the copy of a result
@@ -33,7 +35,7 @@ import zlib
 
 import numpy as np
 
-from photon_tpu_torch import chaos
+from photon_tpu_torch import chaos, telemetry
 from photon_tpu_torch.checkpoint.client import ClientCheckpointManager
 from photon_tpu_torch.codec.params import ParamsMetadata
 from photon_tpu_torch.config.schema import Config
@@ -56,13 +58,19 @@ from photon_tpu_torch.train.param_ops import (
 )
 from photon_tpu_torch.train.trainer import Trainer
 from photon_tpu_torch.utils.profiling import (
+    CLIENT_ENCODE_SPAN,
+    CLIENT_EVALUATE_SPAN,
     CLIENT_FIT_DELAY_FACTOR,
     CLIENT_FIT_INIT_TIME,
+    CLIENT_FIT_SPAN,
     CLIENT_GET_PARAMETERS_TIME,
+    CLIENT_PACKAGE_SPAN,
     CLIENT_PARAM_NORM,
     CLIENT_PSEUDO_GRAD_NORM,
     CLIENT_PUT_TIME,
+    CLIENT_RESOLVE_PARAMS_SPAN,
     CLIENT_SKIPPED_ROUND,
+    CLIENT_TRAIN_SPAN,
     is_oom,
 )
 
@@ -156,11 +164,16 @@ class ClientRuntime:
 
     # -- fit -------------------------------------------------------------
     def fit(self, ins: FitIns, cid: int) -> FitRes:
-        t_start = time.monotonic()
-        try:
-            return self._fit_inner(ins, cid, t_start)
-        except Exception as e:  # noqa: BLE001 — a failed cid is retried on another node
-            return FitRes(server_round=ins.server_round, cid=cid, params=None, error=self._error(e))
+        # the umbrella span (not the client/fit_time KPI, which is the train
+        # loop alone) covers every phase and the failure path
+        with telemetry.span(CLIENT_FIT_SPAN, round=ins.server_round, cid=cid,
+                            node=self.node_id):
+            t_start = time.monotonic()
+            try:
+                return self._fit_inner(ins, cid, t_start)
+            except Exception as e:  # noqa: BLE001 — a failed cid is retried on another node
+                return FitRes(server_round=ins.server_round, cid=cid, params=None,
+                              error=self._error(e))
 
     def _fit_inner(self, ins: FitIns, cid: int, t_start: float) -> FitRes:
         cfg = self.cfg
@@ -178,7 +191,8 @@ class ClientRuntime:
                 ins, cid, state_in, pm, pa, n_samples=ins.local_steps * cfg.train.global_batch_size,
                 metrics={CLIENT_SKIPPED_ROUND: 1.0}, t_start=t_start)
 
-        meta, arrays = self._resolve_params(ins.params)
+        with telemetry.span(CLIENT_RESOLVE_PARAMS_SPAN, cid=cid):
+            meta, arrays = self._resolve_params(ins.params)
         carry_momenta = has_momenta(meta)
         if carry_momenta:
             base_meta, params_in, m1_in, m2_in = split_momenta(meta, arrays)
@@ -221,7 +235,9 @@ class ClientRuntime:
         # a crash here loses real work and leaves the loader and optimizer
         # state that only a fit again rebuilds
         chaos.crash_point("mid-fit", ins.server_round, self.node_id)
-        fit_metrics = self.trainer.fit(loader, ins.local_steps, log_every=cfg.train.log_interval)
+        with telemetry.span(CLIENT_TRAIN_SPAN, cid=cid, local_steps=ins.local_steps):
+            fit_metrics = self.trainer.fit(loader, ins.local_steps,
+                                           log_every=cfg.train.log_interval)
         # init = everything before the train loop; the loop reports
         # client/fit_time, and client/fit_set_parameters_time the hand-off
         fit_metrics[CLIENT_FIT_INIT_TIME] = t_fit0 - t_start
@@ -264,26 +280,34 @@ class ClientRuntime:
                 arrays = [poisoned, *arrays[1:]]
         t_put = time.monotonic()
         # the uplink goes through the wire codec when there is one (a delta
-        # against this round's broadcast, error-feedback residuals by cid)
-        ptr = self.transport.put(f"fit-r{ins.server_round}-c{cid}-{self.node_id}", meta, arrays,
-                                 compress=True, key=cid)
-        wall = time.monotonic()
-        put_s, wall = wall - t_put, wall - t_start
-        new_state = ClientState(
-            cid=cid,
-            steps_cumulative=state_in.steps_cumulative + ins.local_steps,
-            samples_cumulative=state_in.samples_cumulative + n_samples,
-            last_round=ins.server_round,
-            wall_time_s=state_in.wall_time_s + wall,
-        )
-        metrics = dict(metrics)
-        metrics[CLIENT_PUT_TIME] = put_s
-        metrics["node_training_time_s"] = wall
+        # against this round's broadcast, error-feedback residuals by cid);
+        # the encode span is the upload leg: codec and plane write
+        with telemetry.span(CLIENT_ENCODE_SPAN, cid=cid):
+            ptr = self.transport.put(f"fit-r{ins.server_round}-c{cid}-{self.node_id}", meta,
+                                     arrays, compress=True, key=cid)
+        with telemetry.span(CLIENT_PACKAGE_SPAN, cid=cid):
+            wall = time.monotonic()
+            put_s, wall = wall - t_put, wall - t_start
+            new_state = ClientState(
+                cid=cid,
+                steps_cumulative=state_in.steps_cumulative + ins.local_steps,
+                samples_cumulative=state_in.samples_cumulative + n_samples,
+                last_round=ins.server_round,
+                wall_time_s=state_in.wall_time_s + wall,
+            )
+            metrics = dict(metrics)
+            metrics[CLIENT_PUT_TIME] = put_s
+            metrics["node_training_time_s"] = wall
         return FitRes(server_round=ins.server_round, cid=cid, params=ptr, n_samples=n_samples,
                       metrics=metrics, client_state=new_state.to_dict())
 
     # -- eval ------------------------------------------------------------
     def evaluate(self, ins: EvaluateIns, cid: int) -> EvaluateRes:
+        with telemetry.span(CLIENT_EVALUATE_SPAN, round=ins.server_round, cid=cid,
+                            node=self.node_id):
+            return self._evaluate_inner(ins, cid)
+
+    def _evaluate_inner(self, ins: EvaluateIns, cid: int) -> EvaluateRes:
         try:
             eval_knobs = EvaluateRoundConfig.from_dict(ins.config)  # before the compute
             meta, arrays = self._resolve_params(ins.params)

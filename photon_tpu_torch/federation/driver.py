@@ -20,6 +20,7 @@ import time
 from multiprocessing.connection import wait as mp_wait
 from typing import Any, Callable
 
+from photon_tpu_torch import telemetry
 from photon_tpu_torch.config.schema import Config
 from photon_tpu_torch.federation.messages import Ack, Envelope, Query
 from photon_tpu_torch.federation.node import NodeAgent, node_process_main
@@ -131,7 +132,9 @@ class MultiprocessDriver(Driver):
         mid = next(self._mid)
         _, conn = self._nodes[node_id]
         try:
-            conn.send(Envelope(msg, mid))
+            # the sending span's context rides the envelope, so node-side
+            # spans parent to it (None with telemetry off)
+            conn.send(Envelope(msg, mid, trace=telemetry.current_context()))
         except (OSError, ValueError):
             # the node died while idle (nothing in flight, so recv_any never
             # read its EOF): start it again here and fail this message now

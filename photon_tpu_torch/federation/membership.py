@@ -10,8 +10,10 @@
   the TCP node's redial supervisor (``tcp.run_node``), deterministic under
   a seeded rng.
 
-The JAX package's membership events are telemetry, which is not ported;
-the round metrics are.
+Every state-machine edge, first registration (``new → live``) included,
+is a ``membership/transition`` telemetry event (a ``None`` check with
+telemetry off); ping acks are the flush channel for the spans and events
+of nodes that are never sampled for a fit.
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ import dataclasses
 import time
 from typing import Callable, Iterable
 
+from photon_tpu_torch import telemetry
 from photon_tpu_torch.federation.messages import Ack, Query
 from photon_tpu_torch.utils.profiling import (
+    EVENT_MEMBERSHIP_TRANSITION,
     NODES_DEAD,
     NODES_LIVE,
     NODES_READMITTED,
@@ -32,6 +36,13 @@ from photon_tpu_torch.utils.profiling import (
 LIVE = "live"
 SUSPECT = "suspect"
 DEAD = "dead"
+
+
+def _transition_event(nid: str, old: str, new: str, **attrs) -> None:
+    """One membership edge in the event log, correlated with the round
+    span that observed it (a None check with telemetry off)."""
+    telemetry.emit_event(EVENT_MEMBERSHIP_TRANSITION, node=nid,
+                         **{"from": old, "to": new}, **attrs)
 
 
 @dataclasses.dataclass
@@ -90,26 +101,37 @@ class LivenessTracker:
         self.readmitted_total = 0
         self._readmitted_round = 0
 
-    def _track(self, nid: str) -> NodeHealth:
+    def _track(self, nid: str, announce: bool = True) -> NodeHealth:
+        """Get-or-create a node record; a new id emits its ``new → live``
+        event, unless its first observation is a miss (``announce=False``:
+        a never-seen node that failed its first ping was never live)."""
         h = self.nodes.get(nid)
         if h is None:
             h = self.nodes[nid] = NodeHealth()
+            if announce:
+                _transition_event(nid, "new", LIVE)
         return h
 
     def observe_alive(self, nid: str) -> None:
         h = self._track(nid)
+        old = h.state
         if h.state == DEAD:
             self._readmit(h)
         h.state = LIVE
         h.misses = 0
+        if old != LIVE:
+            _transition_event(nid, old, LIVE, readmitted=old == DEAD)
 
     def observe_miss(self, nid: str) -> None:
-        h = self._track(nid)
+        h = self._track(nid, announce=False)
+        old = h.state
         h.misses += 1
         if h.misses >= self.dead_after:
             h.state = DEAD
         elif h.misses >= self.suspect_after:
             h.state = SUSPECT
+        if h.state != old:
+            _transition_event(nid, old, h.state, misses=h.misses)
 
     def touch(self, nid: str) -> None:
         """Start tracking an id (a new node joining mid-round) without the
@@ -121,9 +143,11 @@ class LivenessTracker:
         the broadcast again and is back in rotation. Always counts: the
         scheduler sees a death before the ping sweep moves its state."""
         h = self._track(nid)
+        old = h.state
         self._readmit(h)
         h.state = LIVE
         h.misses = 0
+        _transition_event(nid, old, LIVE, readmitted=True)
 
     def _readmit(self, h: NodeHealth) -> None:
         h.readmissions += 1
@@ -144,6 +168,7 @@ class LivenessTracker:
                 h.state = LIVE
                 h.misses = 0
                 readmitted.append(nid)
+                _transition_event(nid, DEAD, LIVE, readmitted=True, reappeared=True)
             h.absent = False
         return readmitted
 
@@ -174,6 +199,8 @@ class LivenessTracker:
                     on_stale(reply)
                 continue
             pnid = pending.pop(mid)
+            # the flush channel of nodes never sampled for a fit
+            telemetry.ingest(getattr(reply, "spans", None), getattr(reply, "events", None))
             if isinstance(reply, Ack) and reply.ok:
                 if self._track(pnid).state == DEAD:
                     readmitted.append(pnid)

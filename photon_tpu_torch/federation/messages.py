@@ -6,9 +6,10 @@ for tests and tiny models): a :class:`ParamPointer` names a shm segment or
 an object-store key, and the transport plane resolves it. Messages are
 plain dataclasses, pickled between the port's own processes (a pipe or
 a socket; the trust model is the JAX package's: a private network). An
-:class:`Envelope` carries each message with its correlation id. The JAX
-package's telemetry fields (piggybacked spans and events, the envelope's
-trace context) are left out: telemetry is not ported.
+:class:`Envelope` carries each message with its correlation id and the
+sender's span context (``trace``). Fit and eval results and acks carry a
+node's completed spans and buffered events back to the server
+(``spans``/``events``: ``None`` with telemetry off).
 """
 
 from __future__ import annotations
@@ -77,6 +78,10 @@ class FitRes:
     metrics: dict[str, float] = field(default_factory=dict)
     client_state: dict | None = None
     error: str | None = None  # non-None = failure
+    # telemetry piggyback: the node's completed spans and buffered events,
+    # drained by the node agent and merged into the server's timeline
+    spans: list | None = None
+    events: list | None = None
 
 
 @dataclass
@@ -96,6 +101,9 @@ class EvaluateRes:
     n_samples: int = 0
     metrics: dict[str, float] = field(default_factory=dict)
     error: str | None = None
+    # telemetry piggyback — see FitRes.spans/events
+    spans: list | None = None
+    events: list | None = None
 
 
 @dataclass
@@ -111,6 +119,10 @@ class Ack:
     ok: bool = True
     detail: str = ""
     node_id: str = ""
+    # telemetry piggyback (see FitRes.spans/events): a node never sampled
+    # for a fit flushes its reconnect events and transport spans on acks
+    spans: list | None = None
+    events: list | None = None
 
 
 @dataclass
@@ -123,8 +135,12 @@ class Query:
 @dataclass
 class Envelope:
     """A message and its correlation id on a pipe or socket; the reply
-    carries the request's ``msg_id``."""
+    carries the request's ``msg_id``. ``trace`` is the sender's current
+    span context ``(trace_id, span_id)`` (None with telemetry off): the
+    receiving node attaches it as the remote parent, so its fit/eval spans
+    nest under the server's round span across the process boundary."""
 
     msg: Any
     msg_id: int
     sent_at: float = field(default_factory=time.time)
+    trace: tuple | None = None

@@ -1,7 +1,9 @@
 """NodeAgent: the per-node agent that runs federation tasks on a
-:class:`ClientRuntime` (the port of ``photon_tpu/federation/node.py``,
-without its telemetry piggyback). FitIns / EvaluateIns / Broadcast / Query
-in, results and Acks out; ``Query("refresh")`` rebuilds the runtime. Under
+:class:`ClientRuntime` (the port of ``photon_tpu/federation/node.py``).
+FitIns / EvaluateIns / Broadcast / Query in, results and Acks out;
+``Query("refresh")`` rebuilds the runtime. Each request runs under the
+envelope's trace context, and with ``photon.telemetry`` on a node process
+drains its spans and events onto the reply (the server merges them). Under
 ``photon.chaos`` a node can crash before a fit (``pre-fit``) or with its
 fit results done but not yet sent (``pre-reply``).
 
@@ -16,7 +18,7 @@ import traceback
 from collections import deque
 from typing import Any, Callable
 
-from photon_tpu_torch import chaos
+from photon_tpu_torch import chaos, telemetry
 from photon_tpu_torch.config.schema import Config
 from photon_tpu_torch.federation.client_runtime import ClientRuntime
 from photon_tpu_torch.federation.messages import (
@@ -24,6 +26,7 @@ from photon_tpu_torch.federation.messages import (
     Broadcast,
     Envelope,
     EvaluateIns,
+    EvaluateRes,
     FitIns,
     FitRes,
     Query,
@@ -82,6 +85,30 @@ class NodeAgent:
             return Ack(ok=True, detail="bye", node_id=self.node_id)
         return Ack(ok=False, detail=f"unknown query {q.action!r}", node_id=self.node_id)
 
+    def _piggyback_telemetry(self, reply: Any) -> None:
+        """Drain this process's completed spans and buffered events onto the
+        outgoing reply (the server ingests them into the merged timeline).
+        Fit/eval results are the main channel; a single Ack (broadcast,
+        ping, shutdown) carries the buffers too, so a node never sampled
+        for a fit still flushes its reconnect events and transport spans
+        on every ping sweep. Only for piggyback tracers: an in-process node
+        shares the server's tracer, where a drain would pull server spans
+        out of the export buffer."""
+        tr = telemetry.active()
+        if tr is None or not tr.piggyback:
+            return
+        if isinstance(reply, list):
+            carriers = [r for r in reply if isinstance(r, (FitRes, EvaluateRes))]
+            carrier = carriers[-1] if carriers else None
+        elif isinstance(reply, Ack):
+            carrier = reply
+        else:
+            carrier = None
+        if carrier is None:
+            return
+        carrier.spans = tr.drain()
+        carrier.events = telemetry.drain_events()
+
     def serve(self, conn) -> bool:
         """The request loop over a connection with ``send``/``recv``.
         Returns True after a ``shutdown`` query, False when the peer
@@ -105,10 +132,14 @@ class NodeAgent:
             recent.append(env.msg_id)
             recent_set.add(env.msg_id)
             try:
-                reply = self.handle(env.msg)
+                # the sending server span: spans opened while handling parent
+                # to it across the process boundary (a no-op with telemetry off)
+                with telemetry.attach(env.trace):
+                    reply = self.handle(env.msg)
             except Exception as e:  # noqa: BLE001 — never end the loop silently
                 reply = Ack(ok=False, detail=f"{type(e).__name__}: {e}\n{traceback.format_exc()}",
                             node_id=self.node_id)
+            self._piggyback_telemetry(reply)
             if isinstance(reply, list) and any(isinstance(r, FitRes) for r in reply):
                 # the work done, the result not yet on the wire: the server
                 # must charge the cid to its budget, and the restarted
@@ -150,5 +181,8 @@ def node_process_main(cfg_json: str, node_id: str, conn, device: str | None = No
     get it fails each fit with the reason, and never trains elsewhere."""
     cfg = Config.from_json(cfg_json)
     chaos.install(cfg.photon.chaos, scope=node_id)
+    # a spawned node buffers its spans and events and ships them back on
+    # its replies (the server holds the merged timeline)
+    telemetry.install(cfg.photon.telemetry, scope=node_id, piggyback=True)
     agent = make_node_agent(cfg, node_id, device)
     agent.serve(conn)

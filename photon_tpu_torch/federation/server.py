@@ -1,6 +1,6 @@
 """ServerApp: the federated round loop (the port of
-``photon_tpu/federation/server.py``, without its telemetry, Prometheus
-endpoint and retrace sentinel, none of which is ported).
+``photon_tpu/federation/server.py``, without its retrace sentinel, which
+is not ported).
 
 - client sampling by ``random.Random(sample_seed)``, fast-forwarded on
   resume, so both packages sample the same cids in every round;
@@ -20,11 +20,20 @@ endpoint and retrace sentinel, none of which is ported).
   ``server_steps_cumulative`` bookkeeping; the JAX package's metric names;
 - the ``photon.chaos`` injector installed for the process under the scope
   ``server`` (its crash faults neutered under the in-process driver,
-  whose nodes are this process).
+  whose nodes are this process);
+- with ``photon.telemetry`` on: a ``server/round`` span over each round's
+  phase spans, the nodes' piggybacked spans and events merged in, the
+  events written through to ``{dir}/events-{run}.jsonl``, one merged
+  Perfetto trace ``{dir}/trace-{run}.json`` at the end of the run, typed
+  round-phase histograms, the device-memory and kernel-build samples and
+  the NaN sentinel at each round boundary, ``/metrics``, ``/statusz`` and
+  ``POST /debug/profile`` on ``prom_port``, and a ``torch.profiler``
+  capture over the first ``profile_rounds`` rounds.
 """
 
 from __future__ import annotations
 
+import pathlib
 import random
 import time
 import uuid as uuid_mod
@@ -34,7 +43,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 
-from photon_tpu_torch import chaos
+from photon_tpu_torch import chaos, telemetry
 from photon_tpu_torch.checkpoint.server import ServerCheckpointManager
 from photon_tpu_torch.codec.params import ParamsMetadata
 from photon_tpu_torch.config.schema import Config
@@ -67,12 +76,18 @@ from photon_tpu_torch.utils.profiling import (
     CKPT_ASYNC_WRITE_S,
     CKPT_BARRIER_WAIT_S,
     CLIENT_PSEUDO_GRAD_NORM,
+    COMPILES_TOTAL,
     EVAL_ROUND_FAILED,
+    EVAL_ROUND_SPAN,
     EVAL_ROUND_TIME,
     FIT_ROUND_TIME,
+    HBM_BYTES_IN_USE,
+    HBM_PEAK_BYTES,
     PSEUDO_GRAD_NORM,
     ROUND_FAILED,
+    ROUND_SPAN,
     ROUND_TIME,
+    SAMPLE_CLIENTS_SPAN,
     STEPS_CUMULATIVE,
 )
 
@@ -149,6 +164,20 @@ class ServerApp:
                 )
                 crash_fn = lambda code: None  # noqa: E731
         chaos.install(cfg.photon.chaos, scope="server", crash_fn=crash_fn)
+        # the server's tracer holds the merged timeline: its own phase spans
+        # and the nodes' spans shipped back on their replies. Events write
+        # through at once (they must survive a crash); the trace is written
+        # at the end of the run. A config with telemetry off clears what a
+        # previous config left installed
+        tel = cfg.photon.telemetry
+        self.telemetry_dir = tel.dir or str(pathlib.Path(cfg.photon.save_path) / "telemetry")
+        telemetry.install(
+            tel, scope="server",
+            events_path=(str(pathlib.Path(self.telemetry_dir) / f"events-{cfg.run_uuid}.jsonl")
+                         if tel.enabled else None),
+            profile_dir=self.telemetry_dir,
+        )
+        self._prom = None
         self.server_steps_cumulative = 0
         self.client_states: dict[int, dict] = {}
         self.start_round = 1
@@ -243,6 +272,8 @@ class ServerApp:
         self.transport.set_reference(self.strategy.current_parameters)
         msg = Broadcast(server_round, ptr)
         acks = self.driver.broadcast(msg, on_stale=self._free_stale_reply)
+        for a in acks.values():
+            self._ingest_result_telemetry(a)
         # a node dying at broadcast time is churn, not a failure: it leaves
         # the registry (TCP) or respawns without params (multiprocess), and
         # the window sends it the broadcast again when it is back
@@ -264,8 +295,11 @@ class ServerApp:
         self.host_pool.close()
 
     def _free_stale_reply(self, reply) -> None:
-        """Free the payloads a late or stale reply carries."""
+        """Free the payloads a late or stale reply carries, after merging its
+        piggybacked telemetry (a quarantined node's late spans are the
+        struggling-node evidence the timeline exists to show)."""
         for res in (reply if isinstance(reply, list) else [reply]):
+            self._ingest_result_telemetry(res)
             ptr = getattr(res, "params", None)
             if ptr is not None:
                 self.transport.free(ptr)
@@ -301,12 +335,22 @@ class ServerApp:
         # message ids already consumed: a repeated reply carries the pointer
         # the fold is reading, so it is dropped, never freed
         consumed: set[int] = set()
+        # the fold's decode-ahead worker advances this generator, so a refill
+        # may be sent from a thread with an empty span stack: every send
+        # carries the context of the thread that opened the window (the JAX
+        # package sends those without one, and their node spans start
+        # traces of their own)
+        parent = telemetry.current_context()
+
+        def send(nid: str, msg) -> int:
+            with telemetry.attach(parent):
+                return self.driver.send(nid, msg)
 
         def rejoin(nid: str) -> None:
             """A node without the round's params: send the broadcast again
             (its ack drains as a stale reply) before a cid lands there."""
             if self._last_broadcast is not None:
-                self.driver.send(nid, self._last_broadcast)
+                send(nid, self._last_broadcast)
 
         while queue or inflight:
             # a node id no structure here tracks just (re)joined mid-round:
@@ -325,7 +369,7 @@ class ServerApp:
                     self.membership.touch(nid)
             while queue and free:
                 nid, cid = free.popleft(), queue.popleft()
-                inflight[self.driver.send(nid, make_ins([cid]))] = (nid, cid)
+                inflight[send(nid, make_ins([cid]))] = (nid, cid)
             if not inflight and not suspect:
                 # every node died: the remaining cids can never run
                 failures.extend((cid, "no live nodes") for cid in queue)
@@ -409,7 +453,8 @@ class ServerApp:
     # ------------------------------------------------------------------
     def fit_round(self, server_round: int) -> dict[str, float]:
         t_round = time.monotonic()
-        cids = self._sample_clients()
+        with telemetry.span(SAMPLE_CLIENTS_SPAN, round=server_round):
+            cids = self._sample_clients()
         local_steps = self.cfg.fl.local_steps
 
         def make_ins(cid_batch: list[int]) -> FitIns:
@@ -431,6 +476,7 @@ class ServerApp:
             for res in self._sliding_window(server_round, cids, make_ins,
                                             timeout=self.cfg.fl.fit_timeout_s):
                 assert isinstance(res, FitRes)
+                self._ingest_result_telemetry(res)
                 # decode=False: a compressed payload stays compressed until
                 # the streaming fold decodes it, one client at a time
                 _, arrays = self.transport.get(res.params, decode=False)
@@ -444,7 +490,10 @@ class ServerApp:
                 self.transport.free(res.params)
 
         t_fit = time.monotonic()
-        _, metrics = self.strategy.aggregate_fit(server_round, results())
+        # the same window as the fit_round_time KPI: scheduling, the fits
+        # and the streaming fold
+        with telemetry.span(FIT_ROUND_TIME, round=server_round, n_cids=len(cids)):
+            _, metrics = self.strategy.aggregate_fit(server_round, results())
         metrics[FIT_ROUND_TIME] = time.monotonic() - t_fit
         agg_sq = metrics.get(PSEUDO_GRAD_NORM, 0.0) ** 2
         metrics.update(self.gns.update(per_client_sq, per_client_n, agg_sq, sum(per_client_n)))
@@ -467,13 +516,21 @@ class ServerApp:
 
         t0 = time.monotonic()
         results = []
-        for res in self._sliding_window(server_round, cids, make_ins,
-                                        timeout=self.cfg.fl.eval_timeout_s):
-            assert isinstance(res, EvaluateRes)
-            results.append((res.n_samples, res.loss, res.metrics))
+        with telemetry.span(EVAL_ROUND_SPAN, round=server_round):
+            for res in self._sliding_window(server_round, cids, make_ins,
+                                            timeout=self.cfg.fl.eval_timeout_s):
+                assert isinstance(res, EvaluateRes)
+                self._ingest_result_telemetry(res)
+                results.append((res.n_samples, res.loss, res.metrics))
         _, metrics = self.strategy.aggregate_evaluate(server_round, results)
         metrics[EVAL_ROUND_TIME] = time.monotonic() - t0
         return metrics
+
+    @staticmethod
+    def _ingest_result_telemetry(res) -> None:
+        """Fold a reply's piggybacked spans and events (FitRes, EvaluateRes
+        or Ack) into the merged timeline (a None check with telemetry off)."""
+        telemetry.ingest(getattr(res, "spans", None), getattr(res, "events", None))
 
     def run(self, n_rounds: int | None = None) -> History:
         """The whole loop: resume or import, the round-0 checkpoint and
@@ -488,6 +545,28 @@ class ServerApp:
         if resumed is None and self.ckpt_mgr is not None and cfg.photon.checkpoint:
             self.save_checkpoint(0)
 
+        # /metrics, /statusz and POST /debug/profile over the live History
+        # and the observatory (photon.telemetry.prom_port)
+        tel = cfg.photon.telemetry
+        if tel.enabled and tel.prom_port:
+            from photon_tpu_torch.telemetry.prom import PromServer
+
+            self._prom = PromServer(self.history, tel.prom_port,
+                                    hub=telemetry.metrics_active(),
+                                    health=telemetry.health_active(),
+                                    profiler=telemetry.profiler_active())
+            self._prom.start()
+        # photon.telemetry.profile_rounds: a capture over the first N rounds
+        prof = telemetry.profiler_active()
+        if prof is not None and tel.profile_rounds > 0:
+            from photon_tpu_torch.telemetry.introspect import ProfileBusyError
+
+            try:
+                prof.request(tel.profile_rounds, tag="startup")
+            except ProfileBusyError:
+                warnings.warn("telemetry.profile_rounds: a capture is already armed — "
+                              "skipping the startup profile", stacklevel=2)
+
         if cfg.fl.eval_interval_rounds and self.start_round == 1:
             t_pre = self.broadcast_parameters(0)
             try:
@@ -501,7 +580,14 @@ class ServerApp:
 
         try:
             for rnd in range(self.start_round, n_rounds + 1):
-                self._one_round(cfg, rnd)
+                # a profile capture starts and stops at round starts (one
+                # None check when nothing is armed)
+                telemetry.profile_tick("server/round")
+                # the umbrella span every phase span, and through
+                # Envelope.trace every node's fit and eval span, parents to
+                with telemetry.span(ROUND_SPAN, round=rnd):
+                    self._one_round(cfg, rnd)
+            telemetry.profile_tick("server/round")
         finally:
             # the last background write lands (and raises) before return;
             # the transport is freed whatever happens
@@ -510,13 +596,44 @@ class ServerApp:
                     self.ckpt_mgr.wait_pending()
             finally:
                 self.free_transport()
+                try:
+                    self.export_telemetry()
+                except Exception:  # noqa: BLE001 — the trace never takes the run
+                    # down (nor masks its real error): a full disk costs the
+                    # timeline, not the History
+                    warnings.warn("telemetry trace export failed", stacklevel=2)
         return self.history
+
+    def export_telemetry(self) -> str | None:
+        """Write the merged Perfetto/Chrome trace (server and ingested node
+        spans, events as instant markers), stop the HTTP endpoint and flush
+        a profile capture still running. Returns the trace path, or None
+        with telemetry off. Idempotent."""
+        if self._prom is not None:
+            self._prom.close()
+            self._prom = None
+        prof = telemetry.profiler_active()
+        if prof is not None:
+            # a capture armed for more rounds than the run had still flushes
+            prof.close()
+        tr = telemetry.active()
+        if tr is None:
+            return None
+        from photon_tpu_torch.telemetry.export import write_chrome_trace
+
+        log = telemetry.events_active()
+        path = pathlib.Path(self.telemetry_dir) / f"trace-{self.cfg.run_uuid}.json"
+        return write_chrome_trace(
+            path, tr.snapshot(), events=log.snapshot() if log is not None else None,
+            metadata={"run_uuid": self.cfg.run_uuid, "dropped_spans": tr.dropped},
+        )
 
     def _one_round(self, cfg: Config, rnd: int) -> None:
         if cfg.photon.refresh_period and rnd > 1 and (rnd - 1) % cfg.photon.refresh_period == 0:
             self.driver.broadcast(Query("refresh"), on_stale=self._free_stale_reply)
         self._membership_round_start(rnd)
-        t_pre = self.broadcast_parameters(rnd)
+        with telemetry.span(BROADCAST_PRE_TIME, round=rnd):
+            t_pre = self.broadcast_parameters(rnd)
         try:
             metrics = self.fit_round(rnd)
         except TooManyFailuresError:
@@ -524,13 +641,15 @@ class ServerApp:
                 raise
             failed = {ROUND_FAILED: 1.0}
             failed.update(self._membership_metrics())
+            self._observe_round_health(rnd, failed)
             self.history.record(rnd, failed)
             return
         metrics[BROADCAST_PRE_TIME] = t_pre
         metrics.update(self._membership_metrics())
 
         if cfg.fl.eval_interval_rounds and rnd % cfg.fl.eval_interval_rounds == 0:
-            t_post = self.broadcast_parameters(rnd)
+            with telemetry.span(BROADCAST_POST_TIME, round=rnd):
+                t_post = self.broadcast_parameters(rnd)
             try:
                 metrics.update(self.evaluate_round(rnd))
             except TooManyFailuresError:
@@ -542,11 +661,38 @@ class ServerApp:
         if self.ckpt_mgr is not None and cfg.photon.checkpoint \
                 and rnd % cfg.photon.checkpoint_interval == 0:
             t_ck = time.monotonic()
-            self.save_checkpoint(rnd)
+            # what the loop blocks on; the background write is a span of its
+            # own (server/ckpt_async_write_s) overlapping the next round
+            with telemetry.span(CHECKPOINT_TIME, round=rnd):
+                self.save_checkpoint(rnd)
             # what the loop was blocked on: snapshot + enqueue (+ the wait
             # for the previous round's write, reported on its own)
             metrics[CHECKPOINT_TIME] = time.monotonic() - t_ck
             metrics[CKPT_ASYNC_WRITE_S] = float(self.ckpt_mgr.last_async_write_s)
             if cfg.photon.async_checkpoint:
                 metrics[CKPT_BARRIER_WAIT_S] = float(self.ckpt_mgr.last_barrier_wait_s)
+        self._observe_round_health(rnd, metrics)
         self.history.record(rnd, metrics)
+
+    def _observe_round_health(self, rnd: int, metrics: dict) -> None:
+        """The observatory at the round boundary: round-phase timings into
+        typed histograms, device memory and the kernel-build count sampled
+        into the metrics and the hub, then the NaN/Inf sentinel and the
+        memory-growth watcher. One None check per plane with telemetry
+        off."""
+        hub = telemetry.metrics_active()
+        if hub is not None:
+            from photon_tpu_torch.telemetry.introspect import sample_device_plane
+
+            for key in (ROUND_TIME, FIT_ROUND_TIME, BROADCAST_PRE_TIME, CHECKPOINT_TIME):
+                v = metrics.get(key)
+                if v is not None:
+                    hub.histogram(key).observe(float(v))
+            sample_device_plane(metrics, hub, hbm_key=HBM_BYTES_IN_USE,
+                                peak_key=HBM_PEAK_BYTES, compiles_key=COMPILES_TOTAL)
+        health = telemetry.health_active()
+        if health is not None:
+            health.check_round_metrics(rnd, metrics)
+            hbm = metrics.get(HBM_BYTES_IN_USE)
+            if hbm is not None:
+                health.note_hbm_sample(hbm)

@@ -1,5 +1,5 @@
 """TCP control plane: the multi-host driver (the port of
-``photon_tpu/federation/tcp.py``, without its telemetry).
+``photon_tpu/federation/tcp.py``).
 
 The server listens; node agents dial in and announce a node id (a HELLO
 frame); envelopes flow as length + CRC32 prefixed pickles (``<QI`` header,
@@ -10,7 +10,11 @@ network; do not expose the port. Pickles name their classes' module, so a
 port node joins a port server only (the frame layout and the objstore
 payloads are the JAX package's bytes). Under ``photon.chaos`` an envelope
 send may be dropped, delayed, sent twice or have a payload bit flipped
-after its CRC was computed; HELLO frames are never faulted.
+after its CRC was computed; HELLO frames are never faulted. With
+``photon.telemetry`` on, each send and receive leg is a ``tcp/send`` /
+``tcp/recv`` span with its frame size in the ``tcp/*_bytes`` histograms,
+a refused frame and a node's redial are events, and the server's sends
+carry its span context.
 
 Usage::
 
@@ -37,10 +41,18 @@ import zlib
 from collections import deque
 from typing import Any
 
-from photon_tpu_torch import chaos
+from photon_tpu_torch import chaos, telemetry
 from photon_tpu_torch.federation.driver import Driver
 from photon_tpu_torch.federation.membership import ReconnectPolicy
 from photon_tpu_torch.federation.messages import Ack, Envelope, Query
+from photon_tpu_torch.utils.profiling import (
+    EVENT_TCP_CORRUPT_FRAME,
+    EVENT_TCP_RECONNECT,
+    TCP_RECV_BYTES,
+    TCP_RECV_SPAN,
+    TCP_SEND_BYTES,
+    TCP_SEND_SPAN,
+)
 
 #: frame header: payload length and the payload's CRC32. A corrupt frame
 #: must surface as a broken connection (the stream's framing is lost after
@@ -109,9 +121,13 @@ class SocketConn:
                 data = inj.corrupt_bytes(data)
             if plan.duplicate:
                 repeat = 2
-        with self._wlock:
-            for _ in range(repeat):
-                self.sock.sendall(header + data)
+        # the send leg, lock contention included, and its frame size; a
+        # dropped frame above never reaches here, so it leaves no span
+        with telemetry.timed_add(TCP_SEND_SPAN, nbytes=len(data)):
+            with self._wlock:
+                for _ in range(repeat):
+                    self.sock.sendall(header + data)
+        telemetry.metric_observe(TCP_SEND_BYTES, len(data))
 
     def _read_exact(self, n: int) -> bytes:
         buf = bytearray()
@@ -130,14 +146,22 @@ class SocketConn:
     def recv(self) -> Any:
         with self._rlock:
             n, crc = _FRAME.unpack(self._read_exact(_FRAME.size))
-            data = self._read_exact(n)
+            # the receive leg starts once the header is in: the wait for the
+            # peer before it would drown the transport cost on a timeline
+            with telemetry.timed_add(TCP_RECV_SPAN, nbytes=n):
+                data = self._read_exact(n)
+            telemetry.metric_observe(TCP_RECV_BYTES, n)
         if zlib.crc32(data) != crc:
+            # the teardown this forces is an event, correlated with the
+            # round span it interrupted
+            telemetry.emit_event(EVENT_TCP_CORRUPT_FRAME, nbytes=n)
             raise CorruptFrameError(f"frame CRC mismatch ({n} bytes)")
         try:
             return pickle.loads(data)
         except Exception as exc:
             # CRC-valid but undecodable (a peer of another version, a
             # renamed class): as untrustworthy as a corrupt frame
+            telemetry.emit_event(EVENT_TCP_CORRUPT_FRAME, nbytes=n)
             raise CorruptFrameError(f"frame unpicklable ({n} bytes): {exc!r}") from exc
 
     def close(self) -> None:
@@ -247,7 +271,8 @@ class TcpServerDriver(Driver):
                 return mid
             self._inflight[node_id].append(mid)
         try:
-            conn.send(Envelope(msg, mid))
+            # the sending span's context rides the envelope (None when off)
+            conn.send(Envelope(msg, mid, trace=telemetry.current_context()))
         except OSError:
             pass  # surfaces as a dead-node reply in recv_any
         return mid
@@ -362,6 +387,9 @@ def run_node(server_addr: str, node_id: str, cfg_json: str, sleep=time.sleep,
     host, _, port = server_addr.rpartition(":")
     cfg = Config.from_json(cfg_json)
     chaos.install(cfg.photon.chaos, scope=node_id)
+    # node-side telemetry buffers (no files): spans and events ship back to
+    # the server on its replies
+    telemetry.install(cfg.photon.telemetry, scope=node_id, piggyback=True)
     policy = ReconnectPolicy.from_config(cfg.photon.membership,
                                          rng=random.Random(zlib.crc32(node_id.encode())))
     agent = make_node_agent(cfg, node_id, device)
@@ -409,6 +437,9 @@ def run_node(server_addr: str, node_id: str, cfg_json: str, sleep=time.sleep,
         reconnects += 1
         d = policy.delay(0)
         backoff_total += d
+        # buffered on the node; rides the next reply to the server's log
+        telemetry.emit_event(EVENT_TCP_RECONNECT, node=node_id, reconnects=reconnects,
+                             backoff_s=d, backoff_total_s=backoff_total)
         sleep(d)
 
 

@@ -93,3 +93,10 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(source)))
             _loaded[source] = lib
         return lib
+
+
+def loaded_sources() -> list[str]:
+    """The sources whose library this process has built or loaded (the
+    telemetry plane's compile count)."""
+    with _lock:
+        return sorted(_loaded)

@@ -46,6 +46,13 @@ asks, so the fleet moves to a new round one replica at a time. The router (``ser
     # --fleet-connect 127.0.0.1:{router.control_port}, and
     router.wait_for_replicas()
 
+With ``photon.telemetry.enabled`` the run-health observatory rides along:
+typed ``/metrics`` (TTFT, queue-wait and TPOT histograms with trace-id
+exemplars under an OpenMetrics ``Accept``), ``/statusz`` and ``POST
+/debug/profile {"units": N}``, whose ``torch.profiler`` capture over N
+scheduler ticks lands in ``{telemetry.dir or save_path/telemetry}/
+profile-{tag}-{seq}/trace.json``.
+
 The first line on stdout is one JSON object with the serving URL, the
 bound port, the replica id (or null), the round, the model, the pool's
 shape, which of the prefix cache and hot-swap are on, and the adapter
@@ -94,6 +101,7 @@ def main(argv: list[str] | None = None) -> None:
     if bool(args.fleet_connect) != bool(args.replica_id):
         ap.error("--fleet-connect and --replica-id go together")
 
+    from photon_tpu_torch import telemetry
     from photon_tpu_torch.checkpoint import FileStore
     from photon_tpu_torch.config import load_preset
     from photon_tpu_torch.config.schema import Config
@@ -117,6 +125,12 @@ def main(argv: list[str] | None = None) -> None:
     if args.port is not None:
         sc.port = args.port
     cfg.validate(args.device, serving=True)
+    if cfg.photon.telemetry.enabled:
+        # profile artifacts land in the run's telemetry dir beside the
+        # training traces
+        telemetry.install(cfg.photon.telemetry, scope="serve",
+                          profile_dir=(cfg.photon.telemetry.dir
+                                       or cfg.photon.save_path + "/telemetry"))
     tokenizer = None
     if args.tokenizer:
         from photon_tpu_torch.data.tokenizer import load_tokenizer
@@ -197,6 +211,7 @@ def main(argv: list[str] | None = None) -> None:
         else:
             frontend.close()
             batcher.close()
+        telemetry.uninstall()  # flushes a profile capture still running
 
 
 if __name__ == "__main__":

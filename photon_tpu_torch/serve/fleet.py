@@ -38,9 +38,12 @@ photon_tpu_torch.serve --fleet-connect`` daemons as child processes; it
 reads each child's output on a thread, so a child never blocks on a full
 pipe, and keeps the last lines.
 
-Not ported yet: the agent's telemetry (its reconnect event, and the
-report's ``health`` and ``compiles`` fields, which the router's restart
-autopilot reads) waits for the telemetry port.
+With ``photon.telemetry`` on, the agent's redial is a ``tcp/reconnect``
+event, and its report carries the serve plane's health (``health``) and
+the replica's kernel-build count (``compiles``), which the router's
+restart autopilot (not ported yet) reads. The JAX agent reports the
+``server/`` build counter, which a serving replica never moves; the port
+reports ``serve/backend_compiles_total``.
 """
 
 from __future__ import annotations
@@ -58,9 +61,11 @@ import time
 import zlib
 from typing import Any
 
+from photon_tpu_torch import telemetry
 from photon_tpu_torch.federation import tcp
 from photon_tpu_torch.federation.membership import ReconnectPolicy
 from photon_tpu_torch.federation.messages import Ack, Envelope, Query
+from photon_tpu_torch.utils.profiling import EVENT_TCP_RECONNECT, SERVE_COMPILES_TOTAL
 
 #: lines of each supervised child's output kept
 _LOG_LINES = 200
@@ -159,6 +164,9 @@ class ReplicaAgent:
             self.reconnects += 1
             d = self.policy.delay(0)
             backoff_total += d
+            telemetry.emit_event(EVENT_TCP_RECONNECT, node=self.replica_id,
+                                 reconnects=self.reconnects, backoff_s=d,
+                                 backoff_total_s=backoff_total)
             self._stop.wait(d)
 
     def _serve(self, conn: tcp.SocketConn) -> bool:
@@ -220,6 +228,16 @@ class ReplicaAgent:
                "cohorts": eng.adapter_pool.cohorts() if eng.adapter_pool is not None else [],
                "round": eng.loaded_round if eng.loaded_round is not None else -1}
         rep.update(self.batcher.load_report())
+        # the replica's health and build count ride the same round trip
+        health = telemetry.health_active()
+        if health is not None:
+            plane = health.statusz().get("planes", {}).get("serve")
+            if plane is not None:
+                rep["health"] = {"status": plane.get("status"), "reason": plane.get("reason")}
+        hub = telemetry.metrics_active()
+        if hub is not None:
+            c = hub.get(SERVE_COMPILES_TOTAL)
+            rep["compiles"] = float(c.value) if c is not None else 0.0
         return rep
 
 

@@ -1,9 +1,15 @@
-"""Stdlib-HTTP serving frontend: ``/generate`` and ``/healthz``.
+"""Stdlib-HTTP serving frontend: ``/generate``, ``/healthz``, ``/metrics``,
+``/statusz`` and ``POST /debug/profile``.
 
-The port of ``photon_tpu/serve/frontend.py`` (``/metrics``, ``/statusz``
-and ``/debug/profile`` are not ported). A ``ThreadingHTTPServer`` whose
-handler threads block on the batcher's per-request output queues; the
-scheduler's single thread does all engine work.
+The port of ``photon_tpu/serve/frontend.py``. A ``ThreadingHTTPServer``
+whose handler threads block on the batcher's per-request output queues;
+the scheduler's single thread does all engine work. ``/metrics`` renders
+the typed hub (with ``photon.telemetry`` on) and the batcher's KPI
+History in Prometheus text, with exemplars only under an OpenMetrics
+``Accept``; ``/statusz`` is the health monitor's rollup (``"telemetry":
+"off"`` without one); ``POST /debug/profile {"units": N}`` arms a
+``torch.profiler`` capture over the next N scheduler ticks (202; 409
+while one is armed or running; 503 with telemetry off).
 
 ``POST /generate`` accepts JSON::
 
@@ -36,6 +42,7 @@ import time
 import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from photon_tpu_torch import telemetry
 from photon_tpu_torch.ops import ragged_paged_attention as rpa
 from photon_tpu_torch.serve.scheduler import (
     ContinuousBatcher,
@@ -43,6 +50,8 @@ from photon_tpu_torch.serve.scheduler import (
     EngineFailedError,
     QueueFullError,
 )
+from photon_tpu_torch.telemetry.introspect import ProfileBusyError
+from photon_tpu_torch.telemetry.prom import negotiate_exposition, render_exposition
 
 
 class ServeFrontend:
@@ -98,7 +107,32 @@ class ServeFrontend:
                     self.rfile.read(n)
 
             def do_GET(self) -> None:  # noqa: N802 — http.server API
-                if self.path.rstrip("/") != "/healthz":
+                path = self.path.rstrip("/")
+                if path == "/metrics":
+                    # typed instruments (TTFT/TPOT/queue-wait histograms,
+                    # device gauges, build counter) + the KPI History bridge
+                    want_om, ctype = negotiate_exposition(self.headers.get("Accept"))
+                    body = render_exposition(fe.batcher.history, telemetry.metrics_active(),
+                                             exemplars=want_om).encode()
+                    if want_om:
+                        body += b"# EOF\n"
+                    self.send_response(200)
+                    self.send_header("Content-Type", ctype)
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                if path == "/statusz":
+                    h = telemetry.health_active()
+                    payload = (h.statusz() if h is not None
+                               else {"status": "ok", "planes": {}, "alerts": [],
+                                     "telemetry": "off"})
+                    payload["draining"] = fe.draining
+                    if (p := telemetry.profiler_active()) is not None:
+                        payload["profile"] = p.status()  # captures done, last error
+                    self._json(200, payload)
+                    return
+                if path != "/healthz":
                     self._discard_body()
                     self._json(404, {"error": f"no route {self.path!r}"})
                     return
@@ -134,6 +168,9 @@ class ServeFrontend:
                 self._json(503 if eng.failed else 200, payload)
 
             def do_POST(self) -> None:  # noqa: N802 — http.server API
+                if self.path.rstrip("/") == "/debug/profile":
+                    self._debug_profile()
+                    return
                 if self.path.rstrip("/") != "/generate":
                     self._discard_body()
                     self._json(404, {"error": f"no route {self.path!r}"})
@@ -178,6 +215,34 @@ class ServeFrontend:
                     self._stream(req)
                 else:
                     self._blocking(req)
+
+            def _debug_profile(self) -> None:
+                """Arm the on-demand profile controller for N scheduler
+                ticks: 202 armed, 409 while a capture is armed or running,
+                503 with telemetry off."""
+                try:
+                    n = int(self.headers.get("Content-Length", 0) or 0)
+                    body = json.loads(self.rfile.read(n) or b"{}")
+                except (ValueError, json.JSONDecodeError) as e:
+                    self._json(400, {"error": f"bad JSON body: {e}"})
+                    return
+                if not isinstance(body, dict):
+                    self._json(400, {"error": "body must be a JSON object"})
+                    return
+                p = telemetry.profiler_active()
+                if p is None:
+                    self._json(503, {"error": "no profiler installed (telemetry disabled?)"})
+                    return
+                try:
+                    armed = p.request(int(body.get("units", 1)),
+                                      tag=str(body.get("tag", "serve")))
+                except ProfileBusyError as e:
+                    self._json(409, {"error": str(e), "status": p.status()})
+                    return
+                except (TypeError, ValueError) as e:
+                    self._json(400, {"error": str(e)})
+                    return
+                self._json(202, {"armed": armed, "status": p.status()})
 
             def _blocking(self, req) -> None:
                 try:

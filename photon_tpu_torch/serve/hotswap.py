@@ -1,9 +1,12 @@
 """Live checkpoint hot-swap: serve the rounds of a federated run as it
 trains.
 
-The port of ``photon_tpu/serve/hotswap.py`` (telemetry events, metrics
-and the health monitor are not ported: the watcher keeps its counters as
-attributes and ``/healthz`` reports them). A watcher thread polls the
+The port of ``photon_tpu/serve/hotswap.py``. The watcher keeps its
+counters as attributes (``/healthz`` reports them); with
+``photon.telemetry`` on, a skipped round is a ``hotswap/skipped`` event
+and a corrupt one also bumps ``serve/hotswap_rejected_corrupt_total`` and
+raises a ``store`` health alert (the swap itself is the scheduler's
+span, histogram observation and event). A watcher thread polls the
 run's store and stages each new, checksum-valid round at the scheduler's
 swap point, where admission pauses, running requests finish on the old
 params, and the engine swaps and flushes its prefix cache. No request is
@@ -36,8 +39,13 @@ import time
 import urllib.request
 import warnings
 
+from photon_tpu_torch import telemetry
 from photon_tpu_torch.serve.engine import load_serving_bank, load_serving_params
 from photon_tpu_torch.serve.scheduler import ContinuousBatcher, DrainingError
+from photon_tpu_torch.utils.profiling import (
+    EVENT_HOTSWAP_SKIPPED,
+    SERVE_HOTSWAP_REJECTED_CORRUPT,
+)
 
 #: how long one poll waits for the scheduler to apply the swap it staged;
 #: a longer quiesce is resolved by a later poll
@@ -130,6 +138,11 @@ class CheckpointWatcher:
             if candidate not in self._rejected_rounds:
                 self._rejected_rounds.add(candidate)
                 self.rejected_corrupt += 1
+                telemetry.metric_inc(SERVE_HOTSWAP_REJECTED_CORRUPT)
+                health = telemetry.health_active()
+                if health is not None:
+                    health.note_store_corruption(round=candidate, run_uuid=self.mgr.run_uuid,
+                                                 stage="hotswap")
             self._skip(candidate, "corrupt")
             return "skipped-corrupt"
         params = load_serving_params(self.cfg, self.mgr, candidate)
@@ -162,6 +175,7 @@ class CheckpointWatcher:
         return "swap-abandoned"
 
     def _skip(self, candidate: int, reason: str, warn: bool = True) -> None:
+        telemetry.emit_event(EVENT_HOTSWAP_SKIPPED, round=candidate, reason=reason)
         if warn and candidate not in self._warned_rounds:
             self._warned_rounds.add(candidate)
             warnings.warn(f"hotswap: skipping candidate round {candidate} ({reason}); "

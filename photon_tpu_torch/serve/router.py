@@ -39,14 +39,15 @@ survivors could serve. Once bytes flow, an error reaches the client
 The data plane proxies ``/generate`` with ``http.client``, passing a
 chunked stream through chunk by chunk.
 
-Not ported yet, each a no-op in the JAX package while its feature is off:
-the telemetry events, health plane and replica-restart autopilot
-(``telemetry.emit_event``, ``health_active``, ``metrics_active``,
-``autopilot_active``) and the ``/metrics`` exposition wait for the
-telemetry port. ``/statusz`` answers as the JAX router does with
-telemetry off. Under ``photon.chaos``, :meth:`FleetRouter.place` asks the
-injector whether to kill a replica after N placements and hands the
-victim to ``kill_hook``.
+``/metrics`` renders the router's KPI History (and the typed hub with
+``photon.telemetry`` on); ``/statusz`` is the health monitor's rollup
+with the fleet's counts. With telemetry on, a replica's registration, its
+death, each cohort re-pin and each leg of a rolling swap are events, and a
+dead replica degrades the ``fleet`` health plane until every tracked
+replica is live again. The replica-restart autopilot is not ported (the
+next slice of the port's telemetry). Under ``photon.chaos``,
+:meth:`FleetRouter.place` asks the injector whether to kill a replica
+after N placements and hands the victim to ``kill_hook``.
 """
 
 from __future__ import annotations
@@ -62,13 +63,18 @@ import warnings
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 
-from photon_tpu_torch import chaos
+from photon_tpu_torch import chaos, telemetry
 from photon_tpu_torch.federation.membership import DEAD, LivenessTracker
 from photon_tpu_torch.federation.messages import Ack, Query
 from photon_tpu_torch.federation.tcp import TcpServerDriver
 from photon_tpu_torch.metrics.history import History
 from photon_tpu_torch.serve.prefix import prefix_hashes
+from photon_tpu_torch.telemetry.prom import negotiate_exposition, render_exposition
 from photon_tpu_torch.utils.profiling import (
+    EVENT_FLEET_COHORT_REPIN,
+    EVENT_FLEET_REPLICA_DEAD,
+    EVENT_FLEET_REPLICA_UP,
+    EVENT_FLEET_ROLLING_SWAP,
     ROUTER_COHORT_REPINS,
     ROUTER_PROXY_ERRORS,
     ROUTER_REPLICAS_DEAD,
@@ -293,6 +299,7 @@ class FleetRouter:
         except json.JSONDecodeError:
             return
         with self._lock:
+            first = nid not in self.replicas or not self.replicas[nid].port
             st = self.replicas.setdefault(nid, ReplicaState(replica_id=nid))
             st.host = str(rep.get("host", st.host or self.fc.host))
             st.port = int(rep.get("port", st.port))
@@ -301,21 +308,36 @@ class FleetRouter:
             st.queue_depth = int(rep.get("queue_depth", 0))
             st.live_slot_frac = float(rep.get("live_slot_frac", 0.0))
             st.draining = bool(rep.get("draining", False))
+        if first and st.port:
+            telemetry.emit_event(EVENT_FLEET_REPLICA_UP, replica=nid, port=st.port,
+                                 round=st.loaded_round)
 
     def _apply_transitions(self) -> None:
-        """A replica newly dead re-pins its cohorts."""
+        """A replica newly dead re-pins its cohorts and degrades the fleet
+        plane; a fleet all live resolves it."""
         states = {nid: h.state for nid, h in self.tracker.nodes.items()}
         newly_dead = [nid for nid, s in states.items()
                       if s == DEAD and self._last_states.get(nid) != DEAD]
         self._last_states = states
         for nid in newly_dead:
             self._on_replica_dead(nid)
+        if states and all(s != DEAD for s in states.values()):
+            h = telemetry.health_active()
+            if h is not None:
+                h.resolve("fleet", reason="all replicas live")
 
     def _on_replica_dead(self, nid: str) -> None:
         live = self.live_replicas(exclude=(nid,))
         with self._lock:
             moved = self.policy.repin_dead(nid, live)
             self.cohort_repins += len(moved)
+        telemetry.emit_event(EVENT_FLEET_REPLICA_DEAD, replica=nid, survivors=len(live))
+        for cohort, new in moved:
+            telemetry.emit_event(EVENT_FLEET_COHORT_REPIN, cohort=cohort,
+                                 **{"from": nid, "to": new})
+        h = telemetry.health_active()
+        if h is not None:
+            h.note_fleet_replica_dead(replica=nid, survivors=len(live), repinned=len(moved))
 
     def live_replicas(self, exclude: tuple = ()) -> list[str]:
         """The replicas a placement may target: not dead, data port known,
@@ -386,6 +408,9 @@ class FleetRouter:
                 except json.JSONDecodeError:
                     pass
                 res["ok"] = True
+                telemetry.emit_event(EVENT_FLEET_ROLLING_SWAP, replica=nid,
+                                     swapped=bool(res.get("swapped")),
+                                     round=res.get("round", -1))
             results.append(res)
         with self._lock:
             self.rolling_swaps += 1
@@ -454,10 +479,24 @@ class FleetRouter:
                 path = self.path.rstrip("/")
                 if path == "/healthz":
                     self._json(200, router.fleet_status())
+                elif path == "/metrics":
+                    want_om, ctype = negotiate_exposition(self.headers.get("Accept"))
+                    body = render_exposition(router.history, telemetry.metrics_active(),
+                                             exemplars=want_om).encode()
+                    if want_om:
+                        body += b"# EOF\n"
+                    self.send_response(200)
+                    self.send_header("Content-Type", ctype)
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
                 elif path == "/statusz":
-                    self._json(200, {"status": "ok", "planes": {}, "alerts": [],
-                                     "telemetry": "off",
-                                     "fleet": router.fleet_status()["fleet"]})
+                    h = telemetry.health_active()
+                    payload = (h.statusz() if h is not None
+                               else {"status": "ok", "planes": {}, "alerts": [],
+                                     "telemetry": "off"})
+                    payload["fleet"] = router.fleet_status()["fleet"]
+                    self._json(200, payload)
                 else:
                     self._discard_body()
                     self._json(404, {"error": f"no route {self.path!r}"})

@@ -1,10 +1,9 @@
 """Continuous batching: bounded admission queue + slot-level scheduling.
 
-The port of ``photon_tpu/serve/scheduler.py`` without its telemetry
-and autopilot hooks (``photon.chaos``'s stall per token stepped is
-kept; its device-memory ramp waits for the health plane). One scheduler
-thread makes every engine (and so every CUDA) call, in three phases a
-tick:
+The port of ``photon_tpu/serve/scheduler.py`` without its autopilot
+hooks (``photon.chaos``'s stall per token stepped and its device-memory
+ramp are kept). One scheduler thread makes every engine (and so every
+CUDA) call, in three phases a tick:
 
 1. **swap point** — a staged parameter swap (:meth:`request_swap`, the
    hot-swap watcher's) applies once no slot is active; while one is
@@ -28,6 +27,17 @@ Backpressure is reject-not-buffer: :meth:`ContinuousBatcher.submit`
 raises :class:`QueueFullError` when ``max_queue`` requests already wait
 (the HTTP 429). Admission is strictly FIFO: a head request that does not
 fit blocks later arrivals rather than being overtaken.
+
+Every tick records the ``serve/*`` KPIs of the registry into
+:attr:`ContinuousBatcher.history` (the frontend's ``/metrics``). With
+``photon.telemetry`` on, a finished request is a ``serve/request`` span
+with its queue, prefill and decode children, its TTFT, queue wait and
+TPOT are histogram observations (the exemplar links the request's span),
+a swap is a ``serve/hotswap_swap`` span, histogram observation and event,
+the tick's gauges and counters land in the hub, device memory and the
+kernel-build count are sampled every ``device_sample_ticks`` ticks, the
+queue-saturation and memory-growth watchers run, and a tick is a unit of
+an on-demand profile.
 """
 
 from __future__ import annotations
@@ -39,9 +49,63 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 
-from photon_tpu_torch import chaos
+from photon_tpu_torch import chaos, telemetry
+from photon_tpu_torch.metrics.history import History
 from photon_tpu_torch.serve.draft import Drafter, NGramDrafter, SpecController
 from photon_tpu_torch.serve.engine import PagedEngine
+from photon_tpu_torch.utils.profiling import (
+    EVENT_HOTSWAP_SWAPPED,
+    SERVE_ADAPTER_COHORTS,
+    SERVE_ADAPTER_EVICTIONS,
+    SERVE_ADAPTER_HIT_RATE,
+    SERVE_ADAPTER_LOADS,
+    SERVE_ADAPTER_RESIDENTS,
+    SERVE_ATTN_CTX_BLOCKS,
+    SERVE_ATTN_LIVE_FRAC,
+    SERVE_ATTN_RAGGED,
+    SERVE_CHUNK_SPLIT_PROMPTS,
+    SERVE_CHUNK_STEPS,
+    SERVE_CHUNK_TOKENS,
+    SERVE_COMPILES_TOTAL,
+    SERVE_DECODE_SPAN,
+    SERVE_EVICTIONS,
+    SERVE_HBM_BYTES_IN_USE,
+    SERVE_HBM_PEAK_BYTES,
+    SERVE_HOTSWAP_ROUND,
+    SERVE_HOTSWAP_SWAP_LATENCY_S,
+    SERVE_HOTSWAP_SWAP_SPAN,
+    SERVE_HOTSWAP_SWAPS_TOTAL,
+    SERVE_PREFILL_SPAN,
+    SERVE_PREFIX_EVICTIONS,
+    SERVE_PREFIX_HIT_RATE,
+    SERVE_PREFIX_SHARED_BLOCKS,
+    SERVE_PREFIX_TOKENS_CACHED,
+    SERVE_QUEUE_DEPTH,
+    SERVE_QUEUE_SPAN,
+    SERVE_QUEUE_WAIT_S,
+    SERVE_REJECTED,
+    SERVE_REQUEST_SPAN,
+    SERVE_SLOT_OCCUPANCY,
+    SERVE_SPEC_ACCEPT_RATE,
+    SERVE_SPEC_ACCEPTED,
+    SERVE_SPEC_DRAFTED,
+    SERVE_SPEC_K,
+    SERVE_SPEC_STEPS,
+    SERVE_TOKENS_PER_S,
+    SERVE_TPOT_S,
+    SERVE_TTFT_S,
+)
+
+#: the tick KPIs mirrored into the typed hub as gauges (point-in-time) and
+#: as counters (cumulative), when present in a tick's KPIs
+_TICK_GAUGES = (SERVE_QUEUE_DEPTH, SERVE_SLOT_OCCUPANCY, SERVE_SPEC_ACCEPT_RATE, SERVE_SPEC_K,
+                SERVE_ATTN_CTX_BLOCKS, SERVE_ATTN_LIVE_FRAC, SERVE_ATTN_RAGGED,
+                SERVE_HOTSWAP_ROUND, SERVE_ADAPTER_RESIDENTS, SERVE_ADAPTER_COHORTS,
+                SERVE_ADAPTER_HIT_RATE, SERVE_PREFIX_HIT_RATE, SERVE_PREFIX_SHARED_BLOCKS)
+_TICK_COUNTERS = (SERVE_EVICTIONS, SERVE_REJECTED, SERVE_HOTSWAP_SWAPS_TOTAL, SERVE_CHUNK_STEPS,
+                  SERVE_CHUNK_TOKENS, SERVE_CHUNK_SPLIT_PROMPTS, SERVE_SPEC_DRAFTED,
+                  SERVE_SPEC_ACCEPTED, SERVE_SPEC_STEPS, SERVE_ADAPTER_LOADS,
+                  SERVE_ADAPTER_EVICTIONS, SERVE_PREFIX_EVICTIONS, SERVE_PREFIX_TOKENS_CACHED)
 
 
 class QueueFullError(RuntimeError):
@@ -107,7 +171,8 @@ class ContinuousBatcher:
     def __init__(self, engine: PagedEngine, *, max_queue: int = 64,
                  prefill_token_budget: int = 2048,
                  default_eos_id: int | None = None,
-                 speculative=None, drafter: Drafter | None = None) -> None:
+                 speculative=None, drafter: Drafter | None = None,
+                 history: History | None = None) -> None:
         self.engine = engine
         self.max_queue = max_queue
         self.prefill_token_budget = prefill_token_budget
@@ -127,6 +192,14 @@ class ContinuousBatcher:
                 speculative.k, accept_floor=speculative.accept_floor,
                 ewma_alpha=speculative.ewma_alpha, probe_ticks=speculative.probe_ticks)
             self._spec_budget = speculative.draft_budget
+        self.history = history if history is not None else History()
+        self._tick = 0
+        #: per-KPI History cap: /metrics renders the latest value only, so
+        #: old ticks are trimmed instead of growing for the server's life
+        self.max_kpi_ticks = 4096
+        #: device memory and the kernel-build count are sampled every N
+        #: ticks, not every tick
+        self.device_sample_ticks = 64
         self._queue: deque[ServeRequest] = deque()
         self._running: dict[int, ServeRequest] = {}  # slot -> request
         self._lock = threading.Lock()
@@ -265,10 +338,18 @@ class ContinuousBatcher:
             # fails queued ones while the engine is left failed
             done.set()
             raise
+        latency = time.monotonic() - t0
         with self._lock:
             self.swaps += 1
-            self.last_swap_s = time.monotonic() - t0
+            self.last_swap_s = latency
             self.last_swap_at = time.time()
+        tr = telemetry.active()
+        if tr is not None:
+            tr.add_span(SERVE_HOTSWAP_SWAP_SPAN, time.time() - latency, latency,
+                        round=-1 if rnd is None else int(rnd))
+        telemetry.metric_observe(SERVE_HOTSWAP_SWAP_LATENCY_S, latency)
+        telemetry.emit_event(EVENT_HOTSWAP_SWAPPED, round=-1 if rnd is None else int(rnd),
+                             latency_s=round(latency, 6))
         done.set()
 
     # -- submission (any thread) ------------------------------------------
@@ -358,6 +439,50 @@ class ContinuousBatcher:
                         "adapter_hit_rate": a["hit_rate"]})
         return out
 
+    def kpis(self) -> dict[str, float]:
+        """This tick's ``serve/*`` KPIs under the registry's names (what
+        :attr:`history` records each tick and ``/metrics`` renders)."""
+        with self._lock:
+            out = {
+                SERVE_QUEUE_DEPTH: float(len(self._queue)),
+                SERVE_SLOT_OCCUPANCY: len(self._running) / self.engine.n_slots,
+                SERVE_EVICTIONS: float(self.evictions),
+                SERVE_REJECTED: float(self.rejected),
+                SERVE_HOTSWAP_SWAPS_TOTAL: float(self.swaps),
+                SERVE_CHUNK_STEPS: float(self.chunk_steps),
+                SERVE_CHUNK_TOKENS: float(self.chunk_tokens),
+                SERVE_CHUNK_SPLIT_PROMPTS: float(self.chunk_split_prompts),
+            }
+            if self._spec is not None:
+                out[SERVE_SPEC_DRAFTED] = float(self._spec.drafted)
+                out[SERVE_SPEC_ACCEPTED] = float(self._spec.accepted)
+                out[SERVE_SPEC_STEPS] = float(self._spec.spec_steps)
+                out[SERVE_SPEC_ACCEPT_RATE] = round(self._spec.ewma, 4)
+                out[SERVE_SPEC_K] = float(self._spec.k_effective())
+        # getattr: a minimal engine (a test's) need not carry the
+        # checkpoint, attention, prefix or adapter planes
+        rnd = getattr(self.engine, "loaded_round", None)
+        if rnd is not None:
+            out[SERVE_HOTSWAP_ROUND] = float(rnd)
+        if (attn := getattr(self.engine, "attn_stats", None)) is not None:
+            a = attn()
+            out[SERVE_ATTN_CTX_BLOCKS] = a["ctx_blocks"]
+            out[SERVE_ATTN_LIVE_FRAC] = a["live_frac"]
+            out[SERVE_ATTN_RAGGED] = a["ragged"]
+        if (pc := getattr(self.engine, "prefix_cache", None)) is not None:
+            out[SERVE_PREFIX_HIT_RATE] = pc.hit_rate
+            out[SERVE_PREFIX_SHARED_BLOCKS] = float(len(pc))
+            out[SERVE_PREFIX_EVICTIONS] = float(pc.evictions)
+            out[SERVE_PREFIX_TOKENS_CACHED] = float(pc.tokens_cached)
+        ast = getattr(self.engine, "adapter_stats", None)
+        if ast is not None and (a := ast()) is not None:
+            out[SERVE_ADAPTER_RESIDENTS] = a["residents"]
+            out[SERVE_ADAPTER_COHORTS] = a["cohorts"]
+            out[SERVE_ADAPTER_LOADS] = a["loads"]
+            out[SERVE_ADAPTER_EVICTIONS] = a["evictions"]
+            out[SERVE_ADAPTER_HIT_RATE] = a["hit_rate"]
+        return out
+
     # -- scheduler loop ----------------------------------------------------
     def _loop(self) -> None:
         while True:
@@ -373,6 +498,10 @@ class ContinuousBatcher:
                 self._step_phase()
             except Exception as e:  # noqa: BLE001 — fail loudly, not silently
                 self._fail_all(f"{type(e).__name__}: {e}")
+            self._record_tick()
+            # a tick is a unit of an on-demand profile (one None check when
+            # nothing is armed)
+            telemetry.profile_tick("serve/tick")
         self._drain_on_stop()
 
     def _admit_phase(self) -> None:
@@ -404,6 +533,7 @@ class ContinuousBatcher:
                 req.finished = True
                 req.error = f"admission failed: {type(e).__name__}: {e}"
                 req.t_first = req.t_done = time.monotonic()
+                self._emit_spans(req)
                 req._out.put(None)
                 continue
             self.admitted_order.append(req.rid)
@@ -431,6 +561,7 @@ class ContinuousBatcher:
             chunk = (slot, min(self.engine.pending_tokens(slot), self.prefill_token_budget))
             self.chunk_steps += 1
             self.chunk_tokens += chunk[1]
+        t0 = time.monotonic()
         if self._spec is None:
             nxt, emitted = self.engine.mixed_step(chunk)
             out, n_em = nxt[:, None], emitted.astype(int)
@@ -440,6 +571,7 @@ class ContinuousBatcher:
             with self._lock:
                 self._spec.observe(sum(len(d) for d in drafts.values()),
                                    sum(max(0, int(n_em[s]) - 1) for s in drafts))
+        dt = time.monotonic() - t0
         inj = chaos.active()
         if inj is not None:
             # a stall in proportion to the tokens this step carried
@@ -447,6 +579,7 @@ class ContinuousBatcher:
             if stall > 0.0:
                 time.sleep(stall)
         self.steps += 1
+        n_tokens = 0
         for slot in sorted(running):
             n = int(n_em[slot])
             if n < 1:
@@ -461,11 +594,14 @@ class ContinuousBatcher:
                 tok = int(out[slot, j])
                 burst.append(tok)
                 self.tokens_out += 1
+                n_tokens += 1
                 self._push_token(slot, req, tok)
                 if req.finished:
                     break  # EOS or max_new mid-burst: the rest is dropped
             if self._drafter is not None and not req.finished:
                 self._drafter.observe(slot, burst)
+        if dt > 0 and n_tokens:
+            self.history.record(self._tick, {SERVE_TOKENS_PER_S: n_tokens / dt})
 
     def _collect_drafts(self, running: dict, chunk) -> dict[int, list[int]]:
         """This step's drafts: the throttle's depth, then the drafter's
@@ -515,6 +651,10 @@ class ContinuousBatcher:
             self.evictions += 1
             if error is None:
                 self.completed += 1
+        if error is None:
+            self.history.record(self._tick, {SERVE_TTFT_S: req.ttft_s})
+        ctx = self._emit_spans(req)
+        self._observe_request(req, ctx, error)
         req._out.put(None)
 
     def _fail_all(self, msg: str) -> None:
@@ -543,3 +683,88 @@ class ContinuousBatcher:
         for slot, req in running:
             self._finish(slot, req, error="server shutting down")
         self._fail_queued("server shutting down")
+
+    # -- telemetry ---------------------------------------------------------
+    def _record_tick(self) -> None:
+        self._tick += 1
+        stats = self.kpis()
+        hub = telemetry.metrics_active()
+        if hub is not None:
+            for k in _TICK_GAUGES:
+                if k in stats:
+                    hub.gauge(k).set(stats[k])
+            for k in _TICK_COUNTERS:
+                if k in stats:
+                    hub.counter(k).inc_to(stats[k])
+            if (self._tick - 1) % self.device_sample_ticks == 0:
+                # sparse: a memory_stats() call every tick would tax the
+                # decode cadence
+                from photon_tpu_torch.telemetry.introspect import sample_device_plane
+
+                sample_device_plane(stats, hub, hbm_key=SERVE_HBM_BYTES_IN_USE,
+                                    peak_key=SERVE_HBM_PEAK_BYTES,
+                                    compiles_key=SERVE_COMPILES_TOTAL)
+        health = telemetry.health_active()
+        if health is not None:
+            health.check_serve_tick(queue_depth=int(stats[SERVE_QUEUE_DEPTH]),
+                                    max_queue=self.max_queue)
+            hbm = stats.get(SERVE_HBM_BYTES_IN_USE)
+            # chaos's device-memory ramp: a strictly monotone inflation of
+            # the sample (made up where no device reports) so the growth
+            # watcher latches deterministically
+            inj = chaos.active()
+            if inj is not None:
+                ramp = inj.hbm_ramp_plan()
+                if ramp > 0.0:
+                    hbm = (hbm if hbm is not None else 1.0) * (1.0 + ramp)
+            if hbm is not None:
+                health.note_hbm_sample(hbm, plane="serve")
+        self.history.record(self._tick, stats)
+        for series in self.history.rounds.values():
+            if len(series) > self.max_kpi_ticks:
+                del series[: len(series) - self.max_kpi_ticks]
+
+    def _observe_request(self, req: ServeRequest, ctx: tuple | None,
+                         error: str | None) -> None:
+        """A finished request's TTFT, queue wait and TPOT (decode seconds
+        per output token after the first) into the typed hub, the request's
+        span as the exemplar. A failed request stays out of the latency
+        histograms; one None check with telemetry off."""
+        hub = telemetry.metrics_active()
+        if hub is None or error is not None:
+            return
+        hub.histogram(SERVE_TTFT_S).observe(req.ttft_s, exemplar=ctx)
+        if req.t_admit:
+            hub.histogram(SERVE_QUEUE_WAIT_S).observe(max(0.0, req.t_admit - req.t_submit),
+                                                      exemplar=ctx)
+        n = len(req.generated)
+        if n > 1 and req.t_done > req.t_first:
+            hub.histogram(SERVE_TPOT_S).observe((req.t_done - req.t_first) / (n - 1),
+                                                exemplar=ctx)
+
+    def _emit_spans(self, req: ServeRequest) -> tuple | None:
+        """The request's phases as completed spans: a ``serve/request``
+        umbrella with queue, prefill and decode children, anchored on the
+        wall clock at emit time (the phase bounds are monotonic). Returns
+        the umbrella's ``(trace_id, span_id)`` for the exemplars, or None
+        with telemetry off."""
+        tr = telemetry.active()
+        if tr is None:
+            return None
+        now_wall, now_mono = time.time(), time.monotonic()
+
+        def wall(t_mono: float) -> float:
+            return now_wall - (now_mono - t_mono)
+
+        umbrella = tr.add_span(
+            SERVE_REQUEST_SPAN, wall(req.t_submit), req.t_done - req.t_submit,
+            rid=req.rid, n_prompt=len(req.prompt), n_generated=len(req.generated),
+            error=req.error or "",
+        )
+        parent = (umbrella.trace_id, umbrella.span_id)
+        for name, a, b in ((SERVE_QUEUE_SPAN, req.t_submit, req.t_admit or req.t_done),
+                           (SERVE_PREFILL_SPAN, req.t_admit, req.t_first),
+                           (SERVE_DECODE_SPAN, req.t_first, req.t_done)):
+            if a and b >= a:
+                tr.add_span(name, wall(a), b - a, parent=parent, rid=req.rid)
+        return parent

@@ -15,6 +15,9 @@ through the ``decode`` hook, so memory stays O(1) in client count. Every
 mode applies
 the same per-element operations in the same order as the JAX package, so
 the average is bit-identical across modes and across the two packages.
+With ``photon.telemetry`` on, each client's decode and fold is a span
+under the calling thread's round span and an observation in the
+``server/agg_decode_time`` / ``server/agg_fold_time`` histograms.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ from typing import Callable, Iterable, Iterator
 
 import numpy as np
 
+from photon_tpu_torch import telemetry
 from photon_tpu_torch.utils.hostpool import HostPool
+from photon_tpu_torch.utils.profiling import AGG_DECODE_TIME, AGG_FOLD_TIME
 
 #: elements per fold chunk (~8 MB of fp64 transient)
 _FOLD_CHUNK = 1 << 20
@@ -77,6 +82,11 @@ def aggregate_inplace(
     t_decode = [0.0]
     t_fold = [0.0]
     it: Iterator = iter(results)
+    # the decode-ahead runs on a pool worker with an empty context stack, so
+    # the spans' parent is the calling thread's context, taken here
+    tracer = telemetry.active()
+    trace_parent = telemetry.current_context() if tracer is not None else None
+    n_seen = [0]
 
     def _fetch() -> tuple[list[np.ndarray], int] | None:
         """The next result, decoded, or None at the end (StopIteration must
@@ -85,9 +95,18 @@ def aggregate_inplace(
             item, n_cur = next(it)
         except StopIteration:
             return None
+        t_wall = time.time()
         t0 = time.monotonic()
         arrays = _arrays(item)
-        t_decode[0] += time.monotonic() - t0
+        dt = time.monotonic() - t0
+        t_decode[0] += dt
+        if tracer is not None:
+            tracer.add_span(AGG_DECODE_TIME, t_wall, dt, parent=trace_parent,
+                            client_index=n_seen[0])
+        # a client's decode seconds as a distribution: one slow payload is
+        # a fat tail here, invisible in the summed KPI
+        telemetry.metric_observe(AGG_DECODE_TIME, dt)
+        n_seen[0] += 1
         return arrays, n_cur
 
     first = _fetch()
@@ -126,6 +145,7 @@ def aggregate_inplace(
             n_new = n_total + n_cur
             w_prev = n_total / n_new
             w_cur = n_cur / n_new
+            t_wall = time.time()
             t0 = time.monotonic()
             if pool is not None:
                 pool.map(
@@ -135,7 +155,11 @@ def aggregate_inplace(
             else:
                 for a, y in zip(acc, arrays):
                     _fold_into(a, y, w_prev, w_cur)
-            t_fold[0] += time.monotonic() - t0
+            dt = time.monotonic() - t0
+            t_fold[0] += dt
+            if tracer is not None:
+                tracer.add_span(AGG_FOLD_TIME, t_wall, dt, parent=trace_parent)
+            telemetry.metric_observe(AGG_FOLD_TIME, dt)
             n_total = n_new
     except BaseException:
         if pending is not None:

@@ -9,7 +9,9 @@ federation layer calls at round boundaries (``get/set_parameters``,
 where the attention kernels' plain versions run. ``device_microbatch_size:
 auto`` probes for the largest microbatch that trains (:meth:`Trainer.
 _probe_microbatch`). There is no mesh, no pipeline and no autotuner: the
-config's ``validate()`` refuses them.
+config's ``validate()`` refuses them. The MFU peak the trainer resolved is
+a ``speed_monitor/peak`` telemetry event, so a run's MFU carries its
+basis.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from photon_tpu_torch import telemetry
 from photon_tpu_torch.codec.params import (
     ParamsMetadata,
     flatten,
@@ -46,6 +49,7 @@ from photon_tpu_torch.utils.profiling import (
     CLIENT_LR,
     CLIENT_STEPS,
     CLIENT_TOKENS_PER_SEC,
+    EVENT_SPEED_MONITOR_PEAK,
     SpeedMonitor,
     is_oom,
 )
@@ -95,6 +99,9 @@ class Trainer:
         self._eval_step = make_eval_step(self.model, loss_chunk_tokens=cfg.train.loss_chunk_tokens)
         name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
         self.speed_monitor = SpeedMonitor(cfg.model, device_name=name)
+        telemetry.emit_event(EVENT_SPEED_MONITOR_PEAK, device_kind=name,
+                             peak_flops_per_chip=self.speed_monitor.peak_flops_per_device,
+                             n_chips=self.speed_monitor.n_devices)
 
     # ------------------------------------------------------------------
     # auto microbatch probe

@@ -28,7 +28,7 @@ across as numpy, inline transport unless a case says otherwise:
    ``fl``/``photon`` fields; ``python -m photon_tpu_torch.federated
    --device cpu`` prints the JAX CLI's keys, and its History times each
    phase of a round; every unported feature (the collective plane,
-   telemetry, async rounds) is refused with ``NotImplementedError``
+   telemetry's autopilot, async rounds) is refused with ``NotImplementedError``
    (``photon.chaos`` is ported: ``tests/test_torch_chaos.py``).
 """
 
@@ -681,5 +681,7 @@ def test_unported_federation_features_refused(tmp_path, feature):
         d["photon"]["comm_stack"]["collective"] = True
     else:
         d["photon"][feature]["enabled"] = True
+    if feature == "telemetry":  # ported but for its SLO autopilot
+        d["photon"][feature]["autopilot"]["enabled"] = True
     with pytest.raises(NotImplementedError):
         Config.from_dict(d).validate()

@@ -8,7 +8,7 @@ All CPU, fp32, a tiny mpt (d 32, 2 layers, vocab 96, block 4):
    on a store the JAX package wrote, a torn round included, reading no
    object;
 2. port against port, one case for each case of ``tests/test_hotswap.py``
-   (its telemetry case waits for the port's telemetry), the watcher
+   (its telemetry case is in ``tests/test_torch_observatory.py``), the watcher
    driven through ``poll_once``: the swap, a corrupt round skipped once,
    the drain fence, the health gate (blocking on ``failing``, open on an
    unreachable or malformed answer), a failed apply releasing its waiter

@@ -7,8 +7,8 @@ All CPU, fp32, tiny configs (d 32, 2 layers, vocab 96, block 4):
    ``PrefixCache`` over a ``BlockAllocator`` gives the same lookups,
    evictions and free counts on one seeded operation stream;
 2. port against port, one case for each case of ``tests/test_serve_prefix.py``
-   (its telemetry and retrace-sentinel cases wait for the port's
-   telemetry and tooling): refcounts, atomic retain, chain hashes, LRU
+   (its telemetry case is in ``tests/test_torch_observatory.py``; its
+   retrace-sentinel case waits for the port's tooling): refcounts, atomic retain, chain hashes, LRU
    eviction while pinned, the cap preferring unpinned entries, a cached
    prefix equal to a cold one step by step (logits within
    ``LOGIT_ATOL``: the shared blocks' KV came from another chunk shape,

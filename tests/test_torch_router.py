@@ -10,9 +10,10 @@ weights from the JAX ``init_params`` carried across as numpy:
    ``serve.fleet`` checks raise JAX's texts; routed greedy streams equal
    JAX's contiguous decoder, and a single port engine's bit for bit;
 2. one port case for each case of ``tests/test_router.py``, apart from
-   ``test_registry_covers_router_names``, the ``/metrics`` half of
-   ``test_fleet_status_and_metrics_planes`` (both wait for the telemetry
-   port); ``test_chaos_replica_kill_mid_traffic``'s counterpart is in
+   ``test_registry_covers_router_names`` and the ``/metrics`` half of
+   ``test_fleet_status_and_metrics_planes`` (both in
+   ``tests/test_torch_observatory.py``);
+   ``test_chaos_replica_kill_mid_traffic``'s counterpart is in
    ``tests/test_torch_chaos.py``.
 
 Every socket wait has its own timeout, so a hang fails its test.

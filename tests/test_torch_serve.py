@@ -520,6 +520,9 @@ def test_port_imports_no_jax_or_reference_package():
     assert len(files) > 15 and not bad, bad
     assert {ROOT / "photon_tpu_torch/serve/router.py", ROOT / "photon_tpu_torch/serve/fleet.py"} \
         <= set(files)
+    assert {ROOT / f"photon_tpu_torch/telemetry/{m}.py" for m in (
+        "__init__", "spans", "events", "export", "metrics", "prom", "health",
+        "introspect")} <= set(files)
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -529,13 +532,44 @@ def test_import_leaves_jax_out_of_sys_modules():
             "photon_tpu_torch.federated, photon_tpu_torch.eval.__main__, "
             "photon_tpu_torch.data.convert, photon_tpu_torch.models.decode, "
             "photon_tpu_torch.ops.moe, photon_tpu_torch.config, "
-            "photon_tpu_torch.serve.router, photon_tpu_torch.serve.fleet; "
+            "photon_tpu_torch.serve.router, photon_tpu_torch.serve.fleet, "
+            "photon_tpu_torch.telemetry, photon_tpu_torch.telemetry.prom, "
+            "photon_tpu_torch.telemetry.export, photon_tpu_torch.federation.tcp; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'photon_tpu')))")
     out = subprocess.run([sys.executable, "-S", "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, env={"PYTHONPATH": ":".join(sys.path)})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_telemetry_accepted_and_its_autopilot_refused():
+    """``photon.telemetry`` is ported and validates with the JAX package's
+    texts; its SLO autopilot is refused at ``validate()`` with a text that
+    names the next slice of the port."""
+    from photon_tpu.config.schema import Config as JaxConfig
+    from photon_tpu_torch.config.schema import Config
+
+    cfg = Config()
+    cfg.photon.telemetry.enabled, cfg.photon.telemetry.prom_port = True, 9100
+    cfg.validate()
+    cfg.validate(serving=True)
+    d = cfg.to_dict()
+    assert JaxConfig.from_dict(d).photon.telemetry.prom_port == 9100
+    d["photon"]["telemetry"]["autopilot"] = {"enabled": True}
+    for serving in (False, True):
+        with pytest.raises(NotImplementedError, match="next slice of the port"):
+            Config.from_dict(d).validate(serving=serving)
+    for field, bad in (("prom_port", 70000), ("max_buffered_spans", 0),
+                       ("profile_rounds", -1), ("metrics_retention", 0)):
+        ours, theirs = Config(), JaxConfig()
+        setattr(ours.photon.telemetry, field, bad)
+        setattr(theirs.photon.telemetry, field, bad)
+        with pytest.raises(ValueError) as got:
+            ours.validate()
+        with pytest.raises(ValueError) as want:
+            theirs.validate()
+        assert str(got.value) == str(want.value), field
 
 
 def test_engine_without_device_raises_without_cuda(monkeypatch):

@@ -9,7 +9,7 @@ All CPU, fp32, tiny configs (d 32, 2 layers, vocab 96, block 4):
    equal JAX's ``PagedEngine`` on the same schedule (mpt-wpe, mpt-alibi,
    llama-gqa);
 2. port against port, one case for each case of ``tests/test_speculative.py``
-   (its telemetry case waits for the port's telemetry): a verify step
+   (its telemetry case is in ``tests/test_torch_observatory.py``): a verify step
    equals the same number of sequential steps (logits within
    ``LOGIT_ATOL``: torch's CPU matmuls may sum a row differently when the
    number of rows changes, so a verify is not bit-equal here; greedy
