@@ -281,6 +281,46 @@ After 15, beside the rest of 14 (its decode passes wait for 14's end):
     the trace's size and span count, and the decode step's wall with
     telemetry off and on (in this process, off, on, on, off).
 
+After 13, before 14 (in this process, on the federated run's served round
+in one ragged engine with the prefix cache: 8 slots, block 16, budget 512),
+and (d) in a child beside 14–16:
+
+17. autopilot: the SLO autopilot and the runtime guards. (a) After an
+    autopilot-off pass of the same requests (the warm-up and the streams
+    held to), 24 greedy requests of 600–1500 tokens × 16 queue through the
+    frontend at once behind the 8 slots (max_queue 32; ``queue_high_frac``
+    0.5, ``queue_clear_frac`` 0.1, ``cooldown_s`` 0.2, ``prefill_budget_min``
+    64, ``relax_after`` 3, ``period_s`` 0.01), then short requests trickle
+    until the budget is back: a ``queue_budget`` actuation from 512, the
+    lowest budget in [64, 512), relaxes back to 512, 0 rejected and every
+    answer 200, streams equal up to a tie, K4 = ``n_layers`` × (steps +
+    chunk steps), the frontend's ``/statusz`` holding the decisions; all
+    of it under ``retrace_guard(steady=True)`` and ``lock_order_guard()``
+    (0 retraces, no cycle, no tick warning); then a kernel library loaded
+    afresh inside a guarded window must raise ``RetraceViolation`` billed
+    to ``serve/tick``. (b) 64 templated prompts × 32 with speculation (k 4)
+    and ``tpot_p50_slo_s`` at half an untimed first pass's TPOT p50:
+    ``serve/spec_k_max`` steps 4 → 3 → 2 → 1 through ``tpot_spec_k``
+    actuations with exactly one ``saturated``, the streams equal the plain
+    ones up to a tie. (c) The prefix cache holds a templated pass; the
+    device-memory ramp (``serve_hbm_ramp_frac``, every tick sampled)
+    latches ``alert/hbm_growth`` and ``hbm_reclaim`` fires once, its old
+    and new the free blocks, new above old; with the ramp off no alert or
+    reclaim follows, and a second episode gives one more of each; no
+    request fails. (d) A ``FleetRouter`` with the autopilot on (cooldown
+    600 s) and two ``--fleet-connect`` replicas of phase 13's round, one
+    under the ramp, traffic throughout: that replica reports its serve
+    plane degraded by ``alert/hbm_growth``, the router approves one restart
+    for it and none for the other, the agent recycles it and it reports
+    live again, no request fails (a draining replica's 503 is placed
+    again), each replica's K4 keeps to the launch rule and the router's
+    ``/statusz`` holds the decision. (e) An allocation over the card's free
+    memory raises ``torch.cuda.OutOfMemoryError``; ``dump_memory_profile``
+    writes a snapshot that loads to a dict with segments, and
+    ``ClientRuntime._error`` names it. Recorded: the decision rings, the
+    budget and ``k_max`` traces, the reclaims' blocks, approval → live
+    seconds and the legs' walls.
+
 To keep the whole smoke within 800 s with phases 14 and 15, three earlier
 paths run mpt-125m's width at 2 of its 12 layers: phase 4
 (``ENTRY_LAYERS``), phase 5's in-process comparison (``FED_GATE_LAYERS``)
@@ -5845,6 +5885,639 @@ def telemetry_phase(np, cfg=None, scfg=None, device: str = "cuda",
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the SLO autopilot and the runtime guards
+# ---------------------------------------------------------------------------
+
+#: (a): the storm. 24 greedy requests of 600–1500 tokens × 16 queue at once
+#: behind 8 slots (16 wait: frac 0.5 of max_queue 32), then a trickle of
+#: short ones keeps ticks going until the budget is back at its declared
+#: value. period_s is 0.01: a relax probe moves an integer knob one unit
+#: (JAX's ``_relax_step``), so 64 → 512 takes 448 probes of relax_after
+#: evaluations each, 67 s at a period of 0.05 s
+AP_MAX_QUEUE = 32
+AP_STORM = 24
+AP_STORM_PROMPT = (600, 1501)
+AP_STORM_NEW = 16
+AP_STORM_AUTOPILOT = {"period_s": 0.01, "cooldown_s": 0.2, "queue_high_frac": 0.5,
+                      "queue_clear_frac": 0.1, "prefill_budget_min": 64, "relax_after": 3,
+                      "decisions": 2048}
+AP_TRICKLE = 4  # short requests in flight at once while the budget relaxes
+AP_TRICKLE_PROMPT = 24
+AP_TRICKLE_NEW = 16
+#: (b): 64 templated prompts (a 64-token block × 5 and a 16-token suffix) ×
+#: 32 greedy tokens with speculation at k 4, 8 waves of 8 slots (TPOT is
+#: observed as requests finish: the later waves carry the k steps); the
+#: TPOT SLO is this share of an untimed first pass's p50
+AP_TPOT_PROMPTS = 64
+AP_TPOT_TEMPLATE = (64, 5, 16)  # block tokens, repeats, suffix tokens
+AP_TPOT_NEW = 32
+AP_TPOT_K = 4
+AP_TPOT_SLO_SHARE = 0.5
+AP_TPOT_AUTOPILOT = {"period_s": 0.01, "cooldown_s": 0.1, "spec_k_min": 1}
+#: (c): the device-memory ramp per sample, every tick sampled
+AP_HBM_RAMP = 0.05
+AP_HBM_SAMPLE_TICKS = 1
+AP_HBM_TEMPLATE = (64, 4, 8)
+AP_HBM_AUTOPILOT = {"period_s": 0.01, "cooldown_s": 0.0}
+#: (d): 2 replicas, one ramped; a cooldown longer than the leg, so a
+#: replica that stays latched is restarted once
+AP_FLEET_COOLDOWN_S = 600.0
+AP_FLEET_NEW = 16
+AP_WAIT_S = 300.0
+
+
+def _ap_telemetry(**ap_kw):
+    """The telemetry plane installed in this process with the autopilot
+    on (``ap_kw`` over ``AutopilotConfig``'s defaults); returns it."""
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.config.schema import AutopilotConfig, TelemetryConfig
+
+    tel = TelemetryConfig(enabled=True)
+    tel.autopilot = AutopilotConfig(enabled=True, **ap_kw)
+    telemetry.install(tel, scope="serve")
+    return telemetry.autopilot_active()
+
+
+def _ap_decisions(ap, t0: float, rule: str | None = None) -> list[dict]:
+    """The decision ring (``ts`` made relative to ``t0``), one rule's."""
+    return [dict(d, ts=d["ts"] - t0) for d in list(ap.decisions)
+            if rule is None or d["rule"] == rule]
+
+
+def _ap_launch_gate(b, n_layers: int, launches: int, cuda: bool, what: str) -> None:
+    """K4 launched ``n_layers`` × (steps + chunk steps) of batcher ``b``
+    (card only: on the CPU the plain version runs)."""
+    st = b.stats()
+    want = n_layers * int(st["steps"] + st["chunk_steps"])
+    if cuda and (launches != want or launches == 0):
+        fail(f"autopilot {what}: K4 launched {launches} times, want {want} for {st}")
+
+
+def _ap_pass(rpa, eng, prompts, new: int, cuda: bool, what: str, speculative=None) -> dict:
+    """The prompts through one batcher (submitted before it starts),
+    greedy; K4 exact; each request's TPOT."""
+    from photon_tpu_torch.serve.scheduler import ContinuousBatcher
+
+    b = ContinuousBatcher(eng, max_queue=len(prompts),
+                          prefill_token_budget=eng.cfg.photon.serve.prefill_token_budget,
+                          speculative=speculative)
+    reqs = [b.submit(p, new) for p in prompts]
+    rpa.launches = 0
+    b.start()
+    outs = [r.result(timeout=AP_WAIT_S) for r in reqs]
+    b.close()
+    _ap_launch_gate(b, eng.mc.n_layers, rpa.launches, cuda, what)
+    tpot = sorted((r.t_done - r.t_first) / (len(r.generated) - 1) for r in reqs)
+    return {"outs": outs, "tpot_p50_s": tpot[len(tpot) // 2]}
+
+
+def _ap_storm(torch, rpa, np, eng, tie: float, cuda: bool) -> dict:
+    """(a): the queue storm through the frontend with the autopilot on,
+    under ``retrace_guard(steady=True)`` and ``lock_order_guard()``; then a
+    planted kernel load in a guarded window."""
+    import warnings
+
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.analysis import runtime as rt
+    from photon_tpu_torch.ops import _build
+    from photon_tpu_torch.serve.frontend import ServeFrontend
+    from photon_tpu_torch.serve.scheduler import ContinuousBatcher
+    from photon_tpu_torch.utils.profiling import (
+        AUTOPILOT_KNOB_PREFILL_BUDGET,
+        EVENT_AUTOPILOT_ACTUATION,
+        EVENT_AUTOPILOT_RELAX,
+    )
+
+    declared = eng.cfg.photon.serve.prefill_token_budget
+    vocab = eng.mc.vocab_size
+    rng = np.random.default_rng(170)
+    prompts = [list(map(int, rng.integers(0, vocab, int(rng.integers(*AP_STORM_PROMPT)))))
+               for _ in range(AP_STORM)]
+    # the warm-up, and the streams the storm's are held to: autopilot off
+    ref = _ap_pass(rpa, eng, prompts, AP_STORM_NEW, cuda, "storm reference")
+    rec: dict = {"declared_budget": declared, "max_queue": AP_MAX_QUEUE,
+                 "requests": AP_STORM, "autopilot": AP_STORM_AUTOPILOT}
+    t_leg = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with rt.lock_order_guard() as locks, rt.retrace_guard(steady=True) as sentinel:
+            ap = _ap_telemetry(**AP_STORM_AUTOPILOT)
+            b = ContinuousBatcher(eng, max_queue=AP_MAX_QUEUE, prefill_token_budget=declared)
+            fe = ServeFrontend(b, max_new_tokens_cap=eng.cfg.photon.serve.max_new_tokens)
+            port = fe.start()
+            try:
+                # every request queued before the scheduler's first tick:
+                # its first sample is the whole backlog behind the slots
+                with concurrent.futures.ThreadPoolExecutor(AP_STORM) as pool:
+                    storm = [pool.submit(_generate, port, p, AP_STORM_NEW) for p in prompts]
+                    deadline = time.monotonic() + 60
+                    while b.queue_depth < AP_STORM:
+                        if time.monotonic() > deadline:
+                            fail(f"autopilot storm: {b.queue_depth} of {AP_STORM} queued")
+                        time.sleep(0.005)
+                    rpa.launches = 0
+                    t0 = time.time()
+                    b.start()
+                    replies = [f.result(timeout=AP_WAIT_S) for f in storm]
+                    t_backlog = time.time() - t0
+                    # the trickle: ticks go on with the backlog gone
+                    trickle = []
+                    while b.prefill_token_budget < declared:
+                        if time.time() - t0 > AP_WAIT_S:
+                            fail(f"autopilot storm: the budget stayed at "
+                                 f"{b.prefill_token_budget} after the backlog")
+                        short = [list(map(int, rng.integers(0, vocab, AP_TRICKLE_PROMPT)))
+                                 for _ in range(AP_TRICKLE)]
+                        trickle += list(pool.map(
+                            lambda p: _generate(port, p, AP_TRICKLE_NEW), short))
+                    t_relaxed = time.time() - t0
+                statusz = json.loads(_request(port, "/statusz")[1])
+            finally:
+                fe.close()
+                b.close()
+                telemetry.uninstall()
+            launches = rpa.launches
+            rec["lock_order"] = {"tracked_locks": locks.n_locks,
+                                 "nested_acquires": locks.n_acquires,
+                                 "edges": sum(len(v) for v in locks.edges().values())}
+        rec["retrace"] = {"violations": sentinel.violations, "compiles": sentinel.compiles}
+    tick_warnings = [str(w.message) for w in caught if "autopilot tick failed" in str(w.message)]
+    rec["wall_s"] = time.perf_counter() - t_leg
+    _ap_launch_gate(b, eng.mc.n_layers, launches, cuda, "storm")
+    bad = [s for s, _ in replies + trickle if s != 200]
+    decisions = _ap_decisions(ap, t0, "queue_budget")
+    acts = [d for d in decisions if d["event"] == EVENT_AUTOPILOT_ACTUATION
+            and d["knob"] == AUTOPILOT_KNOB_PREFILL_BUDGET]
+    relaxes = [d for d in decisions if d["event"] == EVENT_AUTOPILOT_RELAX]
+    lowest = min((d["new"] for d in acts), default=None)
+    got = [r["tokens"] if r else None for _, r in replies]
+    diverged = _streams_agree(torch, eng, prompts, got, ref["outs"], tie,
+                              "autopilot storm vs the autopilot off")
+    rec.update({
+        "rejected": b.rejected, "non_200": bad, "trickle_requests": len(trickle),
+        "backlog_s": t_backlog, "relaxed_after_s": t_relaxed, "launches": launches,
+        "steps": b.steps, "chunk_steps": b.chunk_steps,
+        "actuations": len(acts), "relaxes": len(relaxes), "lowest_budget": lowest,
+        "final_budget": b.prefill_token_budget,
+        "budget_trace": [[round(d["ts"], 4), d["new"]] for d in acts + relaxes],
+        "first_actuation": acts[0] if acts else None,
+        "statusz_decisions": len(statusz.get("autopilot", {}).get("decisions", [])),
+        "tick_warnings": tick_warnings, "streams_diverged_at_a_tie": diverged,
+        "decisions_kept": len(decisions)})
+    if not acts or acts[0]["old"] != declared or acts[0]["rule"] != "queue_budget":
+        fail(f"autopilot storm: no queue_budget actuation from {declared}: {decisions[:4]}")
+    if not 64 <= lowest < declared:
+        fail(f"autopilot storm: the lowest budget {lowest} is outside [64, {declared})")
+    if not relaxes or b.prefill_token_budget != declared:
+        fail(f"autopilot storm: {len(relaxes)} relaxes, the budget ends at "
+             f"{b.prefill_token_budget}")
+    if b.rejected or bad:
+        fail(f"autopilot storm: {b.rejected} rejected, answers {bad}")
+    if not rec["statusz_decisions"]:
+        fail("autopilot storm: the frontend's /statusz carries no decision")
+    if tick_warnings or sentinel.violations:
+        fail(f"autopilot storm: tick warnings {tick_warnings}, retraces {sentinel.violations}")
+
+    # the planted fault: a kernel library loaded afresh in a guarded window
+    # is billed to the serving tick after it
+    source = "ragged_paged_attention.cu" if cuda else None
+    b = ContinuousBatcher(eng, max_queue=4, prefill_token_budget=declared).start()
+    try:
+        with rt.retrace_guard(steady=True) as planted:
+            if source is not None:
+                with _build._lock:
+                    _build._loaded.pop(source)
+                _build.load(source)
+            else:  # no kernel library on the CPU: the loader's listener alone
+                _build.on_load("planted.cu")
+            b.submit(prompts[0][:AP_TRICKLE_PROMPT], 2).result(timeout=AP_WAIT_S)
+        fail("autopilot storm: the planted kernel load was not caught")
+    except rt.RetraceViolation as e:
+        rec["planted"] = {"violations": planted.violations, "text": str(e)}
+        if planted.violations[:1] != [("serve/tick", 1)]:
+            fail(f"autopilot storm: the planted load was billed as {planted.violations}")
+    finally:
+        b.close()
+    log("autopilot storm " + json.dumps({k: v for k, v in rec.items() if k != "budget_trace"}))
+    return rec
+
+
+def _ap_tpot(torch, rpa, np, eng, tie: float, cuda: bool) -> dict:
+    """(b): speculation on (k 4), the TPOT SLO at ``AP_TPOT_SLO_SHARE`` of
+    an untimed first pass's p50: ``serve/spec_k_max`` steps 4 → 1."""
+    import copy
+
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.serve.scheduler import ContinuousBatcher
+    from photon_tpu_torch.utils.profiling import (
+        AUTOPILOT_KNOB_SPEC_K_MAX,
+        EVENT_AUTOPILOT_ACTUATION,
+        EVENT_AUTOPILOT_SATURATED,
+    )
+
+    vocab = eng.mc.vocab_size
+    rng = np.random.default_rng(171)
+    n_block, repeats, n_suffix = AP_TPOT_TEMPLATE
+    template = list(map(int, rng.integers(0, vocab, n_block))) * repeats
+    prompts = [template + list(map(int, rng.integers(0, vocab, n_suffix)))
+               for _ in range(AP_TPOT_PROMPTS)]
+    spec = copy.deepcopy(eng.cfg.photon.serve.speculative)
+    spec.enabled, spec.k = True, AP_TPOT_K
+    plain = _ap_pass(rpa, eng, prompts, AP_TPOT_NEW, cuda, "tpot plain")
+    first = _ap_pass(rpa, eng, prompts, AP_TPOT_NEW, cuda, "tpot first pass", spec)
+    slo = AP_TPOT_SLO_SHARE * first["tpot_p50_s"]
+    ap = _ap_telemetry(tpot_p50_slo_s=slo, **AP_TPOT_AUTOPILOT)
+    t_leg = time.perf_counter()
+    try:
+        # a queue far from the queue rule's bound: this leg is the TPOT rule's
+        b = ContinuousBatcher(eng, max_queue=4 * len(prompts),
+                              prefill_token_budget=eng.cfg.photon.serve.prefill_token_budget,
+                              speculative=spec)
+        reqs = [b.submit(p, AP_TPOT_NEW) for p in prompts]
+        rpa.launches = 0
+        t0 = time.time()
+        b.start()
+        outs = [r.result(timeout=AP_WAIT_S) for r in reqs]
+        b.close()
+        launches = rpa.launches
+    finally:
+        telemetry.uninstall()
+    _ap_launch_gate(b, eng.mc.n_layers, launches, cuda, "tpot")
+    decisions = _ap_decisions(ap, t0, "tpot_spec_k")
+    acts = [(d["old"], d["new"]) for d in decisions if d["event"] == EVENT_AUTOPILOT_ACTUATION]
+    sat = [d for d in decisions if d["event"] == EVENT_AUTOPILOT_SATURATED]
+    diverged = _streams_agree(torch, eng, prompts, outs, plain["outs"], tie,
+                              "autopilot speculation vs plain")
+    rec = {"slo_s": slo, "first_pass_tpot_p50_s": first["tpot_p50_s"],
+           "plain_tpot_p50_s": plain["tpot_p50_s"], "k_trace": [
+               [round(d["ts"], 4), d["new"]] for d in decisions],
+           "actuations": acts, "saturated": len(sat), "final_k_max": b._spec.k_max,
+           "launches": launches, "spec": b.spec_stats(), "wall_s": time.perf_counter() - t_leg,
+           "streams_diverged_at_a_tie": diverged}
+    log("autopilot tpot " + json.dumps(rec))
+    if acts != [(AP_TPOT_K - i, AP_TPOT_K - i - 1) for i in range(AP_TPOT_K - 1)] \
+            or b._spec.k_max != 1 or len(sat) != 1 \
+            or any(d["knob"] != AUTOPILOT_KNOB_SPEC_K_MAX for d in decisions):
+        fail(f"autopilot tpot: spec_k_max went {acts}, {len(sat)} saturated, "
+             f"ends at {b._spec.k_max}")
+    return rec
+
+
+def _ap_hbm(rpa, np, eng, cuda: bool) -> dict:
+    """(c): the prefix cache holds a templated pass's blocks; the
+    device-memory ramp latches ``alert/hbm_growth`` and the reclaim frees
+    them, once per alert: a second alert comes only once the ramp, off for
+    a while, is turned on again."""
+    from photon_tpu_torch import chaos, telemetry
+    from photon_tpu_torch.config.schema import ChaosConfig
+    from photon_tpu_torch.serve.scheduler import ContinuousBatcher
+    from photon_tpu_torch.utils.profiling import ALERT_HBM_GROWTH
+
+    vocab = eng.mc.vocab_size
+    rng = np.random.default_rng(172)
+    ap = _ap_telemetry(reclaim_free_blocks=eng.n_blocks, **AP_HBM_AUTOPILOT)
+    health = telemetry.health_active()
+    b = ContinuousBatcher(eng, max_queue=64,
+                          prefill_token_budget=eng.cfg.photon.serve.prefill_token_budget)
+    b.device_sample_ticks = AP_HBM_SAMPLE_TICKS
+    rpa.launches = 0
+    b.start()
+    t0 = time.time()
+    failed: list[str] = []
+    rec: dict = {"ramp_frac": AP_HBM_RAMP, "sample_ticks": AP_HBM_SAMPLE_TICKS, "episodes": []}
+
+    def run(prompts, new):
+        for r in [b.submit(p, new) for p in prompts]:
+            r.result(timeout=AP_WAIT_S)
+            if r.error:
+                failed.append(r.error)
+
+    def alerts():
+        return [a for a in list(health.alerts) if a.kind == ALERT_HBM_GROWTH]
+
+    def reclaims():
+        return _ap_decisions(ap, t0, "hbm_reclaim")
+
+    try:
+        n_block, repeats, n_suffix = AP_HBM_TEMPLATE
+        for episode in range(2):
+            template = list(map(int, rng.integers(0, vocab, n_block))) * repeats
+            run([template + list(map(int, rng.integers(0, vocab, n_suffix))) for _ in range(8)],
+                4)
+            cached = len(eng.prefix_cache)
+            n_alerts, n_reclaims = len(alerts()), len(reclaims())
+            chaos.install(ChaosConfig(enabled=True, seed=episode,
+                                      serve_hbm_ramp_frac=AP_HBM_RAMP), scope="serve")
+            deadline = time.monotonic() + 120
+            while len(reclaims()) == n_reclaims:
+                if time.monotonic() > deadline:
+                    fail(f"autopilot hbm: episode {episode}: {len(alerts())} alerts, no reclaim")
+                run([list(map(int, rng.integers(0, vocab, 8))) for _ in range(4)], 4)
+            chaos.uninstall()
+            # the ramp off: ticks go on and no alert or reclaim follows
+            run([list(map(int, rng.integers(0, vocab, 8))) for _ in range(4)], 16)
+            new_alerts, new_reclaims = alerts()[n_alerts:], reclaims()[n_reclaims:]
+            rec["episodes"].append({
+                "cached_blocks_before": cached,
+                "alerts": [{"ts": a.ts - t0, "growth_frac": a.attrs.get("growth_frac")}
+                           for a in new_alerts],
+                "reclaims": [{k: d[k] for k in ("ts", "observed", "old", "new")}
+                             for d in new_reclaims]})
+            if len(new_alerts) != 1 or len(new_reclaims) != 1:
+                fail(f"autopilot hbm: episode {episode}: {len(new_alerts)} alerts, "
+                     f"{len(new_reclaims)} reclaims")
+            d, a = new_reclaims[0], new_alerts[0]
+            if d["observed"] != a.attrs.get("growth_frac") or d["ts"] < a.ts - t0 \
+                    or not d["new"] > d["old"]:
+                fail(f"autopilot hbm: episode {episode}: reclaim {d} for alert {a}")
+    finally:
+        chaos.uninstall()
+        b.close()
+        telemetry.uninstall()
+    _ap_launch_gate(b, eng.mc.n_layers, rpa.launches, cuda, "hbm")
+    if failed:
+        fail(f"autopilot hbm: {len(failed)} requests failed: {failed[:2]}")
+    rec["launches"] = rpa.launches
+    rec["wall_s"] = time.time() - t0
+    log("autopilot hbm " + json.dumps(rec))
+    return rec
+
+
+def _ap_oom(torch, cfg, work: pathlib.Path) -> dict:
+    """(e): an allocation over the card's free memory raises
+    ``torch.cuda.OutOfMemoryError``; ``dump_memory_profile`` leaves a
+    snapshot that loads, and ``ClientRuntime._error`` names it."""
+    import copy
+    import pickle
+
+    from photon_tpu_torch.federation.client_runtime import ClientRuntime
+    from photon_tpu_torch.utils.profiling import dump_memory_profile
+
+    free, total = torch.cuda.mem_get_info()
+    try:
+        torch.empty(free + (1 << 30), dtype=torch.uint8, device="cuda")
+        fail(f"autopilot oom: {free + (1 << 30)} bytes allocated with {free} free")
+    except torch.cuda.OutOfMemoryError as e:
+        err = e
+    t0 = time.perf_counter()
+    path = dump_memory_profile(str(work), "oom")
+    dump_s = time.perf_counter() - t0
+    if path is None:
+        fail("autopilot oom: dump_memory_profile wrote nothing")
+    with open(path, "rb") as f:
+        snap = pickle.load(f)
+    if not isinstance(snap, dict) or not snap.get("segments"):
+        fail(f"autopilot oom: the snapshot holds {type(snap).__name__} "
+             f"{list(snap)[:5] if isinstance(snap, dict) else ''}")
+    rcfg = copy.deepcopy(cfg)
+    rcfg.photon.save_path = str(work)
+    text = ClientRuntime(rcfg, transport=None, device="cuda")._error(err, "smoke")
+    named = text.rsplit("[memory profile: ", 1)[-1].rstrip("]") if "[memory profile: " in text \
+        else None
+    if named is None or not pathlib.Path(named).is_file():
+        fail(f"autopilot oom: ClientRuntime._error names no snapshot: {text[-300:]}")
+    rec = {"free_bytes": free, "total_bytes": total, "asked_bytes": free + (1 << 30),
+           "snapshot_bytes": pathlib.Path(path).stat().st_size,
+           "segments": len(snap["segments"]), "dump_s": dump_s,
+           "error_names": pathlib.Path(named).name}
+    log("autopilot oom " + json.dumps(rec))
+    return rec
+
+
+def autopilot_phase(torch, rpa, np, fed: dict, tie: float, cfg=None, device: str = "cuda",
+                    work: pathlib.Path = ROOT / ".chip_smoke" / "autopilot") -> dict:
+    """Phase 17 (a), (b), (c) and (e), in this process: the fed run's
+    served round at full width in one ragged engine with the prefix cache
+    (8 slots, block 16, budget 512); see the module's docstring. (d) runs
+    in a child beside phases 14–16 (:func:`autopilot_fleet_leg`)."""
+    from photon_tpu_torch.checkpoint import FileStore, ServerCheckpointManager
+    from photon_tpu_torch.serve.engine import PagedEngine, load_serving_params
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = cfg if cfg is not None else serve_config()
+    cfg.photon.serve.prefix_cache = True
+    cfg.photon.serve.attention_impl = "ragged" if cuda else "auto"
+    mgr = ServerCheckpointManager(FileStore(fed["store"]), fed["run_uuid"])
+    eng = PagedEngine(cfg, load_serving_params(cfg, mgr, fed["served_round"]),
+                      loaded_round=fed["served_round"], device=device)
+    rec: dict = {"round": fed["served_round"], "slots": eng.n_slots,
+                 "block_size": eng.block_size, "n_blocks": eng.n_blocks}
+    try:
+        rec["storm"] = _ap_storm(torch, rpa, np, eng, tie, cuda)
+        rec["tpot"] = _ap_tpot(torch, rpa, np, eng, tie, cuda)
+        rec["hbm"] = _ap_hbm(rpa, np, eng, cuda)
+        del eng
+        if cuda:
+            torch.cuda.empty_cache()
+            rec["oom"] = _ap_oom(torch, cfg, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["launches"] = rec["storm"]["launches"] + rec["tpot"]["launches"] + rec["hbm"]["launches"]
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def autopilot_fleet_leg(np, src: dict, device: str = "cuda",
+                        work: pathlib.Path = ROOT / ".chip_smoke" / "autopilot_fleet") -> dict:
+    """Phase 17 (d): a ``FleetRouter`` with the autopilot on (cooldown
+    ``AP_FLEET_COOLDOWN_S``) and two ``--fleet-connect`` replicas of phase
+    13's round (``src``), one of them (``ramp``) under the device-memory
+    ramp, both with telemetry on; traffic from two threads throughout. The
+    ramped replica reports its serve plane degraded by ``alert/hbm_growth``,
+    the router approves one restart for it and none for ``steady``, the
+    agent recycles it, it reports live again, no request fails and each
+    replica's K4 keeps to the launch rule."""
+    import os
+
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.checkpoint import FileStore
+    from photon_tpu_torch.config.schema import AutopilotConfig, TelemetryConfig
+    from photon_tpu_torch.serve.router import FleetRouter
+    from photon_tpu_torch.utils.profiling import ALERT_HBM_GROWTH
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    _copy_round(FileStore(src["store"]), FileStore(work / "store"), src["run"], 1)
+    cfg = fleet_config(src["config"])
+    sc, fc = cfg.photon.serve, cfg.photon.serve.fleet
+    fc.replicas, sc.hotswap = 2, False
+    cfg.photon.telemetry.enabled = True
+    for tag, ramp in (("ramp", AP_HBM_RAMP), ("steady", 0.0)):
+        cfg.photon.telemetry.dir = str(work / f"telemetry_{tag}")
+        cfg.photon.chaos.enabled, cfg.photon.chaos.serve_hbm_ramp_frac = ramp > 0, ramp
+        cfg.to_yaml(work / f"{tag}.yaml")
+    n_layers, vocab, block = cfg.model.n_layers, cfg.model.vocab_size, sc.block_size
+    tel = TelemetryConfig(enabled=True, dir=str(work / "telemetry_router"))
+    tel.autopilot = AutopilotConfig(enabled=True, cooldown_s=AP_FLEET_COOLDOWN_S)
+    telemetry.install(tel, scope="router")
+    ap = telemetry.autopilot_active()
+    asked: list[tuple] = []
+    real_request = ap.request_replica_restart
+
+    def request(nid, reason, observed=1.0):
+        ok = real_request(nid, reason, observed=observed)
+        asked.append((time.time(), nid, reason, ok))
+        return ok
+
+    ap.request_replica_restart = request
+    router = FleetRouter(fc, block_size=block)
+    reports: list[tuple] = []
+    real_ingest = router._ingest_report
+
+    def ingest(nid, reply):
+        real_ingest(nid, reply)
+        reports.append((time.time(), nid, json.loads(reply.detail or "{}")))
+
+    router._ingest_report = ingest
+    port = router.start()
+    control = f"{fc.host}:{router.control_port}"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs = {tag: subprocess.Popen(
+        [sys.executable, "-m", "photon_tpu_torch.serve", "--config", str(work / f"{tag}.yaml"),
+         "--store", str(work / "store"), "--enable", "--port", "0", "--fleet-connect", control,
+         "--replica-id", tag, "--device", device],
+        cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for tag in ("ramp", "steady")}
+    errs: dict = {tag: [] for tag in procs}
+    for tag, p in procs.items():
+        threading.Thread(target=lambda p=p, e=errs[tag]: e.extend(p.stderr), daemon=True).start()
+    stop = threading.Event()
+    traffic: list = []
+    threads: list = []
+    rec: dict = {"cooldown_s": AP_FLEET_COOLDOWN_S, "ramp_frac": AP_HBM_RAMP,
+                 "report_poll_s": fc.report_poll_s}
+    try:
+        t0 = time.perf_counter()
+        try:
+            router.wait_for_replicas(timeout=AP_WAIT_S)
+        except TimeoutError as e:
+            fail(f"autopilot fleet: {e}: " + json.dumps({t: "".join(v)[-2000:]
+                                                         for t, v in errs.items()}))
+        rec["startup_s"] = time.perf_counter() - t0
+        threads = [_traffic_thread(port, np, seed, vocab, block, traffic, stop)
+                   for seed in (0, 1)]
+        deadline = time.monotonic() + AP_WAIT_S
+        while not router.restarts.get("ramp"):
+            if time.monotonic() > deadline:
+                fail(f"autopilot fleet: no restart acknowledged; asked {asked}")
+            time.sleep(0.05)
+        t_ack = router.restarts["ramp"][0]
+        while not any(t > t_ack and nid == "ramp" and not r.get("draining")
+                      for t, nid, r in list(reports)):
+            if time.monotonic() > deadline:
+                fail("autopilot fleet: the restarted replica never reported live")
+            time.sleep(0.05)
+        t_live = next(t for t, nid, r in list(reports)
+                      if t > t_ack and nid == "ramp" and not r.get("draining"))
+        time.sleep(2 * fc.report_poll_s + 0.5)  # more polls: the cooldown holds
+        stop.set()
+        for t in threads:
+            t.join(timeout=AP_WAIT_S)
+        health = {tag: _replica_health(router, tag) for tag in procs}
+        statusz = json.loads(_request(port, "/statusz")[1])
+        fleet = router.fleet_status()["fleet"]
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for tag, p in procs.items():
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=10)
+        router.close()
+        telemetry.uninstall()
+        shutil.rmtree(work, ignore_errors=True)
+    approvals = {tag: [a for a in asked if a[1] == tag and a[3]] for tag in procs}
+    t_approve = approvals["ramp"][0][0] if approvals["ramp"] else None
+    degraded = [r.get("health") for _, nid, r in reports if nid == "ramp" and r.get("health")
+                and r["health"].get("status") != "ok"]
+    bad = [(r["status"], r.get("error")) for r in traffic if r["status"] != 200]
+    rec.update({
+        "requests": len(traffic), "failed": bad, "reports": len(reports),
+        "ramp_health": degraded[:1], "steady_health": [r.get("health") for _, nid, r in reports
+                                                      if nid == "steady"][-1:],
+        "asked": len(asked), "denied": sum(1 for a in asked if not a[3]),
+        "approvals": {tag: len(v) for tag, v in approvals.items()},
+        "restarts_acknowledged": {tag: len(v) for tag, v in router.restarts.items()},
+        "recycles": {tag: h["stats"].get("recycles") for tag, h in health.items()},
+        "approval_to_live_s": t_live - t_approve if t_approve else None,
+        "ack_to_live_s": t_live - t_ack, "rerouted": fleet["routed"]["reroutes"],
+        "states": {tag: fleet["replicas"].get(tag, {}).get("state") for tag in procs},
+        "statusz_decisions": [{k: d.get(k) for k in ("rule", "knob", "replica", "reason")}
+                              for d in statusz.get("autopilot", {}).get("decisions", [])],
+        "launches": {tag: health[tag]["kernel_launches"]["ragged_paged_attention"]
+                     for tag in procs}})
+    if not degraded or degraded[0].get("reason") != ALERT_HBM_GROWTH:
+        fail(f"autopilot fleet: the ramped replica reported {degraded[:1]}")
+    if rec["approvals"] != {"ramp": 1, "steady": 0} or rec["restarts_acknowledged"] != \
+            {"ramp": 1}:
+        fail(f"autopilot fleet: approvals {rec['approvals']}, acknowledged "
+             f"{rec['restarts_acknowledged']}")
+    if rec["recycles"] != {"ramp": 1.0, "steady": 0.0} or rec["states"] != \
+            {"ramp": "live", "steady": "live"}:
+        fail(f"autopilot fleet: recycles {rec['recycles']}, states {rec['states']}")
+    if bad:
+        fail(f"autopilot fleet: {len(bad)} of {len(traffic)} requests failed: {bad[:3]}")
+    if not any(d["rule"] == "replica_restart" and d["replica"] == "ramp"
+               for d in rec["statusz_decisions"]):
+        fail(f"autopilot fleet: the router's /statusz holds {rec['statusz_decisions']}")
+    if cuda:
+        for tag in procs:
+            _launch_rule(health[tag], n_layers, f"autopilot fleet replica {tag}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("autopilot fleet " + json.dumps(rec))
+    return rec
+
+
+def _autopilot_fleet_child(out_path: str, src_path: str) -> int:
+    """(d) in a child of the smoke (:func:`autopilot_fleet_leg`), so the
+    router's process-global autopilot shares a process with no other
+    phase; writes its record to ``out_path``."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    src = json.loads(pathlib.Path(src_path).read_text())
+    rec = autopilot_fleet_leg(np, src, device=src.get("device", "cuda"))
+    pathlib.Path(out_path).write_text(json.dumps(rec))
+    return 0
+
+
+def _autopilot_fleet_start(src: dict, work: pathlib.Path) -> subprocess.Popen:
+    """Start (d)'s child (:func:`_autopilot_fleet_child`) on ``src``."""
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "ap_fleet_src.json").write_text(json.dumps(src))
+    with open(work / "ap_fleet.log", "w") as out:
+        return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--autopilot-fleet",
+                                 str(work / "ap_fleet.json"), str(work / "ap_fleet_src.json")],
+                                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+
+
+def _autopilot_fleet_finish(proc: subprocess.Popen, work: pathlib.Path) -> dict:
+    """Wait for (d)'s child; its record, or the smoke fails with its log."""
+    try:
+        rc = proc.wait(timeout=AP_WAIT_S + 300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        rc = "timeout"
+    log_text = (work / "ap_fleet.log").read_text()
+    if rc != 0:
+        fail(f"autopilot fleet child exited {rc}: {log_text[-3000:]}")
+    return json.loads((work / "ap_fleet.json").read_text())
+
+
 def fed_1b() -> int:
     """``python -m photon_tpu_torch.federated`` at mpt-1b: 2 in-process
     nodes on one card, 2 clients a round, 1 local step each (global batch
@@ -5890,6 +6563,8 @@ def main() -> int:
         return _host_cli_child(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
     if sys.argv[1:2] == ["--tcp-node-child"]:  # a node of the chaos phase
         return _tcp_node_child(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
+    if sys.argv[1:2] == ["--autopilot-fleet"]:  # phase 17 (d)
+        return _autopilot_fleet_child(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--fed-1b"]:
         return fed_1b()
     import torch
@@ -5996,28 +6671,42 @@ def main() -> int:
     adapters = adapter_phase(torch, rpa, fa, np, fed, train, tie=2 * engine["max_abs_logit_diff"])
     adapters["phase_s"] = time.perf_counter() - t0
     log(f"adapter phase: {adapters['phase_s']:.1f} s")
+    fleet_source = adapters.pop("fleet_source")
+    ap_work = ROOT / ".chip_smoke" / "autopilot_child"
     try:
-        fleet = fleet_phase(torch, rpa, np, adapters.pop("fleet_source"),
-                            tie=2 * engine["max_abs_logit_diff"])
+        fleet = fleet_phase(torch, rpa, np, fleet_source, tie=2 * engine["max_abs_logit_diff"])
+        log(f"fleet phase: {fleet['phase_s']:.1f} s")
+        # phase 17 (a)-(c), (e) in this process on the fed run's round
+        autopilot = autopilot_phase(torch, rpa, np, fed, tie=2 * engine["max_abs_logit_diff"])
+        log(f"autopilot phase (a)-(c), (e): {autopilot['phase_s']:.1f} s")
+        shutil.rmtree(ROOT / ".chip_smoke" / "fed", ignore_errors=True)
+        t0 = time.perf_counter()
+        # 17 (d), the router's restart leg, in a child of its own (the
+        # router's autopilot is process-global) beside 14-16, on phase 13's
+        # round: its gates count launches and restarts, not seconds
+        ap_fleet = _autopilot_fleet_start(dict(fleet_source, device="cuda"), ap_work)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            # phase 14 beside phases 15 and 16, whose work is in their
+            # children: they share no launch counter (15's and 16's are the
+            # children's; 16's in-process decode passes wait for 14), no
+            # file and no port, and 14's gates do not depend on time. 16
+            # starts once 15 ended: 15's seeded faults land on a ping only
+            # while its frames keep their order, which a ping answered late
+            # could change
+            interop_run = pool.submit(interop_phase, torch, rpa, np)
+            chaos_rec = chaos_phase(torch, np, fa)
+            tel = telemetry_phase(np, before_ab=interop_run.result)
+            interop = interop_run.result()
+        autopilot["fleet"] = _autopilot_fleet_finish(ap_fleet, ap_work)
     finally:
         shutil.rmtree(ROOT / ".chip_smoke" / "adapters", ignore_errors=True)
-    log(f"fleet phase: {fleet['phase_s']:.1f} s")
-    shutil.rmtree(ROOT / ".chip_smoke" / "fed", ignore_errors=True)
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        # phase 14 beside phases 15 and 16, whose work is in their children:
-        # they share no launch counter (15's and 16's are the children's;
-        # 16's in-process decode passes wait for 14), no file and no port,
-        # and 14's gates do not depend on time. 16 starts once 15 ended:
-        # 15's seeded faults land on a ping only while its frames keep their
-        # order, which a ping answered late could change
-        interop_run = pool.submit(interop_phase, torch, rpa, np)
-        chaos_rec = chaos_phase(torch, np, fa)
-        tel = telemetry_phase(np, before_ab=interop_run.result)
-        interop = interop_run.result()
+        shutil.rmtree(ap_work, ignore_errors=True)
+    autopilot["phase_s_with_fleet"] = autopilot["phase_s"] + autopilot["fleet"]["phase_s"]
     log(f"interop phase: {interop['phase_s']:.1f} s, chaos phase: {chaos_rec['phase_s']:.1f} s, "
         f"telemetry phase: {tel['phase_s']:.1f} s (traced run {tel['fed']['phase_s']:.1f} s, "
-        f"serve {tel['serve']['phase_s']:.1f} s), side by side {time.perf_counter() - t0:.1f} s")
+        f"serve {tel['serve']['phase_s']:.1f} s), autopilot (d) "
+        f"{autopilot['fleet']['phase_s']:.1f} s, side by side {time.perf_counter() - t0:.1f} s")
+    log(f"autopilot phase: {autopilot['phase_s_with_fleet']:.1f} s")
 
     kernels = {"kernels": [{
         "name": "ragged_paged_attention",
@@ -6040,6 +6729,8 @@ def main() -> int:
         "fleet_replica_launches": fleet["replica_launches"],
         "interop_engine_launches": interop["serve"]["launches"],
         "telemetry_serve_launches": tel["serve"]["launches"],
+        "autopilot_launches": autopilot["launches"],
+        "autopilot_fleet_replica_launches": autopilot["fleet"]["launches"],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -6075,7 +6766,8 @@ def main() -> int:
         "server": server, "decode": decode_rec, "eval": evaluation, "presets": presets,
         "presets_phase_s": presets_s, "d128_grad_gate": d128, "moe_dispatch": moe_dispatch,
         "moe_engine": moe_engine, "adapters": adapters, "fleet": fleet, "interop": interop,
-        "chaos": chaos_rec, "telemetry": tel, "kernels": kernels["kernels"],
+        "chaos": chaos_rec, "telemetry": tel, "autopilot": autopilot,
+        "kernels": kernels["kernels"],
         "profiler_pad_lost": profiler_pad_lost,
         "total_s": time.perf_counter() - t_all,
     }, indent=1))

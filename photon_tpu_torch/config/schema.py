@@ -6,12 +6,12 @@
 ``AdaptersConfig``, ``ChaosConfig``, ``TelemetryConfig`` and
 ``PhotonConfig`` carry the same fields, names and defaults as the JAX
 package's, so a resolved YAML written by either package loads in the
-other with equal fields. The sections of features the port does not run
-(``async_rounds`` and ``telemetry.autopilot``) are kept as the raw dicts
-they were read as and written back unchanged; only their ``enabled``
-flag is read, to refuse them. ``photon.adapters`` (per-cohort LoRA),
-``model.lora_*``, ``photon.chaos`` and ``photon.telemetry`` are validated
-with the JAX package's texts.
+other with equal fields. The section of a feature the port does not run
+(``async_rounds``) is kept as the raw dict it was read as and written back
+unchanged; only its ``enabled`` flag is read, to refuse it.
+``photon.adapters`` (per-cohort LoRA), ``model.lora_*``, ``photon.chaos``
+and ``photon.telemetry`` with its SLO autopilot
+(:class:`AutopilotConfig`) are validated with the JAX package's texts.
 ``serve.speculative`` is a :class:`SpeculativeConfig` and ``serve.fleet``
 a :class:`FleetConfig`, validated with the JAX package's ``ValueError``
 texts, as are the prefix-cache and hot-swap fields of
@@ -24,8 +24,9 @@ instead of running without them: a ``model.param_dtype`` other than
 training (``validate(serving=False)``, the default) a mesh of more than
 one device (``mesh.expert > 1`` included), ring attention, the mesh
 autotuner, the collective aggregation plane and asynchronous rounds (and
-with them the adapters' collective round loop); and everywhere the
-telemetry plane's SLO autopilot. ``mlp: moe`` is checked as the JAX
+with them the adapters' collective round loop, and the autopilot's
+collective and async rules, whose fields validate but whose planes stay
+refused). ``mlp: moe`` is checked as the JAX
 package checks it (its ``ValueError`` texts); ``device_microbatch_size:
 auto`` runs the trainer's probe.
 """
@@ -387,6 +388,60 @@ class ChaosConfig:
 
 
 @dataclass
+class AutopilotConfig:
+    """SLO autopilot (``photon_tpu_torch/telemetry/autopilot.py``; the JAX
+    package's fields, defaults and checks).
+
+    A feedback controller that closes the observe→actuate loop: declared
+    SLO targets are evaluated periodically against windowed reductions of
+    the typed-metric hub, and breaches drive runtime-mutable knobs the
+    owning subsystems registered at install time. OFF by default; the
+    disabled cost is one ``None`` check per hook site. Rules whose target
+    is 0 are individually off. Every actuation is reversible: after
+    ``relax_after`` consecutive clean evaluations a rule probes its knob
+    back toward the value the subsystem declared at registration.
+    """
+
+    enabled: bool = False
+    period_s: float = 0.25  # min seconds between evaluations, per plane
+    cooldown_s: float = 2.0  # per-rule min seconds between actuations
+    relax_after: int = 3  # clean evaluations before a relax probe
+    window_s: float = 30.0  # trailing window for metric reductions
+    decisions: int = 64  # decision ring surfaced on /statusz
+    # hysteresis for rules without an explicit clear bound: an evaluation
+    # is clean only when observed <= clear_frac * target
+    clear_frac: float = 0.8
+    # serve: queue saturation -> shrink prefill_token_budget so admissions
+    # drain through cheaper ticks before the 429 path fires
+    queue_high_frac: float = 0.75  # breach when ewma(depth)/max_queue >= this
+    queue_clear_frac: float = 0.25  # hysteresis: clean only at/below this
+    prefill_budget_min: int = 16  # knob floor (declared value is the ceiling)
+    prefill_shrink: float = 0.5  # multiplicative tighten step
+    # serve: TPOT p50 SLO -> lower the SpecController K ceiling (0 = off)
+    tpot_p50_slo_s: float = 0.0
+    spec_k_min: int = 1
+    # serve/collective: HBM-growth alert -> prefix-cache eviction + adapter
+    # LRU shrink (the reclaim action)
+    reclaim_free_blocks: int = 8  # PrefixCache.ensure_free target
+    # collective: straggler-frac p90 over the window -> tighten the stage
+    # timeout (0 = off; the collective plane is not ported yet)
+    straggler_p90: float = 0.0
+    stage_timeout_min_s: float = 5.0
+    stage_timeout_shrink: float = 0.75
+    # collective: wire-bytes slope (bytes/s) -> escalate collective
+    # quantization off->q8 (0 = off)
+    wire_slope_bytes_per_s: float = 0.0
+    # async: stale-reject rate (rejects per version advance) -> widen
+    # max_staleness within [declared, max_staleness_hi] (0 = off)
+    async_reject_per_version: float = 0.0
+    max_staleness_hi: int = 16
+    # fleet: a replica whose compile counter moved on this many consecutive
+    # report polls or whose HBM watcher latched is drained and restarted
+    # through the control plane (0 = the compile rule off)
+    replica_compile_streak: int = 0
+
+
+@dataclass
 class TelemetryConfig:
     """Distributed tracing + structured telemetry plane
     (``photon_tpu_torch/telemetry``; the JAX package's fields, defaults and
@@ -398,9 +453,9 @@ class TelemetryConfig:
     ``FitRes``/``EvaluateRes``/``Ack`` into one Perfetto/Chrome-trace JSON
     under ``dir``, writes a structured JSONL event log beside it, and —
     with ``prom_port`` set — serves ``/metrics``, ``/statusz`` and
-    ``POST /debug/profile`` on ``127.0.0.1:{prom_port}``. ``autopilot`` (the
-    SLO controller) is kept as the raw dict it was read as and refused
-    when enabled: it is not ported yet.
+    ``POST /debug/profile`` on ``127.0.0.1:{prom_port}``. ``autopilot`` is
+    the SLO controller's block (:class:`AutopilotConfig`), installed with
+    the plane.
     """
 
     enabled: bool = False
@@ -413,7 +468,9 @@ class TelemetryConfig:
     profile_rounds: int = 0
     #: per-instrument ring-buffer samples the typed-metric hub retains
     metrics_retention: int = 512
-    autopilot: dict = field(default_factory=dict)  # raw: refused when enabled
+    #: the SLO autopilot: the feedback controller that closes the
+    #: observe→actuate loop over the hub this plane installs
+    autopilot: AutopilotConfig = field(default_factory=AutopilotConfig)
 
 
 @dataclass
@@ -680,8 +737,8 @@ class Config:
 
 
 def _validate_telemetry(tel: TelemetryConfig) -> None:
-    """``photon.telemetry``'s bounds with the JAX package's texts; the SLO
-    autopilot is refused (the next slice of the port)."""
+    """``photon.telemetry``'s bounds, its SLO autopilot's included, with
+    the JAX package's texts."""
     if not 0 <= tel.prom_port <= 65535:
         raise ValueError(
             f"telemetry.prom_port must be in [0, 65535] (0 = off), got "
@@ -708,12 +765,52 @@ def _validate_telemetry(tel: TelemetryConfig) -> None:
             "— no profile will be captured",
             stacklevel=3,
         )
-    if (tel.autopilot or {}).get("enabled", False):
-        raise NotImplementedError(
-            "photon.telemetry.autopilot (the SLO autopilot) is not ported to "
-            "photon_tpu_torch yet — it is the next slice of the port's "
-            "telemetry; turn it off or run with photon_tpu"
+    apc = tel.autopilot
+    if apc.enabled and not tel.enabled:
+        raise ValueError(
+            "telemetry.autopilot.enabled needs telemetry.enabled=true: "
+            "the controller reads the process-global metrics hub and "
+            "health monitor"
         )
+    for ok, text in (
+        (apc.period_s > 0, f"period_s must be > 0, got {apc.period_s}"),
+        (apc.cooldown_s >= 0, f"cooldown_s must be >= 0, got {apc.cooldown_s}"),
+        (apc.relax_after >= 1, f"relax_after must be >= 1, got {apc.relax_after}"),
+        (apc.window_s > 0, f"window_s must be > 0, got {apc.window_s}"),
+        (apc.decisions >= 1, f"decisions must be >= 1, got {apc.decisions}"),
+        (0.0 < apc.clear_frac <= 1.0, f"clear_frac must be in (0, 1], got {apc.clear_frac}"),
+        (0.0 < apc.queue_high_frac <= 1.0,
+         f"queue_high_frac must be in (0, 1], got {apc.queue_high_frac}"),
+        (0.0 <= apc.queue_clear_frac < apc.queue_high_frac,
+         f"queue_clear_frac must be in [0, queue_high_frac={apc.queue_high_frac}), got "
+         f"{apc.queue_clear_frac}"),
+        (apc.prefill_budget_min >= 1,
+         f"prefill_budget_min must be >= 1, got {apc.prefill_budget_min}"),
+        (0.0 < apc.prefill_shrink < 1.0,
+         f"prefill_shrink must be in (0, 1), got {apc.prefill_shrink}"),
+        (apc.tpot_p50_slo_s >= 0,
+         f"tpot_p50_slo_s must be >= 0 (0 = off), got {apc.tpot_p50_slo_s}"),
+        (apc.spec_k_min >= 1, f"spec_k_min must be >= 1, got {apc.spec_k_min}"),
+        (apc.reclaim_free_blocks >= 0,
+         f"reclaim_free_blocks must be >= 0, got {apc.reclaim_free_blocks}"),
+        (0.0 <= apc.straggler_p90 <= 1.0,
+         f"straggler_p90 must be in [0, 1] (0 = off), got {apc.straggler_p90}"),
+        (apc.stage_timeout_min_s > 0,
+         f"stage_timeout_min_s must be > 0, got {apc.stage_timeout_min_s}"),
+        (0.0 < apc.stage_timeout_shrink < 1.0,
+         f"stage_timeout_shrink must be in (0, 1), got {apc.stage_timeout_shrink}"),
+        (apc.wire_slope_bytes_per_s >= 0,
+         f"wire_slope_bytes_per_s must be >= 0 (0 = off), got {apc.wire_slope_bytes_per_s}"),
+        (apc.async_reject_per_version >= 0,
+         f"async_reject_per_version must be >= 0 (0 = off), got "
+         f"{apc.async_reject_per_version}"),
+        (apc.max_staleness_hi >= 0,
+         f"max_staleness_hi must be >= 0, got {apc.max_staleness_hi}"),
+        (apc.replica_compile_streak >= 0,
+         f"replica_compile_streak must be >= 0 (0 = off), got {apc.replica_compile_streak}"),
+    ):
+        if not ok:
+            raise ValueError(f"telemetry.autopilot.{text}")
 
 
 def _validate_chaos(ch: ChaosConfig) -> None:

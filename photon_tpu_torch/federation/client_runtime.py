@@ -71,6 +71,7 @@ from photon_tpu_torch.utils.profiling import (
     CLIENT_RESOLVE_PARAMS_SPAN,
     CLIENT_SKIPPED_ROUND,
     CLIENT_TRAIN_SPAN,
+    dump_memory_profile,
     is_oom,
 )
 
@@ -153,14 +154,22 @@ class ClientRuntime:
             raise RuntimeError("no parameters: neither FitIns pointer nor prior broadcast")
         return self._current_params
 
-    def _error(self, e: Exception) -> str:
+    def _error(self, e: Exception, tag: str = "oom") -> str:
+        """A failed fit's or eval's error text. On an OOM it names the
+        allocator's peak and the memory snapshot :func:`dump_memory_profile`
+        wrote under ``photon.save_path`` (``[memory profile: PATH]``, as
+        the JAX package's text)."""
         msg = f"{type(e).__name__}: {e}"
-        if is_oom(e) and self._trainer is not None and self._trainer.device.type == "cuda":
+        if not is_oom(e):
+            return msg
+        device = self._trainer.device if self._trainer is not None else (self._device or "cuda")
+        if self._trainer is not None and self._trainer.device.type == "cuda":
             import torch
 
             peak = torch.cuda.max_memory_allocated(self.trainer.device) / 1e9
             msg += f" [cuda max_memory_allocated {peak:.2f} GB]"
-        return msg
+        dump = dump_memory_profile(self.cfg.photon.save_path or ".", tag, device=device)
+        return msg + (f" [memory profile: {dump}]" if dump else "")
 
     # -- fit -------------------------------------------------------------
     def fit(self, ins: FitIns, cid: int) -> FitRes:
@@ -173,7 +182,7 @@ class ClientRuntime:
                 return self._fit_inner(ins, cid, t_start)
             except Exception as e:  # noqa: BLE001 — a failed cid is retried on another node
                 return FitRes(server_round=ins.server_round, cid=cid, params=None,
-                              error=self._error(e))
+                              error=self._error(e, f"fit_cid{cid}"))
 
     def _fit_inner(self, ins: FitIns, cid: int, t_start: float) -> FitRes:
         cfg = self.cfg
@@ -330,7 +339,8 @@ class ClientRuntime:
             return EvaluateRes(server_round=ins.server_round, cid=cid, loss=out["eval/loss"],
                                n_samples=int(out["eval/tokens"]), metrics=out)
         except Exception as e:  # noqa: BLE001 — a failed cid is retried on another node
-            return EvaluateRes(server_round=ins.server_round, cid=cid, error=self._error(e))
+            return EvaluateRes(server_round=ins.server_round, cid=cid,
+                               error=self._error(e, f"eval_cid{cid}"))
 
     def _unigram_metrics(self, cid: int, batches: list[np.ndarray],
                          model_ce: float) -> dict[str, float]:

@@ -1,6 +1,5 @@
 """ServerApp: the federated round loop (the port of
-``photon_tpu/federation/server.py``, without its retrace sentinel, which
-is not ported).
+``photon_tpu/federation/server.py``).
 
 - client sampling by ``random.Random(sample_seed)``, fast-forwarded on
   resume, so both packages sample the same cids in every round;
@@ -28,7 +27,9 @@ is not ported).
   round-phase histograms, the device-memory and kernel-build samples and
   the NaN sentinel at each round boundary, ``/metrics``, ``/statusz`` and
   ``POST /debug/profile`` on ``prom_port``, and a ``torch.profiler``
-  capture over the first ``profile_rounds`` rounds.
+  capture over the first ``profile_rounds`` rounds;
+- each round's end is the retrace sentinel's ``server/round`` steady point
+  (``analysis/runtime.py``; one ``None`` check when none is installed).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from typing import Callable, Iterator
 import numpy as np
 
 from photon_tpu_torch import chaos, telemetry
+from photon_tpu_torch.analysis.runtime import steady_point
 from photon_tpu_torch.checkpoint.server import ServerCheckpointManager
 from photon_tpu_torch.codec.params import ParamsMetadata
 from photon_tpu_torch.config.schema import Config
@@ -587,6 +589,9 @@ class ServerApp:
                 # Envelope.trace every node's fit and eval span, parents to
                 with telemetry.span(ROUND_SPAN, round=rnd):
                     self._one_round(cfg, rnd)
+                # the retrace sentinel bills a kernel build in this round to
+                # its boundary (one None check when none is installed)
+                steady_point("server/round")
             telemetry.profile_tick("server/round")
         finally:
             # the last background write lands (and raises) before return;

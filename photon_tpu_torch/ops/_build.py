@@ -37,6 +37,10 @@ _loaded: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
 #: the compiler's report for each library built in this process
 build_log: dict[str, str] = {}
+#: called with the source's name each time :func:`load` builds or loads a
+#: library this process did not hold (the retrace sentinel's compile feed,
+#: ``analysis/runtime.py``); None: nothing listens
+on_load = None
 
 
 def _nvcc() -> str:
@@ -92,6 +96,9 @@ def load(source: str) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(build(source)))
             _loaded[source] = lib
+            hook = on_load
+            if hook is not None:
+                hook(source)
         return lib
 
 

@@ -51,7 +51,13 @@ typed ``/metrics`` (TTFT, queue-wait and TPOT histograms with trace-id
 exemplars under an OpenMetrics ``Accept``), ``/statusz`` and ``POST
 /debug/profile {"units": N}``, whose ``torch.profiler`` capture over N
 scheduler ticks lands in ``{telemetry.dir or save_path/telemetry}/
-profile-{tag}-{seq}/trace.json``.
+profile-{tag}-{seq}/trace.json``. Its ``telemetry.autopilot`` block turns
+the SLO autopilot on: the queue and TPOT rules drive the prefill budget
+and the speculation ceiling, and the HBM rule reclaims prefix-cache and
+adapter pages, with the decisions on ``/statusz``. ``photon.chaos``
+installs its injector here too (scope ``serve``, or the replica id), so a
+replica's serving faults (the stall per token, the device-memory ramp)
+fire; the JAX CLI reads the section but never installs it.
 
 The first line on stdout is one JSON object with the serving URL, the
 bound port, the replica id (or null), the round, the model, the pool's
@@ -101,7 +107,7 @@ def main(argv: list[str] | None = None) -> None:
     if bool(args.fleet_connect) != bool(args.replica_id):
         ap.error("--fleet-connect and --replica-id go together")
 
-    from photon_tpu_torch import telemetry
+    from photon_tpu_torch import chaos, telemetry
     from photon_tpu_torch.checkpoint import FileStore
     from photon_tpu_torch.config import load_preset
     from photon_tpu_torch.config.schema import Config
@@ -131,6 +137,8 @@ def main(argv: list[str] | None = None) -> None:
         telemetry.install(cfg.photon.telemetry, scope="serve",
                           profile_dir=(cfg.photon.telemetry.dir
                                        or cfg.photon.save_path + "/telemetry"))
+    # one None check per hook site when off (chaos.install uninstalls then)
+    chaos.install(cfg.photon.chaos, scope=args.replica_id or "serve")
     tokenizer = None
     if args.tokenizer:
         from photon_tpu_torch.data.tokenizer import load_tokenizer
@@ -212,6 +220,7 @@ def main(argv: list[str] | None = None) -> None:
             frontend.close()
             batcher.close()
         telemetry.uninstall()  # flushes a profile capture still running
+        chaos.uninstall()
 
 
 if __name__ == "__main__":

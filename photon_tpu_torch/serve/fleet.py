@@ -41,9 +41,10 @@ pipe, and keeps the last lines.
 With ``photon.telemetry`` on, the agent's redial is a ``tcp/reconnect``
 event, and its report carries the serve plane's health (``health``) and
 the replica's kernel-build count (``compiles``), which the router's
-restart autopilot (not ported yet) reads. The JAX agent reports the
-``server/`` build counter, which a serving replica never moves; the port
-reports ``serve/backend_compiles_total``.
+restart autopilot reads (a ``restart`` action it approves recycles the
+replica in place). The JAX agent reports the ``server/`` build counter,
+which a serving replica never moves, so its compile-streak rule cannot
+fire; the port reports ``serve/backend_compiles_total``.
 """
 
 from __future__ import annotations

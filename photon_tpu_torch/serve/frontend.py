@@ -7,9 +7,10 @@ the scheduler's single thread does all engine work. ``/metrics`` renders
 the typed hub (with ``photon.telemetry`` on) and the batcher's KPI
 History in Prometheus text, with exemplars only under an OpenMetrics
 ``Accept``; ``/statusz`` is the health monitor's rollup (``"telemetry":
-"off"`` without one); ``POST /debug/profile {"units": N}`` arms a
-``torch.profiler`` capture over the next N scheduler ticks (202; 409
-while one is armed or running; 503 with telemetry off).
+"off"`` without one; with the SLO autopilot on, an ``autopilot`` object
+holds its decisions, rules and knobs); ``POST /debug/profile {"units":
+N}`` arms a ``torch.profiler`` capture over the next N scheduler ticks
+(202; 409 while one is armed or running; 503 with telemetry off).
 
 ``POST /generate`` accepts JSON::
 
@@ -130,6 +131,8 @@ class ServeFrontend:
                     payload["draining"] = fe.draining
                     if (p := telemetry.profiler_active()) is not None:
                         payload["profile"] = p.status()  # captures done, last error
+                    if (ap := telemetry.autopilot_active()) is not None:
+                        payload["autopilot"] = ap.statusz()  # decisions, rules, knobs
                     self._json(200, payload)
                     return
                 if path != "/healthz":

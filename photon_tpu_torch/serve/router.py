@@ -44,8 +44,16 @@ chunked stream through chunk by chunk.
 with the fleet's counts. With telemetry on, a replica's registration, its
 death, each cohort re-pin and each leg of a rolling swap are events, and a
 dead replica degrades the ``fleet`` health plane until every tracked
-replica is live again. The replica-restart autopilot is not ported (the
-next slice of the port's telemetry). Under ``photon.chaos``,
+replica is live again. With ``telemetry.autopilot`` on, the poll is the
+replica-restart autopilot's eye: a replica whose report shows its kernel
+build count rising on ``replica_compile_streak`` consecutive polls, or its
+serve plane degraded by ``alert/hbm_growth``, is put to the autopilot
+(:meth:`~photon_tpu_torch.telemetry.autopilot.Autopilot.request_replica_restart`,
+a cooldown per replica and a decision record), and an approved restart is
+sent as the agent's ``restart`` action after the poll has released the
+control lock (the action drains the replica and recycles it in place; its
+503s are placed again). ``/statusz`` then carries the autopilot's
+decisions. Under ``photon.chaos``,
 :meth:`FleetRouter.place` asks the injector whether to kill a replica
 after N placements and hands the victim to ``kill_hook``.
 """
@@ -71,6 +79,7 @@ from photon_tpu_torch.metrics.history import History
 from photon_tpu_torch.serve.prefix import prefix_hashes
 from photon_tpu_torch.telemetry.prom import negotiate_exposition, render_exposition
 from photon_tpu_torch.utils.profiling import (
+    ALERT_HBM_GROWTH,
     EVENT_FLEET_COHORT_REPIN,
     EVENT_FLEET_REPLICA_DEAD,
     EVENT_FLEET_REPLICA_UP,
@@ -233,6 +242,15 @@ class FleetRouter:
         self._lock = threading.Lock()  # replicas, pins and counters
         self._ctl_lock = threading.Lock()  # the control driver, one user at a time
         self._last_states: dict[str, str] = {}
+        # the restart autopilot's state: each replica's last reported build
+        # count and its streak of polls on which it grew, and the restarts
+        # approved in a poll, sent after the control lock is released (the
+        # restart query takes it)
+        self._compiles: dict[str, float] = {}
+        self._compile_streaks: dict[str, int] = {}
+        self._pending_restarts: list[str] = []
+        #: replica id -> the times its approved restarts were acknowledged
+        self.restarts: dict[str, list[float]] = {}
         self._tick = 0
         self._stop = threading.Event()
         self._poll_thread: threading.Thread | None = None
@@ -292,6 +310,19 @@ class FleetRouter:
                 self.tracker.observe_miss(nid)
         self._apply_transitions()
         self._record_kpis()
+        self._drain_restarts()
+
+    def _drain_restarts(self) -> None:
+        """Send the poll's approved restarts, outside the poll's hold of
+        the control lock (each query takes it again)."""
+        pending, self._pending_restarts = self._pending_restarts, []
+        for nid in pending:
+            ack = self._query(nid, "restart", self.fc.report_timeout_s)
+            if ack is None or not ack.ok:
+                warnings.warn(f"fleet restart of {nid} was not acknowledged", stacklevel=2)
+                continue
+            with self._lock:
+                self.restarts.setdefault(nid, []).append(time.time())
 
     def _ingest_report(self, nid: str, reply: Ack) -> None:
         try:
@@ -311,6 +342,30 @@ class FleetRouter:
         if first and st.port:
             telemetry.emit_event(EVENT_FLEET_REPLICA_UP, replica=nid, port=st.port,
                                  round=st.loaded_round)
+        # restart triggers: a streak of polls on which the build count grew,
+        # or a serve plane degraded by HBM growth. The autopilot decides
+        # (a cooldown per replica, the decision record); _drain_restarts acts
+        ap = telemetry.autopilot_active()
+        if ap is not None:
+            reason = None
+            observed = 1.0
+            compiles = rep.get("compiles")
+            if compiles is not None:
+                prev = self._compiles.get(nid)
+                self._compiles[nid] = float(compiles)
+                streak = (self._compile_streaks.get(nid, 0) + 1
+                          if prev is not None and float(compiles) > prev else 0)
+                self._compile_streaks[nid] = streak
+                limit = int(getattr(ap.cfg, "replica_compile_streak", 0))
+                if limit > 0 and streak >= limit:
+                    reason, observed = "compile_growth", float(streak)
+            health = rep.get("health") or {}
+            if health.get("status") not in (None, "ok") \
+                    and health.get("reason") == ALERT_HBM_GROWTH:
+                reason, observed = ALERT_HBM_GROWTH, 1.0
+            if reason is not None and ap.request_replica_restart(nid, reason, observed=observed):
+                self._compile_streaks[nid] = 0
+                self._pending_restarts.append(nid)
 
     def _apply_transitions(self) -> None:
         """A replica newly dead re-pins its cohorts and degrades the fleet
@@ -496,6 +551,9 @@ class FleetRouter:
                                else {"status": "ok", "planes": {}, "alerts": [],
                                      "telemetry": "off"})
                     payload["fleet"] = router.fleet_status()["fleet"]
+                    ap = telemetry.autopilot_active()
+                    if ap is not None:
+                        payload["autopilot"] = ap.statusz()
                     self._json(200, payload)
                 else:
                     self._discard_body()

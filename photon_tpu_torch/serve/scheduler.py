@@ -1,9 +1,7 @@
 """Continuous batching: bounded admission queue + slot-level scheduling.
 
-The port of ``photon_tpu/serve/scheduler.py`` without its autopilot
-hooks (``photon.chaos``'s stall per token stepped and its device-memory
-ramp are kept). One scheduler thread makes every engine (and so every
-CUDA) call, in three phases a tick:
+The port of ``photon_tpu/serve/scheduler.py``. One scheduler thread makes
+every engine (and so every CUDA) call, in three phases a tick:
 
 1. **swap point** — a staged parameter swap (:meth:`request_swap`, the
    hot-swap watcher's) applies once no slot is active; while one is
@@ -37,7 +35,15 @@ a swap is a ``serve/hotswap_swap`` span, histogram observation and event,
 the tick's gauges and counters land in the hub, device memory and the
 kernel-build count are sampled every ``device_sample_ticks`` ticks, the
 queue-saturation and memory-growth watchers run, and a tick is a unit of
-an on-demand profile.
+an on-demand profile. ``photon.chaos``'s stall per token stepped and its
+device-memory ramp land here too.
+
+With ``telemetry.autopilot`` on, the batcher registers its knobs at
+construction (``serve/prefill_token_budget``, ``serve/spec_k_max`` with
+speculation on, and the ``serve/memory_reclaim`` action,
+:meth:`ContinuousBatcher.reclaim_memory`), and each tick ends with the
+autopilot's ``serve`` evaluation; a tick is also the retrace sentinel's
+``serve/tick`` steady point. Each is one ``None`` check when off.
 """
 
 from __future__ import annotations
@@ -50,10 +56,14 @@ from collections import deque
 from dataclasses import dataclass, field
 
 from photon_tpu_torch import chaos, telemetry
+from photon_tpu_torch.analysis.runtime import steady_point
 from photon_tpu_torch.metrics.history import History
 from photon_tpu_torch.serve.draft import Drafter, NGramDrafter, SpecController
 from photon_tpu_torch.serve.engine import PagedEngine
 from photon_tpu_torch.utils.profiling import (
+    AUTOPILOT_ACTION_RECLAIM,
+    AUTOPILOT_KNOB_PREFILL_BUDGET,
+    AUTOPILOT_KNOB_SPEC_K_MAX,
     EVENT_HOTSWAP_SWAPPED,
     SERVE_ADAPTER_COHORTS,
     SERVE_ADAPTER_EVICTIONS,
@@ -213,6 +223,7 @@ class ContinuousBatcher:
         self.evictions = 0
         self.completed = 0
         self.swaps = 0
+        self.recycles = 0  # soft restarts (:meth:`recycle`) completed
         self.last_swap_s = 0.0  # the last swap's latency, staged to applied
         self.last_swap_at = 0.0  # its wall time when applied
         #: (params, round, done event, t_request) staged by request_swap,
@@ -224,6 +235,18 @@ class ContinuousBatcher:
         self.chunk_tokens = 0
         self.chunk_split_prompts = 0
         self.admitted_order: deque[int] = deque(maxlen=4096)  # FIFO audit
+        # the SLO autopilot's knobs, registered at construction so the
+        # controller only drives a batcher that exists; their current
+        # values are the declared optima a relax probes back toward
+        ap = telemetry.autopilot_active()
+        if ap is not None:
+            ap.register_knob(AUTOPILOT_KNOB_PREFILL_BUDGET, lambda: self.prefill_token_budget,
+                             self.set_prefill_token_budget, integer=True)
+            if self._spec is not None:
+                ap.register_knob(AUTOPILOT_KNOB_SPEC_K_MAX, lambda: self._spec.k_max,
+                                 self._spec.set_k_max, integer=True)
+            ap.register_action(AUTOPILOT_ACTION_RECLAIM,
+                               lambda: self.reclaim_memory(int(ap.cfg.reclaim_free_blocks)))
 
     # -- lifecycle --------------------------------------------------------
     def start(self) -> "ContinuousBatcher":
@@ -270,6 +293,37 @@ class ContinuousBatcher:
         self.close()
         return drained
 
+    # -- knobs and actions the autopilot drives ---------------------------
+    def set_prefill_token_budget(self, budget: int) -> None:
+        """A new chunk budget at run time (the autopilot shrinks it under a
+        queue storm, so decode keeps its cadence while the backlog drains,
+        and probes it back when the breach clears). A value below 1 raises
+        and leaves the budget as it was."""
+        b = int(budget)
+        if b < 1:
+            raise ValueError(f"prefill_token_budget must be >= 1, got {budget}")
+        with self._lock:
+            self.prefill_token_budget = b
+
+    def reclaim_memory(self, min_free_blocks: int = 8) -> tuple[float, float]:
+        """The memory-pressure action: evict unpinned prefix-cache entries
+        until the block pool has ``min_free_blocks`` free, then shrink the
+        adapter pool's unpinned pages. Both skip what a running slot
+        references. Returns the pool's ``(free blocks before, after)``, the
+        decision record's old and new. Runs on the scheduler thread (the
+        autopilot's ``serve`` tick), which owns the cache and the pool."""
+        eng = self.engine
+        alloc = getattr(eng, "allocator", None)
+        before = float(alloc.free_blocks) if alloc is not None else 0.0
+        pc = getattr(eng, "prefix_cache", None)
+        if pc is not None:
+            pc.ensure_free(int(min_free_blocks))
+        pool = getattr(eng, "adapter_pool", None)
+        if pool is not None:
+            pool.shrink()
+        after = float(alloc.free_blocks) if alloc is not None else before
+        return before, after
+
     def recycle(self, timeout_s: float = 30.0) -> bool:
         """Soft restart (a fleet replica's ``restart`` action): refuse new
         requests, wait at most ``timeout_s`` for queued and running work
@@ -292,6 +346,7 @@ class ContinuousBatcher:
         finally:
             with self._work:
                 self._draining = False
+                self.recycles += 1
                 self._work.notify_all()
         return idle
 
@@ -430,6 +485,7 @@ class ContinuousBatcher:
                 "chunk_tokens": float(self.chunk_tokens),
                 "chunk_split_prompts": float(self.chunk_split_prompts),
                 "swaps": float(self.swaps),
+                "recycles": float(self.recycles),
             }
         out.update({f"attn_{k}": v for k, v in self.engine.attn_stats().items()})
         if (a := self.engine.adapter_stats()) is not None:
@@ -499,6 +555,9 @@ class ContinuousBatcher:
             except Exception as e:  # noqa: BLE001 — fail loudly, not silently
                 self._fail_all(f"{type(e).__name__}: {e}")
             self._record_tick()
+            # the retrace sentinel bills a kernel build since the last tick
+            # to this one (one None check when none is installed)
+            steady_point("serve/tick")
             # a tick is a unit of an on-demand profile (one None check when
             # nothing is armed)
             telemetry.profile_tick("serve/tick")
@@ -723,6 +782,11 @@ class ContinuousBatcher:
         for series in self.history.rounds.values():
             if len(series) > self.max_kpi_ticks:
                 del series[: len(series) - self.max_kpi_ticks]
+        # the autopilot's serve-plane evaluation (one None check when off,
+        # a period-gated rule sweep when on)
+        ap = telemetry.autopilot_active()
+        if ap is not None:
+            ap.tick("serve", max_queue=self.max_queue)
 
     def _observe_request(self, req: ServeRequest, ctx: tuple | None,
                          error: str | None) -> None:

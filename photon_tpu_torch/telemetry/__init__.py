@@ -1,5 +1,5 @@
 """Distributed round tracing + structured telemetry plane (``photon.telemetry``;
-the port of ``photon_tpu/telemetry/``, all but its SLO autopilot).
+the port of ``photon_tpu/telemetry/``).
 
 It attributes a run's seconds to phases, nodes and rounds:
 
@@ -17,13 +17,17 @@ It attributes a run's seconds to phases, nodes and rounds:
   run-health observatory: typed counters, gauges and histograms served at
   ``/metrics``, per-plane health at ``/statusz``, on-demand
   ``torch.profiler`` captures through ``POST /debug/profile``, and the
-  device-memory and kernel-build samplers.
+  device-memory and kernel-build samplers;
+- :mod:`autopilot` — the SLO controller (``telemetry.autopilot``),
+  installed with the plane: it reads the hub and the health monitor and
+  drives the knobs and actions the subsystems register with it.
 
 Installation discipline matches ``photon_tpu_torch.chaos``: hook sites read
 one module global and do nothing when it is ``None`` — with
 ``photon.telemetry.enabled=false`` (the default) the whole plane costs a
-``None`` check per site, no rng, no locks, no I/O. The autopilot is not
-ported: :func:`autopilot_active` is always ``None``.
+``None`` check per site, no rng, no locks, no I/O; with the plane on and
+``telemetry.autopilot.enabled=false`` (its default), every autopilot hook
+site is one ``None`` check on :func:`autopilot_active`.
 """
 
 from __future__ import annotations
@@ -77,6 +81,7 @@ _EVENTS: EventLog | None = None
 _METRICS: MetricsHub | None = None
 _HEALTH: HealthMonitor | None = None
 _PROFILER: ProfileController | None = None
+_AUTOPILOT = None  # telemetry.autopilot.Autopilot | None (lazy import)
 
 #: shared do-nothing context manager — the disabled-path ``span()`` return
 #: value, allocated once so the hook sites stay allocation-free
@@ -100,7 +105,7 @@ def install(cfg, scope: str = "", events_path: str | None = None,
     on-demand ``torch.profiler`` artifacts land (defaults to ``cfg.dir`` or
     the events file's directory).
     """
-    global _TRACER, _EVENTS, _METRICS, _HEALTH, _PROFILER
+    global _TRACER, _EVENTS, _METRICS, _HEALTH, _PROFILER, _AUTOPILOT
     if cfg is None or not getattr(cfg, "enabled", False):
         uninstall()
         return None
@@ -119,6 +124,15 @@ def install(cfg, scope: str = "", events_path: str | None = None,
         _PROFILER.close()
     _PROFILER = ProfileController(profile_dir)
     introspect.install_compile_counter()
+    # the SLO autopilot is installed with the plane it reads; subsystems
+    # register their knobs against it as they construct
+    ap_cfg = getattr(cfg, "autopilot", None)
+    if ap_cfg is not None and getattr(ap_cfg, "enabled", False):
+        from photon_tpu_torch.telemetry.autopilot import Autopilot
+
+        _AUTOPILOT = Autopilot(ap_cfg)
+    else:
+        _AUTOPILOT = None
     # span-drop accounting: the bounded buffer's discards feed a counter,
     # and the FIRST drop of the run emits one warning event
     warned = [False]
@@ -137,7 +151,7 @@ def install(cfg, scope: str = "", events_path: str | None = None,
 
 
 def uninstall() -> None:
-    global _TRACER, _EVENTS, _METRICS, _HEALTH, _PROFILER
+    global _TRACER, _EVENTS, _METRICS, _HEALTH, _PROFILER, _AUTOPILOT
     if _EVENTS is not None:
         _EVENTS.close()
     if _PROFILER is not None:
@@ -148,6 +162,7 @@ def uninstall() -> None:
     _METRICS = None
     _HEALTH = None
     _PROFILER = None
+    _AUTOPILOT = None
 
 
 def active() -> Tracer | None:
@@ -172,9 +187,9 @@ def profiler_active() -> ProfileController | None:
     return _PROFILER
 
 
-def autopilot_active() -> None:
-    """The SLO autopilot is not ported: always None."""
-    return None
+def autopilot_active():
+    """The installed SLO autopilot, or None (one check per hook site)."""
+    return _AUTOPILOT
 
 
 # -- hook-site helpers (each is a None check when disabled) ---------------

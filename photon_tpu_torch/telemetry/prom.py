@@ -14,7 +14,8 @@ staleness from stall.
 ``/statusz`` serves the health monitor's per-plane rollup
 (federation / collective / serve / store / fleet → ok / degraded /
 failing) with the recent alert tail (and, beside it, the profile controller's
-status: its finished captures and last error); ``POST /debug/profile``
+status: its finished captures and last error, and the SLO autopilot's
+decisions, rules and knobs when one is installed); ``POST /debug/profile``
 arms the on-demand ``torch.profiler`` controller for N round units (409
 while one is active).
 
@@ -41,6 +42,7 @@ import time
 import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from photon_tpu_torch import telemetry
 from photon_tpu_torch.telemetry.introspect import ProfileBusyError
 from photon_tpu_torch.telemetry.metrics import metric_name
 
@@ -264,6 +266,9 @@ class PromServer:
                                      "alerts": [], "telemetry": "off"})
                     if srv.profiler is not None:
                         payload["profile"] = srv.profiler.status()
+                    ap = telemetry.autopilot_active()
+                    if ap is not None:
+                        payload["autopilot"] = ap.statusz()
                     self._json(200, payload)
                 else:
                     self._not_found()

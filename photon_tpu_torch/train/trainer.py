@@ -51,6 +51,7 @@ from photon_tpu_torch.utils.profiling import (
     CLIENT_TOKENS_PER_SEC,
     EVENT_SPEED_MONITOR_PEAK,
     SpeedMonitor,
+    dump_memory_profile,
     is_oom,
 )
 
@@ -154,8 +155,13 @@ class Trainer:
                         p.copy_(saved[name])
                 if self.device.type == "cuda":
                     torch.cuda.empty_cache()
-        raise RuntimeError(f"auto microbatch: even microbatch 1 exhausts device memory: "
-                           f"{last_err}")
+        # the allocation picture at the last OOM, left on disk (None on the
+        # CPU); the text names it as the JAX trainer's does
+        dump = dump_memory_profile(getattr(cfg.photon, "save_path", ".") or ".",
+                                   "auto_microbatch", device=self.device)
+        raise RuntimeError("auto microbatch: even microbatch 1 exhausts device memory"
+                           + (f" (memory profile: {dump})" if dump else "")
+                           + f": {last_err}")
 
     # ------------------------------------------------------------------
     # training / eval loops

@@ -18,6 +18,7 @@ data sheet); for any other device, the CPU included, no MFU is reported.
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 import re
 import sys
 
@@ -570,6 +571,39 @@ def is_oom(e: BaseException) -> bool:
         return True
     msg = str(e)
     return "RESOURCE_EXHAUSTED" in msg or "out of memory" in msg.lower()
+
+
+def dump_memory_profile(save_dir: str, tag: str = "oom", device=None) -> str | None:
+    """Write the CUDA caching allocator's snapshot
+    (``torch.cuda.memory._snapshot()``: its segments and their blocks) as a
+    pickle to ``{save_dir}/memory_{tag}_{ts}.pickle``, the format PyTorch's
+    memory viewer reads: the allocation picture at an OOM, left on disk.
+    It records no allocation history (``_record_memory_history`` stays as
+    the process set it).
+
+    Best effort, like the JAX package's device memory profile: returns the
+    path, or None for a CPU ``device``, in a process that has not
+    initialised CUDA, and on any failure; it never masks the OOM."""
+    import pickle
+    import time
+
+    try:
+        import torch
+
+        if device is not None and torch.device(device).type != "cuda":
+            return None
+        if not torch.cuda.is_initialized():
+            return None
+        snap = torch.cuda.memory._snapshot()
+        out = pathlib.Path(save_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"memory_{tag}_{time.strftime('%Y%m%dT%H%M%SZ', time.gmtime())}.pickle"
+        with open(path, "wb") as f:
+            pickle.dump(snap, f)
+        return str(path)
+    except Exception:  # noqa: BLE001 — diagnostics must never mask the OOM
+        return None
+
 
 #: bf16 dense peak by device-name substring (first match wins)
 PEAK_FLOPS_BY_DEVICE_NAME: list[tuple[str, float]] = [("h100", 989e12)]

@@ -15,8 +15,8 @@
    telemetry events are cases of ``tests/test_torch_observatory.py``); the scheduler's
    ``serve_stall`` and the client runtime's ``nan_delta`` and
    ``fit_delay``; the schema: ``photon.chaos`` validates with JAX's
-   texts while telemetry's autopilot, async rounds and the collective
-   plane stay refused.
+   texts, telemetry's autopilot validates with the plane, and async
+   rounds and the collective plane stay refused.
 
 With chaos off, TCP frames and store bytes are what they were before the
 hooks (``test_tcp_frames_unchanged_with_chaos_off``,
@@ -675,8 +675,8 @@ def test_chaos_replica_kill_mid_traffic():
 
 def test_chaos_config_validates_with_jax_texts(tmp_path):
     """``photon.chaos`` validates (the JAX package's texts and its warning
-    for knobs set while off); telemetry's autopilot, async rounds and the collective
-    plane stay refused."""
+    for knobs set while off); telemetry's autopilot validates with the plane,
+    async rounds and the collective plane stay refused."""
     from photon_tpu.config.schema import Config as JaxConfig
     from photon_tpu_torch.config.schema import Config
 
@@ -707,8 +707,10 @@ def test_chaos_config_validates_with_jax_texts(tmp_path):
     for feature in ("telemetry", "async_rounds"):
         d = make_cfg(tmp_path).to_dict()
         d["photon"][feature]["enabled"] = True
-        if feature == "telemetry":  # ported but for its SLO autopilot
+        if feature == "telemetry":  # ported, its SLO autopilot too
             d["photon"][feature]["autopilot"] = {"enabled": True}
+            Config.from_dict(d).validate()
+            continue
         with pytest.raises(NotImplementedError):
             Config.from_dict(d).validate()
     collective = make_cfg(tmp_path)

@@ -27,9 +27,10 @@ across as numpy, inline transport unless a case says otherwise:
 6. config and CLI: a port-written ``config.yaml`` loads in JAX with equal
    ``fl``/``photon`` fields; ``python -m photon_tpu_torch.federated
    --device cpu`` prints the JAX CLI's keys, and its History times each
-   phase of a round; every unported feature (the collective plane,
-   telemetry's autopilot, async rounds) is refused with ``NotImplementedError``
-   (``photon.chaos`` is ported: ``tests/test_torch_chaos.py``).
+   phase of a round; every unported feature (the collective plane, async
+   rounds) is refused with ``NotImplementedError``, while telemetry's
+   autopilot validates (``photon.chaos`` is ported:
+   ``tests/test_torch_chaos.py``).
 """
 
 import contextlib
@@ -681,7 +682,11 @@ def test_unported_federation_features_refused(tmp_path, feature):
         d["photon"]["comm_stack"]["collective"] = True
     else:
         d["photon"][feature]["enabled"] = True
-    if feature == "telemetry":  # ported but for its SLO autopilot
+    if feature == "telemetry":  # ported, its SLO autopilot too: only the
+        # autopilot's collective and async planes wait, refused with them
         d["photon"][feature]["autopilot"]["enabled"] = True
+        d["photon"][feature]["autopilot"]["straggler_p90"] = 0.5
+        Config.from_dict(d).validate()
+        d["photon"]["async_rounds"]["enabled"] = True
     with pytest.raises(NotImplementedError):
         Config.from_dict(d).validate()

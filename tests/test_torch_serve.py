@@ -522,7 +522,9 @@ def test_port_imports_no_jax_or_reference_package():
         <= set(files)
     assert {ROOT / f"photon_tpu_torch/telemetry/{m}.py" for m in (
         "__init__", "spans", "events", "export", "metrics", "prom", "health",
-        "introspect")} <= set(files)
+        "introspect", "autopilot")} <= set(files)
+    assert {ROOT / "photon_tpu_torch/analysis/__init__.py",
+            ROOT / "photon_tpu_torch/analysis/runtime.py"} <= set(files)
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -534,7 +536,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "photon_tpu_torch.ops.moe, photon_tpu_torch.config, "
             "photon_tpu_torch.serve.router, photon_tpu_torch.serve.fleet, "
             "photon_tpu_torch.telemetry, photon_tpu_torch.telemetry.prom, "
-            "photon_tpu_torch.telemetry.export, photon_tpu_torch.federation.tcp; "
+            "photon_tpu_torch.telemetry.export, photon_tpu_torch.federation.tcp, "
+            "photon_tpu_torch.telemetry.autopilot, photon_tpu_torch.analysis.runtime; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'photon_tpu')))")
     out = subprocess.run([sys.executable, "-S", "-c", code], cwd=ROOT, capture_output=True,
@@ -545,8 +548,8 @@ def test_import_leaves_jax_out_of_sys_modules():
 
 def test_telemetry_accepted_and_its_autopilot_refused():
     """``photon.telemetry`` is ported and validates with the JAX package's
-    texts; its SLO autopilot is refused at ``validate()`` with a text that
-    names the next slice of the port."""
+    texts; its SLO autopilot is accepted with the plane on (training and
+    serving) and refused without it, with the JAX package's text."""
     from photon_tpu.config.schema import Config as JaxConfig
     from photon_tpu_torch.config.schema import Config
 
@@ -558,8 +561,16 @@ def test_telemetry_accepted_and_its_autopilot_refused():
     assert JaxConfig.from_dict(d).photon.telemetry.prom_port == 9100
     d["photon"]["telemetry"]["autopilot"] = {"enabled": True}
     for serving in (False, True):
-        with pytest.raises(NotImplementedError, match="next slice of the port"):
+        Config.from_dict(d).validate(serving=serving)
+    d["photon"]["telemetry"]["enabled"] = False
+    jd = JaxConfig().to_dict()
+    jd["photon"]["telemetry"]["autopilot"] = {"enabled": True}
+    with pytest.raises(ValueError) as want:
+        JaxConfig.from_dict(jd).validate()
+    for serving in (False, True):
+        with pytest.raises(ValueError) as got:
             Config.from_dict(d).validate(serving=serving)
+        assert str(got.value) == str(want.value)
     for field, bad in (("prom_port", 70000), ("max_buffered_spans", 0),
                        ("profile_rounds", -1), ("metrics_retention", 0)):
         ours, theirs = Config(), JaxConfig()
