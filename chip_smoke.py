@@ -133,8 +133,8 @@ idle share (1 - busy / the unprofiled step's wall time). Then:
 9. eval (after 7, before the federated phase's directory goes):
    ``python -m photon_tpu_torch.data.convert`` over the repo's markdown
    (byte-fallback, 2 clients, seq 2048), then ``python -m
-   photon_tpu_torch.eval`` (each CLI's ``main`` in process, the eval
-   under ``torch.profiler``) on the federated round with ``--dataset`` on
+   photon_tpu_torch.eval`` (each CLI's ``main`` in process) on the
+   federated round with ``--dataset`` on
    that set and the v0.3 gauntlet at ``EVAL_MAX_ROWS`` rows a task: a
    finite val loss, every score in [0, 1], and K1 launched ``n_layers``
    times a forward pass. Phase 2 also holds K1 alone at the eval forward's shape
@@ -278,8 +278,7 @@ After 15, beside the rest of 14 (its decode passes wait for 14's end):
     ``serve/hbm_bytes_in_use`` > 0; ``serve/backend_compiles_total`` flat
     between two scrapes after warm-up; ``POST /debug/profile`` for 8 ticks
     writes a capture that parses and holds a K4 kernel record. Recorded:
-    the trace's size and span count, and the decode step's wall with
-    telemetry off and on (in this process, off, on, on, off).
+    the trace's size and span count.
 
 After 13, before 14 (in this process, on the federated run's served round
 in one ragged engine with the prefix cache: 8 slots, block 16, budget 512),
@@ -320,6 +319,49 @@ and (d) in a child beside 14–16:
     ``ClientRuntime._error`` names it. Recorded: the decision rings, the
     budget and ``k_max`` traces, the reclaims' blocks, approval → live
     seconds and the legs' walls.
+
+(a) and (e) in this process beside phase 5b (a)'s children, (b)-(d) in a
+child beside 14-16, (c) across processes after 14-16 on a quiet card:
+
+18. federated rounds over collectives (``federation/collective_round.py``
+    on ``parallel/collective_agg.py``). (a) Full-width mpt-125m (12
+    layers), 2 clients × 2 local steps × 2 rounds, FedAdam on the device
+    plane, replica 2 on a mesh that names ``cuda:0`` four times: K1–K3
+    launched ``clients × steps × n_layers × microbatches`` each round;
+    round 2's parameters within rtol 1e-3 / atol 5e-5 of the driver
+    topology's in-process run of the same config (``federated``'s
+    ``build_app``, shm), round 1's too, and a plane that loses client 1's
+    row from round 1's sum (its samples still counted) must read over that
+    tolerance; the
+    replicated layout (``collective_zero1: false``), a plane fed the same
+    stacked deltas beside the run round for round, gives the same bits
+    with twice the per-rank server state; on round 1's contributions every
+    element of the q8 average (block 256) lies within Σ_c scale_c/2 of the
+    ``off`` average, which a codec applying block b+1's scale to block b
+    must break; an exchange escalated to q8 (``set_quantization``) reports
+    ``server/collective_wire_bytes`` equal to ``modeled_cross_slice_bytes``,
+    ``off`` / q8 = 4 / (1 + 4/256) within 1 %. (e) The runner registers
+    both collective knobs with the autopilot. (b) At 2 layers, ``python -m
+    photon_tpu_torch.federation.collective_round --num-processes 2`` as two
+    children on the one card (one client each, gloo: NCCL takes no two
+    ranks on one GPU): both processes' parameters bitwise equal and within
+    (a)'s tolerance of an in-process run; backend, staged legs, contexts
+    and each process's peak recorded. (c) In process at 2 layers, 3
+    clients, 4 rounds of one runner: a chaos mid-fit crash in round 2
+    reconfigures the cohort (one straggler, the parameters the
+    survivors-only fold's bit for bit) and round 3 runs all three; under
+    the autopilot the straggler rule makes ``COLL_AP_DECISION`` and no
+    other; at quorum 0.9 the same crash in round 4 degrades to the host
+    fold, bit for bit ``aggregate_inplace`` over the landed deltas; across
+    processes (b)'s pair with ``crash_phase:
+    pre-exchange`` on process 1 in round 2 and a 10 s stage timeout:
+    process 1 exits 137, process 0 degrades to the host fold and finishes
+    the round within timeout + 5 s of the crash (the crash marker's
+    mtime). (d) Async at 2 layers: the buffer the cohort at zero staleness
+    equals the sync runner bit for bit; 4 clients, one slowed 4× by
+    chaos's ``fit_delay``, buffer 2, max staleness 1: ``COLL_ASYNC_VERSIONS``
+    versions, at least one reject, ``server/async_max_staleness``
+    registered and the ``async`` plane ticked.
 
 To keep the whole smoke within 800 s with phases 14 and 15, three earlier
 paths run mpt-125m's width at 2 of its 12 layers: phase 4
@@ -1378,7 +1420,7 @@ def _fed_gate(torch, np, cfg, work, initial) -> dict:
         counted.setdefault("profiler_min_launch_to_kernel_us", []).append(
             _launch_to_kernel_us(prof))
         counted.setdefault("profiler_pad_lost", []).append(prof.pad_lost)
-        # the profiler can lose device records (see eval_phase): a reading
+        # the profiler can lose device records on the card: a reading
         # short of the counter is taken again on the next fit
         if readings[-1] in ("not measured", counter) or len(readings) == PROFILER_READINGS:
             trainer.fit = sound_fit
@@ -1909,18 +1951,23 @@ def _stale_reference_run(cfg, work: pathlib.Path, device: str = "cuda"):
     return _inprocess_rounds(one, work, "stale", True, "stale", 2, device, ef_identity=True)
 
 
-def _multiprocess(np, work, fed, base) -> dict:
+def _multiprocess(np, work, fed, base, beside=None) -> dict:
     """(a): ``--multiprocess --nodes 2`` on phase 5's config for 2 rounds;
-    the card's contexts and memory sampled, each node's own peak reported."""
+    the card's contexts and memory sampled, each node's own peak reported.
+    ``beside`` (a callable that starts no process) runs in this process
+    while the run's children train; its result is returned under
+    ``"beside"``."""
     from photon_tpu_torch.checkpoint import FileStore, ServerCheckpointManager
 
     reports = work / "mp-nodes"
     reports.mkdir()
     with _GpuMemory() as mem:
-        run = _fed_cli_finish(work, "multiprocess", _fed_cli_start(
+        started = _fed_cli_start(
             work, "multiprocess", base + ["--multiprocess", "--rounds", "2",
                                           "--set", f"photon.save_path={work / 'mp'}"],
-            opts=("--measured-nodes",), env={"PHOTON_SMOKE_NODE_REPORT": str(reports)}))
+            opts=("--measured-nodes",), env={"PHOTON_SMOKE_NODE_REPORT": str(reports)})
+        beside_rec = beside() if beside is not None else None
+        run = _fed_cli_finish(work, "multiprocess", started)
     run["rounds"] = _round_breakdown(run["history"], [1, 2])
     # contexts: this process, then the two nodes; the server would be one more
     run["card"] = mem.record()
@@ -1944,6 +1991,7 @@ def _multiprocess(np, work, fed, base) -> dict:
         fail(f"--multiprocess: the server initialized CUDA ({run['cuda_initialized']}), or the "
              f"card held {mem.record()} (want 2 contexts more: the nodes), or the nodes "
              f"reported {run['nodes_memory']}")
+    run["beside"] = beside_rec
     return run
 
 
@@ -2110,7 +2158,7 @@ def _tcp_ef_identity(np, work, taps: dict) -> list[dict]:
     return out
 
 
-def distributed_phase(torch, np, fa, fed) -> dict:
+def distributed_phase(torch, np, fa, fed, beside=None) -> dict:
     """Phase 5b, on phase 5's config and beside its in-process run:
 
     (a) ``python -m photon_tpu_torch.federated --multiprocess --nodes 2``
@@ -2140,7 +2188,10 @@ def distributed_phase(torch, np, fa, fed) -> dict:
         per-client error-feedback identity against node0's broadcast,
         raw delta and residuals (:func:`_ef_identity`), and an in-process
         run whose server pins the previous round's broadcast as its delta
-        base breaks it in round 2."""
+        base breaks it in round 2.
+
+    ``beside`` (phase 18 (a) in the smoke) runs in this process while (a)'s
+    children train; its result is returned under ``"beside"``."""
     from photon_tpu_torch.centralized import _apply_override
 
     work = ROOT / ".chip_smoke" / "dist"
@@ -2152,8 +2203,9 @@ def distributed_phase(torch, np, fa, fed) -> dict:
         base += ["--set", s]
     rec: dict = {}
     t0 = time.perf_counter()
-    rec["multiprocess"] = _multiprocess(np, work, fed, base)
+    rec["multiprocess"] = _multiprocess(np, work, fed, base, beside)
     rec["multiprocess_s"] = time.perf_counter() - t0
+    rec["beside"] = rec["multiprocess"].pop("beside")
     log("dist_multiprocess " + json.dumps({k: v for k, v in rec["multiprocess"].items()
                                            if k != "history"}))
 
@@ -3197,13 +3249,13 @@ def eval_phase(torch, cfg, fed):
         with ``--dataset`` on that set (``EVAL_BATCHES`` global batches)
         and the v0.3 gauntlet from the port's YAMLs over the committed
         task data, ``EVAL_MAX_ROWS`` rows a task, the launch counts set to
-        0 just before it and under ``torch.profiler``: a finite val loss,
-        every accuracy and gauntlet score in [0, 1], and K1 launched
-        ``n_layers`` times per forward pass of the eval, by the counters
-        and by the profiler (a profiler count short of the counters is
-        read again on a second counted run). The checkpoint load, the
-        ``Trainer``, the val loss and the gauntlet are timed (wrappers
-        patched in from outside the package)."""
+        0 just before it: a finite val loss, every accuracy and gauntlet
+        score in [0, 1], and K1 launched ``n_layers`` times per forward pass
+        of the eval by the counters. The checkpoint load, the ``Trainer``,
+        the val loss and the gauntlet are timed (wrappers patched in from
+        outside the package). No ``torch.profiler`` window: reading its
+        trace took ~35 s of the phase, cut to keep the smoke within its
+        time once phase 18 joined (K1 at this shape is timed in phase 2)."""
     from photon_tpu_torch.data import ShardedDataset, convert
     from photon_tpu_torch.eval import __main__ as eval_cli
     from photon_tpu_torch.eval import gauntlet
@@ -3247,44 +3299,21 @@ def eval_phase(torch, cfg, fed):
     for obj, name, label in timed:
         setattr(obj, name, _timed(times, label, torch, getattr(obj, name)))
 
-    def counted_run():
-        times.clear()
-        for key in fa.launches:  # the counted run starts here
-            fa.launches[key] = 0
-        torch.cuda.reset_peak_memory_stats()
-        with _profiled(torch) as prof:
-            t0 = time.perf_counter()
-            out, line = _run_cli(eval_cli.main, args)
-            torch.cuda.synchronize()
-            cli_s = time.perf_counter() - t0
-        launches = dict(fa.launches)
-        if launches != want:
-            fail(f"the eval launched {launches}, want {want} ({n_fwd} forwards)")
-        events = [e for e in prof.key_averages()
-                  if str(getattr(e, "device_type", "")).endswith("CUDA")
-                  and (getattr(e, "self_device_time_total", 0.0) or 0.0) > 0]
-        k1 = sum(e.count for e in events if "::fwd_" in e.key) if events else "not measured"
-        skews.append(_launch_to_kernel_us(prof))
-        pads_lost.append(prof.pad_lost)
-        if k1 != "not measured" and k1 > L * n_fwd:
-            fail(f"the profiler saw {k1} K1 launches, more than the {L * n_fwd} counted")
-        return out, line, cli_s, launches, events, k1
-
-    skews: list[float | None] = []
-    pads_lost: list[int] = []
+    times.clear()
+    for key in fa.launches:  # the counted run starts here
+        fa.launches[key] = 0
+    torch.cuda.reset_peak_memory_stats()
     try:
-        out, line, cli_s, launches, events, profiler_k1 = counted_run()
-        # Should device records still be lost, a count that falls short is
-        # read again on another counted run: a launch the counter makes up
-        # repeats, a lost record does not.
-        profiler_k1_runs = [profiler_k1]
-        while profiler_k1 not in ("not measured", L * n_fwd) \
-                and len(profiler_k1_runs) < PROFILER_READINGS:
-            out, line, cli_s, launches, events, profiler_k1 = counted_run()
-            profiler_k1_runs.append(profiler_k1)
+        t0 = time.perf_counter()
+        out, line = _run_cli(eval_cli.main, args)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
     finally:
         for obj, name, fn in sound:
             setattr(obj, name, fn)
+    launches = dict(fa.launches)
+    if launches != want:
+        fail(f"the eval launched {launches}, want {want} ({n_fwd} forwards)")
     line = json.loads(line)
     if set(line) != set(out) or not all(abs(line[k] - round(out[k], 6)) < 1e-9 for k in line):
         fail("the eval CLI's printed line differs from its result")
@@ -3296,25 +3325,13 @@ def eval_phase(torch, cfg, fed):
     accs = [k for k in scores if k.endswith("/accuracy")]
     if len(accs) != forwards["tasks"] or not all(0.0 <= v <= 1.0 for v in scores.values()):
         fail(f"eval scores out of [0, 1] or tasks missing: {scores}")
-    if profiler_k1 not in ("not measured", L * n_fwd):
-        fail(f"the profiler saw {profiler_k1_runs} K1 launches, want {L * n_fwd} (least "
-             f"launch-to-kernel µs {skews}, pad records lost {pads_lost} of {PROFILER_PAD})")
     rec = {"convert": dict(summary, client_samples=sizes, wall_s=convert_s),
-           "forwards": forwards, "launches": launches, "profiler_k1": profiler_k1,
-           "profiler_k1_runs": profiler_k1_runs, "profiler_min_launch_to_kernel_us": skews,
-           "profiler_pad_lost": pads_lost,
-           "profiler_k1_ms": sum(e.self_device_time_total for e in events
-                                 if "::fwd_" in e.key) / 1e3,
-           "cli_wall_s": cli_s, "timed_s": times,
-           "device_busy_ms": (sum(e.self_device_time_total for e in events) / 1e3
-                              if events else "not measured"),
-           "top_kernels_ms": sorted(([e.key[:80], e.self_device_time_total / 1e3, e.count]
-                                     for e in events), key=lambda r: -r[1])[:8],
+           "forwards": forwards, "launches": launches, "cli_wall_s": cli_s, "timed_s": times,
+           "device_busy_ms": "not measured",
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
            "eval_loss": out["eval/loss"], "eval_tokens": out["eval/tokens"],
            "gauntlet_average": out.get("gauntlet/average"),
            "icl_max_rows": EVAL_MAX_ROWS, "eval_batches": EVAL_BATCHES, "result": out}
-    del events
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     return rec
@@ -5500,12 +5517,6 @@ TEL_PROFILE_TICKS = 8
 TEL_PROFILE_PROMPTS = (100,) * 8
 #: K4's kernels, as a demangled profiler record names them
 TEL_K4_KERNELS = ("rpa_split_kernel", "rpa_combine_kernel", "rpa_chunk_kernel")
-#: (b), recorded: ms per decode step with telemetry off and on, in this
-#: process on (a)'s round 2: 8 slots at TEL_AB_PROMPT tokens of context,
-#: the step counter read TEL_AB_WINDOW_S apart once every prompt decodes;
-#: an untimed pass first (on the card a fresh engine's first pass read 28 %
-#: slow), then off, on, on, off
-TEL_AB_PROMPT, TEL_AB_NEW, TEL_AB_WINDOW_S = 512, 160, 0.5
 TEL_WAIT_S = 600.0
 #: how often (a) scrapes the server's /metrics and /statusz
 TEL_SCRAPE_S = 0.25
@@ -5674,53 +5685,13 @@ def _telemetry_fed(cfg, device: str, work: pathlib.Path) -> dict:
     return rec
 
 
-def _decode_ms_per_step(eng, prompts: list, new: int, traced: bool, window_s: float) -> float:
-    """One ``ContinuousBatcher`` pass over ``prompts`` (all in slots at
-    once), telemetry on or off: the wall per scheduler step once every
-    prompt decodes, from the step counter read ``window_s`` apart (no
-    chunk step and no finished request inside the window)."""
-    from photon_tpu_torch import telemetry
-    from photon_tpu_torch.config.schema import TelemetryConfig
-    from photon_tpu_torch.serve.scheduler import ContinuousBatcher
-
-    telemetry.install(TelemetryConfig(enabled=traced), scope="serve")
-    b = ContinuousBatcher(eng, max_queue=64,
-                          prefill_token_budget=eng.cfg.photon.serve.prefill_token_budget)
-    try:
-        reqs = [b.submit(p, new) for p in prompts]
-        b.start()
-        deadline = time.monotonic() + TEL_WAIT_S
-        while any(not r.generated for r in reqs):
-            if time.monotonic() > deadline:
-                fail("telemetry: the decode passes never decoded")
-            time.sleep(0.005)
-        s0, c0, t0 = b.steps, b.chunk_steps, time.perf_counter()
-        time.sleep(window_s)
-        s1, c1, t1 = b.steps, b.chunk_steps, time.perf_counter()
-        whole = not any(r.finished for r in reqs)
-        for r in reqs:
-            r.result(timeout=TEL_WAIT_S)
-        if c1 != c0 or not whole or s1 <= s0:
-            fail(f"telemetry: the timing window held {s1 - s0} steps, {c1 - c0} of them with a "
-                 f"chunk, every slot decoding: {whole}")
-        return (t1 - t0) / (s1 - s0) * 1e3
-    finally:
-        b.close()
-        telemetry.uninstall()
-
-
-def _telemetry_serve(np, scfg, device: str, work: pathlib.Path, store: pathlib.Path,
-                     before_ab=None, ab_prompt: int = TEL_AB_PROMPT, ab_new: int = TEL_AB_NEW,
-                     ab_window_s: float = TEL_AB_WINDOW_S) -> dict:
+def _telemetry_serve(np, scfg, device: str, work: pathlib.Path, store: pathlib.Path) -> dict:
     """(b): ``python -m photon_tpu_torch.serve`` on (a)'s round 2 with
-    ``photon.telemetry`` on; then, recorded, the decode step's wall with
-    telemetry off and on in this process (off, on, on, off), once
-    ``before_ab()`` returned (a phase still running beside this one must
-    not share the process's launch counters or the host with it)."""
+    ``photon.telemetry`` on. (Its off/on decode passes in this process, ~10
+    s and recorded only, were cut to keep the smoke within its time once
+    phase 18 joined.)"""
     import re
 
-    from photon_tpu_torch.checkpoint import FileStore
-    from photon_tpu_torch.serve.engine import PagedEngine
 
     tel = scfg.photon.telemetry
     tel.enabled, tel.dir = True, str(work / "serve_telemetry")
@@ -5829,32 +5800,14 @@ def _telemetry_serve(np, scfg, device: str, work: pathlib.Path, store: pathlib.P
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=30)
-    # recorded: the decode step's wall, telemetry off and on, one engine
-    if before_ab is not None:
-        before_ab()
-    eng = PagedEngine.from_checkpoint(scfg, store=FileStore(store), resume_round=-1,
-                                      device=device)
-    rng = np.random.default_rng(17)
-    prompts = [list(map(int, rng.integers(0, scfg.model.vocab_size, ab_prompt)))
-               for _ in range(eng.n_slots)]
-    warm = _decode_ms_per_step(eng, prompts, ab_new, False, ab_window_s)
-    passes = [(traced, _decode_ms_per_step(eng, prompts, ab_new, traced, ab_window_s))
-              for traced in (False, True, True, False)]
-    off = [ms for traced, ms in passes if not traced]
-    on = [ms for traced, ms in passes if traced]
-    rec["decode_ms_per_step"] = {"warm_up": warm, "off": off, "on": on,
-                                 "order": "off, on, on, off",
-                                 "on_over_off": statistics.mean(on) / statistics.mean(off),
-                                 "slots": eng.n_slots, "context_tokens": ab_prompt}
-    del eng
     return rec
 
 
 def telemetry_phase(np, cfg=None, scfg=None, device: str = "cuda",
-                    work: pathlib.Path = ROOT / ".chip_smoke" / "telemetry", **serve_kw) -> dict:
+                    work: pathlib.Path = ROOT / ".chip_smoke" / "telemetry") -> dict:
     """Phase 16: (a) a traced federated run over TCP at full-width mpt-125m
     (:func:`_telemetry_fed`), then (b) the serve CLI with telemetry on its
-    round 2 (:func:`_telemetry_serve`; ``serve_kw`` go there)."""
+    round 2 (:func:`_telemetry_serve`)."""
     from photon_tpu_torch.centralized import _apply_override
 
     t_phase = time.perf_counter()
@@ -5874,7 +5827,7 @@ def telemetry_phase(np, cfg=None, scfg=None, device: str = "cuda",
         fed["phase_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         serve = _telemetry_serve(np, scfg if scfg is not None else serve_config(), device,
-                                 work, work / "run" / "store", **serve_kw)
+                                 work, work / "run" / "store")
         serve["phase_s"] = time.perf_counter() - t0
     except BaseException:
         _keep_logs(work)
@@ -6518,6 +6471,732 @@ def _autopilot_fleet_finish(proc: subprocess.Popen, work: pathlib.Path) -> dict:
     return json.loads((work / "ap_fleet.json").read_text())
 
 
+# ---------------------------------------------------------------------------
+# phase 18: federated rounds over collectives
+# ---------------------------------------------------------------------------
+
+COLL_RUN = "chip-smoke-collective"
+#: (a): 2 clients × COLL_STEPS local steps × COLL_ROUNDS rounds at full
+#: width and depth, FedAdam on the device plane, replica 2 on a mesh that
+#: names cuda:0 four times
+COLL_STEPS = 2
+COLL_ROUNDS = 2
+COLL_REPLICA = 2
+COLL_Q8_BLOCK = 256
+#: the collective run against the driver topology's (JAX's own tolerance,
+#: tests/test_collective_round.py:152-158)
+COLL_RTOL, COLL_ATOL = 1e-3, 5e-5
+#: (b)-(d) at mpt-125m's width and 2 layers
+COLL_LAYERS = 2
+#: (c) across processes: process 1 crashes before the exchange of round 2;
+#: process 0 must finish the round within this + COLL_SLACK_S of the crash
+COLL_TIMEOUT_S = 10.0
+COLL_SLACK_S = 5.0
+#: (d): versions of the 4-client async run (one client 4x slow): the 3
+#: fast clients reach them past t = 4, when the slow client's first delta
+#: lands stale
+COLL_ASYNC_VERSIONS = 5
+COLL_WAIT_S = 300.0
+#: (c) in process: the autopilot's straggler rule over the rounds'
+#: straggler fractions (0, 1/3, 0); its one decision, the same as JAX's
+#: rule gives on that series (tests/test_torch_collective_round.py pins it)
+COLL_AP = {"period_s": 0.0, "cooldown_s": 600.0, "window_s": 600.0, "straggler_p90": 0.3,
+           "stage_timeout_min_s": 5.0, "stage_timeout_shrink": 0.75}
+COLL_AP_TIMEOUT_S = 30.0
+COLL_AP_SERIES = (0.0, 1.0 / 3.0, 0.0)
+COLL_AP_DECISION = ("autopilot/actuation", "straggler_deadline",
+                    "server/collective_stage_timeout_s", 1.0 / 3.0, 30.0, 22.5)
+
+
+def collective_config(n_layers: int | None = None, n_clients: int = 2,
+                      replica: int = COLL_REPLICA, device_opt: bool = True, base=None,
+                      save_path: str | pathlib.Path = ROOT / ".chip_smoke" / "collective" / "run"):
+    """FedAdam over the collective plane on the training config (full width;
+    ``n_layers`` cuts the depth), 2 local steps, no eval, no checkpoint; the
+    clients' synthetic data under ``save_path``."""
+    cfg = base() if base is not None else train_config()
+    cfg.run_uuid = COLL_RUN
+    cfg.photon.save_path = str(save_path)
+    if n_layers:
+        cfg.model.n_layers = n_layers
+    cfg.fl.n_total_clients = cfg.fl.n_clients_per_round = n_clients
+    cfg.fl.local_steps = COLL_STEPS
+    cfg.fl.n_rounds = COLL_ROUNDS
+    cfg.fl.eval_interval_rounds = 0
+    cfg.fl.strategy_name = "fedadam"
+    cfg.fl.server_learning_rate = 1e-2
+    # a tau over fp32 noise: with tau ~ 0 a pseudo-gradient element at
+    # rounding level takes a full lr step on its sign (as in JAX's test)
+    cfg.fl.server_tau = 1e-3
+    cfg.photon.checkpoint = False
+    cs = cfg.photon.comm_stack
+    cs.collective, cs.shm = True, False
+    cs.collective_replica = replica
+    cs.collective_device_optimizer = device_opt
+    return cfg.validate()
+
+
+def _coll_mesh(n_clients: int, replica: int, device: str):
+    from photon_tpu_torch.parallel.collective_agg import make_hierarchical_mesh
+
+    return make_hierarchical_mesh(n_clients, replica, [device] * (n_clients * replica))
+
+
+def _coll_capture(runner, rounds=(1,)) -> dict:
+    """Wrap the runner's ladder: keeps a host copy of each listed round's
+    landed deltas and the strategy as the round began."""
+    seen: dict = {}
+    real = runner._aggregate_elastic
+
+    def spy(server_round, landed):
+        if server_round in rounds:
+            seen[server_round] = {
+                "landed": {cid: ([a.copy() for a in arrs], n) for cid, (arrs, n) in landed.items()},
+                "before": runner.strategy.snapshot()}
+        return real(server_round, landed)
+
+    runner._aggregate_elastic = spy
+    return seen
+
+
+def _coll_rounds(torch, runner, rounds: int, cuda: bool) -> dict:
+    """``rounds`` rounds of ``runner``: the rounds' walls and stage seconds,
+    K1–K3's launches per round, the card's peak."""
+    from photon_tpu_torch.ops import flash_attention as fa
+
+    rec: dict = {"rounds": []}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for rnd in range(1, rounds + 1):
+        for key in fa.launches:
+            fa.launches[key] = 0
+        m = runner.run_round(rnd)
+        rec["rounds"].append({k: m.get(k) for k in (
+            "server/round_time", "server/fit_round_time", "server/collective_stack_time",
+            "server/collective_exchange_time", "server/collective_update_time",
+            "server/collective_agg_time", "server/collective_wire_bytes",
+            "server/opt_allgather_time", "server/opt_shard_frac", "server/n_samples")}
+            | {"launches": dict(fa.launches), "path": runner.aggregation_paths[rnd]})
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    return rec
+
+
+def _coll_gap(np, got, want) -> float:
+    """How far ``got`` is past the run tolerance (<= 0: within)."""
+    return max(float(np.max(np.abs(g - w) - (COLL_ATOL + COLL_RTOL * np.abs(w))))
+               for g, w in zip(got, want))
+
+
+def _q8_bound_gate(torch, np, landed: dict, mesh, device: str) -> dict:
+    """On round 1's contributions: every element of the q8 average within
+    Σ_c scale_c/2 of the `off` average (the scales of each client's weighted
+    contribution over the exchange's chunk layout, from the torch codec,
+    whose bytes are the host codec's), in fp64 on the device; a codec that
+    applies block b+1's scale to block b must break the bound."""
+    from photon_tpu_torch.compression.quantize_torch import quantize_q8_torch
+    from photon_tpu_torch.parallel.collective_agg import hierarchical_weighted_average
+
+    cids = sorted(landed)
+    ns = [landed[c][1] for c in cids]
+    rows = [[torch.from_numpy(landed[c][0][i]).to(device) for c in cids]
+            for i in range(len(landed[cids[0]][0]))]
+    off = hierarchical_weighted_average(rows, ns, mesh)
+    q8 = hierarchical_weighted_average(rows, ns, mesh, quantization="q8", block=COLL_Q8_BLOCK)
+    total = torch.tensor(float(sum(ns)), dtype=torch.float32, device=device)
+    worst = fault_over = -math.inf
+    for i, (a_off, a_q8) in enumerate(zip(off, q8)):
+        n = a_off.numel()
+        padded = COLL_REPLICA * (-(-n // (COLL_REPLICA * COLL_Q8_BLOCK)) * COLL_Q8_BLOCK)
+        bound = torch.zeros(padded, dtype=torch.float64, device=device)
+        fault = torch.zeros(padded, dtype=torch.float32, device=device)
+        for c, row in zip(ns, rows[i]):
+            contrib = torch.zeros(padded, dtype=torch.float32, device=device)
+            contrib[:n] = row.reshape(-1) * (torch.tensor(float(c), device=device) / total)
+            codes, sc = quantize_q8_torch(contrib, COLL_Q8_BLOCK)
+            bound += torch.repeat_interleave(sc.double(), COLL_Q8_BLOCK) / 2.0
+            fault += (codes.float().reshape(-1, COLL_Q8_BLOCK)
+                      * torch.roll(sc, -1)[:, None]).reshape(-1)
+        ref = a_off.reshape(-1).double()
+        worst = max(worst, float(((a_q8.reshape(-1).double() - ref).abs() - bound[:n]).max()))
+        fault_over = max(fault_over, float(((fault[:n].double() - ref).abs() - bound[:n]).max()))
+    if not worst <= 1e-7:
+        fail(f"collective (a): the q8 average leaves Σ scale/2 by {worst}")
+    if not fault_over > 1e-7:
+        fail(f"collective (a): a q8 codec with its scales one block off stayed inside the "
+             f"bound ({fault_over})")
+    return {"bound_excess_max": worst, "shifted_scale_fault_excess": fault_over}
+
+
+def collective_phase(torch, np, cfg_fn=collective_config, device: str = "cuda",
+                     work: pathlib.Path = ROOT / ".chip_smoke" / "collective") -> dict:
+    """Phase 18 (a) and (e) in this process (see the module's docstring);
+    (b)-(d) run in a child beside phases 14-16 (:func:`collective_leg`)."""
+    import gc
+    import os
+    import tempfile
+
+    from photon_tpu_torch import telemetry
+    from photon_tpu_torch.config.schema import TelemetryConfig
+    from photon_tpu_torch.federated import build_app
+    from photon_tpu_torch.federation.collective_round import CollectiveFedRunner
+    from photon_tpu_torch.parallel.collective_agg import (
+        DeviceAggregationPlane,
+        modeled_cross_slice_bytes,
+    )
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = cfg_fn()
+    n_clients, n_layers = cfg.fl.n_total_clients, cfg.model.n_layers
+    micro = cfg.train.global_batch_size // cfg.train.device_microbatch_size
+    per_round = n_clients * cfg.fl.local_steps * n_layers * micro
+    rec: dict = {"config": {"n_layers": n_layers, "d_model": cfg.model.d_model,
+                            "clients": n_clients, "local_steps": cfg.fl.local_steps,
+                            "rounds": COLL_ROUNDS, "replica": COLL_REPLICA,
+                            "mesh": [device] * (n_clients * COLL_REPLICA),
+                            "microbatches": micro, "strategy": cfg.fl.strategy_name}}
+
+    def release():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # the ZeRO-1 run, under the autopilot (e): both collective knobs register
+    tel = TelemetryConfig(enabled=True)
+    tel.autopilot.enabled = True
+    telemetry.install(tel, scope="collective", events_path=str(work / "events.jsonl"))
+    try:
+        t0 = time.perf_counter()
+        zero1 = CollectiveFedRunner(cfg, list(range(n_clients)),
+                                    mesh=_coll_mesh(n_clients, COLL_REPLICA, device), device=device)
+        rec["zero1_init_s"] = time.perf_counter() - t0
+        knobs = sorted(telemetry.autopilot_active()._knobs)
+    finally:
+        telemetry.uninstall()
+    want_knobs = ["server/collective_quantization_level", "server/collective_stage_timeout_s"]
+    if knobs != want_knobs:
+        fail(f"collective (e): the runner registered {knobs}, not {want_knobs}")
+    rec["knobs"] = knobs
+    seen = _coll_capture(zero1)
+    round1: dict = {}
+    real_finish = zero1._finish_round
+
+    def finish(server_round, *args):
+        if server_round == 1:
+            round1["params"] = [p.copy() for p in zero1.strategy.current_parameters]
+        return real_finish(server_round, *args)
+
+    zero1._finish_round = finish
+    # the replicated layout (``collective_zero1: false``) beside it, round
+    # for round on the same stacked deltas: the same bits, twice the
+    # per-rank state (a plane of its own, not a second run of the fits,
+    # which would read the same deltas and cost the smoke ~20 s)
+    shadow = _coll_strategy(cfg)
+    shadow.initialize([p.copy() for p in zero1.strategy.current_parameters])
+    repl = DeviceAggregationPlane(zero1.mesh, shadow, sharded=False)
+    sharded_plane = zero1.device_plane
+    real_run_round = sharded_plane.run_round
+    shadow_rounds: list = []
+
+    def run_round(stacked, n_samples, lr, epoch=None):
+        out = real_run_round(stacked, n_samples, lr=lr, epoch=epoch)
+        t0 = time.perf_counter()
+        repl.run_round(stacked, n_samples, lr=lr)
+        shadow_rounds.append({"round_s": time.perf_counter() - t0, "equal": all(
+            np.array_equal(a, b) for a, b in zip(sharded_plane.params_host(),
+                                                  repl.params_host()))
+            and all(np.array_equal(a, b) for k, v in sharded_plane.state_host().items()
+                    for a, b in zip(v, repl.state_host()[k]))})
+        return out
+
+    sharded_plane.run_round = run_round
+    rec["zero1"] = _coll_rounds(torch, zero1, COLL_ROUNDS, cuda)
+    sharded_plane.run_round = real_run_round
+    zero1_params = [p.copy() for p in zero1.strategy.current_parameters]
+    zero1_bytes = sharded_plane.server_state_bytes_per_rank()
+    repl_bytes = repl.server_state_bytes_per_rank()
+    landed1, before1 = seen[1]["landed"], seen[1]["before"]
+    mesh = zero1.mesh
+    del repl, shadow
+    for r in rec["zero1"]["rounds"]:
+        if cuda and r["launches"] != {k: per_round for k in r["launches"]}:
+            fail(f"collective (a): K1-K3 launched {r['launches']} in a round, not "
+                 f"{per_round} each ({n_clients} clients x {cfg.fl.local_steps} steps x "
+                 f"{n_layers} layers x {micro} microbatches)")
+        if r["path"] != "collective":
+            fail(f"collective (a): a round took the {r['path']} path")
+    rec["replicated"] = shadow_rounds
+    if len(shadow_rounds) != COLL_ROUNDS or not all(r["equal"] for r in shadow_rounds):
+        fail(f"collective (a): the ZeRO-1 and replicated layouts part: {shadow_rounds}")
+    if not repl_bytes / 2 <= zero1_bytes <= repl_bytes / 2 * 1.001:
+        fail(f"collective (a): ZeRO-1 holds {zero1_bytes} B a rank against {repl_bytes} replicated")
+    rec["server_state_bytes_per_rank"] = {"zero1": zero1_bytes, "replicated": repl_bytes}
+
+    # q8 at block 256: the bound on round 1's contributions, and the wire
+    # bytes of an exchange escalated to q8 against the model
+    rec["q8"] = _q8_bound_gate(torch, np, landed1, mesh, device)
+    zero1.q8_block = COLL_Q8_BLOCK
+    zero1.set_quantization("q8")
+    m_q8, path, _, _ = zero1._aggregate_elastic(COLL_ROUNDS + 1, landed1)
+    sizes = [int(a.size) for a in landed1[0][0]]
+    model_q8 = modeled_cross_slice_bytes(sizes, n_clients, replica=COLL_REPLICA,
+                                         quantization="q8", block=zero1.q8_block)
+    off_bytes = rec["zero1"]["rounds"][0]["server/collective_wire_bytes"]
+    model_off = modeled_cross_slice_bytes(sizes, n_clients, replica=COLL_REPLICA)
+    if path != "collective" or m_q8["server/collective_wire_bytes"] != model_q8 \
+            or off_bytes != model_off:
+        fail(f"collective (a): wire bytes {off_bytes} / {m_q8['server/collective_wire_bytes']} "
+             f"({path}) against the model's {model_off} / {model_q8}")
+    ratio = off_bytes / m_q8["server/collective_wire_bytes"]
+    want_ratio = 4 / (1 + 4 / COLL_Q8_BLOCK)
+    if abs(ratio / want_ratio - 1) > 0.01:
+        fail(f"collective (a): off/q8 bytes {ratio}, not {want_ratio}")
+    rec["q8"].update(wire_bytes_off=off_bytes, wire_bytes_q8=m_q8["server/collective_wire_bytes"],
+                     ratio=ratio, ratio_model=want_ratio)
+    del zero1, sharded_plane
+    release()
+
+    # the driver topology on the same config (the port's in-process
+    # federated run over shm), and the planted fault below
+    dcfg = cfg_fn()
+    dcfg.photon.comm_stack.collective, dcfg.photon.comm_stack.shm = False, True
+    dcfg.photon.comm_stack.collective_replica = 1
+    dcfg.photon.comm_stack.collective_device_optimizer = False
+    dcfg.photon.save_path = str(work / "driver")
+    shm_root = "/dev/shm" if pathlib.Path("/dev/shm").is_dir() else str(work)
+    shm_dir = tempfile.mkdtemp(prefix="photon-coll-", dir=shm_root)
+    before, os.environ["PHOTON_SHM_DIR"] = os.environ.get("PHOTON_SHM_DIR"), shm_dir
+    try:
+        t0 = time.perf_counter()
+        app = build_app(dcfg.validate(), n_nodes=1, device=device)
+        round_params: dict = {}
+        real_round = app.fit_round
+
+        def fit_round(server_round, *a, **kw):
+            out = real_round(server_round, *a, **kw)
+            round_params[server_round] = [p.copy() for p in app.strategy.current_parameters]
+            return out
+
+        app.fit_round = fit_round
+        app.run()
+        driver_params = [p.copy() for p in app.strategy.current_parameters]
+        app.driver.shutdown()
+        rec["driver_s"] = time.perf_counter() - t0
+    finally:
+        if before is None:
+            os.environ.pop("PHOTON_SHM_DIR", None)
+        else:
+            os.environ["PHOTON_SHM_DIR"] = before
+        shutil.rmtree(shm_dir, ignore_errors=True)
+    del app
+    release()
+    sound = _coll_gap(np, zero1_params, driver_params)
+    sound1 = _coll_gap(np, round1["params"], round_params[1])
+    # the fault: client 1's row lost on its way into the sum while its
+    # samples still count (the failure JAX's one-row-per-shard check names)
+    strat = _coll_strategy(cfg)
+    strat.restore(before1)
+    plane = DeviceAggregationPlane(_coll_mesh(n_clients, COLL_REPLICA, device), strat)
+    plane.run_round([[torch.from_numpy(a).to(device)]
+                     + [torch.zeros(a.shape, device=device)] * (n_clients - 1)
+                     for a in landed1[0][0]],
+                    [landed1[c][1] for c in sorted(landed1)], lr=strat.effective_lr(n_clients))
+    fault = _coll_gap(np, plane.params_host(), round_params[1])
+    del plane, strat
+    release()
+    rec["vs_driver"] = {"round2_excess": sound, "round1_excess": sound1,
+                        "dropped_row_round1_excess": fault,
+                        "max_abs_round2": max(float(np.max(np.abs(a - b)))
+                                              for a, b in zip(zero1_params, driver_params))}
+    if sound > 0 or sound1 > 0:
+        fail(f"collective (a): the collective run parts from the driver topology's past "
+             f"rtol {COLL_RTOL} / atol {COLL_ATOL} (excess {sound1} / {sound})")
+    if not fault > 0:
+        fail("collective (a): a plane that loses a client's row stayed within the tolerance")
+    rec["launches_per_round"] = per_round
+    rec["launches"] = {k: sum(r["launches"][k] for r in rec["zero1"]["rounds"])
+                       for k in rec["zero1"]["rounds"][0]["launches"]}
+    shutil.rmtree(work, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("collective_phase " + json.dumps(rec))
+    return rec
+
+
+def _coll_strategy(cfg):
+    from photon_tpu_torch.strategy import dispatch_strategy
+
+    return dispatch_strategy(cfg.fl)
+
+
+# -- (b)-(d), in a child -------------------------------------------------------------
+
+
+def _coll_cli_child(out_path: str, cli_args: list[str]) -> int:
+    """``python -m photon_tpu_torch.federation.collective_round`` (its
+    ``main``) in a child of :func:`collective_leg`, the launch counts set to
+    0 first; writes the run's parameters (``.npz``), History, paths,
+    backend, staged legs, launches, peak device memory and the wall clock
+    as its rounds ended. Exits hard so a peer's abandoned group cannot hold
+    the process open."""
+    import os
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from photon_tpu_torch.federation import collective_round as cr
+    from photon_tpu_torch.ops import flash_attention as fa
+
+    seen: dict = {}
+    real_run = cr.CollectiveFedRunner.run
+
+    def run(self, n_rounds=None):
+        seen["runner"] = self
+        out = real_run(self, n_rounds)
+        seen["rounds_end"] = time.time()
+        return out
+
+    cr.CollectiveFedRunner.run = run
+    for key in fa.launches:
+        fa.launches[key] = 0
+    t0 = time.perf_counter()
+    cr.main(cli_args)
+    r = seen["runner"]
+    np.savez(out_path + ".npz", *r.strategy.current_parameters)
+    pathlib.Path(out_path).write_text(json.dumps({
+        "history": r.history.to_dict(), "paths": {str(k): v for k, v in r.aggregation_paths.items()},
+        "backend": r.backend, "staged_legs": sorted(r.mesh.staged_legs),
+        "launches": dict(fa.launches), "wall_s": time.perf_counter() - t0,
+        "rounds_end": seen["rounds_end"],
+        "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                    if torch.cuda.is_initialized() else 0.0)}))
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def _coll_pair(work: pathlib.Path, tag: str, cfg, device: str) -> tuple[list, list]:
+    """Start the collective CLI twice (processes 0 and 1 of one job on a
+    free port, ``cfg`` as their YAML); returns the processes and their
+    output paths."""
+    work.mkdir(parents=True, exist_ok=True)
+    cfg.to_yaml(work / f"{tag}.yaml")
+    port = _free_port()
+    procs, outs = [], []
+    for pid in range(2):
+        out = work / f"{tag}-{pid}.json"
+        args = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+                "--process-id", str(pid), "--config", str(work / f"{tag}.yaml")]
+        if device == "cpu":
+            args += ["--device", "cpu"]
+        with open(work / f"{tag}-{pid}.log", "w") as log_f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--collective-cli", str(out), "--",
+                 *args], cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT))
+        outs.append(out)
+    return procs, outs
+
+
+def _coll_wait(procs, work: pathlib.Path, tag: str) -> list:
+    rcs = []
+    for pid, p in enumerate(procs):
+        try:
+            rcs.append(p.wait(timeout=COLL_WAIT_S))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail(f"collective {tag}: process {pid} timed out: "
+                 f"{(work / f'{tag}-{pid}.log').read_text()[-3000:]}")
+    return rcs
+
+
+def _coll_elastic(torch, np, cfg_fn, device: str, work: pathlib.Path) -> dict:
+    """(c) in process: 3 clients, 4 rounds of one runner under the
+    autopilot. A chaos mid-fit crash in round 2 reconfigures the cohort
+    (the survivors-only fold, bit for bit) and round 3 runs all three; the
+    straggler rule decides once. At quorum 0.9 the same crash in round 4
+    degrades to the host fold (bit for bit ``aggregate_inplace``)."""
+    import warnings
+
+    from photon_tpu_torch import chaos, telemetry
+    from photon_tpu_torch.config.schema import TelemetryConfig
+    from photon_tpu_torch.federation.collective_round import CollectiveFedRunner
+    from photon_tpu_torch.parallel.collective_agg import hierarchical_weighted_average
+    from photon_tpu_torch.strategy.aggregation import aggregate_inplace
+
+    def _crash(code):
+        raise RuntimeError(f"chaos mid-fit crash ({code})")
+
+    cfg = cfg_fn(n_clients=3, replica=1)
+    cfg.photon.comm_stack.collective_stage_timeout_s = COLL_AP_TIMEOUT_S
+    ch = cfg.photon.chaos
+    ch.enabled, ch.crash_phase = True, "mid-fit"
+    cfg.validate()
+    tel = TelemetryConfig(enabled=True)
+    tel.autopilot.enabled = True
+    for k, v in COLL_AP.items():
+        setattr(tel.autopilot, k, v)
+    telemetry.install(tel, scope="collective", events_path=str(work / "events.jsonl"))
+    rounds, folds = [], {}
+    try:
+        runner = CollectiveFedRunner(cfg, [0, 1, 2], mesh=_coll_mesh(3, 1, device), device=device)
+        seen = _coll_capture(runner, rounds=(2, 4))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for rnd in range(1, 5):
+                if rnd in (2, 4):  # one crash each, its marker fresh
+                    ch.crash_round, ch.crash_marker = rnd, str(work / f"crash{rnd}.marker")
+                    chaos.install(ch, scope="collective0", crash_fn=_crash)
+                if rnd == 4:
+                    runner.quorum = 0.9
+                m = runner.run_round(rnd)
+                chaos.uninstall()
+                rounds.append({"path": runner.aggregation_paths[rnd],
+                               "stragglers": m["server/collective_stragglers"],
+                               "n_clients": m["server/n_clients"],
+                               "round_s": m["server/round_time"]})
+                if rnd in (2, 4):
+                    folds[rnd] = [p.copy() for p in runner.strategy.current_parameters]
+        decisions = [(d["event"], d["rule"], d["knob"], d["observed"], d["old"], d["new"])
+                     for d in telemetry.autopilot_active().decisions
+                     if d["rule"] == "straggler_deadline"]
+    finally:
+        chaos.uninstall()
+        telemetry.uninstall()
+    out: dict = {"rounds": rounds, "decisions": decisions}
+    for rnd, path in ((2, "collective_reconfigured"), (4, "host_fallback")):
+        landed, snap = seen[rnd]["landed"], seen[rnd]["before"]
+        survivors = sorted(landed)
+        oracle = _coll_strategy(cfg)
+        oracle.restore(snap)
+        if path == "collective_reconfigured":
+            avg = hierarchical_weighted_average(
+                [[torch.from_numpy(landed[c][0][i]).to(device) for c in survivors]
+                 for i in range(len(landed[survivors[0]][0]))],
+                [landed[c][1] for c in survivors], _coll_mesh(len(survivors), 1, device))
+            avg = [a.cpu().numpy() for a in avg]
+            n_total = sum(landed[c][1] for c in survivors)
+        else:
+            avg, n_total = aggregate_inplace(landed[c] for c in survivors)
+        oracle.apply_average(rnd, avg, n_total, len(survivors))
+        out[path] = {"survivors": survivors, "equal_to_fold": all(
+            np.array_equal(a, b) for a, b in zip(folds[rnd], oracle.current_parameters))}
+    paths = [r["path"] for r in rounds]
+    if paths != ["collective", "collective_reconfigured", "collective", "host_fallback"] \
+            or [r["stragglers"] for r in rounds] != [0.0, 1.0, 0.0, 1.0] \
+            or rounds[2]["n_clients"] != 3.0 \
+            or not all(out[p]["equal_to_fold"] and out[p]["survivors"] == [1, 2]
+                       for p in ("collective_reconfigured", "host_fallback")):
+        fail(f"collective (c): {out}")
+    if len(decisions) != 1 or any(abs(a - b) > 1e-9 if isinstance(a, float) else a != b
+                                  for a, b in zip(decisions[0], COLL_AP_DECISION)):
+        fail(f"collective (e): the straggler rule decided {decisions}, not [{COLL_AP_DECISION}]")
+    return out
+
+
+def _coll_async(torch, np, cfg, ref_params, device: str, work: pathlib.Path) -> dict:
+    """(d): the async runner with the buffer the cohort at zero staleness
+    against the sync runner's parameters on the same config (bit for bit);
+    then 4 clients, one slowed 4x, buffer 2, max staleness 1, under the
+    autopilot."""
+    from photon_tpu_torch import chaos, telemetry
+    from photon_tpu_torch.config.schema import TelemetryConfig
+    from photon_tpu_torch.federation.async_round import AsyncFedRunner
+
+    rec: dict = {}
+    cfg.photon.async_rounds.enabled = True
+    cfg.photon.async_rounds.buffer_size = 2
+    arun = AsyncFedRunner(cfg.validate(), [0, 1], mesh=_coll_mesh(2, 1, device), device=device)
+    arun.run_versions(COLL_ROUNDS, eval_every=0)
+    equal = all(np.array_equal(a, b) for a, b in zip(arun.strategy.current_parameters, ref_params))
+    if not equal or arun.version != COLL_ROUNDS:
+        fail(f"collective (d): async at zero staleness parts from the sync runner "
+             f"(version {arun.version})")
+    rec["zero_staleness_equal"] = equal
+    del arun
+    scfg = cfg.__class__.from_dict(cfg.to_dict())
+    scfg.fl.n_total_clients = scfg.fl.n_clients_per_round = 4
+    ar = scfg.photon.async_rounds
+    ar.buffer_size, ar.max_staleness, ar.n_versions = 2, 1, COLL_ASYNC_VERSIONS
+    ch = scfg.photon.chaos
+    ch.enabled, ch.fit_delay_factor, ch.fit_delay_cid = True, 4.0, 3
+    scfg.validate()
+    tel = TelemetryConfig(enabled=True)
+    tel.autopilot.enabled = True
+    telemetry.install(tel, scope="async", events_path=str(work / "async_events.jsonl"))
+    chaos.install(ch, scope="collective0")
+    try:
+        runner = AsyncFedRunner(scfg, [0, 1, 2, 3], mesh=_coll_mesh(4, 1, device), device=device)
+        ap = telemetry.autopilot_active()
+        runner.run()
+        registered = "server/async_max_staleness" in ap._knobs
+        ticked = ap._last_eval.get("async") is not None
+    finally:
+        chaos.uninstall()
+        telemetry.uninstall()
+    rec["stale"] = {"version": runner.version, "rejected": runner.rejected_total,
+                    "sim_time": runner.sim_time, "knob_registered": registered,
+                    "async_ticked": ticked}
+    if runner.version != COLL_ASYNC_VERSIONS or runner.rejected_total < 1 or not registered \
+            or not ticked:
+        fail(f"collective (d): {rec['stale']}")
+    return rec
+
+
+def collective_leg(np, device: str = "cuda", cfg_fn=collective_config,
+                   work: pathlib.Path = ROOT / ".chip_smoke" / "collective_leg") -> dict:
+    """Phase 18 (b), (c) in process, (d) (see the module's docstring): two
+    processes through the collective CLI on the one card, the elastic
+    ladder in one process, and the async runner. (b)'s CLI processes train
+    while (c) and (d) run in this process. (c) across processes is
+    :func:`collective_dead_peer`."""
+    import torch
+
+    t_leg = time.perf_counter()
+    cuda = device == "cuda"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    def small(**kw):
+        return cfg_fn(n_layers=COLL_LAYERS, save_path=work / "inproc", **kw)
+
+    def pair_cfg():
+        # each fit starts from a fresh optimizer: a process with one client
+        # and one with two then run the same computation (a runtime's
+        # optimizer state otherwise carries from one client to the next)
+        cfg = small(replica=1)
+        cfg.fl.fit_config = {"reset_optimizer": True}
+        return cfg
+
+    rec: dict = {"seconds": {}}
+    bcfg = pair_cfg()
+    bcfg.photon.save_path = str(work / "b")
+    t0 = time.perf_counter()
+    with (_GpuMemory() if cuda else contextlib.nullcontext()) as smi:
+        b_procs, b_outs = _coll_pair(work, "b", bcfg, device)
+        from photon_tpu_torch.federation.collective_round import CollectiveFedRunner
+
+        t1 = time.perf_counter()
+        ref = CollectiveFedRunner(pair_cfg(), [0, 1], mesh=_coll_mesh(2, 1, device),
+                                  device=device)
+        ref.run(COLL_ROUNDS)
+        ref_params = [p.copy() for p in ref.strategy.current_parameters]
+        del ref
+        rec["seconds"]["inprocess_ref"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        rec["elastic"] = _coll_elastic(torch, np, small, device, work)
+        rec["seconds"]["elastic"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        rec["async"] = _coll_async(torch, np, pair_cfg(), ref_params, device, work)
+        rec["seconds"]["async"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        b_rcs = _coll_wait(b_procs, work, "b")
+        rec["seconds"]["waited_for_processes"] = time.perf_counter() - t1
+    rec["seconds"]["processes"] = time.perf_counter() - t0
+    if b_rcs != [0, 0]:
+        fail(f"collective (b): the CLI processes exited {b_rcs}: "
+             f"{(work / 'b-1.log').read_text()[-2000:]}")
+    b = [json.loads(o.read_text()) for o in b_outs]
+    bp = [np.load(str(o) + ".npz") for o in b_outs]
+    bp = [[z[k] for k in z.files] for z in bp]
+    bitwise = all(np.array_equal(x, y) for x, y in zip(bp[0], bp[1]))
+    excess = _coll_gap(np, bp[0], ref_params)
+    if not bitwise or excess > 0:
+        fail(f"collective (b): processes bitwise {bitwise}, against the in-process run "
+             f"{excess} past the tolerance")
+    micro = bcfg.train.global_batch_size // bcfg.train.device_microbatch_size
+    per_proc = COLL_ROUNDS * COLL_STEPS * COLL_LAYERS * micro
+    for r in b:
+        if cuda and r["launches"] != {k: per_proc for k in r["launches"]}:
+            fail(f"collective (b): a process launched {r['launches']}, not {per_proc} each")
+    rec["cli"] = {"backend": [r["backend"] for r in b], "staged_legs": [r["staged_legs"] for r in b],
+                  "paths": [r["paths"] for r in b], "bitwise": bitwise, "vs_inprocess": excess,
+                  "peak_gb": [r["max_memory_allocated_gb"] for r in b],
+                  "wall_s": [r["wall_s"] for r in b], "smi": smi.record() if cuda else None}
+    if any(r["backend"] != "gloo" for r in b):
+        fail(f"collective (b): the backend was {rec['cli']['backend']} with one card")
+    shutil.rmtree(work, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_leg
+    log("collective_leg " + json.dumps(rec))
+    return rec
+
+
+def collective_dead_peer(np, device: str = "cuda", cfg_fn=collective_config,
+                         work: pathlib.Path = ROOT / ".chip_smoke" / "collective_dead_peer"
+                         ) -> dict:
+    """Phase 18 (c) across processes: (b)'s pair with ``crash_phase:
+    pre-exchange`` on process 1 in round 2 and a ``COLL_TIMEOUT_S`` stage
+    timeout. Process 1 exits 137; process 0 degrades to the host fold and
+    must end the round within the timeout + ``COLL_SLACK_S`` of the crash
+    (the crash marker's mtime against the wall clock as its rounds ended).
+    The smoke runs it when nothing else is running: the fold after the
+    dead peer is host work that a loaded host stretches."""
+    t0 = time.perf_counter()
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = cfg_fn(n_layers=COLL_LAYERS, replica=1, save_path=work / "run")
+    cfg.fl.fit_config = {"reset_optimizer": True}
+    cfg.photon.comm_stack.collective_stage_timeout_s = COLL_TIMEOUT_S
+    ch = cfg.photon.chaos
+    ch.enabled, ch.crash_phase, ch.crash_round, ch.crash_node_id = \
+        True, "pre-exchange", 2, "collective1"
+    ch.crash_marker = str(work / "crash.marker")
+    cfg.validate()
+    procs, outs = _coll_pair(work, "x", cfg, device)
+    rcs = _coll_wait(procs, work, "x")
+    x0 = json.loads(outs[0].read_text()) if rcs[0] == 0 else None
+    marker = pathlib.Path(ch.crash_marker)
+    after = x0["rounds_end"] - marker.stat().st_mtime if x0 and marker.exists() else None
+    rec = {"rcs": rcs, "paths": x0 and x0["paths"], "crash_to_round_end_s": after,
+           "round2_agg_s": x0 and [v for r, v in x0["history"]["server/collective_agg_time"]
+                                   if r == 2],
+           "round2_reconfig_s": x0 and [v for r, v in
+                                        x0["history"]["server/collective_reconfig_time"]
+                                        if r == 2]}
+    if rcs != [0, 137] or x0["paths"] != {"1": "collective", "2": "host_fallback"} \
+            or after is None or after > COLL_TIMEOUT_S + COLL_SLACK_S:
+        fail(f"collective (c) across processes: {rec}: "
+             f"{(work / 'x-0.log').read_text()[-2000:]}")
+    shutil.rmtree(work, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t0
+    log("collective_dead_peer " + json.dumps(rec))
+    return rec
+
+
+def _collective_leg_child(out_path: str) -> int:
+    """(b)-(d) in a child of the smoke beside phases 14-16; writes the
+    record to ``out_path``."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    pathlib.Path(out_path).write_text(json.dumps(collective_leg(np)))
+    return 0
+
+
+def _collective_leg_start(work: pathlib.Path) -> subprocess.Popen:
+    """Start (b)-(d)'s child (:func:`_collective_leg_child`)."""
+    work.mkdir(parents=True, exist_ok=True)
+    with open(work / "collective_leg.log", "w") as out:
+        return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--collective-leg",
+                                 str(work / "collective_leg.json")],
+                                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+
+
+def _collective_leg_finish(proc: subprocess.Popen, work: pathlib.Path) -> dict:
+    """Wait for (b)-(d)'s child; its record, or the smoke fails with its log."""
+    try:
+        rc = proc.wait(timeout=COLL_WAIT_S + 300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        rc = "timeout"
+    if rc != 0:
+        fail(f"collective leg child exited {rc}: "
+             f"{(work / 'collective_leg.log').read_text()[-3000:]}")
+    return json.loads((work / "collective_leg.json").read_text())
+
+
 def fed_1b() -> int:
     """``python -m photon_tpu_torch.federated`` at mpt-1b: 2 in-process
     nodes on one card, 2 clients a round, 1 local step each (global batch
@@ -6565,6 +7244,10 @@ def main() -> int:
         return _tcp_node_child(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
     if sys.argv[1:2] == ["--autopilot-fleet"]:  # phase 17 (d)
         return _autopilot_fleet_child(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--collective-leg"]:  # phase 18 (b)-(d)
+        return _collective_leg_child(sys.argv[2])
+    if sys.argv[1:2] == ["--collective-cli"]:  # a process of 18 (b) or (c)
+        return _coll_cli_child(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
     if sys.argv[1:2] == ["--fed-1b"]:
         return fed_1b()
     import torch
@@ -6640,8 +7323,11 @@ def main() -> int:
     fed = federated_phase(torch, np)
     fed["phase_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    dist = distributed_phase(torch, np, fa, fed)
+    # phase 18 (a) and (e) in this process while 5b (a)'s children train
+    dist = distributed_phase(torch, np, fa, fed, beside=lambda: collective_phase(torch, np))
     dist["phase_s"] = time.perf_counter() - t0
+    collective = dist.pop("beside")
+    log(f"collective phase (a), (e): {collective['phase_s']:.1f} s, beside 5b (a)")
     log(f"distributed phase: {dist['phase_s']:.1f} s (multiprocess {dist['multiprocess_s']:.1f}"
         f" s, tcp {dist['tcp_s']:.1f} s, comparator + faults {dist['checks_s']:.1f} s)")
 
@@ -6673,6 +7359,7 @@ def main() -> int:
     log(f"adapter phase: {adapters['phase_s']:.1f} s")
     fleet_source = adapters.pop("fleet_source")
     ap_work = ROOT / ".chip_smoke" / "autopilot_child"
+    coll_work = ROOT / ".chip_smoke" / "collective_child"
     try:
         fleet = fleet_phase(torch, rpa, np, fleet_source, tie=2 * engine["max_abs_logit_diff"])
         log(f"fleet phase: {fleet['phase_s']:.1f} s")
@@ -6680,6 +7367,9 @@ def main() -> int:
         autopilot = autopilot_phase(torch, rpa, np, fed, tie=2 * engine["max_abs_logit_diff"])
         log(f"autopilot phase (a)-(c), (e): {autopilot['phase_s']:.1f} s")
         shutil.rmtree(ROOT / ".chip_smoke" / "fed", ignore_errors=True)
+        # phase 18 (b)-(d) in a child beside 14-16 (its own launch counters;
+        # its gates count bits and launches, and time a crash from its marker)
+        coll_leg = _collective_leg_start(coll_work)
         t0 = time.perf_counter()
         # 17 (d), the router's restart leg, in a child of its own (the
         # router's autopilot is process-global) beside 14-16, on phase 13's
@@ -6695,18 +7385,27 @@ def main() -> int:
             # could change
             interop_run = pool.submit(interop_phase, torch, rpa, np)
             chaos_rec = chaos_phase(torch, np, fa)
-            tel = telemetry_phase(np, before_ab=interop_run.result)
+            tel = telemetry_phase(np)
             interop = interop_run.result()
         autopilot["fleet"] = _autopilot_fleet_finish(ap_fleet, ap_work)
+        collective["leg"] = _collective_leg_finish(coll_leg, coll_work)
     finally:
         shutil.rmtree(ROOT / ".chip_smoke" / "adapters", ignore_errors=True)
         shutil.rmtree(ap_work, ignore_errors=True)
+        shutil.rmtree(coll_work, ignore_errors=True)
+    # phase 18 (c) across processes, on a quiet card
+    collective["dead_peer"] = collective_dead_peer(np)
+    collective["phase_s_with_leg"] = (collective["phase_s"] + collective["leg"]["phase_s"]
+                                      + collective["dead_peer"]["phase_s"])
     autopilot["phase_s_with_fleet"] = autopilot["phase_s"] + autopilot["fleet"]["phase_s"]
     log(f"interop phase: {interop['phase_s']:.1f} s, chaos phase: {chaos_rec['phase_s']:.1f} s, "
         f"telemetry phase: {tel['phase_s']:.1f} s (traced run {tel['fed']['phase_s']:.1f} s, "
         f"serve {tel['serve']['phase_s']:.1f} s), autopilot (d) "
         f"{autopilot['fleet']['phase_s']:.1f} s, side by side {time.perf_counter() - t0:.1f} s")
     log(f"autopilot phase: {autopilot['phase_s_with_fleet']:.1f} s")
+    log(f"collective phase: (a), (e) {collective['phase_s']:.1f} s beside 5b (a), (b)-(d) "
+        f"{collective['leg']['phase_s']:.1f} s in its child beside 14-16, (c) across "
+        f"processes {collective['dead_peer']['phase_s']:.1f} s after them")
 
     kernels = {"kernels": [{
         "name": "ragged_paged_attention",
@@ -6753,6 +7452,7 @@ def main() -> int:
         "adapter_round_launches": adapters["fit"]["launches"][name],
         "chaos_node0_launches": chaos_rec["launches"][name],
         "telemetry_node0_launches": tel["fed"]["launches"][name],
+        "collective_round_launches": collective["launches"][name],
     } for name, rec in flash_main.items()]}
     k1 = next(k for k in kernels["kernels"] if k["name"] == "flash_fwd")
     k1["eval_shape"] = flash_eval
@@ -6766,7 +7466,7 @@ def main() -> int:
         "server": server, "decode": decode_rec, "eval": evaluation, "presets": presets,
         "presets_phase_s": presets_s, "d128_grad_gate": d128, "moe_dispatch": moe_dispatch,
         "moe_engine": moe_engine, "adapters": adapters, "fleet": fleet, "interop": interop,
-        "chaos": chaos_rec, "telemetry": tel, "autopilot": autopilot,
+        "chaos": chaos_rec, "telemetry": tel, "autopilot": autopilot, "collective": collective,
         "kernels": kernels["kernels"],
         "profiler_pad_lost": profiler_pad_lost,
         "total_s": time.perf_counter() - t_all,

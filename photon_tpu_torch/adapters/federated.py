@@ -8,9 +8,9 @@ payload plumbing (the port of ``photon_tpu/adapters/federated.py``).
   rows out of a fit's result, and owns the per-cohort server strategies
   (``strategy/grouped.py``).
 
-The JAX package drives this plane from its collective round loop, which
-needs one device per client. The port drives it from
-:meth:`AdapterTrainPlane.run_round`, host code over one
+The collective runner (``federation/collective_round.py``) drives this
+plane through its grouped exchange, as the JAX package's does; it also
+runs from :meth:`AdapterTrainPlane.run_round`, host code over one
 ``ClientRuntime``: broadcast per cohort, a fit per client,
 :meth:`~AdapterTrainPlane.extract_adapter`, then ``grouped_host_fold``
 and each cohort's server update. :meth:`~AdapterTrainPlane.save_round`
@@ -92,6 +92,15 @@ class AdapterTrainPlane:
         # a client in no cohort trains a fresh identity adapter each round,
         # which nobody folds
         self._identity = init_adapter_arrays(self.spec, cohort_seed(cfg.seed, ""))[1]
+
+    @property
+    def n_cohorts(self) -> int:
+        return len(self.cohort_names)
+
+    def adapter_sizes(self) -> list[int]:
+        """Per-leaf element counts of one adapter payload (the modeled wire
+        unit of the collective runner's grouped exchange)."""
+        return [int(np.prod(s, dtype=np.int64)) for s in self.ameta.shapes]
 
     def broadcast_payload(self, cid: int) -> tuple[ParamsMetadata, list[np.ndarray]]:
         """Base + this client's cohort adapter as one canonical payload."""

@@ -16,6 +16,9 @@ import numpy as np
 
 DEFAULT_BLOCK = 256
 _QMAX = 127.0
+#: the collective plane's cross-client codecs
+#: (``photon.comm_stack.collective_quantization``)
+COLLECTIVE_QUANTIZATIONS = ("off", "q8")
 
 
 def quantize_q8(values: np.ndarray, block: int = DEFAULT_BLOCK) -> tuple[np.ndarray, np.ndarray]:

@@ -3,15 +3,14 @@
 ``ModelConfig``, ``ServeConfig``, ``OptimizerConfig``, ``SchedulerConfig``,
 ``MeshConfig``, ``TrainConfig``, ``DatasetConfig``, ``FLConfig``,
 ``CommStackConfig``, ``CompressionConfig``, ``MembershipConfig``,
-``AdaptersConfig``, ``ChaosConfig``, ``TelemetryConfig`` and
-``PhotonConfig`` carry the same fields, names and defaults as the JAX
-package's, so a resolved YAML written by either package loads in the
-other with equal fields. The section of a feature the port does not run
-(``async_rounds``) is kept as the raw dict it was read as and written back
-unchanged; only its ``enabled`` flag is read, to refuse it.
-``photon.adapters`` (per-cohort LoRA), ``model.lora_*``, ``photon.chaos``
-and ``photon.telemetry`` with its SLO autopilot
-(:class:`AutopilotConfig`) are validated with the JAX package's texts.
+``AdaptersConfig``, ``ChaosConfig``, ``TelemetryConfig``,
+``AsyncRoundsConfig`` and ``PhotonConfig`` carry the same fields, names
+and defaults as the JAX package's, so a resolved YAML written by either
+package loads in the other with equal fields. ``photon.adapters``
+(per-cohort LoRA), ``model.lora_*``, ``photon.chaos``,
+``photon.telemetry`` with its SLO autopilot (:class:`AutopilotConfig`),
+the collective plane's ``comm_stack.collective_*`` knobs and
+``photon.async_rounds`` are validated with the JAX package's texts.
 ``serve.speculative`` is a :class:`SpeculativeConfig` and ``serve.fleet``
 a :class:`FleetConfig`, validated with the JAX package's ``ValueError``
 texts, as are the prefix-cache and hot-swap fields of
@@ -22,11 +21,8 @@ this package does not port yet, so such a config fails at start-up
 instead of running without them: a ``model.param_dtype`` other than
 ``float32`` everywhere (the port keeps fp32 parameters); and for
 training (``validate(serving=False)``, the default) a mesh of more than
-one device (``mesh.expert > 1`` included), ring attention, the mesh
-autotuner, the collective aggregation plane and asynchronous rounds (and
-with them the adapters' collective round loop, and the autopilot's
-collective and async rules, whose fields validate but whose planes stay
-refused). ``mlp: moe`` is checked as the JAX
+one device (``mesh.expert > 1`` included: a client's model parallelism),
+ring attention and the mesh autotuner. ``mlp: moe`` is checked as the JAX
 package checks it (its ``ValueError`` texts); ``device_microbatch_size:
 auto`` runs the trainer's probe.
 """
@@ -264,7 +260,8 @@ class CommStackConfig:
     """Bulk-tensor transport (same fields as the JAX package): ``shm``
     (named segments on one host) or ``objstore`` (the object store);
     ``collective`` and its ``collective_*`` knobs belong to the device
-    aggregation plane, which is not ported."""
+    aggregation plane (``parallel/collective_agg.py``) and the collective
+    runner (``federation/collective_round.py``)."""
 
     shm: bool = True
     objstore: bool = False
@@ -424,7 +421,7 @@ class AutopilotConfig:
     # LRU shrink (the reclaim action)
     reclaim_free_blocks: int = 8  # PrefixCache.ensure_free target
     # collective: straggler-frac p90 over the window -> tighten the stage
-    # timeout (0 = off; the collective plane is not ported yet)
+    # timeout (0 = off)
     straggler_p90: float = 0.0
     stage_timeout_min_s: float = 5.0
     stage_timeout_shrink: float = 0.75
@@ -495,6 +492,33 @@ class AdaptersConfig:
 
 
 @dataclass
+class AsyncRoundsConfig:
+    """Asynchronous federated rounds (``federation/async_round.py``; same
+    fields and defaults as the JAX package). Off by default. On, a buffered
+    version clock replaces the round clock: clients stream deltas when they
+    finish, the server folds each full buffer of ``buffer_size`` arrivals
+    under staleness-discounted weights, ``max_staleness`` rejects a staler
+    delta (its client is re-dispatched from the fresh version) and
+    ``min_arrivals`` holds the clock until enough distinct clients landed.
+    ``buffer_size == fl.n_total_clients`` with equal client speeds is the
+    synchronous round, bit for bit."""
+
+    enabled: bool = False
+    #: K, deltas buffered before the version advances; 0 = the full cohort
+    buffer_size: int = 0
+    #: distinct clients a full buffer needs before it folds
+    min_arrivals: int = 1
+    max_staleness: int = 4
+    staleness_policy: str = "poly"  # poly: (1 + s)^-power | const: 1
+    staleness_power: float = 1.0
+    #: version advances to run (0 = fl.n_rounds)
+    n_versions: int = 0
+    #: simulated seconds of one client fit, scaled per client by chaos's
+    #: ``fit_delay_factor`` (the discrete-event clock's unit)
+    fit_time_s: float = 1.0
+
+
+@dataclass
 class PhotonConfig:
     """Node/process topology (same fields as the JAX package)."""
 
@@ -513,7 +537,7 @@ class PhotonConfig:
     compression: CompressionConfig = field(default_factory=CompressionConfig)
     membership: MembershipConfig = field(default_factory=MembershipConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
-    async_rounds: dict = field(default_factory=dict)  # raw: refused when enabled
+    async_rounds: AsyncRoundsConfig = field(default_factory=AsyncRoundsConfig)
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     adapters: AdaptersConfig = field(default_factory=AdaptersConfig)
@@ -646,6 +670,7 @@ class Config:
         _validate_speculative(srv.speculative)
         _validate_adapters(self)
         _validate_chaos(self.photon.chaos)
+        self._validate_collective()
         _validate_fleet(srv.fleet)
         _validate_telemetry(self.photon.telemetry)
         return self
@@ -725,15 +750,128 @@ class Config:
             )
         if mem.reconnect_max_attempts < 0:
             raise ValueError("membership.reconnect_max_attempts must be >= 0 (0 = unlimited)")
-        for what, on in (
-            ("photon.comm_stack.collective", ph.comm_stack.collective),
-            ("photon.async_rounds", bool(ph.async_rounds.get("enabled", False))),
-        ):
-            if on:
-                raise NotImplementedError(
-                    f"{what} is not ported to photon_tpu_torch yet; turn it off "
-                    "or run with photon_tpu"
+
+
+    def _validate_collective(self) -> None:
+        """``photon.async_rounds`` and the collective plane's
+        ``comm_stack.collective_*`` knobs, with the JAX package's texts."""
+        ar = self.photon.async_rounds
+        if ar.staleness_policy not in ("poly", "const"):
+            raise ValueError(
+                f"async_rounds.staleness_policy must be 'poly' or 'const', "
+                f"got {ar.staleness_policy!r}"
+            )
+        if ar.buffer_size < 0:
+            raise ValueError(
+                f"async_rounds.buffer_size must be >= 0 (0 = full cohort), "
+                f"got {ar.buffer_size}"
+            )
+        if ar.max_staleness < 0:
+            raise ValueError(
+                f"async_rounds.max_staleness must be >= 0, got {ar.max_staleness}"
+            )
+        if ar.staleness_power < 0:
+            raise ValueError(
+                f"async_rounds.staleness_power must be >= 0, got "
+                f"{ar.staleness_power}"
+            )
+        if ar.n_versions < 0:
+            raise ValueError(
+                f"async_rounds.n_versions must be >= 0 (0 = fl.n_rounds), "
+                f"got {ar.n_versions}"
+            )
+        if ar.fit_time_s <= 0:
+            raise ValueError(
+                f"async_rounds.fit_time_s must be > 0, got {ar.fit_time_s}"
+            )
+        if ar.enabled:
+            if not self.photon.comm_stack.collective:
+                raise ValueError(
+                    "photon.async_rounds needs comm_stack.collective=true: "
+                    "the buffered server folds arrivals through the "
+                    "device-resident aggregation plane"
                 )
+            k = ar.buffer_size or self.fl.n_total_clients
+            if k > self.fl.n_total_clients:
+                raise ValueError(
+                    f"async_rounds.buffer_size={ar.buffer_size} exceeds "
+                    f"fl.n_total_clients={self.fl.n_total_clients} — the "
+                    "buffer could never fill"
+                )
+            if not 1 <= ar.min_arrivals <= k:
+                raise ValueError(
+                    f"async_rounds.min_arrivals must be in [1, K={k}], got "
+                    f"{ar.min_arrivals} (above K the clock could never "
+                    "advance)"
+                )
+        elif (
+            ar.buffer_size or ar.min_arrivals != 1 or ar.max_staleness != 4
+            or ar.staleness_policy != "poly" or ar.staleness_power != 1.0
+            or ar.n_versions or ar.fit_time_s != 1.0
+        ):
+            warnings.warn(
+                "photon.async_rounds knobs are set but async_rounds.enabled="
+                "False — the synchronous round clock will run",
+                stacklevel=3,
+            )
+        cs = self.photon.comm_stack
+        if self.photon.compression.policy != "off" and cs.collective:
+            raise ValueError(
+                "compression applies to the pointer planes (shm/objstore/"
+                "inline); the collective comm stack aggregates on-device and "
+                "bypasses the wire codec — set compression.policy='off' "
+                "(in-collective quantization is its own knob: "
+                "comm_stack.collective_quantization)"
+            )
+        from photon_tpu_torch.compression.quantize import COLLECTIVE_QUANTIZATIONS
+
+        if cs.collective_quantization not in COLLECTIVE_QUANTIZATIONS:
+            raise ValueError(
+                f"comm_stack.collective_quantization must be one of "
+                f"{COLLECTIVE_QUANTIZATIONS}, got {cs.collective_quantization!r}"
+            )
+        if cs.collective_replica < 1:
+            raise ValueError(
+                f"comm_stack.collective_replica must be >= 1, got "
+                f"{cs.collective_replica}"
+            )
+        if cs.collective_q8_block < 0:
+            raise ValueError(
+                f"comm_stack.collective_q8_block must be >= 0 (0 = codec "
+                f"default), got {cs.collective_q8_block}"
+            )
+        if cs.collective_stage_timeout_s < 0:
+            raise ValueError(
+                f"comm_stack.collective_stage_timeout_s must be >= 0 "
+                f"(0 = no deadlines), got {cs.collective_stage_timeout_s}"
+            )
+        if not 0.0 < cs.collective_quorum <= 1.0:
+            raise ValueError(
+                f"comm_stack.collective_quorum must be in (0, 1], got "
+                f"{cs.collective_quorum}"
+            )
+        if cs.collective_retry_budget < 0:
+            raise ValueError(
+                f"comm_stack.collective_retry_budget must be >= 0, got "
+                f"{cs.collective_retry_budget}"
+            )
+        if not cs.collective and (
+            cs.collective_quantization != "off"
+            or cs.collective_replica != 1
+            or cs.collective_q8_block != 0
+            or cs.collective_device_optimizer
+            or not cs.collective_zero1
+            or cs.collective_stage_timeout_s != 0.0
+            or cs.collective_quorum != 0.5
+            or cs.collective_retry_budget != 1
+        ):
+            raise ValueError(
+                "comm_stack.collective_{quantization,replica,q8_block,"
+                "device_optimizer,zero1,stage_timeout_s,quorum,retry_budget} "
+                "shape the collective aggregation plane — set "
+                "comm_stack.collective=true (the driver topologies "
+                "would silently ignore them)"
+            )
 
 
 def _validate_telemetry(tel: TelemetryConfig) -> None:

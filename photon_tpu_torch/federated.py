@@ -40,9 +40,15 @@ from photon_tpu_torch.metrics.history import History
 def build_app(cfg: Config, n_nodes: int = 1, multiprocess: bool = False,
               tcp_listen: str | None = None, device: str | None = None) -> ServerApp:
     if cfg.photon.comm_stack.collective:
+        # the collective plane is a different topology (multi-controller,
+        # no server process): fail loudly instead of silently falling back
+        # to a pointer plane
         raise ValueError(
-            "photon.comm_stack.collective uses the multi-controller topology of "
-            "photon_tpu.federation.collective_round, which is not ported"
+            "photon.comm_stack.collective uses the multi-controller SPMD "
+            "topology: launch `python -m photon_tpu_torch.federation.collective_round "
+            "--coordinator host:port --num-processes N --process-id i "
+            "--config ...` on every slice instead of the driver-based "
+            "federated CLI (see photon_tpu_torch/federation/collective_round.py)"
         )
     save = pathlib.Path(cfg.photon.save_path)
     save.mkdir(parents=True, exist_ok=True)

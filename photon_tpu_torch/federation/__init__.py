@@ -1,7 +1,8 @@
 """Federation layer: the server round loop, node agents, the in-process,
 multiprocess and TCP drivers (``federation.tcp``), the parameter transport
-and membership (the port of ``photon_tpu/federation``; the collective and
-async round runners are not ported)."""
+and membership (the port of ``photon_tpu/federation``). The collective and async round
+runners live in ``collective_round`` and ``async_round``, imported by
+module path."""
 
 from photon_tpu_torch.federation.client_runtime import ClientRuntime
 from photon_tpu_torch.federation.driver import Driver, InProcessDriver, MultiprocessDriver

@@ -162,3 +162,29 @@ class Strategy:
 
     def state_for_checkpoint(self) -> dict[str, list[np.ndarray]]:
         return {k: self.state[k] for k in self.state_keys if k in self.state}
+
+    # per-version rollback and the device plane's mirror --------------------
+    def snapshot(self) -> tuple[list[np.ndarray], dict[str, list[np.ndarray]], int]:
+        """Deep copy of (params, optimizer state, adaptive step counter): the
+        async runner's per-version rollback point, so a fold that raises
+        leaves the strategy at the pre-fold version."""
+        if self.current_parameters is None:
+            raise RuntimeError("strategy not initialized with parameters")
+        return (
+            [p.copy() for p in self.current_parameters],
+            {k: [a.copy() for a in v] for k, v in self.state.items()},
+            int(getattr(self, "_t", 0)),
+        )
+
+    def restore(self, snap: tuple[list[np.ndarray], dict[str, list[np.ndarray]], int]) -> None:
+        params, state, t = snap
+        self.current_parameters = [p.copy() for p in params]
+        self.restore_optimizer_state({k: [a.copy() for a in v] for k, v in state.items()}, t=t)
+
+    def restore_optimizer_state(self, state: dict[str, list[np.ndarray]],
+                                t: int | None = None) -> None:
+        """Adopt optimizer state computed elsewhere: the device aggregation
+        plane (``parallel/collective_agg.py``) mirrors its state back through
+        here. ``t`` is the adaptive strategies' step counter (see
+        ``optimizers._AdaptiveBase``); the other rules ignore it."""
+        self.state = {k: [np.asarray(a, np.float32) for a in v] for k, v in state.items()}

@@ -10,9 +10,9 @@ over a small payload::
 
 :func:`grouped_host_fold` is ``aggregate_inplace`` per cohort: the JAX
 package's oracle for its fused multi-cohort program, and here the fold
-itself. The JAX class's rollback (``snapshot``/``restore``) and column
-index serve its collective runner's elastic ladder and fused program,
-which are not ported.
+itself, and the collective runner's oracle for its grouped reduction
+(``parallel/collective_agg.grouped_weighted_average``). ``snapshot`` and
+``restore`` are the rollback point of that runner's elastic ladder.
 """
 
 from __future__ import annotations
@@ -42,6 +42,11 @@ class CohortStrategies:
     def state_keys(self) -> tuple[str, ...]:
         return next(iter(self.strategies.values())).state_keys
 
+    def index_of(self, cohort: str) -> int:
+        """The cohort's column in the grouped reduction's one-hot rows
+        (sorted-name order, stable across rounds)."""
+        return self.names.index(cohort)
+
     def initialize(self, adapters: dict[str, list[np.ndarray]],
                    state: dict[str, dict[str, list[np.ndarray]]] | None = None,
                    t: dict[str, int] | None = None) -> None:
@@ -61,6 +66,25 @@ class CohortStrategies:
         (``Strategy.apply_average`` over the cohort's payload)."""
         return self.strategies[cohort].apply_average(server_round, avg, n_samples, n_clients)
 
+    def snapshot(self) -> dict:
+        """Deep host copy of every cohort's params, state and ``_t``: the
+        point an elastic retry restores (a partly applied grouped attempt
+        must never step the cohorts it reached twice)."""
+        return {
+            name: ([a.copy() for a in (s.current_parameters or [])],
+                   {k: [a.copy() for a in v] for k, v in s.state.items()},
+                   int(getattr(s, "_t", 0)))
+            for name, s in self.strategies.items()
+        }
+
+    def restore(self, snap: dict) -> None:
+        for name, (params, state, t) in snap.items():
+            s = self.strategies[name]
+            s.current_parameters = [a.copy() for a in params]
+            s.state = {k: [a.copy() for a in v] for k, v in state.items()}
+            if hasattr(s, "_t"):
+                s._t = t
+
     def adapters_for_checkpoint(self) -> dict[str, list[np.ndarray]]:
         return {n: list(s.current_parameters) for n, s in self.strategies.items()}
 
@@ -75,6 +99,20 @@ def cohort_of_map(cohorts: dict[str, list[int]]) -> dict[int, str]:
     """The config's cohort map → client id lookup (validation refused
     overlaps)."""
     return {int(cid): name for name, cids in cohorts.items() for cid in cids}
+
+
+def cohort_onehot(cids: Iterable[int], cohort_of: dict[int, str],
+                  cohort_names: list[str]) -> np.ndarray:
+    """``[len(cids), K]`` 0/1 assignment rows for the grouped reduction; a
+    cid in no cohort is an all-zero row (it contributes nowhere)."""
+    cids = list(cids)
+    idx = {n: i for i, n in enumerate(cohort_names)}
+    out = np.zeros((len(cids), len(cohort_names)), np.float32)
+    for row, cid in enumerate(cids):
+        name = cohort_of.get(int(cid))
+        if name is not None:
+            out[row, idx[name]] = 1.0
+    return out
 
 
 def grouped_host_fold(landed: dict[int, tuple[list[np.ndarray], int]],

@@ -108,6 +108,15 @@ class _AdaptiveBase(Strategy):
         if t is not None:
             self._t = int(np.asarray(t[0]).ravel()[0])
 
+    def restore_optimizer_state(self, state, t=None):
+        # the device plane advances its own step counter: adopting its
+        # moments without the matching _t would reset bias correction
+        state = dict(state)
+        state.pop("_t", None)
+        super().restore_optimizer_state(state)
+        if t is not None:
+            self._t = int(t)
+
 
 class FedAdam(_AdaptiveBase):
     name = "fedadam"

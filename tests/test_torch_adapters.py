@@ -7,7 +7,7 @@ and data made with numpy; one case for each case of
 to the JAX package:
 
 1. ``photon.adapters`` validation (the JAX package's texts; the device
-   optimizer stays refused with the collective plane);
+   optimizer is refused with the collective plane, as in JAX);
 2. the ``lora.py`` helpers: names, order, shapes, ``init_adapter_arrays``'
    bits, split/merge and the merge math byte-equal to JAX's;
 3. LoRA logits of the port's ``MPTModel`` against ``MPTModel.apply``
@@ -130,14 +130,15 @@ def test_adapters_config_rejects_moe_momenta_device_optimizer():
             with pytest.raises(ValueError, match=text):
                 cfg.validate()
     # the JAX package's case: the device optimizer with the collective
-    # plane, which the port does not run at all
+    # plane, refused by both packages with the same text
     jcfg = _adapter_cfg()
     jcfg.photon.comm_stack.collective = True
     jcfg.photon.comm_stack.collective_device_optimizer = True
-    with pytest.raises(ValueError, match="device_optimizer"):
+    with pytest.raises(ValueError, match="device_optimizer") as want:
         jcfg.validate()
-    with pytest.raises(NotImplementedError, match="collective"):
+    with pytest.raises(ValueError, match="device_optimizer") as got:
         _port(jcfg).validate()
+    assert str(got.value) == str(want.value)
     # model.lora_rank with MoE, as in JAX
     d = JaxConfig().to_dict()
     d["model"].update(mlp="moe", moe_num_experts=2, lora_rank=4, lora_targets=["wqkv"])

@@ -15,8 +15,8 @@
    telemetry events are cases of ``tests/test_torch_observatory.py``); the scheduler's
    ``serve_stall`` and the client runtime's ``nan_delta`` and
    ``fit_delay``; the schema: ``photon.chaos`` validates with JAX's
-   texts, telemetry's autopilot validates with the plane, and async
-   rounds and the collective plane stay refused.
+   texts, telemetry's autopilot validates with the plane, and so do async
+   rounds and the collective plane (JAX's texts for their bad values).
 
 With chaos off, TCP frames and store bytes are what they were before the
 hooks (``test_tcp_frames_unchanged_with_chaos_off``,
@@ -676,7 +676,8 @@ def test_chaos_replica_kill_mid_traffic():
 def test_chaos_config_validates_with_jax_texts(tmp_path):
     """``photon.chaos`` validates (the JAX package's texts and its warning
     for knobs set while off); telemetry's autopilot validates with the plane,
-    async rounds and the collective plane stay refused."""
+    and so do the collective plane and async rounds on it (without it,
+    async rounds raise JAX's text)."""
     from photon_tpu.config.schema import Config as JaxConfig
     from photon_tpu_torch.config.schema import Config
 
@@ -711,12 +712,17 @@ def test_chaos_config_validates_with_jax_texts(tmp_path):
             d["photon"][feature]["autopilot"] = {"enabled": True}
             Config.from_dict(d).validate()
             continue
-        with pytest.raises(NotImplementedError):
+        # async rounds need the collective plane, in both packages' words
+        with pytest.raises(ValueError) as got:
             Config.from_dict(d).validate()
+        with pytest.raises(ValueError) as want:
+            JaxConfig.from_dict(d).validate()
+        assert str(got.value) == str(want.value)
+        d["photon"]["comm_stack"].update(collective=True, shm=False)
+        Config.from_dict(d).validate()
     collective = make_cfg(tmp_path)
     collective.photon.comm_stack.collective = True
-    with pytest.raises(NotImplementedError):
-        collective.validate()
+    collective.validate()
 
 
 def _yaml(cfg, path):

@@ -27,10 +27,9 @@ across as numpy, inline transport unless a case says otherwise:
 6. config and CLI: a port-written ``config.yaml`` loads in JAX with equal
    ``fl``/``photon`` fields; ``python -m photon_tpu_torch.federated
    --device cpu`` prints the JAX CLI's keys, and its History times each
-   phase of a round; every unported feature (the collective plane, async
-   rounds) is refused with ``NotImplementedError``, while telemetry's
-   autopilot validates (``photon.chaos`` is ported:
-   ``tests/test_torch_chaos.py``).
+   phase of a round; the collective plane, async rounds and telemetry's
+   autopilot validate, and a bad value raises JAX's text in both packages
+   (``photon.chaos`` is ported: ``tests/test_torch_chaos.py``).
 """
 
 import contextlib
@@ -673,20 +672,39 @@ def test_cli_history_times_each_phase_of_a_round(tmp_path, monkeypatch):
                                                if k != "node_training_time_s")
 
 
+#: federation features the port once refused and now runs: (the edit that
+#: turns each on, an invalid value and the JAX package's text for it)
+FEDERATION_FEATURES = {
+    "collective": (lambda p: p["comm_stack"].update(collective=True, shm=False),
+                   lambda p: p["comm_stack"].update(collective_quorum=0.0),
+                   "comm_stack.collective_quorum must be in (0, 1]"),
+    "telemetry": (lambda p: (p["telemetry"].update(enabled=True),
+                             p["telemetry"]["autopilot"].update(enabled=True, straggler_p90=0.5)),
+                  lambda p: p["telemetry"].update(prom_port=-1),
+                  "telemetry.prom_port must be in [0, 65535]"),
+    "async_rounds": (lambda p: (p["comm_stack"].update(collective=True, shm=False),
+                                p["async_rounds"].update(enabled=True)),
+                     lambda p: p["async_rounds"].update(min_arrivals=0),
+                     "async_rounds.min_arrivals must be in [1, K=4]"),
+}
+
+
 @pytest.mark.parametrize("feature", ["collective", "telemetry", "async_rounds"])
 def test_unported_federation_features_refused(tmp_path, feature):
+    """The collective plane, async rounds and telemetry's autopilot with its
+    collective rule validate in both packages when on,
+    and an invalid value raises the JAX package's ValueError text in both
+    (each was once refused here with NotImplementedError)."""
     from photon_tpu_torch.config.schema import Config
 
+    on, bad, text = FEDERATION_FEATURES[feature]
     d = _jax_cfg(tmp_path).to_dict()
-    if feature == "collective":
-        d["photon"]["comm_stack"]["collective"] = True
-    else:
-        d["photon"][feature]["enabled"] = True
-    if feature == "telemetry":  # ported, its SLO autopilot too: only the
-        # autopilot's collective and async planes wait, refused with them
-        d["photon"][feature]["autopilot"]["enabled"] = True
-        d["photon"][feature]["autopilot"]["straggler_p90"] = 0.5
+    on(d["photon"])
+    JaxConfig.from_dict(d).validate()
+    Config.from_dict(d).validate()
+    bad(d["photon"])
+    with pytest.raises(ValueError) as want:
+        JaxConfig.from_dict(d).validate()
+    with pytest.raises(ValueError, match=text.replace("[", r"\[").replace("(", r"\(")) as got:
         Config.from_dict(d).validate()
-        d["photon"]["async_rounds"]["enabled"] = True
-    with pytest.raises(NotImplementedError):
-        Config.from_dict(d).validate()
+    assert str(got.value) == str(want.value)

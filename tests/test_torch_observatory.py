@@ -1107,9 +1107,8 @@ def test_chip_smoke_telemetry_phase_on_the_cpu(tmp_path, monkeypatch):
     the round-1 profile parsed, no CUDA context in the server; (b) the
     serve CLI with telemetry on: every request 200, the TTFT histogram's
     count and trace-id exemplars, ``/statusz`` ok, a flat build counter
-    and a completed on-demand capture, then the off/on decode passes. The
-    launch counts, the device bytes and the K4 records in the capture are
-    card-only."""
+    and a completed on-demand capture. The launch counts, the device bytes
+    and the K4 records in the capture are card-only."""
     from photon_tpu_torch.config.schema import Config
     from tests.test_torch_compression import _chip_smoke
 
@@ -1127,8 +1126,7 @@ def test_chip_smoke_telemetry_phase_on_the_cpu(tmp_path, monkeypatch):
     s = scfg.photon.serve
     s.n_slots, s.block_size, s.n_blocks, s.prefill_token_budget = 8, 4, 0, 16
     s.max_new_tokens, s.max_queue = 64, 64
-    rec = smoke.telemetry_phase(np, cfg=cfg, scfg=scfg, device="cpu", work=tmp_path / "tel",
-                                ab_prompt=8, ab_new=48, ab_window_s=0.02)
+    rec = smoke.telemetry_phase(np, cfg=cfg, scfg=scfg, device="cpu", work=tmp_path / "tel")
     fed, serve = rec["fed"], rec["serve"]
     assert fed["processes"] == ["node0", "node1", "server"] and not fed["orphans"]
     assert fed["spans_by_name"] == {"client/fit": 4, "client/evaluate": 4}
@@ -1138,6 +1136,4 @@ def test_chip_smoke_telemetry_phase_on_the_cpu(tmp_path, monkeypatch):
     assert serve["ttft_count"] == 16 and serve["exemplar_trace_ids"] >= 1
     assert serve["statusz"] == "ok" and serve["compiles"] == serve["compiles_after"] == 0.0
     assert serve["profile"]["records"] > 0 and serve["profile"]["last_error"] is None
-    ms = serve["decode_ms_per_step"]
-    assert len(ms["off"]) == len(ms["on"]) == 2 and ms["on_over_off"] > 0
     assert not (tmp_path / "tel").exists()

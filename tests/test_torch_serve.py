@@ -525,6 +525,9 @@ def test_port_imports_no_jax_or_reference_package():
         "introspect", "autopilot")} <= set(files)
     assert {ROOT / "photon_tpu_torch/analysis/__init__.py",
             ROOT / "photon_tpu_torch/analysis/runtime.py"} <= set(files)
+    assert {ROOT / f"photon_tpu_torch/{m}.py" for m in (
+        "parallel/__init__", "parallel/collective_agg", "compression/quantize_torch",
+        "federation/collective_round", "federation/async_round")} <= set(files)
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -537,7 +540,10 @@ def test_import_leaves_jax_out_of_sys_modules():
             "photon_tpu_torch.serve.router, photon_tpu_torch.serve.fleet, "
             "photon_tpu_torch.telemetry, photon_tpu_torch.telemetry.prom, "
             "photon_tpu_torch.telemetry.export, photon_tpu_torch.federation.tcp, "
-            "photon_tpu_torch.telemetry.autopilot, photon_tpu_torch.analysis.runtime; "
+            "photon_tpu_torch.telemetry.autopilot, photon_tpu_torch.analysis.runtime, "
+            "photon_tpu_torch.parallel.collective_agg, photon_tpu_torch.compression.quantize_torch, "
+            "photon_tpu_torch.federation.collective_round, "
+            "photon_tpu_torch.federation.async_round; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'photon_tpu')))")
     out = subprocess.run([sys.executable, "-S", "-c", code], cwd=ROOT, capture_output=True,
@@ -621,9 +627,9 @@ def _set(d, path, value):
 def test_unported_features_refused(feature):
     """Features the port does not run are refused with NotImplementedError;
     the features it runs validate when on, and an invalid value raises the
-    JAX package's ValueError (the same text as JAX's). Adapters and the
-    fleet run; the collective plane (the JAX package's adapter round loop)
-    is refused."""
+    JAX package's ValueError (the same text as JAX's). Adapters, their
+    collective round loop and the fleet run; the mesh autotuner (a client's
+    model parallelism) is refused."""
     from photon_tpu_torch.config.schema import Config
 
     d = _jax_cfg("mpt-wpe").to_dict()
@@ -642,7 +648,7 @@ def test_unported_features_refused(feature):
         d["model"].update(mlp="moe", moe_num_experts=4)
         Config.from_dict(d).validate("cpu")
         d["mesh"]["expert"] = 2
-    elif feature == "adapters":  # adapters are ported; their collective round loop is not
+    elif feature == "adapters":  # adapters and their collective round loop are ported
         d["photon"]["adapters"].update(enabled=True, cohorts={"a": [0]})
         JaxConfig.from_dict(d).validate()
         Config.from_dict(d).validate("cpu")
@@ -652,6 +658,9 @@ def test_unported_features_refused(feature):
                 cfg.validate()
         d["photon"]["adapters"]["rank"] = 8
         d["photon"]["comm_stack"]["collective"] = True
+        JaxConfig.from_dict(d).validate()
+        Config.from_dict(d).validate("cpu")
+        d["photon"]["mesh_autotune"] = True
     else:
         d["photon"]["serve"][feature]["enabled"] = True
     with pytest.raises(NotImplementedError):

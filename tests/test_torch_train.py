@@ -464,10 +464,12 @@ def test_unported_training_features_refused(feature):
         d["mesh"]["expert"] = 2
     elif feature == "mesh_autotune":
         d["photon"]["mesh_autotune"] = True
-    else:  # LoRA trains; the collective plane that runs the JAX adapter rounds does not
+    else:  # LoRA trains, on the collective plane too; a client's mesh does not
         d["model"].update(lora_rank=4, lora_targets=["wqkv"])
         Config.from_dict(d).validate()
         d["photon"]["comm_stack"]["collective"] = True
+        Config.from_dict(d).validate()
+        d["mesh"]["data"] = 2
     with pytest.raises(NotImplementedError):
         Config.from_dict(d).validate()
     if feature in ("mesh", "auto_micro", "mesh_autotune"):
