@@ -53,16 +53,17 @@ Phases (any failure exits non-zero):
    ``Trainer`` that ran 6 steps on the same stream; a planted fault (the
    cumulative step never injected, 2 rounds × 1 step against the
    Trainer's step 2) must read at least 10× the sound gap;
-5b. federated rounds across processes, beside phase 5's run: (a)
-   ``--multiprocess --nodes 2`` on phase 5's config (2 rounds; each node a
-   spawned process with its own CUDA context on the one card, the objstore
-   plane): round-2 parameters and the eval losses at rounds 0 and 2 within
-   ``FED_GATE`` of phase 5's first run, no CUDA context in the server
-   process (``nvidia-smi --query-compute-apps`` counts the card's
-   contexts); the round breakdown, each node's own peak memory and the
-   card's; a planted fault (a spawned node that seeds its synthetic data
-   with Python's per-process ``hash``) must part the round-0 eval loss
-   over the gate. (b) at ``TCP_LAYERS`` layers, ``--tcp-listen`` (a child
+5b. federated rounds across processes, on phase 5's config: (a)
+   ``--multiprocess --nodes 2`` beside phase 5's in-process rounds (2
+   rounds; each node a spawned process with its own CUDA context on the
+   one card, the objstore plane): round-2 parameters and the eval losses
+   at rounds 0 and 2 within ``FED_GATE`` of phase 5's first run, no CUDA
+   context in the server process (``nvidia-smi --query-compute-apps``
+   counts the card's contexts); the round breakdown, each node's own peak
+   memory and the card's; beside (b)'s checks, a planted fault (a spawned
+   node that seeds its synthetic data with Python's per-process ``hash``)
+   must part the round-0 eval loss over the gate. (b) at ``TCP_LAYERS``
+   layers, ``--tcp-listen`` (a child
    that opens no CUDA context) with ``delta_topk_q8`` and error feedback,
    ``reset_optimizer`` on each fit, 3 rounds: node0 is ``run_node`` on a
    thread of this process, node1 a ``python -m
@@ -320,8 +321,9 @@ and (d) in a child beside 14–16:
     budget and ``k_max`` traces, the reclaims' blocks, approval → live
     seconds and the legs' walls.
 
-(a) and (e) in this process beside phase 5b (a)'s children, (b)-(d) in a
-child beside 14-16, (c) across processes after 14-16 on a quiet card:
+(a) and (e) in a child beside phase 5b, (c) and (d) in process in a child
+beside 14-16, (b) and (c) across processes (one pair) after 14-16 on a
+quiet card:
 
 18. federated rounds over collectives (``federation/collective_round.py``
     on ``parallel/collective_agg.py``). (a) Full-width mpt-125m (12
@@ -344,32 +346,58 @@ child beside 14-16, (c) across processes after 14-16 on a quiet card:
     both collective knobs with the autopilot. (b) At 2 layers, ``python -m
     photon_tpu_torch.federation.collective_round --num-processes 2`` as two
     children on the one card (one client each, gloo: NCCL takes no two
-    ranks on one GPU): both processes' parameters bitwise equal and within
-    (a)'s tolerance of an in-process run; backend, staged legs, contexts
-    and each process's peak recorded. (c) In process at 2 layers, 3
+    ranks on one GPU) for 3 rounds: both processes' parameters after round
+    2 bitwise equal and within (a)'s tolerance of an in-process run, K1–K3
+    exact; backend, staged legs, contexts and each process's peak
+    recorded. (c) In process at 2 layers, 3
     clients, 4 rounds of one runner: a chaos mid-fit crash in round 2
     reconfigures the cohort (one straggler, the parameters the
     survivors-only fold's bit for bit) and round 3 runs all three; under
     the autopilot the straggler rule makes ``COLL_AP_DECISION`` and no
     other; at quorum 0.9 the same crash in round 4 degrades to the host
     fold, bit for bit ``aggregate_inplace`` over the landed deltas; across
-    processes (b)'s pair with ``crash_phase:
-    pre-exchange`` on process 1 in round 2 and a 10 s stage timeout:
-    process 1 exits 137, process 0 degrades to the host fold and finishes
-    the round within timeout + 5 s of the crash (the crash marker's
-    mtime). (d) Async at 2 layers: the buffer the cohort at zero staleness
+    processes, in (b)'s pair, ``crash_phase: pre-exchange`` on process 1 in
+    round 3 and a 10 s stage timeout: process 1 exits 137, process 0
+    degrades to the host fold and finishes the round within timeout + 5 s
+    of the crash (the crash marker's mtime). (d) Async at 2 layers: the buffer the cohort at zero staleness
     equals the sync runner bit for bit; 4 clients, one slowed 4× by
     chaos's ``fit_delay``, buffer 2, max staleness 1: ``COLL_ASYNC_VERSIONS``
     versions, at least one reject, ``server/async_max_staleness``
     registered and the ``async`` plane ticked.
 
+In a child of its own beside phase 5b (and 18 (a)):
+
+19. model parallelism inside a client (``parallel/spmd.py``): a
+    ``Trainer`` on a mesh that names ``cuda:0`` at every position against
+    a single-device ``Trainer`` from the same weights (seed 0) and
+    batches, 3 steps, bf16: (a) full-width, full-depth mpt-125m at seq
+    4096, ``sequence=4`` (``pallas`` → ring), batch 4; (b) mpt-125m's width
+    at 2 layers, seq 2048, ``fsdp=2 × tensor=2``, batch 8; (c) llama-1b's
+    width at 2 layers (GQA 16/4, D=128, RoPE, remat), seq 4096, ``tensor=2
+    × sequence=2``, batch 2. Each meshed step launches K1–K3 exactly as
+    :func:`_mesh_launch_rule` counts (a ring of ``n`` runs ``n(n+1)/2``
+    chunk kernels a layer and group: (a) 120, (b) 8, (c) 24 / 12 / 12);
+    each step's loss and grad norm, and every parameter's gradient after
+    step 1, within ``TRAIN_GRAD_GATE`` of the single-device run; a planted
+    fault over it: (a) ring position 0's diagonal chunk at causal offset 1,
+    (b) the tensor all-reduce keeping its first position's part, (c) RoPE
+    positions restarting at 0 in each sequence chunk; (b) also the
+    parameters after the steps within the gate and ``set_parameters`` →
+    ``get_parameters`` bit for bit. K1–K3 at (a)'s ring chunks (B=4,
+    S=1024, H=12, D=64) at offsets 0 and 1024 against their plain
+    versions, K1 timed beside its bound and SDPA (causal, unmasked).
+    Recorded: step walls, tokens/s, peak memory, and for (a) the idle
+    share of a profiled step of each run.
+
 To keep the whole smoke within 800 s with phases 14 and 15, three earlier
 paths run mpt-125m's width at 2 of its 12 layers: phase 4
 (``ENTRY_LAYERS``), phase 5's in-process comparison (``FED_GATE_LAYERS``)
 and phase 5b (b) (``TCP_LAYERS``: its TCP run, comparator and both
-planted faults); phase 5's CLI runs and 5b (a) keep the full depth. With
-phase 16 joining, phase 5's two CLI runs moved into this process (a child
-spends ~10 s starting) and 16 runs beside 14's end.
+planted faults); phase 5's CLI runs keep the full depth. With phase 16
+joining, phase 5's two CLI runs moved into this process (a child spends
+~10 s starting) and 16 runs beside 14's end. With phase 19 joining, 5b
+(a)'s two-round run moved beside phase 5's in-process rounds, and 18 (a)
+and 19 run in children beside 5b.
 
 The second-last line of stdout is the ``kernels`` JSON; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -991,7 +1019,8 @@ def _shifted_offset_fault(fa):
     causal diagonal moved back by one 64-row tile (each query loses its
     64 most recent keys; the first 64 rows see none)."""
     def faulty(q, k, v, *, causal=True, alibi=False):
-        return fa.FlashAttention.apply(q, k, v, None, causal, k.shape[1] - q.shape[1] - 64, None)
+        return fa.FlashAttention.apply(q, k, v, None, causal, k.shape[1] - q.shape[1] - 64,
+                                       None)[0]
 
     return faulty
 
@@ -1523,16 +1552,23 @@ def federated_phase(torch, np):
     shm_dir = tempfile.mkdtemp(prefix="photon-smoke-", dir="/dev/shm" if free >= need else work)
     log(f"federated: shm plane in {shm_dir} (/dev/shm free {free / 1e9:.2f} GB, "
         f"a round needs {need / 1e9:.2f} GB)")
+    base = ["--config", str(work / "in.yaml"), "--device", "cuda", "--nodes", "2"]
+    for s in FED_SETS:
+        base += ["--set", s]
+    mp = None
     try:
-        base = ["--config", str(work / "in.yaml"), "--device", "cuda", "--nodes", "2"]
-        for s in FED_SETS:
-            base += ["--set", s]
-        first = _fed_cli_inprocess(torch, "rounds-1-2", base + ["--rounds", "2"], shm_dir)
-        second = _fed_cli_inprocess(torch, "resume-to-3", base + ["--rounds", "3", "--set",
-                                                                  "photon.resume_round=-1"],
-                                    shm_dir)
+        # phase 5b (a) in a child beside (a)'s in-process runs, which open
+        # no CUDA context of their own: the card's contexts count its nodes
+        with _GpuMemory() as mem:
+            mp = _multiprocess_start(work, base)
+            first = _fed_cli_inprocess(torch, "rounds-1-2", base + ["--rounds", "2"], shm_dir)
+            second = _fed_cli_inprocess(torch, "resume-to-3", base + [
+                "--rounds", "3", "--set", "photon.resume_round=-1"], shm_dir)
+            mp_run = _fed_cli_finish(work, "multiprocess", mp)
         left = sorted(p.name for p in pathlib.Path(shm_dir).iterdir())
     finally:
+        if mp is not None and mp[0].poll() is None:
+            mp[0].kill()
         shutil.rmtree(shm_dir, ignore_errors=True)
     if left:
         fail(f"federated CLI left shm segments behind: {left}")
@@ -1558,6 +1594,7 @@ def federated_phase(torch, np):
     if [r for r, _ in evals_1] != [0, 2] or not all(math.isfinite(v) for _, v in evals_1) \
             or first["final_line"].get("server/eval_loss") != evals_1[-1][1]:
         fail(f"federated CLI: eval losses {evals_1}, final line {first['final_line']}")
+    multiprocess = _multiprocess_checks(np, work, mp_run, mem, first)
 
     # (c) + (d): one client in process against centralized training
     gcfg = copy.deepcopy(cfg)
@@ -1587,9 +1624,10 @@ def federated_phase(torch, np):
         fail(f"the planted set_step fault reads {gate['planted_fault']:.3e}, not "
              f"{FED_FAULT_RATIO}x the sound {gate['sound']:.3e} and over the gate {FED_GATE}")
     rec = {"shm_dir": shm_dir, "dev_shm_free_gb": free / 1e9, "payload_gb": payload / 1e9,
-           "runs": [first, second], "gate": gate,
+           "runs": [first, second], "gate": gate, "multiprocess": multiprocess,
            "store": str(work / "store"), "run_uuid": FED_RUN, "served_round": 3}
-    log("federated_phase " + json.dumps({k: v for k, v in rec.items() if k != "runs"}))
+    log("federated_phase " + json.dumps({k: v for k, v in rec.items()
+                                         if k not in ("runs", "multiprocess")}))
     return rec
 
 
@@ -1951,30 +1989,35 @@ def _stale_reference_run(cfg, work: pathlib.Path, device: str = "cuda"):
     return _inprocess_rounds(one, work, "stale", True, "stale", 2, device, ef_identity=True)
 
 
-def _multiprocess(np, work, fed, base, beside=None) -> dict:
-    """(a): ``--multiprocess --nodes 2`` on phase 5's config for 2 rounds;
-    the card's contexts and memory sampled, each node's own peak reported.
-    ``beside`` (a callable that starts no process) runs in this process
-    while the run's children train; its result is returned under
-    ``"beside"``."""
-    from photon_tpu_torch.checkpoint import FileStore, ServerCheckpointManager
-
+def _multiprocess_start(work: pathlib.Path, base: list[str]):
+    """5b (a): ``--multiprocess --nodes 2`` on phase 5's config for 2
+    rounds, a child whose nodes are spawned processes with their own CUDA
+    contexts on the one card; each node reports its own peak memory."""
     reports = work / "mp-nodes"
     reports.mkdir()
-    with _GpuMemory() as mem:
-        started = _fed_cli_start(
-            work, "multiprocess", base + ["--multiprocess", "--rounds", "2",
-                                          "--set", f"photon.save_path={work / 'mp'}"],
-            opts=("--measured-nodes",), env={"PHOTON_SMOKE_NODE_REPORT": str(reports)})
-        beside_rec = beside() if beside is not None else None
-        run = _fed_cli_finish(work, "multiprocess", started)
+    return _fed_cli_start(
+        work, "multiprocess", base + ["--multiprocess", "--rounds", "2",
+                                      "--set", f"photon.save_path={work / 'mp'}"],
+        opts=("--measured-nodes",), env={"PHOTON_SMOKE_NODE_REPORT": str(reports)})
+
+
+def _multiprocess_checks(np, work: pathlib.Path, run: dict, mem: "_GpuMemory",
+                         first: dict) -> dict:
+    """5b (a)'s gates on its finished run: round-2 parameters and the eval
+    losses at rounds 0 and 2 within ``FED_GATE`` of phase 5's first run
+    (the same bits expected), the card's contexts exactly two more than
+    before the run (the nodes; none in the server) and each node's own peak
+    reported; the round breakdown recorded."""
+    from photon_tpu_torch.checkpoint import FileStore, ServerCheckpointManager
+
     run["rounds"] = _round_breakdown(run["history"], [1, 2])
     # contexts: this process, then the two nodes; the server would be one more
     run["card"] = mem.record()
-    run["nodes_memory"] = [json.loads(f.read_text()) for f in sorted(reports.iterdir())]
-    ref = fed["runs"][0]["history"]["server/eval_loss"]
+    run["nodes_memory"] = [json.loads(f.read_text())
+                           for f in sorted((work / "mp-nodes").iterdir())]
+    ref = first["history"]["server/eval_loss"]
     got = run["history"].get("server/eval_loss", [])
-    want = ServerCheckpointManager(FileStore(fed["store"]), FED_RUN).load_round_params(2)[1]
+    want = ServerCheckpointManager(FileStore(work / "store"), FED_RUN).load_round_params(2)[1]
     have = ServerCheckpointManager(FileStore(work / "mp" / "store"), FED_RUN).load_round_params(2)[1]
     run["params_bit_equal"] = all(np.array_equal(a, b) for a, b in zip(have, want))
     run["params_max_rel_l2"] = _param_rel(np, have, want)
@@ -1991,7 +2034,7 @@ def _multiprocess(np, work, fed, base, beside=None) -> dict:
         fail(f"--multiprocess: the server initialized CUDA ({run['cuda_initialized']}), or the "
              f"card held {mem.record()} (want 2 contexts more: the nodes), or the nodes "
              f"reported {run['nodes_memory']}")
-    run["beside"] = beside_rec
+    log("dist_multiprocess " + json.dumps({k: v for k, v in run.items() if k != "history"}))
     return run
 
 
@@ -2158,19 +2201,21 @@ def _tcp_ef_identity(np, work, taps: dict) -> list[dict]:
     return out
 
 
-def distributed_phase(torch, np, fa, fed, beside=None) -> dict:
-    """Phase 5b, on phase 5's config and beside its in-process run:
+def distributed_phase(torch, np, fa, fed) -> dict:
+    """Phase 5b, on phase 5's config:
 
     (a) ``python -m photon_tpu_torch.federated --multiprocess --nodes 2``
         (a child; each node a spawned process with its own CUDA context on
-        the one card) for 2 rounds: round-2 parameters and the eval losses
-        at rounds 0 and 2 within ``FED_GATE`` of phase 5's first run (the
-        same bits expected), no CUDA context in the server (the card's
-        contexts counted); the round breakdown, each node's own peak
-        memory and the card's; a planted fault (a spawned node that seeds
-        its synthetic data with Python's per-process ``hash``, patched in
-        from outside; one node, round 0 only) must part the round-0 eval
-        loss over the gate;
+        the one card) for 2 rounds runs beside phase 5's in-process rounds
+        (:func:`_multiprocess_start`, :func:`_multiprocess_checks`):
+        round-2 parameters and the eval losses at rounds 0 and 2 within
+        ``FED_GATE`` of phase 5's first run (the same bits expected), no
+        CUDA context in the server (the card's contexts counted); the round
+        breakdown, each node's own peak memory and the card's. Here, beside
+        (b)'s checks: a planted fault (a spawned node that seeds its
+        synthetic data with Python's per-process ``hash``, patched in from
+        outside; one node, round 0 only) must part the round-0 eval loss
+        over the gate;
     (b) at ``TCP_LAYERS`` layers, ``--tcp-listen`` (a child that opens no
         CUDA context) with
         ``delta_topk_q8`` and error feedback, ``reset_optimizer`` on every
@@ -2188,10 +2233,7 @@ def distributed_phase(torch, np, fa, fed, beside=None) -> dict:
         per-client error-feedback identity against node0's broadcast,
         raw delta and residuals (:func:`_ef_identity`), and an in-process
         run whose server pins the previous round's broadcast as its delta
-        base breaks it in round 2.
-
-    ``beside`` (phase 18 (a) in the smoke) runs in this process while (a)'s
-    children train; its result is returned under ``"beside"``."""
+        base breaks it in round 2."""
     from photon_tpu_torch.centralized import _apply_override
 
     work = ROOT / ".chip_smoke" / "dist"
@@ -2202,12 +2244,6 @@ def distributed_phase(torch, np, fa, fed, beside=None) -> dict:
     for s in FED_SETS:
         base += ["--set", s]
     rec: dict = {}
-    t0 = time.perf_counter()
-    rec["multiprocess"] = _multiprocess(np, work, fed, base, beside)
-    rec["multiprocess_s"] = time.perf_counter() - t0
-    rec["beside"] = rec["multiprocess"].pop("beside")
-    log("dist_multiprocess " + json.dumps({k: v for k, v in rec["multiprocess"].items()
-                                           if k != "history"}))
 
     cfg = train_config()
     for s in FED_SETS:
@@ -2252,7 +2288,7 @@ def distributed_phase(torch, np, fa, fed, beside=None) -> dict:
                                      "ef_identity": tcp_rec["ef_identity"],
                                      "ef_identity_stale_reference":
                                          tcp_rec["ef_identity_stale_reference"],
-                                     "multiprocess_fault": rec["multiprocess"]["planted_fault"],
+                                     "multiprocess_fault": rec["multiprocess_fault"],
                                      "checks_s": rec["checks_s"],
                                      "node1_exit_after_server_s":
                                          tcp_rec["node1_exit_after_server_s"]}))
@@ -2312,7 +2348,7 @@ def _dist_checks(torch, np, work, fed, base, cfg, rec, tcp_rec, sound, taps) -> 
     mp_fault_rec = {"eval_loss": fault_loss, "wall_s": fault_run["wall_s"],
                     "eval_loss_rel": abs(fault_loss[0][1] - want0) / abs(want0)
                     if fault_loss else None}
-    rec["multiprocess"]["planted_fault"] = mp_fault_rec
+    rec["multiprocess_fault"] = mp_fault_rec
     if not (mp_fault_rec["eval_loss_rel"] or 0.0) > FED_GATE:
         fail(f"--multiprocess: the salted-seed fault reads {mp_fault_rec}, within {FED_GATE}")
 
@@ -6497,6 +6533,9 @@ COLL_SLACK_S = 5.0
 #: lands stale
 COLL_ASYNC_VERSIONS = 5
 COLL_WAIT_S = 300.0
+#: the in-process run's parameters that (b)'s pair is held to, written by
+#: (c) and (d)'s child beside 14-16 and read by the pair after them
+COLL_PAIR_REF = ROOT / ".chip_smoke" / "collective_pair_ref.npz"
 #: (c) in process: the autopilot's straggler rule over the rounds'
 #: straggler fractions (0, 1/3, 0); its one decision, the same as JAX's
 #: rule gives on that series (tests/test_torch_collective_round.py pins it)
@@ -6630,7 +6669,9 @@ def _q8_bound_gate(torch, np, landed: dict, mesh, device: str) -> dict:
 def collective_phase(torch, np, cfg_fn=collective_config, device: str = "cuda",
                      work: pathlib.Path = ROOT / ".chip_smoke" / "collective") -> dict:
     """Phase 18 (a) and (e) in this process (see the module's docstring);
-    (b)-(d) run in a child beside phases 14-16 (:func:`collective_leg`)."""
+    (c) and (d) in process run in a child beside phases 14-16
+    (:func:`collective_leg`), (b) and (c) across processes after them
+    (:func:`collective_pair`)."""
     import gc
     import os
     import tempfile
@@ -6830,15 +6871,17 @@ def _coll_strategy(cfg):
     return dispatch_strategy(cfg.fl)
 
 
-# -- (b)-(d), in a child -------------------------------------------------------------
+# -- (b) and (c) across processes; (c) and (d) in process, in a child -----------------
 
 
 def _coll_cli_child(out_path: str, cli_args: list[str]) -> int:
     """``python -m photon_tpu_torch.federation.collective_round`` (its
-    ``main``) in a child of :func:`collective_leg`, the launch counts set to
-    0 first; writes the run's parameters (``.npz``), History, paths,
+    ``main``) in a child of :func:`collective_pair`, the launch counts set
+    to 0 first; writes the run's parameters (``.npz``), History, paths,
     backend, staged legs, launches, peak device memory and the wall clock
-    as its rounds ended. Exits hard so a peer's abandoned group cannot hold
+    as its rounds ended, and the same as round ``COLL_ROUNDS`` ends
+    (``<out_path>.r<COLL_ROUNDS>`` and its ``.npz``), which a process that dies in a later
+    round leaves behind. Exits hard so a peer's abandoned group cannot hold
     the process open."""
     import os
 
@@ -6858,20 +6901,32 @@ def _coll_cli_child(out_path: str, cli_args: list[str]) -> int:
         seen["rounds_end"] = time.time()
         return out
 
+    real_round = cr.CollectiveFedRunner.run_round
+    t0 = time.perf_counter()
+
+    def write(r, path):
+        np.savez(path + ".npz", *r.strategy.current_parameters)
+        pathlib.Path(path).write_text(json.dumps({
+            "history": r.history.to_dict(),
+            "paths": {str(k): v for k, v in r.aggregation_paths.items()},
+            "backend": r.backend, "staged_legs": sorted(r.mesh.staged_legs),
+            "launches": dict(fa.launches), "wall_s": time.perf_counter() - t0,
+            "rounds_end": seen.get("rounds_end"),
+            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                        if torch.cuda.is_initialized() else 0.0)}))
+
+    def run_round(self, server_round):
+        out = real_round(self, server_round)
+        if server_round == COLL_ROUNDS:
+            write(self, f"{out_path}.r{COLL_ROUNDS}")
+        return out
+
     cr.CollectiveFedRunner.run = run
+    cr.CollectiveFedRunner.run_round = run_round
     for key in fa.launches:
         fa.launches[key] = 0
-    t0 = time.perf_counter()
     cr.main(cli_args)
-    r = seen["runner"]
-    np.savez(out_path + ".npz", *r.strategy.current_parameters)
-    pathlib.Path(out_path).write_text(json.dumps({
-        "history": r.history.to_dict(), "paths": {str(k): v for k, v in r.aggregation_paths.items()},
-        "backend": r.backend, "staged_legs": sorted(r.mesh.staged_legs),
-        "launches": dict(fa.launches), "wall_s": time.perf_counter() - t0,
-        "rounds_end": seen["rounds_end"],
-        "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
-                                    if torch.cuda.is_initialized() else 0.0)}))
+    write(seen["runner"], out_path)
     sys.stdout.flush()
     os._exit(0)
 
@@ -7044,128 +7099,138 @@ def _coll_async(torch, np, cfg, ref_params, device: str, work: pathlib.Path) -> 
     return rec
 
 
+def _coll_pair_cfg(cfg_fn, save_path):
+    """(b)'s pair config at ``COLL_LAYERS``: each fit starts from a fresh
+    optimizer, so a process with one client and one with two run the same
+    computation (a runtime's optimizer state otherwise carries from one
+    client to the next)."""
+    cfg = cfg_fn(n_layers=COLL_LAYERS, replica=1, save_path=save_path)
+    cfg.fl.fit_config = {"reset_optimizer": True}
+    return cfg
+
+
 def collective_leg(np, device: str = "cuda", cfg_fn=collective_config,
-                   work: pathlib.Path = ROOT / ".chip_smoke" / "collective_leg") -> dict:
-    """Phase 18 (b), (c) in process, (d) (see the module's docstring): two
-    processes through the collective CLI on the one card, the elastic
-    ladder in one process, and the async runner. (b)'s CLI processes train
-    while (c) and (d) run in this process. (c) across processes is
-    :func:`collective_dead_peer`."""
+                   work: pathlib.Path = ROOT / ".chip_smoke" / "collective_leg",
+                   ref_out: pathlib.Path = COLL_PAIR_REF) -> dict:
+    """Phase 18 (c) in process and (d) (see the module's docstring): the
+    in-process run that (b)'s pair is held to (its parameters saved to
+    ``ref_out`` for :func:`collective_pair`), the elastic ladder in one
+    process, and the async runner."""
     import torch
 
     t_leg = time.perf_counter()
-    cuda = device == "cuda"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
 
     def small(**kw):
         return cfg_fn(n_layers=COLL_LAYERS, save_path=work / "inproc", **kw)
 
-    def pair_cfg():
-        # each fit starts from a fresh optimizer: a process with one client
-        # and one with two then run the same computation (a runtime's
-        # optimizer state otherwise carries from one client to the next)
-        cfg = small(replica=1)
-        cfg.fl.fit_config = {"reset_optimizer": True}
-        return cfg
+    from photon_tpu_torch.federation.collective_round import CollectiveFedRunner
 
     rec: dict = {"seconds": {}}
-    bcfg = pair_cfg()
-    bcfg.photon.save_path = str(work / "b")
-    t0 = time.perf_counter()
-    with (_GpuMemory() if cuda else contextlib.nullcontext()) as smi:
-        b_procs, b_outs = _coll_pair(work, "b", bcfg, device)
-        from photon_tpu_torch.federation.collective_round import CollectiveFedRunner
-
-        t1 = time.perf_counter()
-        ref = CollectiveFedRunner(pair_cfg(), [0, 1], mesh=_coll_mesh(2, 1, device),
-                                  device=device)
-        ref.run(COLL_ROUNDS)
-        ref_params = [p.copy() for p in ref.strategy.current_parameters]
-        del ref
-        rec["seconds"]["inprocess_ref"] = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        rec["elastic"] = _coll_elastic(torch, np, small, device, work)
-        rec["seconds"]["elastic"] = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        rec["async"] = _coll_async(torch, np, pair_cfg(), ref_params, device, work)
-        rec["seconds"]["async"] = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        b_rcs = _coll_wait(b_procs, work, "b")
-        rec["seconds"]["waited_for_processes"] = time.perf_counter() - t1
-    rec["seconds"]["processes"] = time.perf_counter() - t0
-    if b_rcs != [0, 0]:
-        fail(f"collective (b): the CLI processes exited {b_rcs}: "
-             f"{(work / 'b-1.log').read_text()[-2000:]}")
-    b = [json.loads(o.read_text()) for o in b_outs]
-    bp = [np.load(str(o) + ".npz") for o in b_outs]
-    bp = [[z[k] for k in z.files] for z in bp]
-    bitwise = all(np.array_equal(x, y) for x, y in zip(bp[0], bp[1]))
-    excess = _coll_gap(np, bp[0], ref_params)
-    if not bitwise or excess > 0:
-        fail(f"collective (b): processes bitwise {bitwise}, against the in-process run "
-             f"{excess} past the tolerance")
-    micro = bcfg.train.global_batch_size // bcfg.train.device_microbatch_size
-    per_proc = COLL_ROUNDS * COLL_STEPS * COLL_LAYERS * micro
-    for r in b:
-        if cuda and r["launches"] != {k: per_proc for k in r["launches"]}:
-            fail(f"collective (b): a process launched {r['launches']}, not {per_proc} each")
-    rec["cli"] = {"backend": [r["backend"] for r in b], "staged_legs": [r["staged_legs"] for r in b],
-                  "paths": [r["paths"] for r in b], "bitwise": bitwise, "vs_inprocess": excess,
-                  "peak_gb": [r["max_memory_allocated_gb"] for r in b],
-                  "wall_s": [r["wall_s"] for r in b], "smi": smi.record() if cuda else None}
-    if any(r["backend"] != "gloo" for r in b):
-        fail(f"collective (b): the backend was {rec['cli']['backend']} with one card")
+    t1 = time.perf_counter()
+    ref = CollectiveFedRunner(_coll_pair_cfg(cfg_fn, work / "inproc"), [0, 1],
+                              mesh=_coll_mesh(2, 1, device), device=device)
+    ref.run(COLL_ROUNDS)
+    ref_params = [p.copy() for p in ref.strategy.current_parameters]
+    del ref
+    ref_out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(ref_out, *ref_params)
+    rec["seconds"]["inprocess_ref"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rec["elastic"] = _coll_elastic(torch, np, small, device, work)
+    rec["seconds"]["elastic"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rec["async"] = _coll_async(torch, np, _coll_pair_cfg(cfg_fn, work / "inproc"), ref_params,
+                               device, work)
+    rec["seconds"]["async"] = time.perf_counter() - t1
     shutil.rmtree(work, ignore_errors=True)
     rec["phase_s"] = time.perf_counter() - t_leg
     log("collective_leg " + json.dumps(rec))
     return rec
 
 
-def collective_dead_peer(np, device: str = "cuda", cfg_fn=collective_config,
-                         work: pathlib.Path = ROOT / ".chip_smoke" / "collective_dead_peer"
-                         ) -> dict:
-    """Phase 18 (c) across processes: (b)'s pair with ``crash_phase:
-    pre-exchange`` on process 1 in round 2 and a ``COLL_TIMEOUT_S`` stage
-    timeout. Process 1 exits 137; process 0 degrades to the host fold and
-    must end the round within the timeout + ``COLL_SLACK_S`` of the crash
-    (the crash marker's mtime against the wall clock as its rounds ended).
-    The smoke runs it when nothing else is running: the fold after the
-    dead peer is host work that a loaded host stretches."""
+def collective_pair(np, device: str = "cuda", cfg_fn=collective_config,
+                    work: pathlib.Path = ROOT / ".chip_smoke" / "collective_pair",
+                    ref: pathlib.Path = COLL_PAIR_REF) -> dict:
+    """Phase 18 (b) and (c) across processes, one pair of collective CLI
+    processes on the one card for ``COLL_ROUNDS + 1`` rounds, with
+    ``crash_phase: pre-exchange`` on process 1 in the last round and a
+    ``COLL_TIMEOUT_S`` stage timeout. (b), on what each process wrote as
+    round ``COLL_ROUNDS`` ended: both parameter sets bitwise equal and
+    within (a)'s tolerance of the in-process run :func:`collective_leg`
+    saved at ``ref``, K1–K3 launched exactly, the gloo backend; staged
+    legs, contexts and each process's peak recorded. (c): process 1 exits
+    137, process 0 degrades to the host fold in the last round and must
+    end it within the timeout + ``COLL_SLACK_S`` of the crash (the crash
+    marker's mtime against the wall clock as its rounds ended). The smoke
+    runs it when nothing else is running: the fold after the dead peer is
+    host work that a loaded host stretches."""
     t0 = time.perf_counter()
+    cuda = device == "cuda"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    cfg = cfg_fn(n_layers=COLL_LAYERS, replica=1, save_path=work / "run")
-    cfg.fl.fit_config = {"reset_optimizer": True}
+    last = COLL_ROUNDS + 1
+    cfg = _coll_pair_cfg(cfg_fn, work / "run")
+    cfg.fl.n_rounds = last
     cfg.photon.comm_stack.collective_stage_timeout_s = COLL_TIMEOUT_S
     ch = cfg.photon.chaos
     ch.enabled, ch.crash_phase, ch.crash_round, ch.crash_node_id = \
-        True, "pre-exchange", 2, "collective1"
+        True, "pre-exchange", last, "collective1"
     ch.crash_marker = str(work / "crash.marker")
     cfg.validate()
-    procs, outs = _coll_pair(work, "x", cfg, device)
-    rcs = _coll_wait(procs, work, "x")
+    with (_GpuMemory() if cuda else contextlib.nullcontext()) as smi:
+        procs, outs = _coll_pair(work, "x", cfg, device)
+        rcs = _coll_wait(procs, work, "x")
+    snaps = [pathlib.Path(f"{o}.r{COLL_ROUNDS}") for o in outs]
+    if not all(p.exists() for p in snaps):
+        fail(f"collective (b): a process wrote no round-{COLL_ROUNDS} record (exits {rcs}): "
+             f"{(work / 'x-1.log').read_text()[-2000:]}")
+    b = [json.loads(p.read_text()) for p in snaps]
+    bp = [np.load(str(p) + ".npz") for p in snaps]
+    bp = [[z[k] for k in z.files] for z in bp]
+    z = np.load(ref)
+    ref_params = [z[k] for k in z.files]
+    bitwise = all(np.array_equal(x, y) for x, y in zip(bp[0], bp[1]))
+    excess = _coll_gap(np, bp[0], ref_params)
+    if not bitwise or excess > 0:
+        fail(f"collective (b): processes bitwise {bitwise}, against the in-process run "
+             f"{excess} past the tolerance")
+    micro = cfg.train.global_batch_size // cfg.train.device_microbatch_size
+    per_proc = COLL_ROUNDS * COLL_STEPS * COLL_LAYERS * micro
+    for r in b:
+        if cuda and r["launches"] != {k: per_proc for k in r["launches"]}:
+            fail(f"collective (b): a process launched {r['launches']}, not {per_proc} each")
+    rec = {"cli": {"backend": [r["backend"] for r in b],
+                   "staged_legs": [r["staged_legs"] for r in b],
+                   "paths": [r["paths"] for r in b], "bitwise": bitwise, "vs_inprocess": excess,
+                   "peak_gb": [r["max_memory_allocated_gb"] for r in b],
+                   "wall_s": [r["wall_s"] for r in b], "smi": smi.record() if cuda else None}}
+    if any(r["backend"] != "gloo" for r in b):
+        fail(f"collective (b): the backend was {rec['cli']['backend']} with one card")
     x0 = json.loads(outs[0].read_text()) if rcs[0] == 0 else None
     marker = pathlib.Path(ch.crash_marker)
     after = x0["rounds_end"] - marker.stat().st_mtime if x0 and marker.exists() else None
-    rec = {"rcs": rcs, "paths": x0 and x0["paths"], "crash_to_round_end_s": after,
-           "round2_agg_s": x0 and [v for r, v in x0["history"]["server/collective_agg_time"]
-                                   if r == 2],
-           "round2_reconfig_s": x0 and [v for r, v in
-                                        x0["history"]["server/collective_reconfig_time"]
-                                        if r == 2]}
-    if rcs != [0, 137] or x0["paths"] != {"1": "collective", "2": "host_fallback"} \
+    want_paths = {**{str(r): "collective" for r in range(1, last)}, str(last): "host_fallback"}
+    rec.update({"rcs": rcs, "paths": x0 and x0["paths"], "crash_to_round_end_s": after,
+                "crash_round": last,
+                "crash_round_agg_s": x0 and [
+                    v for r, v in x0["history"]["server/collective_agg_time"] if r == last],
+                "crash_round_reconfig_s": x0 and [
+                    v for r, v in x0["history"]["server/collective_reconfig_time"] if r == last]})
+    if rcs != [0, 137] or x0["paths"] != want_paths \
             or after is None or after > COLL_TIMEOUT_S + COLL_SLACK_S:
         fail(f"collective (c) across processes: {rec}: "
              f"{(work / 'x-0.log').read_text()[-2000:]}")
     shutil.rmtree(work, ignore_errors=True)
     rec["phase_s"] = time.perf_counter() - t0
-    log("collective_dead_peer " + json.dumps(rec))
+    log("collective_pair " + json.dumps(rec))
     return rec
 
 
 def _collective_leg_child(out_path: str) -> int:
-    """(b)-(d) in a child of the smoke beside phases 14-16; writes the
+    """(c) and (d) in process (:func:`collective_leg`) in a child of the
+    smoke beside phases 14-16; writes the
     record to ``out_path``."""
     import numpy as np
 
@@ -7175,7 +7240,7 @@ def _collective_leg_child(out_path: str) -> int:
 
 
 def _collective_leg_start(work: pathlib.Path) -> subprocess.Popen:
-    """Start (b)-(d)'s child (:func:`_collective_leg_child`)."""
+    """Start the child of :func:`_collective_leg_child`."""
     work.mkdir(parents=True, exist_ok=True)
     with open(work / "collective_leg.log", "w") as out:
         return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--collective-leg",
@@ -7184,7 +7249,8 @@ def _collective_leg_start(work: pathlib.Path) -> subprocess.Popen:
 
 
 def _collective_leg_finish(proc: subprocess.Popen, work: pathlib.Path) -> dict:
-    """Wait for (b)-(d)'s child; its record, or the smoke fails with its log."""
+    """Wait for :func:`_collective_leg_child`; its record, or the smoke fails
+    with its log."""
     try:
         rc = proc.wait(timeout=COLL_WAIT_S + 300)
     except subprocess.TimeoutExpired:
@@ -7195,6 +7261,367 @@ def _collective_leg_finish(proc: subprocess.Popen, work: pathlib.Path) -> dict:
         fail(f"collective leg child exited {rc}: "
              f"{(work / 'collective_leg.log').read_text()[-3000:]}")
     return json.loads((work / "collective_leg.json").read_text())
+
+
+# ---------------------------------------------------------------------------
+# phase 19: model parallelism inside a client (a mesh on one card)
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3
+MESH_WAIT_S = 600.0
+#: the legs: (preset, layers (None: the preset's), seq, mesh axes, global
+#: batch, the meshed run's per-position microbatch; the single-device run
+#: takes the whole batch in one microbatch, as the mesh does)
+MESH_LEGS = {
+    "a": ("mpt-125m", None, 4096, {"sequence": 4}, 4, 4),
+    "b": ("mpt-125m", 2, 2048, {"fsdp": 2, "tensor": 2}, 8, 4),
+    "c": ("llama-1b", 2, 4096, {"tensor": 2, "sequence": 2}, 2, 2),
+}
+#: K1 at (a)'s ring chunks: [B, S_q = S_k, H, D] at offset 0 (the diagonal,
+#: causal) and at the chunk length (a chunk below it: every key visible)
+MESH_CHUNK = (4, 1024, 12, 64)
+
+
+def mesh_config(leg: str, meshed: bool):
+    """Leg ``leg``'s config: the preset at full width, its depth cut for
+    (b) and (c), seq and batch set, the mesh's axes when ``meshed``."""
+    from photon_tpu_torch.config import load_preset
+    from photon_tpu_torch.config.schema import MeshConfig
+
+    preset, layers, seq, axes, gbs, micro = MESH_LEGS[leg]
+    cfg = load_preset(preset)
+    cfg.run_uuid = f"chip-smoke-mesh-{leg}"
+    if layers:
+        cfg.model.n_layers = layers
+    cfg.model.max_seq_len = seq
+    cfg.train.global_batch_size = gbs
+    cfg.train.device_microbatch_size = micro if meshed else gbs
+    cfg.mesh = MeshConfig(**axes) if meshed else MeshConfig()
+    return cfg.validate()
+
+
+def _mesh_launch_rule(cfg, mesh_shape: dict, n_micro: int) -> dict:
+    """K1–K3 launches a meshed step makes (``parallel/spmd.py``): each
+    ``(rows, tensor)`` group runs ``n(n+1)/2`` chunk kernels a layer over a
+    ring of ``n`` sequence positions (the causal ring skips the chunks above
+    the diagonal; ``n = 1``: one flash call), in the forward and the
+    backward; remat runs the forward again."""
+    n = mesh_shape["sequence"]
+    groups = mesh_shape["data"] * mesh_shape["fsdp"] * mesh_shape["tensor"]
+    per = cfg.model.n_layers * groups * n * (n + 1) // 2 * n_micro
+    return {"flash_fwd": per * (2 if cfg.model.remat else 1), "flash_bwd_dq": per,
+            "flash_bwd_dkv": per}
+
+
+def _mesh_grads(torch, trainer, tokens):
+    """One batch's loss, grad norm and whole gradients on the meshed
+    trainer's state (no optimizer step)."""
+    from photon_tpu_torch.optim.build import global_norm
+    from photon_tpu_torch.parallel.spmd import mesh_gradients
+
+    loss, grads = mesh_gradients(trainer.mesh_model, trainer.state.params,
+                                 {d: tokens for d in trainer.mesh.distinct_devices()},
+                                 trainer.cfg.train.loss_chunk_tokens)
+    return float(loss), float(global_norm(list(grads.values()))), grads
+
+
+def _vs(run, ref) -> dict:
+    """``run`` (loss, grad norm, gradients) against ``ref``: relative
+    differences, the largest per-parameter gradient relative L2, ``worst``."""
+    loss_d = abs(run[0] - ref[0]) / abs(ref[0])
+    norm_d = abs(run[1] - ref[1]) / abs(ref[1])
+    per = {n: _rel_l2(run[2][n], ref[2][n]) for n in ref[2]}
+    top = max(per, key=per.get)
+    return {"loss_rel_diff": loss_d, "grad_norm_rel_diff": norm_d,
+            "max_param_grad_rel_l2": per[top], "max_param": top,
+            "worst": max(loss_d, norm_d, per[top])}
+
+
+def _diagonal_offset_fault(ra):
+    """A planted fault (patched in from outside the package): ring
+    position 0's diagonal chunk runs at causal offset 1, not 0, so each of
+    its queries also sees the key one position ahead."""
+    real = ra.flash_attention_with_lse
+
+    def faulty(q, k, v, *, causal=True, q_start=0, k_start=0, slopes=None):
+        if q_start == k_start == 0:
+            q_start += 1
+        return real(q, k, v, causal=causal, q_start=q_start, k_start=k_start, slopes=slopes)
+
+    return faulty
+
+
+def _planted(torch, leg: str, trainer, tokens) -> dict:
+    """The leg's planted fault, measured on the meshed trainer's gradients:
+    (a) :func:`_diagonal_offset_fault`, (b) the tensor all-reduce keeping
+    its first position's part alone, (c) RoPE positions restarting at 0 in
+    every sequence chunk."""
+    from photon_tpu_torch.ops import ring_attention as ra
+    from photon_tpu_torch.parallel import spmd
+
+    if leg == "a":
+        mod, name = ra, "flash_attention_with_lse"
+        bad = _diagonal_offset_fault(ra)
+    elif leg == "b":
+        mod, name, bad = spmd, "_tensor_sum", lambda parts: parts[0]
+    else:
+        mod, name = spmd, "_global_positions"
+        bad = lambda s, s_local, device: torch.arange(s_local, device=device)[None]  # noqa: E731
+    sound = getattr(mod, name)
+    setattr(mod, name, bad)
+    try:
+        return _mesh_grads(torch, trainer, tokens)
+    finally:
+        setattr(mod, name, sound)
+
+
+def _mesh_leg(torch, fa, np, leg: str, device: str = "cuda", cfg_fn=mesh_config) -> dict:
+    """One leg: a single-device Trainer and a Trainer on a mesh naming
+    ``device`` (``cuda:0`` on the card) at every position, from the same
+    weights (seed 0) and batches. Gates: exact K1–K3 launches on every
+    meshed step; each step's loss and grad norm, and every parameter's
+    gradient after step 1, within ``TRAIN_GRAD_GATE`` of the single-device
+    run; the leg's planted fault over it; (b): the parameters after the
+    steps within the gate, and ``set_parameters`` → ``get_parameters`` bit
+    for bit. ``device="cpu"`` and a small ``cfg_fn`` rehearse it (no
+    peaks, no profiler)."""
+    import copy
+
+    from photon_tpu_torch.models.mpt import init_params
+    from photon_tpu_torch.parallel.mesh import make_mesh
+    from photon_tpu_torch.train.trainer import Trainer
+
+    t_leg = time.perf_counter()
+    cuda = device == "cuda"
+    one_cfg, mesh_cfg = cfg_fn(leg, False), cfg_fn(leg, True)
+    mesh = make_mesh(mesh_cfg.mesh, devices=["cuda:0" if cuda else device] * mesh_cfg.mesh.size)
+    params = init_params(one_cfg.model, seed=0, device=device)
+    one = Trainer(copy.deepcopy(one_cfg), params=params, device=device)
+    meshed = Trainer(copy.deepcopy(mesh_cfg), params=params, device=device, mesh=mesh)
+    del params
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rule = _mesh_launch_rule(mesh_cfg, mesh.shape, meshed._n_micro)
+    one_rule = _mesh_launch_rule(one_cfg, {a: 1 for a in mesh.shape}, one._n_micro)
+    rng = np.random.default_rng(19)
+    gbs, seq = mesh_cfg.train.global_batch_size, mesh_cfg.model.max_seq_len
+    batches = [rng.integers(0, mesh_cfg.model.vocab_size, (gbs, seq)).astype(np.int64)
+               for _ in range(MESH_STEPS)]
+    rec: dict = {"mesh": mesh.shape, "attn_impl": meshed.model.cfg.attn_impl,
+                 "n_layers": mesh_cfg.model.n_layers, "seq": seq, "global_batch": gbs,
+                 "n_micro": meshed._n_micro, "launch_rule_per_step": rule,
+                 "single_device_launch_rule_per_step": one_rule, "steps": []}
+    walls = {"single": [], "mesh": []}
+    peaks = {}
+    counted = {"single": dict.fromkeys(fa.launches, 0), "mesh": dict.fromkeys(fa.launches, 0)}
+
+    def step(trainer, tag, batch):
+        before = dict(fa.launches)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = trainer.train_batch(batch)
+        sync()
+        walls[tag].append(time.perf_counter() - t0)
+        peaks[tag] = max(peaks.get(tag, 0), torch.cuda.max_memory_allocated() if cuda else 0)
+        grew = {k: fa.launches[k] - before[k] for k in before}
+        for k, n in grew.items():
+            counted[tag][k] += n
+        want = rule if tag == "mesh" else one_rule
+        if grew != want:
+            fail(f"mesh leg {leg} ({tag}) step: kernel launches {grew}, want {want}")
+        return {k: float(v) for k, v in m.items()}
+
+    for key in fa.launches:  # the counted runs start here (each step's growth is read)
+        fa.launches[key] = 0
+    for i, batch in enumerate(batches):
+        if i == 1:  # every parameter's gradient after step 1, and the fault
+            tokens = torch.from_numpy(batch).to(device)
+            ref = _grads_of(torch, one_cfg, one.state.params, tokens)
+            got = _mesh_grads(torch, meshed, tokens)
+            rec["grads_after_step_1"] = _vs(got, ref)
+            rec["planted_fault"] = _vs(_planted(torch, leg, meshed, tokens), ref)
+            del ref, got, tokens
+        m1, mm = step(one, "single", batch), step(meshed, "mesh", batch)
+        rec["steps"].append({"single": m1, "mesh": mm,
+                             "loss_rel_diff": abs(mm["loss"] - m1["loss"]) / abs(m1["loss"]),
+                             "grad_norm_rel_diff": abs(mm["grad_norm"] - m1["grad_norm"])
+                             / abs(m1["grad_norm"])})
+    rec["launches"], rec["single_device_launches"] = counted["mesh"], counted["single"]
+    tokens_per_step = gbs * seq
+    for tag in walls:
+        s = statistics.median(walls[tag][1:])
+        rec[tag] = {"step_wall_s": walls[tag], "step_s_median_after_first": s,
+                    "tokens_per_s": tokens_per_step / s,
+                    "max_memory_allocated_gb": peaks[tag] / 1e9}
+    worst = max([s["loss_rel_diff"] for s in rec["steps"]]
+                + [s["grad_norm_rel_diff"] for s in rec["steps"]]
+                + [rec["grads_after_step_1"]["worst"]])
+    rec["worst"] = worst
+    if not all(np.isfinite(v) for s in rec["steps"] for v in s["mesh"].values()):
+        fail(f"mesh leg {leg}: metrics not finite: {rec['steps']}")
+    if worst > TRAIN_GRAD_GATE:
+        fail(f"mesh leg {leg}: the meshed run parts from the single-device run by {worst:.3e} "
+             f"> {TRAIN_GRAD_GATE}")
+    if rec["planted_fault"]["worst"] <= TRAIN_GRAD_GATE:
+        fail(f"mesh leg {leg}: the gate {TRAIN_GRAD_GATE} misses the planted fault (reading "
+             f"{rec['planted_fault']['worst']:.3e})")
+    if leg == "a" and cuda:  # where the time goes, one more step of each under the profiler
+        for tag, trainer in (("single", one), ("mesh", meshed)):
+            rec[tag]["profiled_step"] = _profiled_step(
+                torch, lambda t=trainer: t.train_batch(batches[0]),
+                rec[tag]["step_s_median_after_first"])
+    if leg == "b":
+        meta, got = meshed.get_parameters()
+        _, want = one.get_parameters()
+        rel = {n: _rel_l2(torch.from_numpy(g), torch.from_numpy(w))
+               for n, g, w in zip(meta.names, got, want)}
+        rec["params_after_steps_max_rel_l2"] = max(rel.values())
+        if rec["params_after_steps_max_rel_l2"] > TRAIN_GRAD_GATE:
+            fail(f"mesh leg b: parameters after the steps part by "
+                 f"{rec['params_after_steps_max_rel_l2']:.3e}")
+        mutated = [a * 0.5 + 0.25 for a in want]
+        meshed.set_parameters(meta, mutated)
+        back = meshed.get_parameters()[1]
+        rec["set_get_round_trip_bit_equal"] = all(a.tobytes() == b.tobytes()
+                                                  for a, b in zip(mutated, back))
+        if not rec["set_get_round_trip_bit_equal"]:
+            fail("mesh leg b: set_parameters -> get_parameters is not bit for bit")
+    del one, meshed
+    if cuda:
+        torch.cuda.empty_cache()
+    rec["leg_s"] = time.perf_counter() - t_leg
+    log(f"mesh_leg {leg} " + json.dumps({k: v for k, v in rec.items() if k != "steps"}))
+    return rec
+
+
+def mesh_chunk_kernels(torch, fa) -> list[dict]:
+    """K1–K3 at leg (a)'s ring chunk shape, bf16, at causal offset 0 (the
+    diagonal chunk) and at the chunk length (a chunk below it), each
+    against its plain version; K1's time with its bound and SDPA's (causal
+    on the diagonal, unmasked below). The launches here are not counted."""
+    import torch.nn.functional as F
+
+    saved = dict(fa.launches)
+    b, s, h, d = MESH_CHUNK
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=g, dtype=torch.bfloat16)
+                   for _ in range(4))
+    out = []
+    for name, offset in (("diagonal", 0), ("below", s)):
+        kw = dict(causal=True, offset=offset)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, **kw)
+        delta = fa.attention_delta(o, do)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        dq_r = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+        dk_r, dv_r = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
+        errs = {"flash_fwd": _rel_l2(o.float(), o_ref.float()),
+                "flash_bwd_dq": _rel_l2(dq.float(), dq_r.float()),
+                "flash_bwd_dkv": max(_rel_l2(dk.float(), dk_r.float()),
+                                     _rel_l2(dv.float(), dv_r.float()))}
+        gates = {"flash_fwd": FLASH_FWD_GATE["bfloat16"],
+                 "flash_bwd_dq": FLASH_BWD_GATE["bfloat16"],
+                 "flash_bwd_dkv": FLASH_BWD_GATE["bfloat16"]}
+        for kname, err in errs.items():
+            if not err <= gates[kname]:
+                fail(f"{kname} at the ring chunk ({name}, offset {offset}): rel L2 {err:.3e} "
+                     f"> {gates[kname]}")
+        qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+        nbytes, flops = _flash_work(b, s, s, h, h, d, offset == 0, q.element_size())["flash_fwd"]
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+        rec = {"chunk": name, "offset": offset, "shape": f"B={b} S_q=S_k={s} H={h} D={d} bf16",
+               "rel_l2": errs, "max_abs_err": float((o.float() - o_ref.float()).abs().max()),
+               "ms": _time_ms(torch, lambda: fa.flash_fwd(q, k, v, **kw), flush),
+               "plain_ms": _time_ms(torch, lambda: fa.flash_fwd_reference(q, k, v, **kw), flush),
+               "library_ms": _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qs, ks, vs, is_causal=offset == 0), flush),
+               "bytes": nbytes, "flops": flops, "bound_ms": max(t_b, t_o),
+               "bound_by": "bytes" if t_b >= t_o else "operations"}
+        out.append(rec)
+        log("mesh_chunk_k1 " + json.dumps(rec))
+        del o, lse, o_ref, lse_ref, delta, dq, dk, dv, dq_r, dk_r, dv_r
+    for key in fa.launches:
+        fa.launches[key] = saved[key]
+    del q, k, v, do, flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(torch, fa, np) -> dict:
+    """Phase 19: legs (a)-(c) (:func:`_mesh_leg`) and K1–K3 at (a)'s ring
+    chunks (:func:`mesh_chunk_kernels`)."""
+    t0 = time.perf_counter()
+    rec = {"chunks": mesh_chunk_kernels(torch, fa)}
+    for leg in MESH_LEGS:
+        rec[leg] = _mesh_leg(torch, fa, np, leg)
+    rec["launches"] = {leg: rec[leg]["launches"] for leg in MESH_LEGS}
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"mesh phase: {rec['phase_s']:.1f} s (" + ", ".join(
+        f"({leg}) {rec[leg]['leg_s']:.1f} s" for leg in MESH_LEGS) + ")")
+    return rec
+
+
+def _phase_child(flag: str, out_path: str) -> int:
+    """Phase 18 (a), (e) (``--collective-a``) or phase 19 (``--mesh-phase``)
+    in a child of the smoke beside phase 5b, with launch counters and peak
+    memory of its own; writes the record to ``out_path``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from photon_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.zeros(1, device="cuda")  # the context exists before the parent goes on
+    pathlib.Path(out_path + ".ready").touch()
+    rec = collective_phase(torch, np) if flag == "--collective-a" else mesh_phase(torch, fa, np)
+    pathlib.Path(out_path).write_text(json.dumps(rec))
+    return 0
+
+
+def _child_start(work: pathlib.Path, flag: str) -> subprocess.Popen:
+    """Start :func:`_phase_child` for ``flag``."""
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    with open(work / "child.log", "w") as out:
+        return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag,
+                                 str(work / "child.json")],
+                                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+
+
+def _children_ready(children: list, timeout: float = 120.0) -> None:
+    """Wait until each ``(proc, work)`` child holds its CUDA context (phase
+    5b's TCP gate counts the card's contexts from before its run)."""
+    t0 = time.perf_counter()
+    while not all((work / "child.json.ready").exists() for _, work in children):
+        for proc, work in children:
+            if proc.poll() is not None:
+                fail(f"{proc.args[2]} child exited {proc.returncode} before it was ready: "
+                     f"{(work / 'child.log').read_text()[-3000:]}")
+        if time.perf_counter() - t0 > timeout:
+            fail(f"the phase children took over {timeout} s to open their CUDA contexts")
+        time.sleep(0.2)
+
+
+def _child_finish(proc: subprocess.Popen, work: pathlib.Path, timeout: float) -> dict:
+    """Wait for a :func:`_child_start` child; its record, or the smoke fails
+    with its log."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        rc = "timeout"
+    log((work / "child.log").read_text()[-20000:].rstrip())
+    if rc != 0:
+        fail(f"{proc.args[2]} child exited {rc}")
+    return json.loads((work / "child.json").read_text())
 
 
 def fed_1b() -> int:
@@ -7244,9 +7671,11 @@ def main() -> int:
         return _tcp_node_child(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
     if sys.argv[1:2] == ["--autopilot-fleet"]:  # phase 17 (d)
         return _autopilot_fleet_child(sys.argv[2], sys.argv[3])
-    if sys.argv[1:2] == ["--collective-leg"]:  # phase 18 (b)-(d)
+    if sys.argv[1:2] == ["--collective-leg"]:  # phase 18 (c), (d) in process
         return _collective_leg_child(sys.argv[2])
-    if sys.argv[1:2] == ["--collective-cli"]:  # a process of 18 (b) or (c)
+    if sys.argv[1:2] in (["--mesh-phase"], ["--collective-a"]):  # phase 19, 18 (a)
+        return _phase_child(sys.argv[1], sys.argv[2])
+    if sys.argv[1:2] == ["--collective-cli"]:  # a process of 18 (b) and (c)'s pair
         return _coll_cli_child(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
     if sys.argv[1:2] == ["--fed-1b"]:
         return fed_1b()
@@ -7322,14 +7751,26 @@ def main() -> int:
     t0 = time.perf_counter()
     fed = federated_phase(torch, np)
     fed["phase_s"] = time.perf_counter() - t0
+    # phase 18 (a), (e) and phase 19 in children of their own (their launch
+    # counters and peaks) while phase 5b runs here
+    coll_a_work = ROOT / ".chip_smoke" / "collective_a_child"
+    mesh_work = ROOT / ".chip_smoke" / "mesh_child"
+    coll_a = _child_start(coll_a_work, "--collective-a")
+    mesh_child = _child_start(mesh_work, "--mesh-phase")
     t0 = time.perf_counter()
-    # phase 18 (a) and (e) in this process while 5b (a)'s children train
-    dist = distributed_phase(torch, np, fa, fed, beside=lambda: collective_phase(torch, np))
-    dist["phase_s"] = time.perf_counter() - t0
-    collective = dist.pop("beside")
-    log(f"collective phase (a), (e): {collective['phase_s']:.1f} s, beside 5b (a)")
-    log(f"distributed phase: {dist['phase_s']:.1f} s (multiprocess {dist['multiprocess_s']:.1f}"
-        f" s, tcp {dist['tcp_s']:.1f} s, comparator + faults {dist['checks_s']:.1f} s)")
+    try:
+        _children_ready([(coll_a, coll_a_work), (mesh_child, mesh_work)])
+        dist = distributed_phase(torch, np, fa, fed)
+        dist["phase_s"] = time.perf_counter() - t0
+        collective = _child_finish(coll_a, coll_a_work, COLL_WAIT_S + 300)
+        mesh = _child_finish(mesh_child, mesh_work, MESH_WAIT_S)
+    finally:
+        shutil.rmtree(coll_a_work, ignore_errors=True)
+        shutil.rmtree(mesh_work, ignore_errors=True)
+    log(f"distributed phase: {dist['phase_s']:.1f} s (tcp {dist['tcp_s']:.1f} s, "
+        f"comparator + faults + --multiprocess {dist['checks_s']:.1f} s); beside it in "
+        f"children: collective phase (a), (e) {collective['phase_s']:.1f} s, mesh phase "
+        f"{mesh['phase_s']:.1f} s; together {time.perf_counter() - t0:.1f} s")
 
     cfg = serve_config()
     params = init_params(cfg.model, seed=0, device="cuda")
@@ -7367,7 +7808,7 @@ def main() -> int:
         autopilot = autopilot_phase(torch, rpa, np, fed, tie=2 * engine["max_abs_logit_diff"])
         log(f"autopilot phase (a)-(c), (e): {autopilot['phase_s']:.1f} s")
         shutil.rmtree(ROOT / ".chip_smoke" / "fed", ignore_errors=True)
-        # phase 18 (b)-(d) in a child beside 14-16 (its own launch counters;
+        # phase 18 (c), (d) in a child beside 14-16 (its own launch counters;
         # its gates count bits and launches, and time a crash from its marker)
         coll_leg = _collective_leg_start(coll_work)
         t0 = time.perf_counter()
@@ -7393,19 +7834,19 @@ def main() -> int:
         shutil.rmtree(ROOT / ".chip_smoke" / "adapters", ignore_errors=True)
         shutil.rmtree(ap_work, ignore_errors=True)
         shutil.rmtree(coll_work, ignore_errors=True)
-    # phase 18 (c) across processes, on a quiet card
-    collective["dead_peer"] = collective_dead_peer(np)
+    # phase 18 (b) and (c) across processes, one pair on a quiet card
+    collective["pair"] = collective_pair(np)
     collective["phase_s_with_leg"] = (collective["phase_s"] + collective["leg"]["phase_s"]
-                                      + collective["dead_peer"]["phase_s"])
+                                      + collective["pair"]["phase_s"])
     autopilot["phase_s_with_fleet"] = autopilot["phase_s"] + autopilot["fleet"]["phase_s"]
     log(f"interop phase: {interop['phase_s']:.1f} s, chaos phase: {chaos_rec['phase_s']:.1f} s, "
         f"telemetry phase: {tel['phase_s']:.1f} s (traced run {tel['fed']['phase_s']:.1f} s, "
         f"serve {tel['serve']['phase_s']:.1f} s), autopilot (d) "
         f"{autopilot['fleet']['phase_s']:.1f} s, side by side {time.perf_counter() - t0:.1f} s")
     log(f"autopilot phase: {autopilot['phase_s_with_fleet']:.1f} s")
-    log(f"collective phase: (a), (e) {collective['phase_s']:.1f} s beside 5b (a), (b)-(d) "
-        f"{collective['leg']['phase_s']:.1f} s in its child beside 14-16, (c) across "
-        f"processes {collective['dead_peer']['phase_s']:.1f} s after them")
+    log(f"collective phase: (a), (e) {collective['phase_s']:.1f} s in a child beside 5b, "
+        f"(c), (d) in process {collective['leg']['phase_s']:.1f} s in a child beside 14-16, "
+        f"(b) and (c) across processes {collective['pair']['phase_s']:.1f} s after them")
 
     kernels = {"kernels": [{
         "name": "ragged_paged_attention",
@@ -7453,10 +7894,14 @@ def main() -> int:
         "chaos_node0_launches": chaos_rec["launches"][name],
         "telemetry_node0_launches": tel["fed"]["launches"][name],
         "collective_round_launches": collective["launches"][name],
+        "mesh_phase_launches": {leg: mesh["launches"][leg][name] for leg in MESH_LEGS},
     } for name, rec in flash_main.items()]}
     k1 = next(k for k in kernels["kernels"] if k["name"] == "flash_fwd")
     k1["eval_shape"] = flash_eval
     k1["shapes"].append(flash_eval["shape"])
+    k1["ring_chunks"] = mesh["chunks"]
+    k1["shapes"] += [f"ring chunk {c['chunk']} (offset {c['offset']}): {c['shape']}"
+                     for c in mesh["chunks"]]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -7467,6 +7912,7 @@ def main() -> int:
         "presets_phase_s": presets_s, "d128_grad_gate": d128, "moe_dispatch": moe_dispatch,
         "moe_engine": moe_engine, "adapters": adapters, "fleet": fleet, "interop": interop,
         "chaos": chaos_rec, "telemetry": tel, "autopilot": autopilot, "collective": collective,
+        "mesh": mesh,
         "kernels": kernels["kernels"],
         "profiler_pad_lost": profiler_pad_lost,
         "total_s": time.perf_counter() - t_all,

@@ -1,4 +1,4 @@
-"""Centralized (non-federated) training on one device.
+"""Centralized (non-federated) training.
 
 The port of ``photon_tpu/centralized.py``: one Trainer over the whole
 dataset (all client streams concatenated), optional eval-first/eval-only
@@ -9,7 +9,10 @@ other's run), init/final parameter dumps::
     python -m photon_tpu_torch.centralized --config resolved.yaml --steps 100
     python -m photon_tpu_torch.centralized --steps 3 --device cpu --set model.n_layers=2
 
-It runs on ``cuda`` unless ``--device cpu`` is given.
+It runs on ``cuda`` unless ``--device cpu`` is given. A config whose
+``mesh`` is larger than one device trains over the local cards (the
+Trainer's mesh; the CPU repeated under ``--device cpu``), and is refused
+by ``make_mesh`` on a machine with fewer cards, as JAX refuses it.
 """
 
 from __future__ import annotations

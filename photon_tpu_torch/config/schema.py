@@ -20,11 +20,16 @@ texts, as are the prefix-cache and hot-swap fields of
 this package does not port yet, so such a config fails at start-up
 instead of running without them: a ``model.param_dtype`` other than
 ``float32`` everywhere (the port keeps fp32 parameters); and for
-training (``validate(serving=False)``, the default) a mesh of more than
-one device (``mesh.expert > 1`` included: a client's model parallelism),
-ring attention and the mesh autotuner. ``mlp: moe`` is checked as the JAX
-package checks it (its ``ValueError`` texts); ``device_microbatch_size:
-auto`` runs the trainer's probe.
+training (``validate(serving=False)``, the default) ``mesh.pipe > 1``,
+``mesh.expert > 1``, the mesh autotuner, and on a mesh of more than one
+device an MoE MLP, LoRA factors, adapters, ``optimizer.freeze_patterns``,
+the ``auto`` microbatch probe or the collective plane (ROADMAP Queue 1
+item 2). A mesh over ``data``, ``fsdp``, ``tensor`` and
+``sequence`` and ``attn_impl: ring`` train (``parallel/spmd.py``);
+:func:`effective_model_config` is the JAX package's attention fallback
+for a mesh. ``mlp: moe`` is checked as the JAX package checks it (its
+``ValueError`` texts); ``device_microbatch_size: auto`` runs the
+trainer's probe.
 """
 
 from __future__ import annotations
@@ -206,8 +211,13 @@ class SchedulerConfig:
 
 @dataclass
 class MeshConfig:
-    """The JAX package's device mesh; the port trains on one device, so
-    every axis must be 1."""
+    """The device mesh of one client (``parallel/mesh.py``): ``data``
+    (batch data parallel), ``fsdp`` (sharded weights and optimizer state),
+    ``tensor`` (heads and MLP columns), ``sequence`` (ring attention),
+    ``pipe`` and ``expert`` (refused at ``validate()``: ROADMAP Queue 1
+    item 2). ``surplus_devices`` is what ``make_mesh`` does with a device
+    list that is not a whole multiple of the mesh: warn, error or
+    ignore."""
 
     data: int = 1
     fsdp: int = 1
@@ -680,14 +690,7 @@ class Config:
         m, tr, ph = self.model, self.train, self.photon
         if m.resid_pdrop != 0.0:
             raise ValueError("resid_pdrop > 0 is not implemented (dropout-free pretraining)")
-        if m.attn_impl == "ring":
-            raise NotImplementedError("attn_impl 'ring' needs a multi-device mesh; not ported yet")
-        if self.mesh.size != 1:
-            raise NotImplementedError(
-                f"a mesh of {self.mesh.size} devices: photon_tpu_torch trains on one device"
-            )
-        if ph.mesh_autotune:
-            raise NotImplementedError("photon.mesh_autotune is not ported yet")
+        self._validate_mesh()
         micro = tr.device_microbatch_size
         if isinstance(micro, str) and micro != "auto":
             raise ValueError(f"device_microbatch_size must be an int or 'auto', got {micro!r}")
@@ -702,6 +705,48 @@ class Config:
         if self.scheduler.name != "cosine_with_warmup":
             raise ValueError(f"unknown scheduler {self.scheduler.name!r}")
         self._validate_federation()
+
+    def _validate_mesh(self) -> None:
+        """The mesh checks of training: JAX's, plus what the port refuses
+        (ROADMAP Queue 1 item 2 ports the pipeline, the expert mesh and
+        the autotuner)."""
+        mesh, m = self.mesh, self.model
+        if mesh.surplus_devices not in ("warn", "error", "ignore"):
+            raise ValueError(
+                f"mesh.surplus_devices must be one of ('warn', 'error', "
+                f"'ignore'), got {mesh.surplus_devices!r}"
+            )
+        for axis, size in mesh.__dict__.items():
+            if axis != "surplus_devices" and size < 1:
+                raise ValueError(f"mesh.{axis} must be >= 1, got {size}")
+        if mesh.pipe > 1:
+            raise NotImplementedError(
+                f"mesh.pipe={mesh.pipe}: the pipeline is not ported yet (ROADMAP Queue 1 item 2)"
+            )
+        if mesh.expert > 1:
+            raise NotImplementedError(
+                f"mesh.expert={mesh.expert}: the expert mesh is not ported yet "
+                "(ROADMAP Queue 1 item 2)"
+            )
+        if self.photon.mesh_autotune:
+            raise NotImplementedError(
+                "photon.mesh_autotune is not ported yet (ROADMAP Queue 1 item 2)"
+            )
+        if mesh.size == 1:
+            return
+        # per-position MoE dispatch would fill each position's capacity
+        # pool apart, where GSPMD computes one pool over the microbatch
+        for what, on in (("mlp: moe", m.mlp == "moe"), ("LoRA factors", m.lora_rank > 0),
+                         ("photon.adapters", self.photon.adapters.enabled),
+                         ("optimizer.freeze_patterns", bool(self.optimizer.freeze_patterns)),
+                         ("device_microbatch_size: auto",
+                          self.train.device_microbatch_size == "auto"),
+                         ("the collective plane", self.photon.comm_stack.collective)):
+            if on:
+                raise NotImplementedError(
+                    f"{what} on a mesh of {mesh.size} devices is not ported yet "
+                    "(ROADMAP Queue 1 item 2)"
+                )
 
     def _validate_federation(self) -> None:
         fl, ph = self.fl, self.photon
@@ -872,6 +917,32 @@ class Config:
                 "comm_stack.collective=true (the driver topologies "
                 "would silently ignore them)"
             )
+
+
+def effective_model_config(model: ModelConfig, mesh: MeshConfig) -> ModelConfig:
+    """The model config a step builder uses on ``mesh`` (the JAX package's
+    function of that name): the config of record is never changed. With a
+    warning each, ``pipe > 1`` turns ``pallas`` into ``xla`` (no validated
+    config reaches this branch until the pipeline is ported, ROADMAP Queue
+    1 item 2: ``validate()`` refuses ``pipe > 1``; a test holds it to
+    JAX's rule meanwhile), and ``sequence > 1`` turns
+    ``pallas`` into ``ring``: a sequence-sharded mesh needs the
+    context-parallel dispatch."""
+    if mesh.pipe > 1 and model.attn_impl == "pallas":
+        warnings.warn(
+            "mesh.pipe > 1 with attn_impl=pallas: falling back to "
+            "attn_impl=xla inside pipeline stages",
+            stacklevel=2,
+        )
+        return dataclasses.replace(model, attn_impl="xla")
+    if mesh.sequence > 1 and model.attn_impl == "pallas":
+        warnings.warn(
+            "mesh.sequence > 1 with attn_impl=pallas: upgrading to "
+            "attn_impl=ring (context-parallel flash over the sequence axis)",
+            stacklevel=2,
+        )
+        return dataclasses.replace(model, attn_impl="ring")
+    return model
 
 
 def _validate_telemetry(tel: TelemetryConfig) -> None:

@@ -22,7 +22,8 @@ and loops over them; ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``). The layer math is ``models/decode.py``'s,
 shared with serving: norms in fp32 and cast back, dense products in the
 compute dtype, logits in ``logits_dtype``. The JAX package's sharding
-hints have no counterpart on one device.
+hints have no counterpart here: on a mesh the forward is
+``parallel/spmd.py``'s, position by position.
 """
 
 from __future__ import annotations

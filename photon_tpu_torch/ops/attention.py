@@ -7,6 +7,10 @@ import math
 
 import torch
 
+from photon_tpu_torch.ops import flash_attention as _flash
+from photon_tpu_torch.ops.ring_attention import ring_attention
+from photon_tpu_torch.parallel.context import current_mesh
+
 
 def alibi_slopes(n_heads: int, device: str | torch.device = "cpu") -> torch.Tensor:
     """Standard ALiBi head slopes ``2^(-8i/H)`` for i = 1..H, fp32 (the
@@ -48,26 +52,57 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
+def _rep(x: torch.Tensor, h_q: int) -> torch.Tensor:
+    return x.repeat_interleave(h_q // x.shape[2], dim=2) if x.shape[2] != h_q else x
+
+
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         impl: str = "pallas", causal: bool = True,
                         alibi: bool = False) -> torch.Tensor:
     """Dispatch on ``impl`` (the JAX package's ``attn_impl`` values):
     ``pallas`` → the flash kernels K1–K3 (their plain versions for CPU
     tensors), which take grouped-query k/v natively; ``xla`` → the dense
-    :func:`xla_attention`, with kv heads repeated up to the q heads here.
-    ``ring`` needs a multi-device mesh, which this package does not have."""
+    :func:`xla_attention`, with kv heads repeated up to the q heads here;
+    ``ring`` → ring attention over the ambient mesh's ``sequence`` axis
+    (``parallel/context.py``), ``pallas`` when that axis is 1.
+
+    Under an ambient mesh whose batch (``data``, ``fsdp``, ``expert``) or
+    ``tensor`` axis is larger than 1, ``pallas`` runs the kernels on each
+    position's batch rows and heads, on its device
+    (:func:`sharded_flash_attention`): exact, as attention is independent
+    per row and per head. Where the kv heads do not split over ``tensor``,
+    kv is repeated up to the q heads first (ring and flash alike)."""
     h_q, h_kv = q.shape[2], k.shape[2]
     if h_q % h_kv:
         raise ValueError(f"q heads ({h_q}) must be a multiple of kv heads ({h_kv})")
-    if impl == "pallas":
-        from photon_tpu_torch.ops.flash_attention import flash_attention
-
-        return flash_attention(q, k, v, causal=causal, alibi=alibi)
+    if impl in ("pallas", "ring"):
+        mesh = current_mesh()
+        if impl == "ring" and mesh is not None and mesh.shape["sequence"] > 1:
+            if h_kv % mesh.shape["tensor"]:
+                k, v = _rep(k, h_q), _rep(v, h_q)
+            return ring_attention(q, k, v, mesh, causal=causal, impl="pallas", alibi=alibi)
+        if mesh is not None and any(mesh.shape[a] > 1 for a in ("data", "fsdp", "expert",
+                                                                "tensor")):
+            return sharded_flash_attention(q, k, v, mesh, causal=causal, alibi=alibi)
+        return _flash.flash_attention(q, k, v, causal=causal, alibi=alibi)
     if impl == "xla":
-        if h_kv != h_q:
-            k = k.repeat_interleave(h_q // h_kv, dim=2)
-            v = v.repeat_interleave(h_q // h_kv, dim=2)
-        return xla_attention(q, k, v, causal=causal, alibi=alibi)
-    if impl == "ring":
-        raise NotImplementedError("attn_impl 'ring' (context parallelism) is not ported")
+        return xla_attention(q, _rep(k, h_q), _rep(v, h_q), causal=causal, alibi=alibi)
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def sharded_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, *,
+                            causal: bool = True, alibi: bool = False) -> torch.Tensor:
+    """Flash attention over global ``[B, S, H, D]`` tensors on ``mesh``:
+    the batch rows split over ``data × fsdp × expert`` and the heads over
+    ``tensor``, each slice through K1–K3 on its position's device. It is
+    :func:`~photon_tpu_torch.ops.ring_attention.ring_attention` without a
+    ring axis (the sequence is not split: a replica over that axis would
+    compute the same slice), so the split, the global ALiBi slopes and the
+    per-group kernels are the ring's and the meshed train step's
+    (``parallel/spmd.py`` calls the same ``ring_chunks``). kv is repeated
+    up to the q heads where its heads do not split over ``tensor``. The
+    output comes back on q's device."""
+    if k.shape[2] % mesh.shape["tensor"]:
+        k, v = _rep(k, q.shape[2]), _rep(v, q.shape[2])
+    return ring_attention(q, k, v, mesh, causal=causal, impl="pallas", axis_name=None,
+                          batch_axes=("data", "fsdp", "expert"), alibi=alibi)

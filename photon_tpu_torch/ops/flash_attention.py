@@ -302,21 +302,27 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 class FlashAttention(torch.autograd.Function):
-    """``o = attention(q, k, v)`` with K1 forward and K2 + K3 backward. It
-    saves q, k, v, o and LSE; the slopes get no gradient."""
+    """``(o, lse) = attention(q, k, v)`` at a causal ``offset``, with K1
+    forward and K2 + K3 backward. It saves q, k, v, o and LSE; the slopes
+    get no gradient. A cotangent of the LSE folds into Delta (``∂lse/∂s =
+    P``, so ``dS = P ∘ (dP − (Δ − dLSE))``); gradients are not
+    materialized, so a caller that drops the LSE passes None for it."""
 
     @staticmethod
     def forward(ctx, q, k, v, slopes, causal, offset, scale):
         o, lse = flash_fwd(q, k, v, causal=causal, offset=offset, slopes=slopes, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse, slopes)
         ctx.opts = dict(causal=causal, offset=offset, scale=scale)
-        return o
+        ctx.set_materialize_grads(False)
+        return o, lse
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, dlse):
         q, k, v, o, lse, slopes = ctx.saved_tensors
-        do = do.contiguous()
+        do = torch.zeros_like(o) if do is None else do.contiguous()
         delta = attention_delta(o, do)
+        if dlse is not None:
+            delta = (delta - dlse.float()).contiguous()
         dq = flash_bwd_dq(q, k, v, do, lse, delta, slopes=slopes, **ctx.opts)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, slopes=slopes, **ctx.opts)
         return dq, dk, dv, None, None, None, None
@@ -335,5 +341,29 @@ def flash_attention(q, k, v, *, causal=True, alibi=False):
 
         slopes = alibi_slopes(q.shape[2], q.device)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttention.apply(q, k, v, slopes, causal, None, None)
+        return FlashAttention.apply(q, k, v, slopes, causal, None, None)[0]
     return flash_fwd(q, k, v, causal=causal, slopes=slopes)[0]
+
+
+def flash_attention_with_lse(q, k, v, *, causal=True, q_start=0, k_start=0, slopes=None):
+    """Attention of a query chunk over a key chunk at global positions
+    (``q_start``/``k_start`` are the chunks' sequence offsets), returning
+    ``(o [B, S_q, H, D], lse [B, S_q, H])`` in JAX's layout for the
+    online-softmax merge of ring attention (the counterpart of
+    ``photon_tpu``'s ``flash_attention_with_lse``). K1 runs at ``offset =
+    q_start − k_start``; ``slopes`` (fp32 ``[H]``, these heads' slice of
+    the global table) add ALiBi at global distances. Rows that see no key
+    come back as ``(0, NEG_INF)``. Its backward takes the gradient of both
+    outputs: the JAX package recomputes the chunk densely in XLA for it;
+    here K2 and K3 compute the same function with ``Δ − dLSE`` in Delta's
+    place (:class:`FlashAttention`, the Function :func:`flash_attention`
+    runs too). Grouped-query k/v go in at their own width. CPU tensors run the
+    plain K1–K3."""
+    offset = int(q_start) - int(k_start)
+    if slopes is not None:
+        slopes = slopes.to(device=q.device, dtype=torch.float32)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        o, lse = FlashAttention.apply(q, k, v, slopes, causal, offset, None)
+    else:
+        o, lse = flash_fwd(q, k, v, causal=causal, offset=offset, slopes=slopes)
+    return o, lse.transpose(1, 2)

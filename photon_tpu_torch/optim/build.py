@@ -62,8 +62,10 @@ def build_schedule(scfg: SchedulerConfig, base_lr: float) -> Schedule:
 
 def global_norm(tensors) -> torch.Tensor:
     """``sqrt(sum of squares)`` over all elements, in fp32 (optax's
-    ``global_norm``)."""
-    return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+    ``global_norm``), on the first tensor's device (the shards of a mesh
+    may lie on several)."""
+    sums = [t.float().square().sum() for t in tensors]
+    return torch.stack([s.to(sums[0].device) for s in sums]).sum().sqrt()
 
 
 def _count(n: int = 0) -> torch.Tensor:
@@ -115,7 +117,8 @@ class Optimizer:
         if self.clip and train:
             norm = global_norm(train.values())
             for g in train.values():
-                torch.where(norm < self.clip, g, g / norm * self.clip, out=g)
+                n = norm.to(g.device)
+                torch.where(n < self.clip, g, g / n * self.clip, out=g)
         m = {n: state[self._m + n] for n in train}
         v = {n: state[self._v + n] for n in train}
         c = self.cfg

@@ -1,6 +1,8 @@
 """Multi-device planes of the port. ``collective_agg`` is the device
 aggregation plane of the collective federated runner
-(``federation/collective_round.py``) on ``torch.distributed``."""
+(``federation/collective_round.py``) on ``torch.distributed``; ``mesh``,
+``context``, ``sharding`` and ``spmd`` are model parallelism inside a
+client (a ``Trainer`` on a mesh)."""
 
 from photon_tpu_torch.parallel.collective_agg import (  # noqa: F401
     ClientMesh,

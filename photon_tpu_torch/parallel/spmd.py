@@ -1,0 +1,516 @@
+"""The train step over a mesh: the port's stand-in for GSPMD.
+
+The JAX package jits one train step with sharded inputs and lets GSPMD
+partition it over the mesh. This module writes the partitioned program
+out by hand, for one process driving every position
+(``parallel/mesh.py`` says why):
+
+- **State.** Each parameter is a :class:`~photon_tpu_torch.parallel.
+  sharding.ShardedTensor` laid out by the rule table: every distinct shard
+  once, on the device of the first position that holds it. The optimizer
+  moments take the specs of ``state_shardings`` (JAX's shape lookup).
+- **Batch.** A microbatch's rows split over ``data × fsdp`` (the batch
+  axes) and its tokens over ``sequence`` (``batch_spec``): position
+  ``(d, f, t, s)`` works on row group ``r = d·fsdp + f`` and sequence chunk
+  ``s``. A group ``(r, s)`` keeps its residual stream on its home device,
+  the device of position ``(d, f, 0, s)``.
+- **Layers, synchronously over the positions.** For each layer the
+  weights are gathered to each device that needs them (``fsdp`` and
+  ``tensor`` shards concatenated, cast to the compute dtype; inside
+  ``checkpoint`` under ``remat``, so whole weights are not kept across
+  layers). Under ``tensor`` each position computes its slice of the heads
+  and of the MLP's hidden columns; the partial products of ``out_proj``
+  and ``down_proj`` are summed over the tensor positions in rank order
+  (:func:`_tensor_sum`) and the bias added once. Attention runs per
+  ``(r, t)`` group through ``ring_chunks`` (``ops/ring_attention.py``):
+  the ring over its ``sequence`` positions, the flash kernels alone on
+  one position, the dense chunks under ``xla``.
+- **Positions are global.** ``wpe``, RoPE and the ALiBi distances use a
+  token's position in the whole sequence (:func:`_global_positions`), and
+  ALiBi a head's slope in the whole head table.
+- **Loss.** Targets shift across chunk boundaries (the last token of
+  chunk ``s`` predicts the first of chunk ``s + 1``), and the mean is over
+  the global ``B × (S − 1)``; each group's cross entropy is computed once,
+  on its home device.
+- **Gradients.** ``backward`` through the gathers, the ``.to`` moves and
+  the sums supplies GSPMD's transposes: the reduce-scatter to each fsdp
+  shard and the data-parallel sum over the positions that share a shard.
+- **Optimizer.** Each moment shard is updated with the matching region of
+  its parameter and gradient, on its own device, through the optimizer's
+  own ``apply`` (so clipping and the schedule are the single-device
+  code's); ``grad_norm``, the clip and ``param_norm`` count each distinct
+  shard once.
+
+With ``cuda:0`` named at every position the card holds one copy of each
+shard and one gathered copy of a layer's weights a step; positions differ
+only in the slice they compute.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from photon_tpu_torch.config.schema import ModelConfig
+from photon_tpu_torch.models.decode import _norm, _rope_at, torch_dtype
+from photon_tpu_torch.ops.attention import alibi_slopes
+from photon_tpu_torch.ops.ring_attention import ring_chunks
+from photon_tpu_torch.optim.build import Optimizer, global_norm
+from photon_tpu_torch.parallel.mesh import Mesh
+from photon_tpu_torch.parallel.sharding import (
+    ShardedTensor,
+    position_coords,
+    shard_params,
+    shard_region,
+    state_shardings,
+)
+from photon_tpu_torch.train.train_step import _ChunkedCE
+
+BLK = "blocks/block/"
+
+
+@dataclasses.dataclass
+class MeshTrainState:
+    """The meshed counterpart of ``TrainState``: ``params`` and the
+    moments of ``opt_state`` are :class:`ShardedTensor`; the optimizer's
+    counters are host scalars, as on one device."""
+
+    step: int
+    params: dict[str, ShardedTensor]
+    opt_state: dict
+
+
+def _global_positions(s: int, s_local: int, device: torch.device) -> torch.Tensor:
+    """Positions ``[1, s_local]`` of sequence chunk ``s`` in the whole sequence."""
+    return torch.arange(s * s_local, (s + 1) * s_local, device=device)[None]
+
+
+def _tensor_sum(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The all-reduce over the ``tensor`` positions: their partial
+    products summed in rank order (each already on the group's device)."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+class MeshModel:
+    """The forward and loss of ``models/mpt.py`` over a mesh, position by
+    position (``cfg`` is the effective model config: ``ring`` on a
+    sequence mesh)."""
+
+    def __init__(self, cfg: ModelConfig, mesh: Mesh) -> None:
+        if cfg.mlp == "moe" or cfg.lora_rank:
+            raise NotImplementedError("MoE and LoRA on a mesh are not ported yet")
+        sh = mesh.shape
+        if sh["pipe"] > 1 or sh["expert"] > 1:
+            raise NotImplementedError("mesh.pipe and mesh.expert are not ported yet")
+        self.cfg, self.mesh = cfg, mesh
+        self.n_t, self.n_s = sh["tensor"], sh["sequence"]
+        self.n_r = sh["data"] * sh["fsdp"]
+        if cfg.n_heads % self.n_t or cfg.hidden % self.n_t:
+            raise ValueError(f"mesh.tensor={self.n_t} must divide n_heads={cfg.n_heads} and "
+                             f"the MLP width {cfg.hidden}")
+        self.compute = torch_dtype(cfg.compute_dtype)
+        #: device of position (r, t, s)
+        self.dev: dict[tuple, torch.device] = {}
+        for c, d in zip(position_coords(mesh), mesh.devices.flat):
+            self.dev[c["data"] * sh["fsdp"] + c["fsdp"], c["tensor"], c["sequence"]] = \
+                torch.device(d)
+        self.home = {(r, s): self.dev[r, 0, s] for r in range(self.n_r) for s in range(self.n_s)}
+        self.devices = list(dict.fromkeys(self.dev.values()))
+        self.slopes = alibi_slopes(cfg.n_heads) if cfg.alibi else None
+
+    # -- weights ---------------------------------------------------------
+    def _cast(self, name: str) -> torch.dtype:
+        return torch.float32 if "/ln_" in "/" + name else self.compute
+
+    def _gather(self, params: dict, names: list[str], layer: int | None) -> dict:
+        """``{device: {name: whole weight}}`` for every device of the mesh:
+        layer ``layer`` of stacked block weights (or whole top-level ones),
+        cast to the compute dtype (norms fp32) before they move."""
+        out: dict = {}
+        for dev in self.devices:
+            w = {}
+            for n in names:
+                st, dt = params[n], self._cast(n)
+                if layer is None:
+                    w[n] = st.full(dev, lambda t, dt=dt: t.to(dt))
+                else:
+                    w[n] = _layer_full(st, layer, dev, dt)
+            out[dev] = w
+        return out
+
+    # -- attention pieces ------------------------------------------------
+    def _qkv(self, w: dict, h: torch.Tensor, t: int):
+        """Position ``t``'s q heads and the kv heads they read, from the
+        gathered projections (kv repeated up to the q heads first when the
+        kv heads do not split over ``tensor``)."""
+        cfg = self.cfg
+        H, Hkv, Dh, n_t = cfg.n_heads, cfg.kv_heads, cfg.d_head, self.n_t
+        hq = H // n_t
+        lead = h.shape[:-1]
+
+        def proj(name, cols):
+            y = h @ w[BLK + name + "/kernel"][:, cols]
+            bias = w.get(BLK + name + "/bias")
+            return y if bias is None else y + bias[cols]
+
+        if BLK + "wqkv/kernel" in w:
+            d_q = H * Dh
+            if n_t == 1:  # one product, as on one device
+                q, k, v = torch.chunk(proj("wqkv", slice(None)), 3, dim=-1)
+                return (q.reshape(*lead, H, Dh), k.reshape(*lead, H, Dh),
+                        v.reshape(*lead, H, Dh))
+            sl = slice(t * hq * Dh, (t + 1) * hq * Dh)
+            q = proj("wqkv", sl)
+            k = proj("wqkv", slice(d_q + sl.start, d_q + sl.stop))
+            v = proj("wqkv", slice(2 * d_q + sl.start, 2 * d_q + sl.stop))
+            return (q.reshape(*lead, hq, Dh), k.reshape(*lead, hq, Dh),
+                    v.reshape(*lead, hq, Dh))
+        q = proj("q_proj", slice(t * hq * Dh, (t + 1) * hq * Dh)).reshape(*lead, hq, Dh)
+        if Hkv % n_t == 0:
+            kv = Hkv // n_t
+            cols = slice(t * kv * Dh, (t + 1) * kv * Dh)
+            k = proj("k_proj", cols).reshape(*lead, kv, Dh)
+            v = proj("v_proj", cols).reshape(*lead, kv, Dh)
+            return q, k, v
+        every = slice(0, Hkv * Dh)
+        heads = slice(t * hq, (t + 1) * hq)
+        k = proj("k_proj", every).reshape(*lead, Hkv, Dh).repeat_interleave(H // Hkv, 2)
+        v = proj("v_proj", every).reshape(*lead, Hkv, Dh).repeat_interleave(H // Hkv, 2)
+        return q, k[..., heads, :], v[..., heads, :]
+
+    def _attend(self, qs: list, ks: list, vs: list, t: int) -> list:
+        """Attention of one ``(r, t)`` group over its sequence positions:
+        :func:`~photon_tpu_torch.ops.ring_attention.ring_chunks`, the
+        per-group step of ``ring_attention`` and of the sharded flash path
+        (one chunk: K1 at offset 0; the dense chunks under ``xla``)."""
+        hq = self.cfg.n_heads // self.n_t
+        slopes = None if self.slopes is None else self.slopes[t * hq:(t + 1) * hq]
+        impl = "xla" if self.cfg.attn_impl == "xla" else "pallas"
+        return ring_chunks(qs, ks, vs, causal=True, impl=impl, slopes=slopes)
+
+    # -- the layer over every position -----------------------------------
+    def _layer(self, params: dict, names: list[str], layer: int, *xs: torch.Tensor):
+        cfg = self.cfg
+        n_t, n_s = self.n_t, self.n_s
+        groups = list(self.home)
+        x = dict(zip(groups, xs))
+        W = self._gather(params, names, layer)
+        ln = lambda w, which, y: _norm(y, w[BLK + which + "/scale"],  # noqa: E731
+                                       w.get(BLK + which + "/bias"), cfg.norm, cfg.norm_eps)
+        hq, dh = cfg.n_heads // n_t, cfg.d_head
+        s_loc = xs[0].shape[1]
+        q, k, v = {}, {}, {}
+        h1 = {g: ln(W[self.home[g]], "ln_1", x[g]) for g in groups}
+        for (r, t, s), dev in self.dev.items():
+            q[r, t, s], k[r, t, s], v[r, t, s] = self._qkv(W[dev], h1[r, s].to(dev), t)
+            if cfg.rope:
+                pos = _global_positions(s, s_loc, dev)
+                q[r, t, s] = _rope_at(q[r, t, s], pos, cfg.rope_theta)
+                k[r, t, s] = _rope_at(k[r, t, s], pos, cfg.rope_theta)
+        o = {}
+        for r in range(self.n_r):
+            for t in range(n_t):
+                outs = self._attend([q[r, t, s] for s in range(n_s)],
+                                    [k[r, t, s] for s in range(n_s)],
+                                    [v[r, t, s] for s in range(n_s)], t)
+                for s in range(n_s):
+                    o[r, t, s] = outs[s]
+        rows = lambda t, width: slice(t * width, (t + 1) * width)  # noqa: E731
+        out = []
+        for (r, s) in groups:
+            home = W[self.home[r, s]]
+            parts = []
+            for t in range(n_t):
+                w = W[self.dev[r, t, s]]
+                a = o[r, t, s].reshape(*o[r, t, s].shape[:2], hq * dh)
+                parts.append((a @ w[BLK + "out_proj/kernel"][rows(t, hq * dh)]).to(self.home[r, s]))
+            y = _tensor_sum(parts)
+            if BLK + "out_proj/bias" in home:
+                y = y + home[BLK + "out_proj/bias"]
+            xr = x[r, s] + y
+            h2 = ln(home, "ln_2", xr)
+            hid = cfg.hidden // n_t
+            parts = []
+            for t in range(n_t):
+                dev = self.dev[r, t, s]
+                w, hh = W[dev], h2.to(dev)
+
+                def col(name, w=w, hh=hh, t=t):
+                    y = hh @ w[BLK + name + "/kernel"][:, rows(t, hid)]
+                    bias = w.get(BLK + name + "/bias")
+                    return y if bias is None else y + bias[rows(t, hid)]
+
+                if cfg.mlp == "swiglu":
+                    a = F.silu(col("gate_proj")) * col("up_proj")
+                else:
+                    a = F.gelu(col("up_proj"), approximate="tanh")
+                parts.append((a @ w[BLK + "down_proj/kernel"][rows(t, hid)]).to(self.home[r, s]))
+            y = _tensor_sum(parts)
+            if BLK + "down_proj/bias" in home:
+                y = y + home[BLK + "down_proj/bias"]
+            out.append(xr + y)
+        return tuple(out)
+
+    def hidden(self, params: dict, tokens: dict) -> dict:
+        """``{(r, s): hidden [b, s_local, d] after the final norm}``, each on
+        its group's home device; ``tokens[device]`` is the microbatch
+        ``[B, S]`` on that device."""
+        cfg = self.cfg
+        top = [n for n in params if not n.startswith(BLK)]
+        block = sorted(n for n in params if n.startswith(BLK))
+        W = self._gather(params, [n for n in top if n != "lm_head/kernel"], None)
+        b, seq = next(iter(tokens.values())).shape
+        if b % self.n_r or seq % self.n_s:
+            raise ValueError(f"batch {b} x seq {seq} does not split over {self.n_r} row "
+                             f"groups x {self.n_s} sequence positions")
+        b_loc, s_loc = b // self.n_r, seq // self.n_s
+        xs = []
+        for (r, s), dev in self.home.items():
+            tok = tokens[dev][r * b_loc:(r + 1) * b_loc, s * s_loc:(s + 1) * s_loc]
+            x = W[dev]["wte/embedding"][tok]
+            if "wpe" in W[dev]:
+                wpe = W[dev]["wpe"]
+                pos = _global_positions(s, s_loc, dev)
+                x = x + wpe[torch.clamp(pos, max=wpe.shape[0] - 1)]
+            xs.append(x)
+        n_layers = params[block[0]].shape[0]
+        for i in range(n_layers):
+            if cfg.remat:
+                xs = checkpoint(self._layer, params, block, i, *xs, use_reentrant=False)
+            else:
+                xs = self._layer(params, block, i, *xs)
+        return {g: _norm(x, W[self.home[g]]["ln_f/scale"], W[self.home[g]].get("ln_f/bias"),
+                         cfg.norm, cfg.norm_eps)
+                for g, x in zip(self.home, xs)}
+
+    def _output_embedding(self, params: dict, dev: torch.device) -> torch.Tensor:
+        """``[vocab, d_model]`` in the compute dtype on ``dev``."""
+        if self.cfg.tie_embeddings:
+            return params["wte/embedding"].full(dev, lambda t: t.to(self.compute))
+        return params["lm_head/kernel"].full(dev, lambda t: t.to(self.compute)).T
+
+    def ce_sum(self, params: dict, tokens: dict, loss_chunk_tokens: int) -> torch.Tensor:
+        """Summed next-token cross entropy over the microbatch, targets
+        shifted across the sequence chunks, on the first position's
+        device."""
+        hid = self.hidden(params, tokens)
+        first = self.home[0, 0]
+        b, seq = next(iter(tokens.values())).shape
+        b_loc, s_loc = b // self.n_r, seq // self.n_s
+        emb = {dev: self._output_embedding(params, dev) for dev in dict.fromkeys(self.home.values())}
+        total = None
+        for (r, s), h in hid.items():
+            dev = self.home[r, s]
+            tgt = tokens[dev][r * b_loc:(r + 1) * b_loc, s * s_loc + 1:(s + 1) * s_loc + 1]
+            h = h[:, :tgt.shape[1]]  # the last chunk's last token has no target
+            if loss_chunk_tokens:
+                ce = _ChunkedCE.apply(h.reshape(-1, h.shape[-1]), emb[dev].to(h.dtype),
+                                      tgt.reshape(-1), loss_chunk_tokens)
+            else:
+                logits = (h.to(self.compute) @ emb[dev].T).to(torch_dtype(self.cfg.logits_dtype))
+                ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                                     tgt.reshape(-1), reduction="sum")
+            ce = ce.to(first)
+            total = ce if total is None else total + ce
+        return total
+
+
+def _layer_full(st: ShardedTensor, layer: int, dev: torch.device, dtype) -> torch.Tensor:
+    """Layer ``layer`` of a stacked ``[L, ...]`` sharded weight, whole, on
+    ``dev`` in ``dtype`` (each shard indexed and cast before it moves)."""
+    if st.counts[0] != 1:
+        raise NotImplementedError("a layer axis sharded over pipe")
+
+    def rec(prefix: tuple, dim: int) -> torch.Tensor:
+        if dim == len(st.counts):
+            return st.shards[prefix][layer].to(dtype).to(dev)
+        parts = [rec(prefix + (j,), dim + 1) for j in range(st.counts[dim])]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim - 1)
+
+    return rec((0,), 1)
+
+
+# ---------------------------------------------------------------------------
+# state and step
+# ---------------------------------------------------------------------------
+
+def init_mesh_state(tx: Optimizer, params: dict, mesh: Mesh) -> MeshTrainState:
+    """A step-0 state: ``params`` (a flat dict or tree of whole tensors)
+    sharded by the rule table, and the optimizer state's moments as zero
+    shards by ``state_shardings``."""
+    sharded = shard_params(params, mesh)
+    for st in sharded.values():
+        for t in st.shards.values():
+            t.requires_grad_(True)
+    return MeshTrainState(step=0, params=sharded, opt_state=fresh_opt_state(tx, sharded, mesh))
+
+
+def fresh_opt_state(tx: Optimizer, params: dict[str, ShardedTensor], mesh: Mesh) -> dict:
+    """``tx.init``'s names and counters, each moment a :class:`ShardedTensor`
+    of zeros laid out by ``state_shardings``."""
+    shapes = {n: st.shape for n, st in params.items()}
+    names = {}
+    for n in params:
+        if tx.trainable(n):
+            for key in tx.moment_names(n):
+                names[key] = shapes[n]
+    specs = state_shardings(shapes, names, mesh)
+    state = {c: torch.tensor(0, dtype=torch.int32) for c in tx.counts}
+    for key, shape in names.items():
+        st = ShardedTensor(shape, specs[key], mesh, {})
+        for k, d in zip(st.keys, mesh.devices.flat):
+            if k not in st.shards:
+                region = shard_region(shape, st.spec, k, mesh)
+                st.shards[k] = torch.zeros([s.stop - s.start for s in region],
+                                           dtype=torch.float32, device=torch.device(d))
+        state[key] = st
+    return dict(sorted(state.items()))
+
+
+def _intersect(a: tuple[slice, ...], b: tuple[slice, ...]):
+    out = tuple(slice(max(x.start, y.start), min(x.stop, y.stop)) for x, y in zip(a, b))
+    return out if all(s.start < s.stop for s in out) else None
+
+
+def _local(sl: tuple[slice, ...], origin: tuple[slice, ...]) -> tuple[slice, ...]:
+    return tuple(slice(s.start - o.start, s.stop - o.start) for s, o in zip(sl, origin))
+
+
+def _region_of(st: ShardedTensor, values: dict, region, dev) -> torch.Tensor:
+    """The slice ``region`` of the whole tensor whose shards are
+    ``values[key]`` (``st``'s layout), assembled on ``dev``."""
+    out = torch.empty([s.stop - s.start for s in region], dtype=torch.float32, device=dev)
+    for key in st.shards:
+        src = st.region(key)
+        inter = _intersect(src, region)
+        if inter is not None:
+            out[_local(inter, region)] = values[key][_local(inter, src)].to(dev)
+    return out
+
+
+@torch.no_grad()
+def apply_optimizer(tx: Optimizer, state: MeshTrainState, grads: dict) -> None:
+    """One optimizer step over the shards, in place. Each moment shard is a
+    piece: its parameter and gradient regions (the parameter's own shard
+    when the two layouts agree, else assembled from the overlapping shards
+    and written back after), all on the moment shard's device."""
+    pieces_g, pieces_p, tmp = {}, {}, {}
+    writeback = []
+    for name in sorted(state.params):
+        p = state.params[name]
+        if not tx.trainable(name):
+            continue
+        m_key, v_key = tx.moment_names(name)
+        m, v = state.opt_state[m_key], state.opt_state[v_key]
+        for key, m_shard in m.items():
+            piece = f"{name}#{','.join(map(str, key))}"
+            if m.spec == p.spec:
+                pieces_p[piece], pieces_g[piece] = p.shards[key].data, grads[name][key]
+            else:
+                region, dev = m.region(key), m_shard.device
+                pieces_p[piece] = _region_of(p, {k: t.data for k, t in p.shards.items()},
+                                             region, dev)
+                pieces_g[piece] = _region_of(p, grads[name], region, dev)
+                writeback.append((p, region, pieces_p[piece]))
+            tmp[tx.moment_names(piece)[0]] = m_shard
+            tmp[tx.moment_names(piece)[1]] = v.shards[key]
+    for c in tx.counts:
+        tmp[c] = state.opt_state[c]
+    tmp = tx.apply(pieces_g, tmp, pieces_p)
+    for c in tx.counts:
+        state.opt_state[c] = tmp[c]
+    for p, region, value in writeback:
+        for key, t in p.shards.items():
+            inter = _intersect(p.region(key), region)
+            if inter is not None:
+                t.data[_local(inter, p.region(key))] = value[_local(inter, region)].to(t.device)
+
+
+def make_mesh_loss_fn(model: MeshModel, loss_chunk_tokens: int = 2048) -> Callable:
+    def loss_fn(params: dict, tokens: dict) -> torch.Tensor:
+        """Mean next-token cross entropy over the global ``B × (S − 1)``."""
+        b, seq = next(iter(tokens.values())).shape
+        return model.ce_sum(params, tokens, loss_chunk_tokens) / (b * (seq - 1))
+
+    return loss_fn
+
+
+def make_mesh_train_step(model: MeshModel, tx: Optimizer, n_microbatches: int = 1,
+                         loss_chunk_tokens: int = 2048) -> Callable:
+    """``(state, tokens) -> (state, metrics)`` over the mesh, the
+    single-device step's contract: ``tokens`` is ``{device: [global_batch,
+    seq]}`` (the batch on every device of the mesh), split into
+    ``n_microbatches`` equal chunks whose gradients are averaged in fp32;
+    then ``grad_norm``, the optimizer and ``param_norm``."""
+    loss_fn = make_mesh_loss_fn(model, loss_chunk_tokens)
+
+    def train_step(state: MeshTrainState, tokens: dict):
+        b = next(iter(tokens.values())).shape[0]
+        if b % n_microbatches:
+            raise ValueError(f"batch {b} not divisible by {n_microbatches} microbatches")
+        rows = b // n_microbatches
+        names = sorted(state.params)
+        leaves = [(n, k, t) for n in names for k, t in state.params[n].items()]
+        loss_sum, grad_sum = None, None
+        for j in range(n_microbatches):
+            mb = {d: t[j * rows:(j + 1) * rows] for d, t in tokens.items()}
+            loss = loss_fn(state.params, mb)
+            grads = torch.autograd.grad(loss, [t for _, _, t in leaves])
+            if grad_sum is None:
+                loss_sum, grad_sum = loss.detach().float(), [g.float() for g in grads]
+            else:
+                loss_sum += loss.detach()
+                for acc, g in zip(grad_sum, grads):
+                    acc += g
+            del grads
+        if n_microbatches > 1:
+            loss_sum /= n_microbatches
+            for g in grad_sum:
+                g /= n_microbatches
+        grad_norm = global_norm(grad_sum)  # each distinct shard once
+        by_name: dict = {}
+        for (n, k, _), g in zip(leaves, grad_sum):
+            by_name.setdefault(n, {})[k] = g
+        del grad_sum
+        apply_optimizer(tx, state, by_name)
+        state.step += 1
+        param_norm = global_norm([t.detach() for _, _, t in leaves])
+        return state, {"loss": loss_sum, "grad_norm": grad_norm, "param_norm": param_norm}
+
+    return train_step
+
+
+def make_mesh_eval_step(model: MeshModel, loss_chunk_tokens: int = 2048) -> Callable:
+    """``(params, tokens) -> (sum_ce, n_tokens)`` over the mesh."""
+
+    @torch.no_grad()
+    def eval_step(params: dict, tokens: dict):
+        b, seq = next(iter(tokens.values())).shape
+        return model.ce_sum(params, tokens, loss_chunk_tokens), b * (seq - 1)
+
+    return eval_step
+
+
+def mesh_gradients(model: MeshModel, params: dict, tokens: dict,
+                   loss_chunk_tokens: int = 2048) -> tuple[torch.Tensor, dict]:
+    """``(loss, {name: whole gradient})`` of one batch, the state
+    untouched (the gradients gathered to each parameter's first shard's
+    device)."""
+    loss = make_mesh_loss_fn(model, loss_chunk_tokens)(params, tokens)
+    leaves = [(n, k, t) for n in sorted(params) for k, t in params[n].items()]
+    grads = torch.autograd.grad(loss, [t for _, _, t in leaves])
+    by_name: dict = {}
+    for (n, k, _), g in zip(leaves, grads):
+        by_name.setdefault(n, {})[k] = g
+    out = {}
+    for n, st in params.items():
+        full = ShardedTensor(st.shape, st.spec, st.mesh, by_name[n])
+        out[n] = full.to_full()
+    return loss.detach(), out

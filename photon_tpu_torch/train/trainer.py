@@ -1,4 +1,4 @@
-"""Trainer: the persistent per-client training runtime, on one device.
+"""Trainer: the persistent per-client training runtime.
 
 The port of ``photon_tpu/train/trainer.py``: one object owning the train
 step, the :class:`TrainState` (fp32 master parameters and the optimizer
@@ -8,10 +8,18 @@ federation layer calls at round boundaries (``get/set_parameters``,
 ``set_step``). It runs on ``cuda`` unless the caller asks for the CPU,
 where the attention kernels' plain versions run. ``device_microbatch_size:
 auto`` probes for the largest microbatch that trains (:meth:`Trainer.
-_probe_microbatch`). There is no mesh, no pipeline and no autotuner: the
-config's ``validate()`` refuses them. The MFU peak the trainer resolved is
-a ``speed_monitor/peak`` telemetry event, so a run's MFU carries its
-basis.
+_probe_microbatch`).
+
+On a mesh (``mesh=``, or ``cfg.mesh`` larger than one device, built over
+the local cards, or the CPU repeated when ``device`` is the CPU) the step
+is ``parallel/spmd.py``'s and the state a :class:`~photon_tpu_torch.
+parallel.spmd.MeshTrainState`; the microbatch is per data-parallel
+position, as in JAX (rows a step: ``micro × data × fsdp × expert``), and
+the parameter plane gathers and scatters in the codec's order, so its
+lists are a single-device Trainer's. The pipeline and the autotuner are
+refused by the config's ``validate()``. The MFU peak the trainer resolved
+is a ``speed_monitor/peak`` telemetry event (its ``n_chips`` counts
+distinct devices), so a run's MFU carries its basis.
 """
 
 from __future__ import annotations
@@ -32,12 +40,15 @@ from photon_tpu_torch.codec.params import (
     params_to_ndarrays,
     to_numpy,
 )
-from photon_tpu_torch.config.schema import Config
+from photon_tpu_torch.config.schema import Config, MeshConfig, effective_model_config
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.models.mpt import MPTModel, init_params
 from photon_tpu_torch.optim import build_optimizer
+from photon_tpu_torch.parallel import spmd
+from photon_tpu_torch.parallel.collective_agg import local_devices
+from photon_tpu_torch.parallel.mesh import AXES, Mesh, make_mesh
+from photon_tpu_torch.parallel.sharding import ShardedTensor
 from photon_tpu_torch.train.train_step import (
-    TrainState,
     init_train_state,
     make_eval_step,
     make_train_step,
@@ -58,10 +69,21 @@ from photon_tpu_torch.utils.profiling import (
 
 class Trainer:
     def __init__(self, cfg: Config, params: dict | None = None, init_seed: int | None = None,
-                 device: str | torch.device | None = None) -> None:
+                 device: str | torch.device | None = None, mesh: Mesh | None = None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = MPTModel(cfg.model)
+        if mesh is None and cfg.mesh.size > 1:
+            # the local cards (refused when too few, as JAX does); the CPU repeats
+            mesh = make_mesh(cfg.mesh, devices=local_devices("cpu", cfg.mesh.size)
+                             if self.device.type == "cpu" else None)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            self.device = self.mesh.distinct_devices()[0]
+        # the mesh-driven attention fallback (sequence > 1: pallas → ring)
+        # is taken here; cfg.model stays the config of record
+        mesh_shape = self.mesh.shape if self.mesh is not None else dict.fromkeys(AXES, 1)
+        mcfg = effective_model_config(cfg.model, MeshConfig(**mesh_shape))
+        self.model = MPTModel(mcfg)
         self.tx, self.lr_schedule = build_optimizer(cfg.optimizer, cfg.scheduler)
         self._last_set_time = 0.0
         if params is None:
@@ -70,36 +92,61 @@ class Trainer:
         else:
             params = _tree_map(lambda t: t.detach().to(self.device, torch.float32).clone(), params)
 
-        # batch rounding, as the JAX trainer does on a one-device mesh: a
-        # microbatch larger than the batch is clamped to it, and the batch
-        # is rounded down to a multiple of the microbatch
+        # batch rounding, as the JAX trainer does: the microbatch is per
+        # data-parallel position, a step takes micro x dp_degree rows at a
+        # time; the batch is rounded down to a multiple of dp_degree, a
+        # microbatch larger than the per-position batch is clamped to it,
+        # and the batch is rounded down again to a multiple of the rows a
+        # step takes
+        dp = mesh_shape["data"] * mesh_shape["fsdp"] * mesh_shape["expert"]
+        gbs = cfg.train.global_batch_size
+        if gbs % dp:
+            adapted = max((gbs // dp) * dp, dp)
+            warnings.warn(f"global_batch_size {gbs} not divisible by data-parallel degree "
+                          f"{dp}; adapted to {adapted}", stacklevel=2)
+            cfg.train.global_batch_size = adapted
         micro = cfg.train.device_microbatch_size
         if micro == "auto":
+            if self.mesh is not None:
+                raise NotImplementedError("device_microbatch_size 'auto' on a mesh is not "
+                                          "ported yet (ROADMAP Queue 1 item 2)")
             micro = self._probe_microbatch(params)
         elif not isinstance(micro, int):
             raise ValueError(f"device_microbatch_size must be an int or 'auto', got {micro!r}")
-        clamped = min(micro, cfg.train.global_batch_size)
+        clamped = min(micro, cfg.train.global_batch_size // dp)
         if clamped != micro:
             warnings.warn(f"device_microbatch_size {micro} exceeds the per-device batch "
-                          f"{cfg.train.global_batch_size}; clamped to {clamped}", stacklevel=2)
+                          f"{cfg.train.global_batch_size // dp}; clamped to {clamped}",
+                          stacklevel=2)
         micro = clamped
         self.device_microbatch_size = micro
-        if cfg.train.global_batch_size % micro:
-            adapted = max((cfg.train.global_batch_size // micro) * micro, micro)
+        rows = micro * dp
+        if cfg.train.global_batch_size % rows:
+            adapted = max((cfg.train.global_batch_size // rows) * rows, rows)
             warnings.warn(f"global_batch_size {cfg.train.global_batch_size} not divisible by "
-                          f"microbatch rows-per-scan {micro} (micro {micro} x dp 1); "
+                          f"microbatch rows-per-scan {rows} (micro {micro} x dp {dp}); "
                           f"adapted to {adapted}", stacklevel=2)
             cfg.train.global_batch_size = adapted
         self.effective_global_batch_size = cfg.train.global_batch_size
-        self._n_micro = cfg.train.global_batch_size // micro
+        self._n_micro = cfg.train.global_batch_size // rows
 
-        # a LoRA fit computes no gradient for the frozen base
-        self.state: TrainState = init_train_state(self.tx, params, cfg.model.lora_rank > 0)
-        self._train_step = make_train_step(self.model, self.tx, n_microbatches=self._n_micro,
-                                           loss_chunk_tokens=cfg.train.loss_chunk_tokens)
-        self._eval_step = make_eval_step(self.model, loss_chunk_tokens=cfg.train.loss_chunk_tokens)
+        chunk = cfg.train.loss_chunk_tokens
+        if self.mesh is not None:
+            self.mesh_model = spmd.MeshModel(mcfg, self.mesh)
+            self.state = spmd.init_mesh_state(self.tx, params, self.mesh)
+            del params
+            self._train_step = spmd.make_mesh_train_step(
+                self.mesh_model, self.tx, n_microbatches=self._n_micro, loss_chunk_tokens=chunk)
+            self._eval_step = spmd.make_mesh_eval_step(self.mesh_model, loss_chunk_tokens=chunk)
+        else:
+            # a LoRA fit computes no gradient for the frozen base
+            self.state = init_train_state(self.tx, params, cfg.model.lora_rank > 0)
+            self._train_step = make_train_step(self.model, self.tx, n_microbatches=self._n_micro,
+                                               loss_chunk_tokens=chunk)
+            self._eval_step = make_eval_step(self.model, loss_chunk_tokens=chunk)
         name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
-        self.speed_monitor = SpeedMonitor(cfg.model, device_name=name)
+        n_devices = len(self.mesh.distinct_devices()) if self.mesh is not None else 1
+        self.speed_monitor = SpeedMonitor(cfg.model, device_name=name, n_devices=n_devices)
         telemetry.emit_event(EVENT_SPEED_MONITOR_PEAK, device_kind=name,
                              peak_flops_per_chip=self.speed_monitor.peak_flops_per_device,
                              n_chips=self.speed_monitor.n_devices)
@@ -167,15 +214,23 @@ class Trainer:
     # training / eval loops
     # ------------------------------------------------------------------
 
-    def _to_device(self, batch: np.ndarray) -> torch.Tensor:
+    def _to_device(self, batch: np.ndarray):
+        """The batch on the device; on a mesh ``{device: batch}`` for each
+        of its devices."""
         t = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.int64))
+        if self.mesh is not None:
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            return {d: t.to(d, non_blocking=True) for d in self.mesh.distinct_devices()}
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = self.mesh.distinct_devices() if self.mesh is not None else [self.device]
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def train_batch(self, batch: np.ndarray) -> dict[str, torch.Tensor]:
         """One train step on a ``[global_batch, seq]`` token batch; the
@@ -251,25 +306,47 @@ class Trainer:
     def step(self) -> int:
         return self.state.step
 
+    def _flat_params(self) -> dict:
+        """``{name: tensor or ShardedTensor}`` in codec order."""
+        if self.mesh is not None:
+            return dict(sorted(self.state.params.items()))
+        return flatten(self.state.params)
+
     def get_parameters(self) -> tuple[ParamsMetadata, list[np.ndarray]]:
         """The parameters as the canonical flat list (sorted names), as
-        fresh host arrays that later steps do not overwrite."""
+        fresh host arrays that later steps do not overwrite (on a mesh,
+        each gathered from its shards)."""
+        if self.mesh is not None:
+            arrays = [to_numpy(st.to_full()) for st in self._flat_params().values()]
+            return ParamsMetadata.from_ndarrays(self._flat_params(), arrays), arrays
         return params_to_ndarrays(_tree_map(torch.Tensor.detach, self.state.params))
 
     def set_parameters(self, metadata: ParamsMetadata, arrays: list[np.ndarray]) -> None:
-        """Copy a flat list into the parameters, in place."""
+        """Copy a flat list into the parameters, in place (on a mesh, each
+        scattered to its shards)."""
         t0 = time.monotonic()
-        new = flatten(params_from_ndarrays(self.state.params, metadata, arrays))
-        with torch.no_grad():
-            for name, p in flatten(self.state.params).items():
-                p.copy_(new[name])
+        if self.mesh is not None:
+            metadata.validate_arrays(arrays)
+            flat = self._flat_params()
+            if tuple(flat) != tuple(metadata.names):
+                raise ValueError("parameter name mismatch between the trainer and metadata")
+            for st, a in zip(flat.values(), arrays):
+                st.copy_from_full(torch.from_numpy(np.array(a)))
+        else:
+            new = flatten(params_from_ndarrays(self.state.params, metadata, arrays))
+            with torch.no_grad():
+                for name, p in flatten(self.state.params).items():
+                    p.copy_(new[name])
         self._last_set_time = time.monotonic() - t0
+
+    def _state_array(self, t) -> np.ndarray:
+        return to_numpy(t.to_full() if isinstance(t, ShardedTensor) else t)
 
     def get_opt_state_arrays(self) -> tuple[ParamsMetadata, list[np.ndarray]]:
         """The optimizer state as (metadata, arrays) under optax's names;
         fresh host arrays, as :meth:`get_parameters` returns."""
         names = sorted(self.state.opt_state)
-        arrays = [to_numpy(self.state.opt_state[n]) for n in names]
+        arrays = [self._state_array(self.state.opt_state[n]) for n in names]
         return ParamsMetadata.from_ndarrays(names, arrays), arrays
 
     def set_opt_state_arrays(self, metadata: ParamsMetadata, arrays: list[np.ndarray]) -> None:
@@ -280,6 +357,10 @@ class Trainer:
         with torch.no_grad():
             for name, a in zip(metadata.names, arrays):
                 old = state[name]
+                if isinstance(old, ShardedTensor):
+                    old.copy_from_full(torch.from_numpy(np.array(a, np.float32)).reshape(
+                        old.shape))
+                    continue
                 state[name] = torch.from_numpy(np.array(a, dtype=_np_dtype(old))).reshape(
                     old.shape).to(old.device)
 
@@ -287,29 +368,35 @@ class Trainer:
         """First and second moments in codec (sorted-name) order, as fresh
         host arrays; frozen parameters report zeros."""
         m1, m2 = [], []
-        for name, p in flatten(self.state.params).items():
+        for name, p in self._flat_params().items():
             for out, key in zip((m1, m2), self.tx.moment_names(name)):
                 t = self.state.opt_state.get(key)
                 out.append(np.zeros(tuple(p.shape), np.float32) if t is None
-                           else to_numpy(t))
+                           else self._state_array(t))
         return m1, m2
 
     def set_momenta(self, m1: list[np.ndarray], m2: list[np.ndarray]) -> None:
         """Copy aggregated moments into the optimizer state; values for
         frozen parameters are ignored."""
-        names = list(flatten(self.state.params))
+        names = list(self._flat_params())
         if len(m1) != len(names) or len(m2) != len(names):
             raise ValueError(f"expected {len(names)} moments each, got {len(m1)}/{len(m2)}")
         with torch.no_grad():
             for i, name in enumerate(names):
                 for arrays, key in zip((m1, m2), self.tx.moment_names(name)):
                     t = self.state.opt_state.get(key)
-                    if t is not None:
-                        t.copy_(torch.from_numpy(np.array(arrays[i], np.float32)).reshape(t.shape))
+                    new = torch.from_numpy(np.array(arrays[i], np.float32))
+                    if isinstance(t, ShardedTensor):
+                        t.copy_from_full(new.reshape(t.shape))
+                    elif t is not None:
+                        t.copy_(new.reshape(t.shape))
 
     def reset_optimizer(self) -> None:
         """Fresh optimizer state; parameters and step kept."""
-        self.state.opt_state = self.tx.init(flatten(self.state.params))
+        if self.mesh is not None:
+            self.state.opt_state = spmd.fresh_opt_state(self.tx, self.state.params, self.mesh)
+        else:
+            self.state.opt_state = self.tx.init(flatten(self.state.params))
 
     def set_step(self, step: int) -> None:
         """Set the step counter and every optimizer ``count`` (which drives

@@ -197,9 +197,19 @@ def test_layout_check_takes_fused_views_and_refuses_what_tma_cannot_read(dtype):
 
 
 def test_unsupported_attention_impls_refused():
+    """An unknown impl raises. ``ring`` is ported: without a sequence mesh
+    it is the flash path, and over a ring of 2 positions it equals full
+    attention."""
+    from photon_tpu_torch.config.schema import MeshConfig
+    from photon_tpu_torch.parallel.context import use_mesh
+    from photon_tpu_torch.parallel.mesh import make_mesh
+
     q, k, v, _ = _t(*_inputs(b=1, s_q=8, s_k=8, h=2, n_kv=2, d=64))
-    with pytest.raises(NotImplementedError):
-        multihead_attention(q, k, v, impl="ring")
     with pytest.raises(ValueError):
         multihead_attention(q, k, v, impl="flash")
+    assert torch.equal(multihead_attention(q, k, v, impl="ring"),
+                       multihead_attention(q, k, v, impl="pallas"))
+    with use_mesh(make_mesh(MeshConfig(sequence=2), devices=["cpu"] * 2)):
+        ring = multihead_attention(q, k, v, impl="ring")
+    torch.testing.assert_close(ring, xla_attention(q, k, v), rtol=1e-5, atol=1e-5)
     assert torch.allclose(xla_attention(q, k, v), multihead_attention(q, k, v, impl="xla"))

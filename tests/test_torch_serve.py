@@ -527,7 +527,9 @@ def test_port_imports_no_jax_or_reference_package():
             ROOT / "photon_tpu_torch/analysis/runtime.py"} <= set(files)
     assert {ROOT / f"photon_tpu_torch/{m}.py" for m in (
         "parallel/__init__", "parallel/collective_agg", "compression/quantize_torch",
-        "federation/collective_round", "federation/async_round")} <= set(files)
+        "federation/collective_round", "federation/async_round", "parallel/mesh",
+        "parallel/context", "parallel/sharding", "parallel/spmd",
+        "ops/ring_attention")} <= set(files)
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -543,7 +545,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             "photon_tpu_torch.telemetry.autopilot, photon_tpu_torch.analysis.runtime, "
             "photon_tpu_torch.parallel.collective_agg, photon_tpu_torch.compression.quantize_torch, "
             "photon_tpu_torch.federation.collective_round, "
-            "photon_tpu_torch.federation.async_round; "
+            "photon_tpu_torch.federation.async_round, photon_tpu_torch.parallel.mesh, "
+            "photon_tpu_torch.parallel.context, photon_tpu_torch.parallel.sharding, "
+            "photon_tpu_torch.parallel.spmd, photon_tpu_torch.ops.ring_attention; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'photon_tpu')))")
     out = subprocess.run([sys.executable, "-S", "-c", code], cwd=ROOT, capture_output=True,

@@ -454,10 +454,16 @@ def test_unported_training_features_refused(feature):
     from photon_tpu_torch.config.schema import Config
 
     d = _jax_cfg("mpt-wpe").to_dict()
-    if feature == "mesh":
-        d["mesh"]["data"] = 2
-    elif feature == "ring":
+    if feature == "mesh":  # data, fsdp, tensor and sequence train; pipe does not yet
+        d["mesh"].update(data=2, fsdp=2, tensor=2, sequence=2)
+        Config.from_dict(d).validate()
+        d["mesh"]["pipe"] = 2
+    elif feature == "ring":  # ring trains, on a sequence mesh or alone; not on a pipe
         d["model"]["attn_impl"] = "ring"
+        Config.from_dict(d).validate()
+        d["mesh"].update(sequence=2)
+        Config.from_dict(d).validate()
+        d["mesh"]["pipe"] = 2
     elif feature == "auto_micro":  # auto is ported; an expert mesh under it is not
         d["train"]["device_microbatch_size"] = "auto"
         Config.from_dict(d).validate()
