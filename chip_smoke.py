@@ -7271,11 +7271,18 @@ MESH_STEPS = 3
 MESH_WAIT_S = 600.0
 #: the legs: (preset, layers (None: the preset's), seq, mesh axes, global
 #: batch, the meshed run's per-position microbatch; the single-device run
-#: takes the whole batch in one microbatch, as the mesh does)
+#: takes the whole batch in one microbatch, as the mesh does, except in
+#: (f), whose two Trainers take the same microbatches). (d) is the GPipe
+#: pipeline (remat on; the single-device run takes the stages' ``xla``
+#: attention), (e) the expert mesh, (f) the autotuned Trainer (no mesh,
+#: ``photon.mesh_autotune``).
 MESH_LEGS = {
     "a": ("mpt-125m", None, 4096, {"sequence": 4}, 4, 4),
     "b": ("mpt-125m", 2, 2048, {"fsdp": 2, "tensor": 2}, 8, 4),
     "c": ("llama-1b", 2, 4096, {"tensor": 2, "sequence": 2}, 2, 2),
+    "d": ("mpt-125m", None, 2048, {"pipe": 4}, 8, 2),
+    "e": ("mpt-125m-moe8", 2, 2048, {"expert": 4}, 8, 2),
+    "f": ("mpt-125m", 2, 2048, {}, 8, 4),
 }
 #: K1 at (a)'s ring chunks: [B, S_q = S_k, H, D] at offset 0 (the diagonal,
 #: causal) and at the chunk length (a chunk below it: every key visible)
@@ -7284,7 +7291,8 @@ MESH_CHUNK = (4, 1024, 12, 64)
 
 def mesh_config(leg: str, meshed: bool):
     """Leg ``leg``'s config: the preset at full width, its depth cut for
-    (b) and (c), seq and batch set, the mesh's axes when ``meshed``."""
+    (b), (c), (e) and (f), seq and batch set, the mesh's axes when
+    ``meshed`` ((f): ``photon.mesh_autotune`` instead)."""
     from photon_tpu_torch.config import load_preset
     from photon_tpu_torch.config.schema import MeshConfig
 
@@ -7295,27 +7303,36 @@ def mesh_config(leg: str, meshed: bool):
         cfg.model.n_layers = layers
     cfg.model.max_seq_len = seq
     cfg.train.global_batch_size = gbs
-    cfg.train.device_microbatch_size = micro if meshed else gbs
+    cfg.train.device_microbatch_size = micro if meshed or leg == "f" else gbs
     cfg.mesh = MeshConfig(**axes) if meshed else MeshConfig()
+    if leg == "d":
+        cfg.model.remat = True
+        if not meshed:
+            cfg.model.attn_impl = "xla"  # the attention the pipeline's stages fall back to
+    cfg.photon.mesh_autotune = leg == "f" and meshed
     return cfg.validate()
 
 
-def _mesh_launch_rule(cfg, mesh_shape: dict, n_micro: int) -> dict:
-    """K1–K3 launches a meshed step makes (``parallel/spmd.py``): each
-    ``(rows, tensor)`` group runs ``n(n+1)/2`` chunk kernels a layer over a
-    ring of ``n`` sequence positions (the causal ring skips the chunks above
-    the diagonal; ``n = 1``: one flash call), in the forward and the
-    backward; remat runs the forward again."""
+def _mesh_launch_rule(mcfg, mesh_shape: dict, n_micro: int) -> dict:
+    """K1–K3 launches a meshed step makes (``parallel/spmd.py``; ``mcfg``
+    the trainer's effective model config): each ``(rows, tensor)`` group
+    runs ``n(n+1)/2`` chunk kernels a layer over a ring of ``n`` sequence
+    positions (the causal ring skips the chunks above the diagonal; ``n =
+    1``: one flash call), in the forward and the backward; remat runs the
+    forward again. The ``xla`` attention (a pipeline's stages) runs none."""
+    if mcfg.attn_impl == "xla":
+        return {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     n = mesh_shape["sequence"]
-    groups = mesh_shape["data"] * mesh_shape["fsdp"] * mesh_shape["tensor"]
-    per = cfg.model.n_layers * groups * n * (n + 1) // 2 * n_micro
-    return {"flash_fwd": per * (2 if cfg.model.remat else 1), "flash_bwd_dq": per,
+    groups = (mesh_shape["data"] * mesh_shape["fsdp"] * mesh_shape["expert"]
+              * mesh_shape["tensor"])
+    per = mcfg.n_layers * groups * n * (n + 1) // 2 * n_micro
+    return {"flash_fwd": per * (2 if mcfg.remat else 1), "flash_bwd_dq": per,
             "flash_bwd_dkv": per}
 
 
 def _mesh_grads(torch, trainer, tokens):
     """One batch's loss, grad norm and whole gradients on the meshed
-    trainer's state (no optimizer step)."""
+    trainer's state (no optimizer step; a pipeline runs its microbatches)."""
     from photon_tpu_torch.optim.build import global_norm
     from photon_tpu_torch.parallel.spmd import mesh_gradients
 
@@ -7355,7 +7372,8 @@ def _planted(torch, leg: str, trainer, tokens) -> dict:
     """The leg's planted fault, measured on the meshed trainer's gradients:
     (a) :func:`_diagonal_offset_fault`, (b) the tensor all-reduce keeping
     its first position's part alone, (c) RoPE positions restarting at 0 in
-    every sequence chunk."""
+    every sequence chunk, (d) the last stage's tied head reading a detached
+    ``wte`` (the head's share of its gradient lost)."""
     from photon_tpu_torch.ops import ring_attention as ra
     from photon_tpu_torch.parallel import spmd
 
@@ -7364,9 +7382,13 @@ def _planted(torch, leg: str, trainer, tokens) -> dict:
         bad = _diagonal_offset_fault(ra)
     elif leg == "b":
         mod, name, bad = spmd, "_tensor_sum", lambda parts: parts[0]
-    else:
+    elif leg == "c":
         mod, name = spmd, "_global_positions"
         bad = lambda s, s_local, device: torch.arange(s_local, device=device)[None]  # noqa: E731
+    else:
+        mod, name = spmd.MeshModel, "_output_embedding"
+        real = spmd.MeshModel._output_embedding
+        bad = lambda self, params, dev: real(self, params, dev).detach()  # noqa: E731
     sound = getattr(mod, name)
     setattr(mod, name, bad)
     try:
@@ -7375,16 +7397,116 @@ def _planted(torch, leg: str, trainer, tokens) -> dict:
         setattr(mod, name, sound)
 
 
+def _kept_set(r) -> set:
+    """A routing's kept ``(token, expert, position)`` assignments."""
+    slot, tok = r.kept.nonzero(as_tuple=True)
+    return set(zip(tok.tolist(), r.expert[slot, tok].tolist(), r.position[slot, tok].tolist()))
+
+
+@contextlib.contextmanager
+def _recording(obj, name: str, calls: list):
+    """``obj.name`` wrapped so each call's ``(args, result)`` is appended
+    to ``calls`` (detached where a tensor)."""
+    real = getattr(obj, name)
+
+    def rec(*a, **kw):
+        out = real(*a, **kw)
+        calls.append((a, out))
+        return out
+
+    setattr(obj, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(obj, name, real)
+
+
+def _per_position_route():
+    """A planted fault for (e): each row group routes its own tokens into
+    a capacity pool of its own (``expert_capacity`` of the group's
+    tokens), the per-position dispatch that GSPMD's one pool rules out;
+    the pools sit side by side in the expert buffers."""
+    from photon_tpu_torch.ops.moe import Routing, expert_capacity, route
+    from photon_tpu_torch.parallel import spmd
+
+    def faulty(probs, n_r, n_s, top_k, capacity_factor, device):
+        b, s, e = probs[0, 0].shape
+        cap = expert_capacity(b * s, e, top_k, capacity_factor)  # each group's own pool
+        parts = {g: (route(p.to(device).reshape(-1, e), top_k, cap), i)
+                 for i, (g, p) in enumerate(probs.items())}
+
+        def field(fn):
+            return spmd._global_order({g: fn(r, i).reshape(top_k, *probs[g].shape[:2])
+                                       .permute(1, 2, 0) for g, (r, i) in parts.items()},
+                                      n_r, n_s).T
+
+        aux = sum(r.aux for r, _ in parts.values()) / len(parts)
+        return Routing(field(lambda r, i: r.expert), field(lambda r, i: r.position + i * cap),
+                       field(lambda r, i: r.kept), field(lambda r, i: r.gates), aux), \
+            cap * len(parts)
+
+    return faulty
+
+
+def _expert_gates(torch, trainer, one, tokens) -> dict:
+    """(e)'s exact gate: the meshed step's kept ``(token, expert,
+    position)`` sets of each layer (forward and remat recompute) against
+    ``ops/moe.py``'s ``route`` over the concatenated global microbatch of
+    the same router probabilities; the per-position pool fault must break
+    them; and how many of one device's assignments the meshed step's
+    routing parts from (bf16 near-ties), layer by layer."""
+    from photon_tpu_torch.ops import moe
+    from photon_tpu_torch.parallel import spmd
+    from photon_tpu_torch.train.train_step import make_loss_fn
+
+    e = trainer.model.cfg.moe_num_experts
+    tok = {d: tokens for d in trainer.mesh.distinct_devices()}
+
+    def global_sets(calls):
+        same = []
+        for (probs, n_r, n_s, k, cf, dev), (routing, _) in calls:
+            p = torch.cat([torch.cat([probs[r, s] for s in range(n_s)], 1)
+                           for r in range(n_r)]).reshape(-1, e).to(dev)
+            want = moe.route(p, k, moe.expert_capacity(p.shape[0], e, k, cf))
+            same.append(_kept_set(routing) == _kept_set(want))
+        return same
+
+    mesh_calls, one_calls = [], []
+    with _recording(spmd, "_global_route", mesh_calls), _recording(moe, "route", one_calls):
+        _mesh_grads(torch, trainer, tokens)
+        with torch.no_grad():
+            make_loss_fn(one.model, one.cfg.train.loss_chunk_tokens)(one.state.params, tokens)
+    parted = [len(_kept_set(o) - _kept_set(m)) / max(len(_kept_set(o)), 1)
+              for (_, (m, _)), (_, o) in zip(mesh_calls, one_calls)]
+    fault_calls = []
+    real = spmd._global_route
+    spmd._global_route = _per_position_route()
+    try:
+        with _recording(spmd, "_global_route", fault_calls), torch.no_grad():
+            trainer.mesh_model.loss(trainer.state.params, tok, trainer.cfg.train.loss_chunk_tokens)
+    finally:
+        spmd._global_route = real
+    return {"layers_routed": len(mesh_calls), "kept_sets_equal": global_sets(mesh_calls),
+            "kept_assignments": [len(_kept_set(r)) for _, (r, _) in mesh_calls],
+            "capacity": mesh_calls[0][1][1],
+            "one_device_assignments_parted": parted,
+            "planted_per_position_pool_sets_equal": global_sets(fault_calls)}
+
+
 def _mesh_leg(torch, fa, np, leg: str, device: str = "cuda", cfg_fn=mesh_config) -> dict:
     """One leg: a single-device Trainer and a Trainer on a mesh naming
     ``device`` (``cuda:0`` on the card) at every position, from the same
     weights (seed 0) and batches. Gates: exact K1–K3 launches on every
     meshed step; each step's loss and grad norm, and every parameter's
     gradient after step 1, within ``TRAIN_GRAD_GATE`` of the single-device
-    run; the leg's planted fault over it; (b): the parameters after the
-    steps within the gate, and ``set_parameters`` → ``get_parameters`` bit
-    for bit. ``device="cpu"`` and a small ``cfg_fn`` rehearse it (no
-    peaks, no profiler)."""
+    run; the leg's planted fault over it; (b), (d): the parameters after
+    the steps within the gate; (b): ``set_parameters`` →
+    ``get_parameters`` bit for bit. (e): the gradients are recorded, and
+    gated in an fp32 ``xla`` run of the same leg (bf16 routing near-ties
+    part the two runs' assignments); the kept sets are gated exactly
+    (:func:`_expert_gates`), the per-position pool fault breaking them.
+    ``device="cpu"`` and a small ``cfg_fn`` rehearse it (no peaks, no
+    profiler)."""
     import copy
 
     from photon_tpu_torch.models.mpt import init_params
@@ -7398,10 +7520,9 @@ def _mesh_leg(torch, fa, np, leg: str, device: str = "cuda", cfg_fn=mesh_config)
     params = init_params(one_cfg.model, seed=0, device=device)
     one = Trainer(copy.deepcopy(one_cfg), params=params, device=device)
     meshed = Trainer(copy.deepcopy(mesh_cfg), params=params, device=device, mesh=mesh)
-    del params
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    rule = _mesh_launch_rule(mesh_cfg, mesh.shape, meshed._n_micro)
-    one_rule = _mesh_launch_rule(one_cfg, {a: 1 for a in mesh.shape}, one._n_micro)
+    rule = _mesh_launch_rule(meshed.model.cfg, mesh.shape, meshed._n_micro)
+    one_rule = _mesh_launch_rule(one.model.cfg, {a: 1 for a in mesh.shape}, one._n_micro)
     rng = np.random.default_rng(19)
     gbs, seq = mesh_cfg.train.global_batch_size, mesh_cfg.model.max_seq_len
     batches = [rng.integers(0, mesh_cfg.model.vocab_size, (gbs, seq)).astype(np.int64)
@@ -7440,7 +7561,10 @@ def _mesh_leg(torch, fa, np, leg: str, device: str = "cuda", cfg_fn=mesh_config)
             ref = _grads_of(torch, one_cfg, one.state.params, tokens)
             got = _mesh_grads(torch, meshed, tokens)
             rec["grads_after_step_1"] = _vs(got, ref)
-            rec["planted_fault"] = _vs(_planted(torch, leg, meshed, tokens), ref)
+            if leg == "e":
+                rec["routing"] = _expert_gates(torch, meshed, one, tokens)
+            else:
+                rec["planted_fault"] = _vs(_planted(torch, leg, meshed, tokens), ref)
             del ref, got, tokens
         m1, mm = step(one, "single", batch), step(meshed, "mesh", batch)
         rec["steps"].append({"single": m1, "mesh": mm,
@@ -7454,32 +7578,40 @@ def _mesh_leg(torch, fa, np, leg: str, device: str = "cuda", cfg_fn=mesh_config)
         rec[tag] = {"step_wall_s": walls[tag], "step_s_median_after_first": s,
                     "tokens_per_s": tokens_per_step / s,
                     "max_memory_allocated_gb": peaks[tag] / 1e9}
-    worst = max([s["loss_rel_diff"] for s in rec["steps"]]
-                + [s["grad_norm_rel_diff"] for s in rec["steps"]]
-                + [rec["grads_after_step_1"]["worst"]])
+    steps_worst = max([s["loss_rel_diff"] for s in rec["steps"]]
+                      + [s["grad_norm_rel_diff"] for s in rec["steps"]])
+    worst = steps_worst if leg == "e" else max(steps_worst, rec["grads_after_step_1"]["worst"])
     rec["worst"] = worst
     if not all(np.isfinite(v) for s in rec["steps"] for v in s["mesh"].values()):
         fail(f"mesh leg {leg}: metrics not finite: {rec['steps']}")
     if worst > TRAIN_GRAD_GATE:
         fail(f"mesh leg {leg}: the meshed run parts from the single-device run by {worst:.3e} "
              f"> {TRAIN_GRAD_GATE}")
-    if rec["planted_fault"]["worst"] <= TRAIN_GRAD_GATE:
+    if leg == "e":
+        routing = rec["routing"]
+        if not routing["layers_routed"] or not all(routing["kept_sets_equal"]):
+            fail(f"mesh leg e: the meshed step's kept sets part from one global route: "
+                 f"{routing['kept_sets_equal']}")
+        if all(routing["planted_per_position_pool_sets_equal"]):
+            fail("mesh leg e: the exact gate misses the per-position capacity pools")
+    elif rec["planted_fault"]["worst"] <= TRAIN_GRAD_GATE:
         fail(f"mesh leg {leg}: the gate {TRAIN_GRAD_GATE} misses the planted fault (reading "
              f"{rec['planted_fault']['worst']:.3e})")
-    if leg == "a" and cuda:  # where the time goes, one more step of each under the profiler
+    if leg in ("a", "d") and cuda:  # where the time goes, one more step of each under the profiler
         for tag, trainer in (("single", one), ("mesh", meshed)):
             rec[tag]["profiled_step"] = _profiled_step(
                 torch, lambda t=trainer: t.train_batch(batches[0]),
                 rec[tag]["step_s_median_after_first"])
-    if leg == "b":
+    if leg in ("b", "d"):
         meta, got = meshed.get_parameters()
         _, want = one.get_parameters()
         rel = {n: _rel_l2(torch.from_numpy(g), torch.from_numpy(w))
                for n, g, w in zip(meta.names, got, want)}
         rec["params_after_steps_max_rel_l2"] = max(rel.values())
         if rec["params_after_steps_max_rel_l2"] > TRAIN_GRAD_GATE:
-            fail(f"mesh leg b: parameters after the steps part by "
+            fail(f"mesh leg {leg}: parameters after the steps part by "
                  f"{rec['params_after_steps_max_rel_l2']:.3e}")
+    if leg == "b":
         mutated = [a * 0.5 + 0.25 for a in want]
         meshed.set_parameters(meta, mutated)
         back = meshed.get_parameters()[1]
@@ -7488,10 +7620,105 @@ def _mesh_leg(torch, fa, np, leg: str, device: str = "cuda", cfg_fn=mesh_config)
         if not rec["set_get_round_trip_bit_equal"]:
             fail("mesh leg b: set_parameters -> get_parameters is not bit for bit")
     del one, meshed
+    if leg == "e":  # the per-parameter gradients, gated in fp32 through xla
+        rec["fp32_xla"] = _fp32_xla_grads(torch, np, one_cfg, mesh_cfg, mesh, params, device,
+                                          batches[1])
+    del params
     if cuda:
         torch.cuda.empty_cache()
     rec["leg_s"] = time.perf_counter() - t_leg
     log(f"mesh_leg {leg} " + json.dumps({k: v for k, v in rec.items() if k != "steps"}))
+    return rec
+
+
+def _fp32_xla_grads(torch, np, one_cfg, mesh_cfg, mesh, params, device, batch) -> dict:
+    """(e) in fp32 through the ``xla`` attention, where routing flips are
+    rare: every parameter's gradient of one batch against one device's,
+    gated at ``TRAIN_GRAD_GATE``."""
+    import copy
+
+    from photon_tpu_torch.train.trainer import Trainer
+
+    cfgs = []
+    for c in (one_cfg, mesh_cfg):
+        c = copy.deepcopy(c)
+        c.model.compute_dtype, c.model.attn_impl = "float32", "xla"
+        cfgs.append(c.validate())
+    meshed = Trainer(cfgs[1], params=params, device=device, mesh=mesh)
+    tokens = torch.from_numpy(batch).to(device)
+    got = _mesh_grads(torch, meshed, tokens)
+    del meshed
+    out = _vs(got, _grads_of(torch, cfgs[0], params, tokens))
+    if out["worst"] > TRAIN_GRAD_GATE:
+        fail(f"mesh leg e (fp32, xla): the meshed gradients part from one device's by "
+             f"{out['worst']:.3e} > {TRAIN_GRAD_GATE}")
+    return out
+
+
+def _autotune_leg(torch, fa, np, device: str = "cuda", cfg_fn=mesh_config) -> dict:
+    """(f): a Trainer built without a mesh under ``photon.mesh_autotune``
+    against a plain single-device Trainer, same weights and batches. Gates:
+    the tuner picks ``1×1×1×1`` on one card (no mesh), the two
+    trajectories and the parameters after the steps are bit for bit equal,
+    K1–K3 launches exact on every step. Records the tuner's ``est_step_s``
+    and search seconds beside the measured step."""
+    import copy
+
+    from photon_tpu_torch.models.mpt import init_params
+    from photon_tpu_torch.train.trainer import Trainer
+
+    t_leg = time.perf_counter()
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    one_cfg, auto_cfg = cfg_fn("f", False), cfg_fn("f", True)
+    params = init_params(one_cfg.model, seed=0, device=device)
+    one = Trainer(copy.deepcopy(one_cfg), params=params, device=device)
+    auto = Trainer(copy.deepcopy(auto_cfg), params=params, device=device)
+    del params
+    tuned = auto.layout_autotune
+    axes = {a: getattr(tuned["mesh"], a) for a in ("data", "fsdp", "tensor", "sequence",
+                                                    "pipe", "expert")}
+    if auto.mesh is not None or set(axes.values()) != {1}:
+        fail(f"mesh leg f: the autotuner picked {axes} on one device")
+    rule = _mesh_launch_rule(auto.model.cfg, axes, auto._n_micro)
+    rng = np.random.default_rng(19)
+    gbs, seq = auto_cfg.train.global_batch_size, auto_cfg.model.max_seq_len
+    launches = dict.fromkeys(fa.launches, 0)
+    walls, steps = [], []
+    for key in fa.launches:
+        fa.launches[key] = 0
+    for _ in range(MESH_STEPS):
+        batch = rng.integers(0, auto_cfg.model.vocab_size, (gbs, seq)).astype(np.int64)
+        m1 = {k: float(v) for k, v in one.train_batch(batch).items()}
+        before = dict(fa.launches)
+        sync()
+        t0 = time.perf_counter()
+        ma = {k: float(v) for k, v in auto.train_batch(batch).items()}
+        sync()
+        walls.append(time.perf_counter() - t0)
+        grew = {k: fa.launches[k] - before[k] for k in before}
+        for k, n in grew.items():
+            launches[k] += n
+        if grew != rule:
+            fail(f"mesh leg f step: kernel launches {grew}, want {rule}")
+        steps.append({"single": m1, "autotuned": ma})
+    equal = all(s["single"] == s["autotuned"] for s in steps)
+    meta, got = auto.get_parameters()
+    params_equal = all(a.tobytes() == b.tobytes() for a, b in zip(got, one.get_parameters()[1]))
+    if not (equal and params_equal):
+        fail(f"mesh leg f: the autotuned Trainer parts from one device (metrics equal {equal}, "
+             f"parameters equal {params_equal}): {steps}")
+    step_s = statistics.median(walls[1:])
+    rec = {"picked": axes, "search_s": tuned["search_s"], "est_step_s": tuned["est_step_s"],
+           "step_wall_s": walls, "step_s_median_after_first": step_s,
+           "measured_over_estimated": step_s / tuned["est_step_s"],
+           "tokens_per_s": gbs * seq / step_s, "steps": steps, "bit_equal": True,
+           "launch_rule_per_step": rule, "launches": launches,
+           "leg_s": time.perf_counter() - t_leg}
+    del one, auto
+    if cuda:
+        torch.cuda.empty_cache()
+    log("mesh_leg f " + json.dumps({k: v for k, v in rec.items() if k != "steps"}))
     return rec
 
 
@@ -7553,12 +7780,13 @@ def mesh_chunk_kernels(torch, fa) -> list[dict]:
 
 
 def mesh_phase(torch, fa, np) -> dict:
-    """Phase 19: legs (a)-(c) (:func:`_mesh_leg`) and K1–K3 at (a)'s ring
-    chunks (:func:`mesh_chunk_kernels`)."""
+    """Phase 19: legs (a)-(e) (:func:`_mesh_leg`), (f)
+    (:func:`_autotune_leg`) and K1–K3 at (a)'s ring chunks
+    (:func:`mesh_chunk_kernels`)."""
     t0 = time.perf_counter()
     rec = {"chunks": mesh_chunk_kernels(torch, fa)}
     for leg in MESH_LEGS:
-        rec[leg] = _mesh_leg(torch, fa, np, leg)
+        rec[leg] = _autotune_leg(torch, fa, np) if leg == "f" else _mesh_leg(torch, fa, np, leg)
     rec["launches"] = {leg: rec[leg]["launches"] for leg in MESH_LEGS}
     rec["phase_s"] = time.perf_counter() - t0
     log(f"mesh phase: {rec['phase_s']:.1f} s (" + ", ".join(

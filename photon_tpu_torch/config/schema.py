@@ -20,16 +20,16 @@ texts, as are the prefix-cache and hot-swap fields of
 this package does not port yet, so such a config fails at start-up
 instead of running without them: a ``model.param_dtype`` other than
 ``float32`` everywhere (the port keeps fp32 parameters); and for
-training (``validate(serving=False)``, the default) ``mesh.pipe > 1``,
-``mesh.expert > 1``, the mesh autotuner, and on a mesh of more than one
-device an MoE MLP, LoRA factors, adapters, ``optimizer.freeze_patterns``,
+training (``validate(serving=False)``, the default) on a mesh of more
+than one device LoRA factors, adapters, ``optimizer.freeze_patterns``,
 the ``auto`` microbatch probe or the collective plane (ROADMAP Queue 1
-item 2). A mesh over ``data``, ``fsdp``, ``tensor`` and
-``sequence`` and ``attn_impl: ring`` train (``parallel/spmd.py``);
-:func:`effective_model_config` is the JAX package's attention fallback
-for a mesh. ``mlp: moe`` is checked as the JAX package checks it (its
-``ValueError`` texts); ``device_microbatch_size: auto`` runs the
-trainer's probe.
+item 2b). Every mesh axis trains (``parallel/spmd.py``, the pipeline in
+``parallel/pipeline.py``), with the JAX package's rules for ``pipe`` and
+``expert`` and their texts; ``attn_impl: ring`` and
+``photon.mesh_autotune`` too; :func:`effective_model_config` is the JAX
+package's attention fallback for a mesh. ``mlp: moe`` is checked as the
+JAX package checks it (its ``ValueError`` texts);
+``device_microbatch_size: auto`` runs the trainer's probe.
 """
 
 from __future__ import annotations
@@ -214,8 +214,8 @@ class MeshConfig:
     """The device mesh of one client (``parallel/mesh.py``): ``data``
     (batch data parallel), ``fsdp`` (sharded weights and optimizer state),
     ``tensor`` (heads and MLP columns), ``sequence`` (ring attention),
-    ``pipe`` and ``expert`` (refused at ``validate()``: ROADMAP Queue 1
-    item 2). ``surplus_devices`` is what ``make_mesh`` does with a device
+    ``pipe`` (pipeline stages) and ``expert`` (MoE experts; a batch axis
+    too). ``surplus_devices`` is what ``make_mesh`` does with a device
     list that is not a whole multiple of the mesh: warn, error or
     ignore."""
 
@@ -707,9 +707,9 @@ class Config:
         self._validate_federation()
 
     def _validate_mesh(self) -> None:
-        """The mesh checks of training: JAX's, plus what the port refuses
-        (ROADMAP Queue 1 item 2 ports the pipeline, the expert mesh and
-        the autotuner)."""
+        """The mesh checks of training: JAX's (the pipeline's and the expert
+        axis's, with its texts), plus what the port refuses on a mesh
+        (:meth:`refuse_unported_on_mesh`)."""
         mesh, m = self.mesh, self.model
         if mesh.surplus_devices not in ("warn", "error", "ignore"):
             raise ValueError(
@@ -720,23 +720,50 @@ class Config:
             if axis != "surplus_devices" and size < 1:
                 raise ValueError(f"mesh.{axis} must be >= 1, got {size}")
         if mesh.pipe > 1:
-            raise NotImplementedError(
-                f"mesh.pipe={mesh.pipe}: the pipeline is not ported yet (ROADMAP Queue 1 item 2)"
-            )
-        if mesh.expert > 1:
-            raise NotImplementedError(
-                f"mesh.expert={mesh.expert}: the expert mesh is not ported yet "
-                "(ROADMAP Queue 1 item 2)"
-            )
-        if self.photon.mesh_autotune:
-            raise NotImplementedError(
-                "photon.mesh_autotune is not ported yet (ROADMAP Queue 1 item 2)"
-            )
-        if mesh.size == 1:
+            if self.train.device_microbatch_size == "auto":
+                raise ValueError(
+                    "device_microbatch_size='auto' is not supported with "
+                    "mesh.pipe > 1 (the OOM probe builds the non-pipelined "
+                    "step); set an explicit microbatch size"
+                )
+            if m.n_layers % mesh.pipe:
+                raise ValueError(
+                    f"n_layers={m.n_layers} must divide evenly into "
+                    f"mesh.pipe={mesh.pipe} stages"
+                )
+            if mesh.sequence > 1:
+                raise ValueError(
+                    "mesh.pipe > 1 with mesh.sequence > 1 is not supported: "
+                    "ring attention's shard_map cannot nest inside the "
+                    "pipeline's manual pipe axis"
+                )
+            if sum(a > 1 for a in (mesh.data, mesh.fsdp, mesh.expert)) > 1:
+                raise ValueError(
+                    "mesh.pipe > 1 supports at most ONE batch-sharded axis "
+                    "> 1 (data, fsdp, or expert): compound batch sharding "
+                    "inside the partial-manual pipeline region hits an XLA "
+                    "SPMD partitioner CHECK failure "
+                    "(spmd_partitioner_util.cc group-count assertion). "
+                    "Fold the batch parallelism into one axis"
+                )
+        if m.mlp == "moe":
+            if mesh.expert > 1 and m.moe_num_experts % mesh.expert:
+                raise ValueError(
+                    f"moe_num_experts={m.moe_num_experts} must be "
+                    f"divisible by mesh.expert={mesh.expert}"
+                )
+        elif mesh.expert > 1:
+            raise ValueError("mesh.expert > 1 requires model.mlp='moe'")
+        self.refuse_unported_on_mesh(mesh.size)
+
+    def refuse_unported_on_mesh(self, size: int) -> None:
+        """What the port does not run on a mesh of ``size`` devices yet
+        (ROADMAP Queue 1 item 2b): LoRA factors, adapters, frozen
+        parameters, the ``auto`` probe and the collective plane. The Trainer
+        asks again for the layout the autotuner picked."""
+        if size == 1:
             return
-        # per-position MoE dispatch would fill each position's capacity
-        # pool apart, where GSPMD computes one pool over the microbatch
-        for what, on in (("mlp: moe", m.mlp == "moe"), ("LoRA factors", m.lora_rank > 0),
+        for what, on in (("LoRA factors", self.model.lora_rank > 0),
                          ("photon.adapters", self.photon.adapters.enabled),
                          ("optimizer.freeze_patterns", bool(self.optimizer.freeze_patterns)),
                          ("device_microbatch_size: auto",
@@ -744,8 +771,8 @@ class Config:
                          ("the collective plane", self.photon.comm_stack.collective)):
             if on:
                 raise NotImplementedError(
-                    f"{what} on a mesh of {mesh.size} devices is not ported yet "
-                    "(ROADMAP Queue 1 item 2)"
+                    f"{what} on a mesh of {size} devices is not ported yet "
+                    "(ROADMAP Queue 1 item 2b)"
                 )
 
     def _validate_federation(self) -> None:
@@ -922,10 +949,8 @@ class Config:
 def effective_model_config(model: ModelConfig, mesh: MeshConfig) -> ModelConfig:
     """The model config a step builder uses on ``mesh`` (the JAX package's
     function of that name): the config of record is never changed. With a
-    warning each, ``pipe > 1`` turns ``pallas`` into ``xla`` (no validated
-    config reaches this branch until the pipeline is ported, ROADMAP Queue
-    1 item 2: ``validate()`` refuses ``pipe > 1``; a test holds it to
-    JAX's rule meanwhile), and ``sequence > 1`` turns
+    warning each, ``pipe > 1`` turns ``pallas`` into ``xla`` (the pipeline's
+    stages run the dense attention, as JAX's do), and ``sequence > 1`` turns
     ``pallas`` into ``ring``: a sequence-sharded mesh needs the
     context-parallel dispatch."""
     if mesh.pipe > 1 and model.attn_impl == "pallas":

@@ -89,12 +89,16 @@ def _l2(arrays: list[np.ndarray]) -> float:
 class ClientRuntime:
     def __init__(self, cfg: Config, transport: ParamTransport, node_id: str = "node0",
                  ckpt_mgr: ClientCheckpointManager | None = None,
-                 device: str | None = None) -> None:
+                 device: str | None = None, mesh=None) -> None:
         self.cfg = cfg
         self.transport = transport
         self.node_id = node_id
         self.ckpt_mgr = ckpt_mgr
         self._device = device
+        # ``mesh`` pins the trainer to its devices (the collective runner
+        # passes its process's one device, so no autotuned layout reaches
+        # past it)
+        self._mesh = mesh
         self._trainer: Trainer | None = None
         self._loaders: dict[tuple[int, str], StreamingLoader] = {}
         self._current_params: tuple[ParamsMetadata, list[np.ndarray]] | None = None
@@ -106,7 +110,7 @@ class ClientRuntime:
         get its device fails its first fit or eval (an error result the
         server retries and charges to its budget), not its start."""
         if self._trainer is None:
-            self._trainer = Trainer(self.cfg, device=self._device)
+            self._trainer = Trainer(self.cfg, device=self._device, mesh=self._mesh)
         return self._trainer
 
     # -- data ------------------------------------------------------------

@@ -90,6 +90,7 @@ from photon_tpu_torch.parallel.collective_agg import (
     mesh_replica,
     modeled_cross_slice_bytes,
 )
+from photon_tpu_torch.parallel.mesh import single_device_mesh
 from photon_tpu_torch.strategy import dispatch_strategy
 from photon_tpu_torch.utils.profiling import (
     ADAPTER_COHORTS,
@@ -116,6 +117,8 @@ from photon_tpu_torch.utils.profiling import (
     FIT_ROUND_TIME,
     HBM_BYTES_IN_USE,
     HBM_PEAK_BYTES,
+    LAYOUT_EST_STEP_S,
+    LAYOUT_SEARCH_TIME,
     OPT_ALLGATHER_TIME,
     OPT_SHARD_FRAC,
     ROUND_FAILED,
@@ -250,7 +253,8 @@ class CollectiveFedRunner:
         self.transport = ParamTransport("inline")
         self.runtime = ClientRuntime(cfg, self.transport,
                                      node_id=f"collective{self.process_index}",
-                                     device=self.device)
+                                     device=self.device,
+                                     mesh=single_device_mesh(self.device))
         self.strategy = dispatch_strategy(cfg.fl)
         from photon_tpu_torch.models.mpt import init_params
 
@@ -287,6 +291,23 @@ class CollectiveFedRunner:
                                    sharded=cs.collective_zero1)
             if cs.collective_device_optimizer else None
         )
+        # the layout autotuner's probe (parallel/autotune.py): the legal
+        # layouts of one client slice (collective_replica ranks) ranked by
+        # the cost model, its search time and estimate in every round's
+        # metrics; a slice with no legal layout only warns (the plane does
+        # not consume the layout)
+        self._layout_metrics: dict[str, float] = {}
+        if cfg.photon.mesh_autotune:
+            from photon_tpu_torch.parallel.autotune import autotune_layout
+
+            t0 = time.monotonic()
+            try:
+                best = autotune_layout(cfg.model, n_devices=max(1, cs.collective_replica),
+                                       global_batch_size=cfg.train.global_batch_size)
+                self._layout_metrics = {LAYOUT_SEARCH_TIME: time.monotonic() - t0,
+                                        LAYOUT_EST_STEP_S: float(best.est_step_s)}
+            except ValueError as e:
+                warnings.warn(f"layout auto-tune probe skipped: {e}", stacklevel=2)
         self.history = History()
         self.server_steps_cumulative = 0
         # per-client control state (sample/step counters), as the driver
@@ -615,6 +636,7 @@ class CollectiveFedRunner:
         metrics[FIT_ROUND_TIME] = time.monotonic() - t_fit
         metrics[STEPS_CUMULATIVE] = float(self.server_steps_cumulative)
         metrics[ROUND_TIME] = time.monotonic() - t_round
+        metrics.update(self._layout_metrics)
         self.stragglers_total += stragglers
         if path == "host_fallback":
             self.degraded_rounds_total += 1

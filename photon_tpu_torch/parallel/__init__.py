@@ -1,8 +1,9 @@
 """Multi-device planes of the port. ``collective_agg`` is the device
 aggregation plane of the collective federated runner
 (``federation/collective_round.py``) on ``torch.distributed``; ``mesh``,
-``context``, ``sharding`` and ``spmd`` are model parallelism inside a
-client (a ``Trainer`` on a mesh)."""
+``context``, ``sharding``, ``spmd`` and ``pipeline`` are model parallelism
+inside a client (a ``Trainer`` on a mesh), and ``autotune`` picks a
+client's layout."""
 
 from photon_tpu_torch.parallel.collective_agg import (  # noqa: F401
     ClientMesh,

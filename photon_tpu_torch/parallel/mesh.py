@@ -12,8 +12,8 @@ Axes, as in the JAX package:
 - ``fsdp``: parameter and optimizer-state sharding (ZeRO-3);
 - ``tensor``: attention heads and MLP columns split over positions;
 - ``sequence``: context parallelism (ring attention, ``ops/ring_attention.py``);
-- ``pipe`` and ``expert``: refused at ``Config.validate()`` (ROADMAP
-  Queue 1 item 2).
+- ``pipe``: pipeline stages (``parallel/pipeline.py``);
+- ``expert``: MoE experts split over positions, and a batch axis.
 
 **One process drives the whole mesh, as JAX does.** The train step
 (``parallel/spmd.py``) holds every position: parameters are stored as
@@ -39,7 +39,7 @@ thread per position:
   collective inside the backward would deadlock.
 
 A mesh that spans processes (NCCL, one process per card) is not built
-here (ROADMAP Queue 1 item 2).
+here (ROADMAP Queue 1 item 2b).
 """
 
 from __future__ import annotations

@@ -9,11 +9,11 @@ out by hand, for one process driving every position
   sharding.ShardedTensor` laid out by the rule table: every distinct shard
   once, on the device of the first position that holds it. The optimizer
   moments take the specs of ``state_shardings`` (JAX's shape lookup).
-- **Batch.** A microbatch's rows split over ``data × fsdp`` (the batch
-  axes) and its tokens over ``sequence`` (``batch_spec``): position
-  ``(d, f, t, s)`` works on row group ``r = d·fsdp + f`` and sequence chunk
-  ``s``. A group ``(r, s)`` keeps its residual stream on its home device,
-  the device of position ``(d, f, 0, s)``.
+- **Batch.** A microbatch's rows split over ``data × fsdp × expert``
+  (the batch axes) and its tokens over ``sequence`` (``batch_spec``):
+  position ``(d, f, t, s, e)`` works on row group ``r = (d·fsdp + f)·expert
+  + e`` and sequence chunk ``s``. A group ``(r, s)`` keeps its residual
+  stream on its home device, the device of position ``(d, f, 0, s, e)``.
 - **Layers, synchronously over the positions.** For each layer the
   weights are gathered to each device that needs them (``fsdp`` and
   ``tensor`` shards concatenated, cast to the compute dtype; inside
@@ -25,6 +25,18 @@ out by hand, for one process driving every position
   ``(r, t)`` group through ``ring_chunks`` (``ops/ring_attention.py``):
   the ring over its ``sequence`` positions, the flash kernels alone on
   one position, the dense chunks under ``xla``.
+- **MoE, batch-global.** GSPMD routes the whole microbatch as one
+  capacity pool, so the groups' router probabilities are put into the
+  global ``[B, S]`` order and routed once (``ops/moe.py``'s ``route``:
+  one capacity, slot-major claims in global token order, one Switch aux);
+  expert position ``j`` runs only its ``E / expert`` experts on the kept
+  rows, each tensor position its hidden columns, and the gated outputs go
+  back to each token's home device. Per-position routing would fill each
+  position's pool apart.
+- **Pipeline stages.** ``MeshModel(cfg, mesh, stage)`` is one stage of
+  ``parallel/pipeline.py``: the positions whose ``pipe`` index is
+  ``stage`` and their slab of the layers (the layer axis sharded over
+  ``pipe``).
 - **Positions are global.** ``wpe``, RoPE and the ALiBi distances use a
   token's position in the whole sequence (:func:`_global_positions`), and
   ALiBi a head's slope in the whole head table.
@@ -58,6 +70,7 @@ from torch.utils.checkpoint import checkpoint
 from photon_tpu_torch.config.schema import ModelConfig
 from photon_tpu_torch.models.decode import _norm, _rope_at, torch_dtype
 from photon_tpu_torch.ops.attention import alibi_slopes
+from photon_tpu_torch.ops.moe import Routing, _experts, _router_probs, expert_capacity, route
 from photon_tpu_torch.ops.ring_attention import ring_chunks
 from photon_tpu_torch.optim.build import Optimizer, global_norm
 from photon_tpu_torch.parallel.mesh import Mesh
@@ -101,38 +114,44 @@ def _tensor_sum(parts: list[torch.Tensor]) -> torch.Tensor:
 class MeshModel:
     """The forward and loss of ``models/mpt.py`` over a mesh, position by
     position (``cfg`` is the effective model config: ``ring`` on a
-    sequence mesh)."""
+    sequence mesh). ``stage`` picks the positions of one pipeline stage
+    (``parallel/pipeline.py``) and their slab of the layers; with
+    ``pipe = 1`` stage 0 is the whole mesh and every layer."""
 
-    def __init__(self, cfg: ModelConfig, mesh: Mesh) -> None:
-        if cfg.mlp == "moe" or cfg.lora_rank:
-            raise NotImplementedError("MoE and LoRA on a mesh are not ported yet")
+    def __init__(self, cfg: ModelConfig, mesh: Mesh, stage: int = 0) -> None:
+        if cfg.lora_rank:
+            raise NotImplementedError("LoRA on a mesh is not ported yet (ROADMAP Queue 1 item 2b)")
         sh = mesh.shape
-        if sh["pipe"] > 1 or sh["expert"] > 1:
-            raise NotImplementedError("mesh.pipe and mesh.expert are not ported yet")
         self.cfg, self.mesh = cfg, mesh
-        self.n_t, self.n_s = sh["tensor"], sh["sequence"]
-        self.n_r = sh["data"] * sh["fsdp"]
+        self.n_t, self.n_s, self.n_e = sh["tensor"], sh["sequence"], sh["expert"]
+        self.n_r = sh["data"] * sh["fsdp"] * sh["expert"]
         if cfg.n_heads % self.n_t or cfg.hidden % self.n_t:
             raise ValueError(f"mesh.tensor={self.n_t} must divide n_heads={cfg.n_heads} and "
                              f"the MLP width {cfg.hidden}")
+        per_stage = cfg.n_layers // sh["pipe"]
+        self.layers = range(stage * per_stage, (stage + 1) * per_stage)
         self.compute = torch_dtype(cfg.compute_dtype)
-        #: device of position (r, t, s)
+        #: device of position (r, t, s) of this stage
         self.dev: dict[tuple, torch.device] = {}
         for c, d in zip(position_coords(mesh), mesh.devices.flat):
-            self.dev[c["data"] * sh["fsdp"] + c["fsdp"], c["tensor"], c["sequence"]] = \
-                torch.device(d)
+            if c["pipe"] == stage:
+                r = (c["data"] * sh["fsdp"] + c["fsdp"]) * sh["expert"] + c["expert"]
+                self.dev[r, c["tensor"], c["sequence"]] = torch.device(d)
         self.home = {(r, s): self.dev[r, 0, s] for r in range(self.n_r) for s in range(self.n_s)}
+        self.first = self.home[0, 0]
         self.devices = list(dict.fromkeys(self.dev.values()))
         self.slopes = alibi_slopes(cfg.n_heads) if cfg.alibi else None
 
     # -- weights ---------------------------------------------------------
     def _cast(self, name: str) -> torch.dtype:
-        return torch.float32 if "/ln_" in "/" + name else self.compute
+        """Norms and the MoE router stay fp32 (as ``compute_params``)."""
+        return torch.float32 if "/ln_" in "/" + name or name.endswith("router") else self.compute
 
     def _gather(self, params: dict, names: list[str], layer: int | None) -> dict:
-        """``{device: {name: whole weight}}`` for every device of the mesh:
+        """``{device: {name: whole weight}}`` for every device of the stage:
         layer ``layer`` of stacked block weights (or whole top-level ones),
-        cast to the compute dtype (norms fp32) before they move."""
+        cast to the compute dtype (norms and the router fp32) before they
+        move."""
         out: dict = {}
         for dev in self.devices:
             w = {}
@@ -197,17 +216,17 @@ class MeshModel:
 
     # -- the layer over every position -----------------------------------
     def _layer(self, params: dict, names: list[str], layer: int, *xs: torch.Tensor):
+        """One layer over the stage's groups: ``(*outputs, MoE aux)`` (the
+        aux an fp32 zero for a dense MLP)."""
         cfg = self.cfg
         n_t, n_s = self.n_t, self.n_s
         groups = list(self.home)
         x = dict(zip(groups, xs))
         W = self._gather(params, names, layer)
-        ln = lambda w, which, y: _norm(y, w[BLK + which + "/scale"],  # noqa: E731
-                                       w.get(BLK + which + "/bias"), cfg.norm, cfg.norm_eps)
         hq, dh = cfg.n_heads // n_t, cfg.d_head
         s_loc = xs[0].shape[1]
         q, k, v = {}, {}, {}
-        h1 = {g: ln(W[self.home[g]], "ln_1", x[g]) for g in groups}
+        h1 = {g: self._ln(W[self.home[g]], "ln_1", x[g]) for g in groups}
         for (r, t, s), dev in self.dev.items():
             q[r, t, s], k[r, t, s], v[r, t, s] = self._qkv(W[dev], h1[r, s].to(dev), t)
             if cfg.rope:
@@ -222,50 +241,113 @@ class MeshModel:
                                     [v[r, t, s] for s in range(n_s)], t)
                 for s in range(n_s):
                     o[r, t, s] = outs[s]
-        rows = lambda t, width: slice(t * width, (t + 1) * width)  # noqa: E731
-        out = []
+        xr, h2 = {}, {}
         for (r, s) in groups:
             home = W[self.home[r, s]]
             parts = []
             for t in range(n_t):
                 w = W[self.dev[r, t, s]]
                 a = o[r, t, s].reshape(*o[r, t, s].shape[:2], hq * dh)
-                parts.append((a @ w[BLK + "out_proj/kernel"][rows(t, hq * dh)]).to(self.home[r, s]))
+                parts.append((a @ w[BLK + "out_proj/kernel"][_cols(t, hq * dh)])
+                             .to(self.home[r, s]))
             y = _tensor_sum(parts)
             if BLK + "out_proj/bias" in home:
                 y = y + home[BLK + "out_proj/bias"]
-            xr = x[r, s] + y
-            h2 = ln(home, "ln_2", xr)
-            hid = cfg.hidden // n_t
+            xr[r, s] = x[r, s] + y
+            h2[r, s] = self._ln(home, "ln_2", xr[r, s])
+        if cfg.mlp == "moe":
+            y, aux = self._moe(W, h2)
+        else:
+            y = self._mlp(W, h2)
+            aux = torch.zeros((), dtype=torch.float32, device=self.first)
+        return (*[xr[g] + y[g] for g in groups], aux)
+
+    def _ln(self, w: dict, which: str, y: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        return _norm(y, w[BLK + which + "/scale"], w.get(BLK + which + "/bias"), cfg.norm,
+                     cfg.norm_eps)
+
+    def _mlp(self, W: dict, h2: dict) -> dict:
+        """The dense MLP of each group: each tensor position's hidden
+        columns, the down-projection's parts summed in rank order on the
+        group's home device, the bias added once."""
+        cfg = self.cfg
+        hid = cfg.hidden // self.n_t
+        out = {}
+        for (r, s), h in h2.items():
+            home = W[self.home[r, s]]
             parts = []
-            for t in range(n_t):
+            for t in range(self.n_t):
                 dev = self.dev[r, t, s]
-                w, hh = W[dev], h2.to(dev)
+                w, hh = W[dev], h.to(dev)
 
                 def col(name, w=w, hh=hh, t=t):
-                    y = hh @ w[BLK + name + "/kernel"][:, rows(t, hid)]
+                    y = hh @ w[BLK + name + "/kernel"][:, _cols(t, hid)]
                     bias = w.get(BLK + name + "/bias")
-                    return y if bias is None else y + bias[rows(t, hid)]
+                    return y if bias is None else y + bias[_cols(t, hid)]
 
                 if cfg.mlp == "swiglu":
                     a = F.silu(col("gate_proj")) * col("up_proj")
                 else:
                     a = F.gelu(col("up_proj"), approximate="tanh")
-                parts.append((a @ w[BLK + "down_proj/kernel"][rows(t, hid)]).to(self.home[r, s]))
+                parts.append((a @ w[BLK + "down_proj/kernel"][_cols(t, hid)])
+                             .to(self.home[r, s]))
             y = _tensor_sum(parts)
             if BLK + "down_proj/bias" in home:
                 y = y + home[BLK + "down_proj/bias"]
-            out.append(xr + y)
-        return tuple(out)
+            out[r, s] = y
+        return out
 
-    def hidden(self, params: dict, tokens: dict) -> dict:
-        """``{(r, s): hidden [b, s_local, d] after the final norm}``, each on
-        its group's home device; ``tokens[device]`` is the microbatch
-        ``[B, S]`` on that device."""
+    def _moe(self, W: dict, h2: dict) -> tuple[dict, torch.Tensor]:
+        """The MoE MLP over the stage's microbatch as one capacity pool, as
+        GSPMD computes it: each group's router probabilities, put into the
+        global ``[B, S]`` order and routed once (:func:`_global_route`);
+        the kept tokens copied into the ``[E·C, D]`` buffer; expert
+        position ``j`` runs experts ``j·E/expert .. (j+1)·E/expert`` on
+        their rows, each tensor position its hidden columns, the
+        down-projection's parts summed in rank order; each token's gated
+        outputs combined and sent back to its group's home device. Returns
+        ``(outputs by group, the layer's Switch aux)``."""
         cfg = self.cfg
-        top = [n for n in params if not n.startswith(BLK)]
-        block = sorted(n for n in params if n.startswith(BLK))
-        W = self._gather(params, [n for n in top if n != "lm_head/kernel"], None)
+        first = self.first
+        e, k = cfg.moe_num_experts, cfg.moe_top_k
+        probs = {g: _router_probs(h, W[self.home[g]][BLK + "router"]) for g, h in h2.items()}
+        routing, cap = _global_route(probs, self.n_r, self.n_s, k, cfg.moe_capacity_factor,
+                                     first)
+        x = _global_order({g: h.to(first) for g, h in h2.items()}, self.n_r, self.n_s)
+        n, d = x.shape
+        row = torch.where(routing.kept, routing.expert * cap + routing.position,
+                          e * cap).reshape(-1)  # [k·N]
+        buf = x.new_zeros((e * cap + 1, d)).index_copy(0, row, x.expand(k, n, d).reshape(k * n, d))
+        per, hid = e // self.n_e, cfg.hidden // self.n_t
+        rows = []
+        for j in range(self.n_e):
+            xin = buf[j * per * cap:(j + 1) * per * cap].view(per, cap, d)
+            es = slice(j * per, (j + 1) * per)
+            parts = []
+            for t in range(self.n_t):
+                dev = self.dev[j, t, 0]  # position (data 0, fsdp 0, expert j, tensor t)
+                w, cs = W[dev], _cols(t, hid)
+                gate = w.get(BLK + "moe_gate")
+                parts.append(_experts(xin.to(dev), w[BLK + "moe_up"][es, :, cs],
+                                      w[BLK + "moe_down"][es, cs, :],
+                                      None if gate is None else gate[es, :, cs]).to(first))
+            rows.append(_tensor_sum(parts).reshape(per * cap, d))
+        out_rows = torch.cat(rows + [rows[0].new_zeros((1, d))])
+        picked = out_rows.index_select(0, row).view(k, n, d)
+        g = routing.gates.to(x.dtype).float()[..., None]
+        out = (g * picked.float()).sum(dim=0).to(x.dtype)
+        b_loc, s_loc = h2[0, 0].shape[:2]
+        out = out.view(self.n_r * b_loc, self.n_s * s_loc, d)
+        return ({(r, s): out[r * b_loc:(r + 1) * b_loc, s * s_loc:(s + 1) * s_loc]
+                 .to(self.home[r, s]) for (r, s) in h2}, routing.aux)
+
+    # -- the stage's pieces ----------------------------------------------
+    def embed(self, params: dict, tokens: dict) -> tuple:
+        """Each group's embedded tokens ``[b, s_local, d]`` on its home
+        device (``wpe`` at global positions); ``tokens[device]`` is the
+        microbatch ``[B, S]`` on that device."""
+        W = self._gather(params, [n for n in ("wte/embedding", "wpe") if n in params], None)
         b, seq = next(iter(tokens.values())).shape
         if b % self.n_r or seq % self.n_s:
             raise ValueError(f"batch {b} x seq {seq} does not split over {self.n_r} row "
@@ -280,15 +362,20 @@ class MeshModel:
                 pos = _global_positions(s, s_loc, dev)
                 x = x + wpe[torch.clamp(pos, max=wpe.shape[0] - 1)]
             xs.append(x)
-        n_layers = params[block[0]].shape[0]
-        for i in range(n_layers):
-            if cfg.remat:
-                xs = checkpoint(self._layer, params, block, i, *xs, use_reentrant=False)
+        return tuple(xs)
+
+    def blocks(self, params: dict, xs: tuple) -> tuple[tuple, torch.Tensor]:
+        """The stage's layers over ``xs``: ``(outputs, Σ the layers' MoE
+        aux)``; under ``remat`` each layer is a ``checkpoint``."""
+        block = sorted(n for n in params if n.startswith(BLK))
+        aux = torch.zeros((), dtype=torch.float32, device=self.first)
+        for i in self.layers:
+            if self.cfg.remat:
+                *xs, a = checkpoint(self._layer, params, block, i, *xs, use_reentrant=False)
             else:
-                xs = self._layer(params, block, i, *xs)
-        return {g: _norm(x, W[self.home[g]]["ln_f/scale"], W[self.home[g]].get("ln_f/bias"),
-                         cfg.norm, cfg.norm_eps)
-                for g, x in zip(self.home, xs)}
+                *xs, a = self._layer(params, block, i, *xs)
+            aux = aux + a
+        return tuple(xs), aux
 
     def _output_embedding(self, params: dict, dev: torch.device) -> torch.Tensor:
         """``[vocab, d_model]`` in the compute dtype on ``dev``."""
@@ -296,45 +383,86 @@ class MeshModel:
             return params["wte/embedding"].full(dev, lambda t: t.to(self.compute))
         return params["lm_head/kernel"].full(dev, lambda t: t.to(self.compute)).T
 
-    def ce_sum(self, params: dict, tokens: dict, loss_chunk_tokens: int) -> torch.Tensor:
-        """Summed next-token cross entropy over the microbatch, targets
-        shifted across the sequence chunks, on the first position's
-        device."""
-        hid = self.hidden(params, tokens)
-        first = self.home[0, 0]
+    def head_ce(self, params: dict, xs: tuple, tokens: dict,
+                loss_chunk_tokens: int) -> torch.Tensor:
+        """The final norm and the summed next-token cross entropy of the
+        groups' outputs ``xs``, targets shifted across the sequence chunks,
+        on the stage's first device."""
+        cfg = self.cfg
+        W = self._gather(params, [n for n in params if n.startswith("ln_f/")], None)
         b, seq = next(iter(tokens.values())).shape
         b_loc, s_loc = b // self.n_r, seq // self.n_s
         emb = {dev: self._output_embedding(params, dev) for dev in dict.fromkeys(self.home.values())}
         total = None
-        for (r, s), h in hid.items():
-            dev = self.home[r, s]
+        for ((r, s), dev), x in zip(self.home.items(), xs):
+            h = _norm(x, W[dev]["ln_f/scale"], W[dev].get("ln_f/bias"), cfg.norm, cfg.norm_eps)
             tgt = tokens[dev][r * b_loc:(r + 1) * b_loc, s * s_loc + 1:(s + 1) * s_loc + 1]
             h = h[:, :tgt.shape[1]]  # the last chunk's last token has no target
             if loss_chunk_tokens:
                 ce = _ChunkedCE.apply(h.reshape(-1, h.shape[-1]), emb[dev].to(h.dtype),
                                       tgt.reshape(-1), loss_chunk_tokens)
             else:
-                logits = (h.to(self.compute) @ emb[dev].T).to(torch_dtype(self.cfg.logits_dtype))
+                logits = (h.to(self.compute) @ emb[dev].T).to(torch_dtype(cfg.logits_dtype))
                 ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                                      tgt.reshape(-1), reduction="sum")
-            ce = ce.to(first)
+            ce = ce.to(self.first)
             total = ce if total is None else total + ce
         return total
+
+    def ce_sum(self, params: dict, tokens: dict,
+               loss_chunk_tokens: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(summed cross entropy, Σ the layers' MoE aux)`` of one
+        microbatch over the whole mesh (``pipe = 1``), on the first
+        position's device."""
+        xs, aux = self.blocks(params, self.embed(params, tokens))
+        return self.head_ce(params, xs, tokens, loss_chunk_tokens), aux
+
+    def loss(self, params: dict, tokens: dict, loss_chunk_tokens: int) -> torch.Tensor:
+        """Mean next-token cross entropy over the global ``B × (S − 1)``,
+        plus the weighted MoE aux, as the single-device loss."""
+        b, seq = next(iter(tokens.values())).shape
+        ce, aux = self.ce_sum(params, tokens, loss_chunk_tokens)
+        return ce / (b * (seq - 1)) + self.cfg.moe_aux_weight * aux
+
+
+def _cols(t: int, width: int) -> slice:
+    """Tensor position ``t``'s slice of ``width`` columns."""
+    return slice(t * width, (t + 1) * width)
+
+
+def _global_order(parts: dict, n_r: int, n_s: int) -> torch.Tensor:
+    """``{(r, s): [b_local, s_local, ...]}`` (on one device) as ``[B·S,
+    ...]``, row-major over the global ``[B, S]``: row group ``r`` holds
+    rows ``r·b_local ..``, sequence chunk ``s`` positions ``s·s_local ..``."""
+    x = torch.cat([torch.cat([parts[r, s] for s in range(n_s)], dim=1) for r in range(n_r)])
+    return x.reshape(-1, *x.shape[2:])
+
+
+def _global_route(probs: dict, n_r: int, n_s: int, top_k: int, capacity_factor: float,
+                  device: torch.device) -> tuple[Routing, int]:
+    """One routing decision over the groups' router probabilities ``{(r,
+    s): [b_local, s_local, E]}``: put into the global token order on
+    ``device`` and routed with one capacity ``C`` for the whole
+    microbatch (slot-major claims in global order, one Switch aux).
+    Returns ``(routing over [k, B·S], C)``."""
+    p = _global_order({g: v.to(device) for g, v in probs.items()}, n_r, n_s)
+    cap = expert_capacity(p.shape[0], p.shape[1], top_k, capacity_factor)
+    return route(p, top_k, cap), cap
 
 
 def _layer_full(st: ShardedTensor, layer: int, dev: torch.device, dtype) -> torch.Tensor:
     """Layer ``layer`` of a stacked ``[L, ...]`` sharded weight, whole, on
-    ``dev`` in ``dtype`` (each shard indexed and cast before it moves)."""
-    if st.counts[0] != 1:
-        raise NotImplementedError("a layer axis sharded over pipe")
+    ``dev`` in ``dtype`` (each shard indexed and cast before it moves); the
+    layer axis may be sharded over ``pipe``, a stage's slab a shard."""
+    stage, local = divmod(layer, st.shape[0] // st.counts[0])
 
     def rec(prefix: tuple, dim: int) -> torch.Tensor:
         if dim == len(st.counts):
-            return st.shards[prefix][layer].to(dtype).to(dev)
+            return st.shards[prefix][local].to(dtype).to(dev)
         parts = [rec(prefix + (j,), dim + 1) for j in range(st.counts[dim])]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim - 1)
 
-    return rec((0,), 1)
+    return rec((stage,), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -433,13 +561,31 @@ def apply_optimizer(tx: Optimizer, state: MeshTrainState, grads: dict) -> None:
                 t.data[_local(inter, p.region(key))] = value[_local(inter, region)].to(t.device)
 
 
-def make_mesh_loss_fn(model: MeshModel, loss_chunk_tokens: int = 2048) -> Callable:
-    def loss_fn(params: dict, tokens: dict) -> torch.Tensor:
-        """Mean next-token cross entropy over the global ``B × (S − 1)``."""
-        b, seq = next(iter(tokens.values())).shape
-        return model.ce_sum(params, tokens, loss_chunk_tokens) / (b * (seq - 1))
+def leaves_of(params: dict) -> list[tuple[str, tuple, torch.Tensor]]:
+    """Every shard of the state's parameters: ``(name, key, shard)`` in
+    name and key order."""
+    return [(n, k, t) for n in sorted(params) for k, t in params[n].items()]
 
-    return loss_fn
+
+def _by_name(leaves: list, grads) -> dict:
+    out: dict = {}
+    for (n, k, _), g in zip(leaves, grads):
+        out.setdefault(n, {})[k] = g
+    return out
+
+
+def finish_step(tx: Optimizer, state: MeshTrainState, leaves: list, loss: torch.Tensor,
+                grads: list) -> tuple[MeshTrainState, dict]:
+    """The step's tail after the gradients (one per shard of ``leaves``):
+    ``grad_norm`` over each distinct shard once, the optimizer, the step
+    counter and ``param_norm``."""
+    grad_norm = global_norm(grads)
+    by_name = _by_name(leaves, grads)
+    del grads
+    apply_optimizer(tx, state, by_name)
+    state.step += 1
+    param_norm = global_norm([t.detach() for _, _, t in leaves])
+    return state, {"loss": loss, "grad_norm": grad_norm, "param_norm": param_norm}
 
 
 def make_mesh_train_step(model: MeshModel, tx: Optimizer, n_microbatches: int = 1,
@@ -449,19 +595,17 @@ def make_mesh_train_step(model: MeshModel, tx: Optimizer, n_microbatches: int = 
     seq]}`` (the batch on every device of the mesh), split into
     ``n_microbatches`` equal chunks whose gradients are averaged in fp32;
     then ``grad_norm``, the optimizer and ``param_norm``."""
-    loss_fn = make_mesh_loss_fn(model, loss_chunk_tokens)
 
     def train_step(state: MeshTrainState, tokens: dict):
         b = next(iter(tokens.values())).shape[0]
         if b % n_microbatches:
             raise ValueError(f"batch {b} not divisible by {n_microbatches} microbatches")
         rows = b // n_microbatches
-        names = sorted(state.params)
-        leaves = [(n, k, t) for n in names for k, t in state.params[n].items()]
+        leaves = leaves_of(state.params)
         loss_sum, grad_sum = None, None
         for j in range(n_microbatches):
             mb = {d: t[j * rows:(j + 1) * rows] for d, t in tokens.items()}
-            loss = loss_fn(state.params, mb)
+            loss = model.loss(state.params, mb, loss_chunk_tokens)
             grads = torch.autograd.grad(loss, [t for _, _, t in leaves])
             if grad_sum is None:
                 loss_sum, grad_sum = loss.detach().float(), [g.float() for g in grads]
@@ -474,41 +618,31 @@ def make_mesh_train_step(model: MeshModel, tx: Optimizer, n_microbatches: int = 
             loss_sum /= n_microbatches
             for g in grad_sum:
                 g /= n_microbatches
-        grad_norm = global_norm(grad_sum)  # each distinct shard once
-        by_name: dict = {}
-        for (n, k, _), g in zip(leaves, grad_sum):
-            by_name.setdefault(n, {})[k] = g
-        del grad_sum
-        apply_optimizer(tx, state, by_name)
-        state.step += 1
-        param_norm = global_norm([t.detach() for _, _, t in leaves])
-        return state, {"loss": loss_sum, "grad_norm": grad_norm, "param_norm": param_norm}
+        return finish_step(tx, state, leaves, loss_sum, grad_sum)
 
     return train_step
 
 
 def make_mesh_eval_step(model: MeshModel, loss_chunk_tokens: int = 2048) -> Callable:
-    """``(params, tokens) -> (sum_ce, n_tokens)`` over the mesh."""
+    """``(params, tokens) -> (sum_ce, n_tokens)`` over the mesh (no MoE
+    aux, as on one device)."""
 
     @torch.no_grad()
     def eval_step(params: dict, tokens: dict):
         b, seq = next(iter(tokens.values())).shape
-        return model.ce_sum(params, tokens, loss_chunk_tokens), b * (seq - 1)
+        return model.ce_sum(params, tokens, loss_chunk_tokens)[0], b * (seq - 1)
 
     return eval_step
 
 
-def mesh_gradients(model: MeshModel, params: dict, tokens: dict,
+def mesh_gradients(model, params: dict, tokens: dict,
                    loss_chunk_tokens: int = 2048) -> tuple[torch.Tensor, dict]:
-    """``(loss, {name: whole gradient})`` of one batch, the state
-    untouched (the gradients gathered to each parameter's first shard's
-    device)."""
-    loss = make_mesh_loss_fn(model, loss_chunk_tokens)(params, tokens)
-    leaves = [(n, k, t) for n in sorted(params) for k, t in params[n].items()]
-    grads = torch.autograd.grad(loss, [t for _, _, t in leaves])
-    by_name: dict = {}
-    for (n, k, _), g in zip(leaves, grads):
-        by_name.setdefault(n, {})[k] = g
+    """``(loss, {name: whole gradient})`` of one batch through ``model``'s
+    ``loss`` (a :class:`MeshModel`, or a pipeline), the state untouched
+    (the gradients gathered to each parameter's first shard's device)."""
+    loss = model.loss(params, tokens, loss_chunk_tokens)
+    leaves = leaves_of(params)
+    by_name = _by_name(leaves, torch.autograd.grad(loss, [t for _, _, t in leaves]))
     out = {}
     for n, st in params.items():
         full = ShardedTensor(st.shape, st.spec, st.mesh, by_name[n])

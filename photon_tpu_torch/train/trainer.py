@@ -16,14 +16,18 @@ is ``parallel/spmd.py``'s and the state a :class:`~photon_tpu_torch.
 parallel.spmd.MeshTrainState`; the microbatch is per data-parallel
 position, as in JAX (rows a step: ``micro × data × fsdp × expert``), and
 the parameter plane gathers and scatters in the codec's order, so its
-lists are a single-device Trainer's. The pipeline and the autotuner are
-refused by the config's ``validate()``. The MFU peak the trainer resolved
-is a ``speed_monitor/peak`` telemetry event (its ``n_chips`` counts
-distinct devices), so a run's MFU carries its basis.
+lists are a single-device Trainer's. With ``pipe > 1`` the step is
+``parallel/pipeline.py``'s GPipe schedule over the same state. Built
+without a mesh under ``photon.mesh_autotune``, the Trainer takes the
+layout ``parallel/autotune.py`` ranks first for its local devices. The
+MFU peak the trainer resolved is a ``speed_monitor/peak`` telemetry event
+(its ``n_chips`` counts distinct devices), so a run's MFU carries its
+basis.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import time
 import warnings
@@ -44,7 +48,7 @@ from photon_tpu_torch.config.schema import Config, MeshConfig, effective_model_c
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.models.mpt import MPTModel, init_params
 from photon_tpu_torch.optim import build_optimizer
-from photon_tpu_torch.parallel import spmd
+from photon_tpu_torch.parallel import pipeline, spmd
 from photon_tpu_torch.parallel.collective_agg import local_devices
 from photon_tpu_torch.parallel.mesh import AXES, Mesh, make_mesh
 from photon_tpu_torch.parallel.sharding import ShardedTensor
@@ -69,10 +73,14 @@ from photon_tpu_torch.utils.profiling import (
 
 class Trainer:
     def __init__(self, cfg: Config, params: dict | None = None, init_seed: int | None = None,
-                 device: str | torch.device | None = None, mesh: Mesh | None = None) -> None:
+                 device: str | torch.device | None = None, mesh: Mesh | None = None,
+                 n_devices: int | None = None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
-        if mesh is None and cfg.mesh.size > 1:
+        self.layout_autotune: dict | None = None
+        if mesh is None and cfg.photon.mesh_autotune:
+            mesh = self._autotuned_mesh(n_devices)
+        elif mesh is None and cfg.mesh.size > 1:
             # the local cards (refused when too few, as JAX does); the CPU repeats
             mesh = make_mesh(cfg.mesh, devices=local_devices("cpu", cfg.mesh.size)
                              if self.device.type == "cpu" else None)
@@ -109,7 +117,7 @@ class Trainer:
         if micro == "auto":
             if self.mesh is not None:
                 raise NotImplementedError("device_microbatch_size 'auto' on a mesh is not "
-                                          "ported yet (ROADMAP Queue 1 item 2)")
+                                          "ported yet (ROADMAP Queue 1 item 2b)")
             micro = self._probe_microbatch(params)
         elif not isinstance(micro, int):
             raise ValueError(f"device_microbatch_size must be an int or 'auto', got {micro!r}")
@@ -131,7 +139,16 @@ class Trainer:
         self._n_micro = cfg.train.global_batch_size // rows
 
         chunk = cfg.train.loss_chunk_tokens
-        if self.mesh is not None:
+        if self.mesh is not None and mesh_shape["pipe"] > 1:
+            # the GPipe schedule over pipe; the state is the meshed one
+            self.mesh_model = pipeline.Pipeline(mcfg, self.mesh, self._n_micro)
+            self.state = spmd.init_mesh_state(self.tx, params, self.mesh)
+            del params
+            self._train_step = pipeline.make_pipeline_train_step(self.mesh_model, self.tx,
+                                                                 loss_chunk_tokens=chunk)
+            self._eval_step = pipeline.make_pipeline_eval_step(self.mesh_model,
+                                                               loss_chunk_tokens=chunk)
+        elif self.mesh is not None:
             self.mesh_model = spmd.MeshModel(mcfg, self.mesh)
             self.state = spmd.init_mesh_state(self.tx, params, self.mesh)
             del params
@@ -150,6 +167,30 @@ class Trainer:
         telemetry.emit_event(EVENT_SPEED_MONITOR_PEAK, device_kind=name,
                              peak_flops_per_chip=self.speed_monitor.peak_flops_per_device,
                              n_chips=self.speed_monitor.n_devices)
+
+    def _autotuned_mesh(self, n_devices: int | None) -> Mesh:
+        """``photon.mesh_autotune`` without an explicit mesh: the layout the
+        cost model ranks first over the local devices (the cards, or
+        ``n_devices`` slots of the CPU: one by default), recorded in
+        ``layout_autotune`` (``mesh``, ``search_s``, ``est_step_s``), as
+        the JAX trainer does. An ``auto`` microbatch caps ``pipe`` at 1."""
+        from photon_tpu_torch.parallel.autotune import autotune_layout
+
+        cfg = self.cfg
+        if n_devices is None:
+            n_devices = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        devices = local_devices(self.device.type, n_devices)
+        t0 = time.monotonic()
+        micro = cfg.train.device_microbatch_size
+        best = autotune_layout(cfg.model, devices=devices,
+                               global_batch_size=cfg.train.global_batch_size,
+                               microbatch=micro if isinstance(micro, int) else 0,
+                               max_pipe=None if isinstance(micro, int) else 1)
+        mesh_cfg = dataclasses.replace(best.mesh, surplus_devices=cfg.mesh.surplus_devices)
+        self.layout_autotune = {"mesh": mesh_cfg, "search_s": time.monotonic() - t0,
+                                "est_step_s": best.est_step_s}
+        cfg.refuse_unported_on_mesh(mesh_cfg.size)
+        return make_mesh(mesh_cfg, devices=devices)
 
     # ------------------------------------------------------------------
     # auto microbatch probe

@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

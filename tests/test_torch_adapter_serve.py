@@ -36,6 +36,7 @@ import torch
 from tests.test_adapter_serve import _drive as jax_drive
 from tests.test_adapter_serve import _serve_cfg
 from tests.test_adapter_serve import _spy_engine as jax_spy_engine
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 #: fp32 on both sides; one computation per side, orders of sums differ
 LOGIT_ATOL = 1e-5

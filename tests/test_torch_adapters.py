@@ -28,6 +28,7 @@ import torch
 
 from photon_tpu.config.schema import Config as JaxConfig
 from tests._helpers import tiny_llama_config
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 LOGIT_ATOL = 1e-5
 #: A/B after optimizer steps, relative L2 per tensor (fp32 on both sides;

@@ -23,6 +23,7 @@ from photon_tpu_torch import chaos, telemetry
 from photon_tpu_torch.config.schema import Config, TelemetryConfig
 from photon_tpu_torch.federation.async_round import AsyncFedRunner
 from photon_tpu_torch.federation.collective_round import CollectiveFedRunner
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 
 @pytest.fixture(autouse=True)

@@ -60,6 +60,7 @@ from photon_tpu_torch.utils.profiling import (
     SERVE_QUEUE_DEPTH,
     SERVE_TPOT_S,
 )
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 
 class _Clock:
@@ -959,6 +960,9 @@ def test_chip_smoke_autopilot_phase_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(smoke, "AP_STORM_PROMPT", (40, 100))
     monkeypatch.setattr(smoke, "AP_TRICKLE_PROMPT", 6)
     monkeypatch.setattr(smoke, "AP_TPOT_TEMPLATE", (8, 4, 4))
+    # enough TPOT traffic to outlast the three 0.1 s cooldowns and the
+    # saturated tick after them: 64 prompts end in 0.31-0.57 s here
+    monkeypatch.setattr(smoke, "AP_TPOT_PROMPTS", 128)
     monkeypatch.setattr(smoke, "AP_HBM_TEMPLATE", (8, 3, 2))
     # a higher floor: the relax back to 512 is 64 one-unit probes, not 448
     monkeypatch.setattr(smoke, "AP_STORM_AUTOPILOT",

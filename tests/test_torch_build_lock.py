@@ -11,6 +11,8 @@ import os
 import pathlib
 import time
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
+
 SOURCE = "k.cu"
 
 

@@ -40,6 +40,7 @@ from photon_tpu_torch import chaos
 from photon_tpu_torch.config.schema import ChaosConfig
 from photon_tpu_torch.federation.messages import Envelope, FitRes, Query
 from tests.test_torch_tcp import make_cfg
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 
 @pytest.fixture(autouse=True)

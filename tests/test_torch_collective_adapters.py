@@ -18,6 +18,7 @@ import torch
 
 from photon_tpu.config.schema import Config as JaxConfig
 from photon_tpu_torch.config.schema import Config
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 RUN_TOL = dict(rtol=1e-3, atol=5e-5)
 

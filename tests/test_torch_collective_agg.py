@@ -40,6 +40,7 @@ from photon_tpu_torch.parallel.collective_agg import (
 from photon_tpu_torch.strategy.aggregation import aggregate_inplace
 from photon_tpu_torch.strategy.base import Strategy
 from photon_tpu_torch.strategy.optimizers import FedAdam, FedAvgEff, FedMom, FedNesterov, FedYogi
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 N_CLIENTS = 4
 STRATEGIES = {"fedavg": FedAvgEff, "nesterov": FedNesterov, "fedmom": FedMom,

@@ -22,6 +22,7 @@ from photon_tpu.config.schema import Config as JaxConfig
 from photon_tpu_torch import chaos, telemetry
 from photon_tpu_torch.config.schema import Config, TelemetryConfig
 from photon_tpu_torch.federation.collective_round import CollectiveFedRunner, StageDeadlineError
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 RUN_TOL = dict(rtol=1e-3, atol=5e-5)
 

@@ -38,6 +38,7 @@ from photon_tpu_torch.compression import (
 )
 from photon_tpu_torch.config.schema import CompressionConfig
 from photon_tpu_torch.federation.transport import ParamTransport
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 def _payload_fixture(seed=0, scale=0.02, delta_scale=1e-3):
     rng = np.random.default_rng(seed)

@@ -17,6 +17,8 @@ from collections import Counter
 import numpy as np
 import pytest
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
+
 DOCS = ["hello world", "abcdef" * 10, "xyz" * 30, "more text here", "ünïcödé ✓"] * 6
 
 

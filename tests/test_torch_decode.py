@@ -29,6 +29,7 @@ import torch
 
 from photon_tpu.config.schema import Config as JaxConfig
 from tests._helpers import tiny_llama_config
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 torch.backends.cuda.matmul.allow_tf32 = False
 #: fp32 on the CPU: the frameworks sum matmuls in different orders
@@ -96,15 +97,20 @@ def _full_forward_generate(mc, params, tokens, lengths, n):
 
 
 def test_moe_config_refused():
-    """An MoE config validates (``tests/test_torch_moe.py`` decodes one);
-    what is still refused is an expert mesh, which needs more than one
-    device."""
+    """An MoE config validates (``tests/test_torch_moe.py`` decodes one),
+    on an expert mesh too; what is refused is JAX's: an expert axis that
+    does not divide the experts, with JAX's text."""
     cfg = _mpt_cfg(alibi=False)
     cfg.model.mlp, cfg.model.moe_num_experts, cfg.model.moe_top_k = "moe", 4, 2
     assert _port_cfg(cfg.validate()).model.mlp == "moe"
     cfg.mesh.expert = 2
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _port_cfg(cfg.validate())
+    assert _port_cfg(cfg.validate()).mesh.expert == 2
+    cfg.mesh.expert = 3
+    with pytest.raises(ValueError) as want:
+        cfg.validate()
+    with pytest.raises(ValueError, match="divisible by mesh.expert") as got:
+        _port_cfg(cfg)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -25,6 +25,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 VOCAB = 257
 SEQ = 32

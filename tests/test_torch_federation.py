@@ -60,6 +60,7 @@ from photon_tpu.federation import NodeAgent as JaxNode
 from photon_tpu.federation import ParamTransport as JaxTransport
 from photon_tpu.federation import ServerApp as JaxServer
 from photon_tpu.models.mpt import init_params as jax_init
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 #: global params after a round, relative L2 per tensor: the clients' 2

@@ -27,6 +27,7 @@ from photon_tpu.ops.flash_attention import flash_attention as jax_flash
 from photon_tpu.ops.flash_attention import flash_attention_with_lse as jax_flash_lse
 from photon_tpu_torch.ops import flash_attention as fa
 from photon_tpu_torch.ops.attention import alibi_slopes, multihead_attention, xla_attention
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 FWD_TOL = 2e-5
 BWD_TOL = 5e-5

@@ -19,6 +19,7 @@ import torch
 
 from photon_tpu_torch.ops import flash_attention as fa
 from photon_tpu_torch.ops.attention import alibi_slopes
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

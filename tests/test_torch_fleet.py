@@ -40,6 +40,7 @@ import torch
 
 from photon_tpu_torch.federation.messages import Ack, Query
 from photon_tpu_torch.federation.tcp import TcpServerDriver
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

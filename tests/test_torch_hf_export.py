@@ -18,6 +18,7 @@ from photon_tpu.config.schema import Config as JaxConfig
 from photon_tpu.models.mpt import init_params as jax_init
 
 from tests._helpers import tiny_llama_config
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")

@@ -28,6 +28,7 @@ from photon_tpu.codec.params import params_to_ndarrays as jax_to_ndarrays
 from photon_tpu.models.mpt import init_params as jax_init
 
 from tests._helpers import tiny_llama_config
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from photon_tpu.config.schema import Config as JaxConfig
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

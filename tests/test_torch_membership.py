@@ -29,6 +29,7 @@ from photon_tpu_torch.federation.membership import (
 )
 from photon_tpu_torch.federation.messages import Ack, Query
 from tests.test_torch_tcp import make_cfg
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 
 class _FixedRng:

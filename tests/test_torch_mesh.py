@@ -7,7 +7,7 @@ mesh repeats the CPU): the axes, size and surplus policy
 shard shape against JAX's ``addressable_shards`` for the same device
 index, indivisible axes dropped, the optimizer-state specs (JAX's shape
 lookup, quirk included), ``effective_model_config``, and the
-combinations ``Config.validate()`` still refuses (ROADMAP Queue 1 item 2).
+combinations ``Config.validate()`` still refuses (ROADMAP Queue 1 item 2b).
 """
 
 import warnings
@@ -243,28 +243,41 @@ def test_lifted_axes_and_ring_validate(axes):
 @pytest.mark.parametrize("what", ["pipe", "expert", "mesh_autotune", "moe", "lora",
                                   "freeze_patterns", "auto_micro", "adapters", "collective"])
 def test_refused_on_a_mesh(what):
-    """What this slice does not port is refused at ``validate()``, naming
-    ROADMAP Queue 1 item 2; MoE, LoRA, adapters, frozen parameters, the
-    ``auto`` probe and the collective plane validate on one device and are
-    refused on a mesh (no test holds them to JAX there yet)."""
+    """What the port does not run on a mesh yet is refused at
+    ``validate()``, naming ROADMAP Queue 1 item 2b: LoRA, adapters, frozen
+    parameters, the ``auto`` probe and the collective plane validate on one
+    device and are refused on a mesh. The pipeline, the expert mesh, the
+    autotuner and MoE on a mesh are ported: they validate as in JAX, and
+    only JAX's own rules refuse them (with its texts)."""
+    from photon_tpu.config.schema import Config as JaxConfig
+
     one, mesh = {}, {"mesh": {"data": 2}}
-    if what == "pipe":
-        bad = {"mesh": {"pipe": 2}}
-    elif what == "expert":
-        bad = {"mesh": {"expert": 2}, "model": {"mlp": "moe", "moe_num_experts": 4}}
-    elif what == "mesh_autotune":
-        bad = {"photon": {"mesh_autotune": True}}
-    else:
-        one = {"moe": {"model": {"mlp": "moe", "moe_num_experts": 4}},
-               "lora": {"model": {"lora_rank": 4, "lora_targets": ["wqkv"]}},
-               "freeze_patterns": {"optimizer": {"freeze_patterns": ["wte"]}},
-               "auto_micro": {"train": {"device_microbatch_size": "auto"}},
-               "adapters": {"photon": {"adapters": {"enabled": True, "cohorts": {"a": [0]}}}},
-               "collective": {"photon": {"comm_stack": {"collective": True, "shm": False}}},
-               }[what]
-        _cfg(**one).validate()
-        bad = {**one, **mesh}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    lifted = {"pipe": ({"mesh": {"pipe": 2}}, {"mesh": {"pipe": 2, "sequence": 2}}),
+              "expert": ({"mesh": {"expert": 2}, "model": {"mlp": "moe", "moe_num_experts": 4}},
+                         {"mesh": {"expert": 2}}),
+              "mesh_autotune": ({"photon": {"mesh_autotune": True}}, None),
+              "moe": ({"mesh": {"data": 2}, "model": {"mlp": "moe", "moe_num_experts": 4}},
+                      {"mesh": {"expert": 4}, "model": {"mlp": "moe", "moe_num_experts": 6}})}
+    if what in lifted:
+        good, bad = lifted[what]
+        _cfg(**good).validate()
+        JaxConfig.from_dict(_cfg(**good).to_dict()).validate()
+        if bad is not None:
+            with pytest.raises(ValueError) as want:
+                JaxConfig.from_dict(_cfg(**bad).to_dict()).validate()
+            with pytest.raises(ValueError) as got:
+                _cfg(**bad).validate()
+            assert str(got.value) == str(want.value)
+        return
+    one = {"lora": {"model": {"lora_rank": 4, "lora_targets": ["wqkv"]}},
+           "freeze_patterns": {"optimizer": {"freeze_patterns": ["wte"]}},
+           "auto_micro": {"train": {"device_microbatch_size": "auto"}},
+           "adapters": {"photon": {"adapters": {"enabled": True, "cohorts": {"a": [0]}}}},
+           "collective": {"photon": {"comm_stack": {"collective": True, "shm": False}}},
+           }[what]
+    _cfg(**one).validate()
+    bad = {**one, **mesh}
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2b"):
         _cfg(**bad).validate()
     _cfg(**bad).validate(serving=True)  # a server loads weights whatever trained them
 
@@ -274,13 +287,15 @@ def test_surplus_devices_value_checked():
         _cfg(mesh={"surplus_devices": "sometimes"}).validate()
 
 
-@pytest.mark.parametrize("leg", ["a", "b", "c"])
+@pytest.mark.parametrize("leg", ["a", "b", "c", "d", "e", "f"])
 def test_chip_smoke_mesh_leg_on_the_cpu(leg, monkeypatch):
-    """Phase 19's leg through ``chip_smoke._mesh_leg`` itself, at d64/d128
-    and seq 256 in fp32 on a mesh that repeats the CPU (the plain K1–K3
-    counted here as the kernels are on the card): its launch rule holds
-    exactly, the meshed run reads within the training gate and the leg's
-    planted fault over it."""
+    """Phase 19's leg through ``chip_smoke._mesh_leg`` (``_autotune_leg``
+    for (f)) itself, at d64/d128 and seq 256 in fp32 on a mesh that
+    repeats the CPU (the plain K1–K3 counted here as the kernels are on
+    the card): its launch rule holds exactly, the meshed run reads within
+    the training gate and the leg's planted fault over it ((e): the kept
+    sets equal one global route and the per-position pools break them;
+    (f): the tuner picks one device, bit for bit)."""
     from photon_tpu_torch.ops import flash_attention as fa
     from tests.test_torch_compression import _chip_smoke
 
@@ -297,7 +312,8 @@ def test_chip_smoke_mesh_leg_on_the_cpu(leg, monkeypatch):
     def tiny(leg, meshed):
         cfg = smoke.mesh_config(leg, meshed)
         m = cfg.model
-        m.compute_dtype, m.vocab_size, m.max_seq_len, m.n_layers = "float32", 256, 256, 2
+        m.compute_dtype, m.vocab_size, m.max_seq_len = "float32", 256, 256
+        m.n_layers = 4 if leg == "d" else 2
         m.d_model, m.n_heads = (128, 4) if leg == "c" else (64, 4)
         if leg == "c":
             m.n_kv_heads, m.mlp_hidden_size = 2, 256
@@ -305,9 +321,27 @@ def test_chip_smoke_mesh_leg_on_the_cpu(leg, monkeypatch):
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        rec = smoke._mesh_leg(torch, fa, np, leg, device="cpu", cfg_fn=tiny)
+        if leg == "f":
+            rec = smoke._autotune_leg(torch, fa, np, device="cpu", cfg_fn=tiny)
+        else:
+            rec = smoke._mesh_leg(torch, fa, np, leg, device="cpu", cfg_fn=tiny)
     per_step = rec["launch_rule_per_step"]
     assert rec["launches"] == {k: v * smoke.MESH_STEPS for k, v in per_step.items()}
-    assert rec["worst"] < smoke.TRAIN_GRAD_GATE < rec["planted_fault"]["worst"]
+    if leg == "f":
+        assert rec["bit_equal"] and set(rec["picked"].values()) == {1}
+        assert per_step["flash_fwd"] > 0
+        return
+    assert rec["worst"] < smoke.TRAIN_GRAD_GATE
+    if leg == "d":
+        assert per_step == dict.fromkeys(per_step, 0)  # the stages' xla fallback
+        assert rec["params_after_steps_max_rel_l2"] < smoke.TRAIN_GRAD_GATE
+    if leg == "e":
+        routing = rec["routing"]
+        assert all(routing["kept_sets_equal"]) and routing["layers_routed"] == 4  # remat
+        assert not all(routing["planted_per_position_pool_sets_equal"])
+        assert rec["fp32_xla"]["worst"] < smoke.TRAIN_GRAD_GATE
+        assert rec["grads_after_step_1"]["worst"] < smoke.TRAIN_GRAD_GATE  # fp32 here
+        return
+    assert smoke.TRAIN_GRAD_GATE < rec["planted_fault"]["worst"]
     if leg == "b":
         assert rec["set_get_round_trip_bit_equal"]

@@ -29,6 +29,7 @@ from photon_tpu.config.schema import Config as JaxConfig
 from photon_tpu.models.mpt import MPTModel as JaxModel
 from photon_tpu.models.mpt import init_params as jax_init
 from photon_tpu.ops import moe as jax_moe
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 torch.backends.cuda.matmul.allow_tf32 = False
 #: fp32 on both sides: the frameworks sum matmuls in different orders
@@ -215,11 +216,12 @@ def test_moe_validation():
         cfg(model={"moe_mlp_act": "relu"}).validate()
     with pytest.raises(ValueError, match="moe_top_k"):
         cfg(model={"moe_top_k": 5}).validate()
-    # JAX's expert-mesh checks: any mesh of more than one device is refused
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # JAX's expert-mesh checks, with its texts (the expert mesh is ported)
+    with pytest.raises(ValueError, match="divisible by mesh.expert=3"):
         cfg(mesh={"expert": 3}).validate()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="requires model.mlp='moe'"):
         cfg(model={"mlp": "gelu"}, mesh={"expert": 2}).validate()
+    cfg(mesh={"expert": 2}).validate()
 
 
 @pytest.mark.parametrize("act", ACTS)

@@ -37,6 +37,7 @@ from tests.test_torch_federation import (
     init_arrays,  # noqa: F401 — a module fixture
 )
 from tests.test_torch_tcp import make_cfg
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 
 def test_multiprocess_fed_round(tmp_path):

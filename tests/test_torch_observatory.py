@@ -63,6 +63,7 @@ from photon_tpu_torch.utils.profiling import (
 )
 from tests.test_torch_telemetry import make_app
 from tests.test_torch_tcp import make_cfg
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

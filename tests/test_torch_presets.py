@@ -9,6 +9,7 @@ import pytest
 
 from photon_tpu.config import list_presets as jax_list_presets
 from photon_tpu.config import load_preset as jax_load_preset
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 SECTIONS = ("model", "optimizer", "scheduler", "train")
 

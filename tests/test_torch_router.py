@@ -35,6 +35,7 @@ from photon_tpu_torch.serve.router import (
     ReplicaState,
     rendezvous_pick,
 )
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 
 def _jax_fleet_cfg(*, replicas=3, n_slots=2, block_size=4, max_seq=32, max_new=8,

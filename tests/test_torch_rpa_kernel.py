@@ -16,6 +16,7 @@ import torch
 
 from photon_tpu_torch.ops import ragged_paged_attention as rpa
 from photon_tpu_torch.ops.attention import alibi_slopes
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 # fp32 matmuls stay full fp32 (the fp32 gate compares against them)
 torch.backends.cuda.matmul.allow_tf32 = False

@@ -17,6 +17,7 @@ from photon_tpu.ops.attention import alibi_slopes as jax_alibi_slopes
 from photon_tpu.ops.ragged_paged_attention import ragged_paged_attention as jax_rpa
 from photon_tpu_torch.ops import ragged_paged_attention as rpa
 from photon_tpu_torch.ops.attention import alibi_slopes
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 #: the JAX package's pin for its fused kernel vs the dense reference, fp32
 RAGGED_KERNEL_EPS = 2e-6

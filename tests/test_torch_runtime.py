@@ -31,6 +31,7 @@ import pytest
 from photon_tpu_torch import telemetry
 from photon_tpu_torch.analysis import runtime as rt
 from photon_tpu_torch.ops import _build
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -31,6 +31,7 @@ import torch
 
 from photon_tpu.config.schema import Config as JaxConfig
 from tests._helpers import tiny_llama_config
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -529,7 +530,7 @@ def test_port_imports_no_jax_or_reference_package():
         "parallel/__init__", "parallel/collective_agg", "compression/quantize_torch",
         "federation/collective_round", "federation/async_round", "parallel/mesh",
         "parallel/context", "parallel/sharding", "parallel/spmd",
-        "ops/ring_attention")} <= set(files)
+        "ops/ring_attention", "parallel/pipeline", "parallel/autotune")} <= set(files)
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -547,7 +548,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "photon_tpu_torch.federation.collective_round, "
             "photon_tpu_torch.federation.async_round, photon_tpu_torch.parallel.mesh, "
             "photon_tpu_torch.parallel.context, photon_tpu_torch.parallel.sharding, "
-            "photon_tpu_torch.parallel.spmd, photon_tpu_torch.ops.ring_attention; "
+            "photon_tpu_torch.parallel.spmd, photon_tpu_torch.ops.ring_attention, "
+            "photon_tpu_torch.parallel.pipeline, photon_tpu_torch.parallel.autotune; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'photon_tpu')))")
     out = subprocess.run([sys.executable, "-S", "-c", code], cwd=ROOT, capture_output=True,
@@ -632,8 +634,9 @@ def test_unported_features_refused(feature):
     """Features the port does not run are refused with NotImplementedError;
     the features it runs validate when on, and an invalid value raises the
     JAX package's ValueError (the same text as JAX's). Adapters, their
-    collective round loop and the fleet run; the mesh autotuner (a client's
-    model parallelism) is refused."""
+    collective round loop, the fleet, the expert mesh and the mesh
+    autotuner run; adapters and the ``auto`` probe on a client's mesh are
+    refused (ROADMAP Queue 1 item 2b)."""
     from photon_tpu_torch.config.schema import Config
 
     d = _jax_cfg("mpt-wpe").to_dict()
@@ -648,10 +651,13 @@ def test_unported_features_refused(feature):
         with pytest.raises(ValueError, match=text):
             Config.from_dict(d).validate("cpu")
         return
-    if feature == "moe":  # MoE is ported; an expert mesh is not
+    if feature == "moe":  # MoE and the expert mesh are ported; the auto probe on a mesh is not
         d["model"].update(mlp="moe", moe_num_experts=4)
         Config.from_dict(d).validate("cpu")
         d["mesh"]["expert"] = 2
+        JaxConfig.from_dict(d).validate()
+        Config.from_dict(d).validate("cpu")
+        d["train"]["device_microbatch_size"] = "auto"
     elif feature == "adapters":  # adapters and their collective round loop are ported
         d["photon"]["adapters"].update(enabled=True, cohorts={"a": [0]})
         JaxConfig.from_dict(d).validate()
@@ -664,7 +670,10 @@ def test_unported_features_refused(feature):
         d["photon"]["comm_stack"]["collective"] = True
         JaxConfig.from_dict(d).validate()
         Config.from_dict(d).validate("cpu")
-        d["photon"]["mesh_autotune"] = True
+        d["photon"]["mesh_autotune"] = True  # the autotuner is ported
+        JaxConfig.from_dict(d).validate()
+        Config.from_dict(d).validate("cpu")
+        d["mesh"]["data"] = 2  # adapters on a client's mesh are not
     else:
         d["photon"]["serve"][feature]["enabled"] = True
     with pytest.raises(NotImplementedError):

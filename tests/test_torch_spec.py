@@ -26,6 +26,7 @@ import torch
 
 from photon_tpu.config.schema import Config as JaxConfig
 from tests._helpers import tiny_llama_config
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 #: fp32 logits of a verify column against the sequential step's
 LOGIT_ATOL = 1e-5

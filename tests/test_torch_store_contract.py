@@ -17,6 +17,7 @@ from photon_tpu.checkpoint.store import FileStore as JaxFileStore
 from photon_tpu.checkpoint.store import make_store as jax_make_store
 from photon_tpu_torch.checkpoint.store import FileStore, ObjectStore, S3Store, make_store
 from tests.test_store_contract import FakeS3Client
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 
 @pytest.fixture(params=["file", "s3"])

@@ -38,6 +38,7 @@ from photon_tpu_torch.federation.tcp import (
     TcpServerDriver,
     run_node,
 )
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

@@ -41,6 +41,7 @@ from photon_tpu_torch.telemetry.export import (
 )
 from photon_tpu_torch.telemetry.spans import Tracer
 from tests.test_torch_tcp import _free_port, _thread_node, make_cfg
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

@@ -20,6 +20,8 @@ import sys
 import numpy as np
 import pytest
 
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
+
 transformers = pytest.importorskip("transformers")
 tokenizers = pytest.importorskip("tokenizers")
 

@@ -42,6 +42,7 @@ from photon_tpu.config.schema import Config as JaxConfig
 from photon_tpu.models.mpt import MPTModel as JaxModel
 from photon_tpu.models.mpt import init_params as jax_init
 from tests._helpers import tiny_llama_config
+from tests._torch_threads import one_torch_thread  # noqa: F401 -- autouse: one torch thread
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -451,34 +452,59 @@ def test_centralized_cli_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("feature", ["mesh", "ring", "auto_micro", "mesh_autotune", "lora"])
 def test_unported_training_features_refused(feature):
+    """What the port still does not train is refused with
+    NotImplementedError (ROADMAP Queue 1 item 2b: frozen parameters, the
+    ``auto`` probe and LoRA on a client's mesh); what it trains validates as
+    in JAX, and JAX's own refusals raise JAX's texts (``ring`` under
+    ``pipe``; the autotuner validates, and a Trainer whose tuned layout is
+    a mesh refuses the item-2b features)."""
     from photon_tpu_torch.config.schema import Config
 
     d = _jax_cfg("mpt-wpe").to_dict()
-    if feature == "mesh":  # data, fsdp, tensor and sequence train; pipe does not yet
+    if feature == "mesh":  # every axis trains (pipe with one batch axis); frozen weights on it do not
         d["mesh"].update(data=2, fsdp=2, tensor=2, sequence=2)
         Config.from_dict(d).validate()
-        d["mesh"]["pipe"] = 2
-    elif feature == "ring":  # ring trains, on a sequence mesh or alone; not on a pipe
-        d["model"]["attn_impl"] = "ring"
+        d["mesh"].update(fsdp=1, sequence=1, pipe=2)
+        JaxConfig.from_dict(d).validate()
         Config.from_dict(d).validate()
-        d["mesh"].update(sequence=2)
+        d["optimizer"]["freeze_patterns"] = ["wte"]
+    elif feature in ("ring", "mesh_autotune"):
+        if feature == "ring":  # ring trains, alone or on a sequence mesh; JAX refuses it under pipe
+            d["model"]["attn_impl"] = "ring"
+            Config.from_dict(d).validate()
+            d["mesh"].update(sequence=2)
+        else:
+            d["photon"]["mesh_autotune"] = True
+        JaxConfig.from_dict(d).validate()
         Config.from_dict(d).validate()
-        d["mesh"]["pipe"] = 2
+        if feature == "ring":
+            d["mesh"]["pipe"] = 2
+            with pytest.raises(ValueError) as want:
+                JaxConfig.from_dict(d).validate()
+            with pytest.raises(ValueError) as got:
+                Config.from_dict(d).validate()
+            assert str(got.value) == str(want.value)
+            return
+        from photon_tpu_torch.train.trainer import Trainer
+
+        d["model"].update(lora_rank=4, lora_targets=["wqkv"])
+        with pytest.raises(NotImplementedError, match="item 2b"):
+            Trainer(Config.from_dict(d).validate(), init_seed=0, device="cpu", n_devices=2)
+        return
     elif feature == "auto_micro":  # auto is ported; an expert mesh under it is not
         d["train"]["device_microbatch_size"] = "auto"
         Config.from_dict(d).validate()
+        d["model"].update(mlp="moe", moe_num_experts=4)
         d["mesh"]["expert"] = 2
-    elif feature == "mesh_autotune":
-        d["photon"]["mesh_autotune"] = True
     else:  # LoRA trains, on the collective plane too; a client's mesh does not
         d["model"].update(lora_rank=4, lora_targets=["wqkv"])
         Config.from_dict(d).validate()
         d["photon"]["comm_stack"]["collective"] = True
         Config.from_dict(d).validate()
         d["mesh"]["data"] = 2
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 2b"):
         Config.from_dict(d).validate()
-    if feature in ("mesh", "auto_micro", "mesh_autotune"):
+    if feature in ("mesh", "auto_micro"):
         Config.from_dict(d).validate(serving=True)  # a server loads weights whatever trained them
 
 
