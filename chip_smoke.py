@@ -8,7 +8,11 @@ Phases (any failure exits non-zero):
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every kernel from ``photon_tpu_torch/ops/csrc/`` (one
-   nvcc per source, all started together, ``sm_90a``); ptxas's registers,
+   nvcc per source, all started together, ``sm_90a``) and of the native
+   host helpers (``photon_tpu_torch/native``, g++, beside the nvcc runs:
+   the smoke fails without them, and checks them against numpy and zlib
+   and times a 1 GiB ``parallel_memcpy`` against ``np.copyto`` and the shm
+   plane's thread pool); ptxas's registers,
    shared memory and spills per kernel, and the count of ``HGMMA``
    (wgmma), ``UTMALDG`` (TMA loads) and ``LDGSTS`` (cp.async) in each
    kernel's SASS (``cuobjdump``): the bf16 K1, K2 and K3 must each hold
@@ -31,7 +35,9 @@ Phases (any failure exits non-zero):
    one step's loss, grad norm and per-parameter gradients agree with the
    plain dense attention (``attn_impl: xla``), and a planted fault (the
    kernels' causal offset shifted by one tile, patched in from outside
-   the package) must break that gate;
+   the package) must break that gate; the same gate again in bf16
+   parameters at ``BF16_GATE_LAYERS`` layers (the seed's weights rounded,
+   the same batch), its fault over it too;
 4. entry point: ``photon_tpu_torch.centralized.main`` in process, 3 steps
    on synthetic data at full width (``ENTRY_LAYERS`` layers), then again
    to step 5, resuming from its checkpoint;
@@ -42,8 +48,9 @@ Phases (any failure exits non-zero):
    removed after) and checkpoints, eval at rounds 0 and 2; then a resume
    to round 3. The first run must evaluate to a finite loss, each round
    must read a positive pseudo-gradient norm, the resume must train round
-   3 alone, and K1–K3 must launch exactly the counts the rounds imply.
-   Per round, from the run's History: the broadcast, per client
+   3 alone, and K1–K3 must launch exactly the counts the rounds imply;
+   the rounds' shm puts and loaders must have gone through the native
+   library (its call counts). Per round, from the run's History: the broadcast, per client
    set_parameters / train loop / get_parameters / put, the fold, the
    server update, eval, the checkpoint, and the share of the round in
    which the card trains. In process, at ``FED_GATE_LAYERS`` layers: one
@@ -144,12 +151,16 @@ idle share (1 - busy / the unprofiled step's wall time). Then:
 Right after phase 2 (on a card nothing else holds yet):
 
 10. presets: ``photon_tpu_torch.centralized.main`` in process for mpt-350m,
-    mpt-760m, mpt-1b, llama-1b, mpt-3b and mpt-125m-moe8 at full width and
-    depth (random weights, synthetic data, 3 steps, no checkpoint; global
-    batch 2 × the preset's microbatch, mpt-3b ``device_microbatch_size:
-    auto`` over 8): step wall, tokens/s, MFU, peak memory, ``auto``'s
-    choice; K1–K3 launch counts exact (K1 twice per layer per microbatch
-    under remat); the step-0 loss near ln(vocab). Then the training gate of
+    mpt-760m, mpt-1b, llama-1b, mpt-3b, mpt-125m-moe8 and mpt-7b at full
+    width and depth (random weights, synthetic data, 3 steps, no
+    checkpoint; global batch 2 × the preset's microbatch, mpt-3b
+    ``device_microbatch_size: auto`` over 8, mpt-7b in bf16 parameters
+    over one microbatch of 8): step wall, tokens/s, MFU, peak memory,
+    ``auto``'s choice; K1–K3 launch counts exact (K1 twice per layer per
+    microbatch under remat); the step-0 loss near ln(vocab); mpt-7b's
+    dtype map exact (every leaf bf16 but the norm scales, every AdamW
+    moment its parameter's dtype; a bf16 norm scale must fail it) and its
+    idle share from one more step under the profiler. Then the training gate of
     phase 3 at mpt-1b's width (D=128), whose planted fault must read at
     least 10× the sound value;
 11. MoE: at one moe8 layer's full shapes (N = 16,384, bf16) the
@@ -419,6 +430,7 @@ import http.client
 import io
 import json
 import math
+import os
 import pathlib
 import shutil
 import signal
@@ -834,6 +846,7 @@ def flash_kernel_phase(torch, fa, alibi_slopes, np):
         ("llama1b_train", 4, 2048, 16, 4, 128, False, None),
         ("mpt1b_train", 4, 2048, 16, 16, 128, False, None),
         ("mpt3b_train", 8, 2048, 20, 20, 128, False, None),
+        ("mpt7b_train", 8, 2048, 32, 32, 128, False, None),
         ("mpt125m_alibi", 4, 1024, 12, 12, 64, True, None),
         ("ragged_s1000", 2, 1000, 12, 12, 64, False, None),
     ]
@@ -979,6 +992,8 @@ def flash_kernel_phase(torch, fa, alibi_slopes, np):
 #: the same params and batch: loss and grad_norm relative difference, and
 #: the largest per-parameter gradient relative L2 (bf16 compute, 12 layers)
 TRAIN_GRAD_GATE = 5e-2
+#: the depth of the gate's bf16-parameter leg (mpt-125m's width)
+BF16_GATE_LAYERS = 2
 
 
 def train_config():
@@ -1135,7 +1150,24 @@ def training_phase(torch, fa, np):
     if fault <= TRAIN_GRAD_GATE:
         fail(f"the training gate {TRAIN_GRAD_GATE} misses a causal offset shifted by one tile "
              f"(reading {fault:.3e})")
-    del params, tokens
+    del params
+    torch.cuda.empty_cache()
+    # the same gate in bf16 parameters, at 2 layers: the same seed's weights
+    # rounded to bf16 (the norms fp32), the same batch
+    bf16_cfg = copy.deepcopy(cfg)
+    bf16_cfg.model.n_layers, bf16_cfg.model.param_dtype = BF16_GATE_LAYERS, "bfloat16"
+    bf16_params = init_params(bf16_cfg.validate().model, seed=0, device="cuda")
+    rec["vs_plain_bf16_params"] = grad_gate(torch, fa, bf16_cfg, bf16_params, tokens)
+    rec["vs_plain_bf16_params"]["n_layers"] = BF16_GATE_LAYERS
+    log("train_vs_plain_bf16_params " + json.dumps(rec["vs_plain_bf16_params"]))
+    sound = rec["vs_plain_bf16_params"]["sound"]["worst"]
+    fault = rec["vs_plain_bf16_params"]["planted_fault"]["worst"]
+    if sound > TRAIN_GRAD_GATE:
+        fail(f"kernel vs plain training step, bf16 parameters: {sound:.3e} > {TRAIN_GRAD_GATE}")
+    if fault <= TRAIN_GRAD_GATE:
+        fail(f"the bf16-parameter training gate {TRAIN_GRAD_GATE} misses the shifted causal "
+             f"offset (reading {fault:.3e})")
+    del bf16_params, tokens
     torch.cuda.empty_cache()
     return rec
 
@@ -3377,10 +3409,12 @@ def eval_phase(torch, cfg, fed):
 # phase 10: every preset that one card trains
 # ---------------------------------------------------------------------------
 
-#: the JAX package's presets that one H100 trains at full width and depth
-#: (mpt-7b's fp32 weights, gradients and AdamW moments need ~107 GB)
-PRESETS = ("mpt-350m", "mpt-760m", "mpt-1b", "llama-1b", "mpt-3b", "mpt-125m-moe8")
+#: the JAX package's presets, each at full width and depth on one H100;
+#: mpt-7b in bf16 parameters (its fp32 weights, gradients and AdamW moments
+#: need ~107 GB; in bf16 ~53 GB)
+PRESETS = ("mpt-350m", "mpt-760m", "mpt-1b", "llama-1b", "mpt-3b", "mpt-125m-moe8", "mpt-7b")
 MOE_PRESET = "mpt-125m-moe8"
+BF16_PRESET = "mpt-7b"
 PRESET_STEPS = 3
 #: random weights (std 0.02) give near-uniform logits: the step-0 loss
 #: sits near ln(vocab), plus the MoE aux (~0.01 a layer)
@@ -3391,13 +3425,19 @@ def preset_config(name: str):
     """The preset at full width and depth: synthetic data, no checkpoint
     (a 3B one writes ~32 GB; resume is gated at 125M), one eval batch, and
     the global batch cut for time to 2 microbatches of the preset's own;
-    mpt-3b runs ``device_microbatch_size: auto`` over a global batch of 8."""
+    mpt-3b runs ``device_microbatch_size: auto`` over a global batch of 8;
+    mpt-7b runs ``model.param_dtype: bfloat16`` over one microbatch of 8 (a
+    second would add a 26.6 GB fp32 gradient sum and promote the AdamW
+    moments to fp32, as the JAX package does: 80 GB would not hold it)."""
     from photon_tpu_torch.config import load_preset
 
     cfg = load_preset(name)
     cfg.run_uuid = f"chip-smoke-{name}"
     if name == "mpt-3b":
         cfg.train.global_batch_size, cfg.train.device_microbatch_size = 8, "auto"
+    elif name == BF16_PRESET:
+        cfg.model.param_dtype = "bfloat16"
+        cfg.train.global_batch_size = cfg.train.device_microbatch_size = 8
     else:
         cfg.train.global_batch_size = 2 * cfg.train.device_microbatch_size
     cfg.dataset.synthetic = True
@@ -3418,8 +3458,10 @@ def presets_phase(torch, fa):
     under remat (the forward and the recompute), K2 = K3 once, plus one K1
     per layer for the eval batch and the probe's own step. The step-0 loss
     must be finite and within ``LOSS_LN_VOCAB_TOL`` of ln(vocab). Each
-    preset's trainer is freed before the next. Returns the records and the
-    moe8 run's final parameters (``--dump-params``)."""
+    preset's trainer is freed before the next. mpt-7b (bf16 parameters)
+    also gates its dtype map (:func:`bf16_dtype_map_gate`) and records one
+    more step under the profiler (the idle share). Returns the records and
+    the moe8 run's final parameters (``--dump-params``)."""
     import gc
 
     from photon_tpu_torch import centralized
@@ -3440,8 +3482,16 @@ def presets_phase(torch, fa):
                        "launches": {k: fa.launches[k] - before[k] for k in before}})
         return micro
 
+    sound_init = Trainer.__init__
+    trainers: list = []
+
+    def recorded_init(self, *args, **kwargs):
+        sound_init(self, *args, **kwargs)
+        trainers.append(self)
+
     records, moe_params = {}, None
     Trainer._probe_microbatch = counted_probe
+    Trainer.__init__ = recorded_init
     try:
         for name in PRESETS:
             cfg = preset_config(name)
@@ -3457,6 +3507,7 @@ def presets_phase(torch, fa):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             probes.clear()
+            trainers.clear()
             for key in fa.launches:  # the counted run starts here
                 fa.launches[key] = 0
             t0 = time.perf_counter()
@@ -3507,6 +3558,20 @@ def presets_phase(torch, fa):
                 "max_memory_allocated_gb": peak / 1e9, "launches": launches,
                 "cli_wall_s": wall,
             }
+            if name == BF16_PRESET:
+                import numpy as np
+
+                trainer = trainers[-1]
+                rec["param_dtype"] = mc.param_dtype
+                rec["dtype_map"] = bf16_dtype_map_gate(torch, trainer)
+                batch = np.random.default_rng(0).integers(
+                    0, mc.vocab_size, (cfg.train.global_batch_size, mc.max_seq_len))
+                rec["profiled_step"] = _profiled_step(
+                    torch, lambda: trainer.train_batch(batch), step_s)
+                rec["max_memory_allocated_gb_with_profiled_step"] = \
+                    torch.cuda.max_memory_allocated() / 1e9
+                del trainer, batch
+            trainers.clear()
             if mc.mlp == "moe":
                 rec["mfu_note"] = ("model_flops_per_token counts the MoE MLP as one dense MLP: "
                                    f"top-{mc.moe_top_k} runs {mc.moe_top_k}x those FLOPs")
@@ -3522,10 +3587,115 @@ def presets_phase(torch, fa):
             shutil.rmtree(d, ignore_errors=True)
     finally:
         Trainer._probe_microbatch = sound_probe
+        Trainer.__init__ = sound_init
+        trainers.clear()
         shutil.rmtree(work, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     return records, moe_params
+
+
+# ---------------------------------------------------------------------------
+# the native host helpers
+# ---------------------------------------------------------------------------
+
+#: bytes of the memcpy comparison (one full-width 7B bf16 stacked kernel is
+#: 4.3 GB; a 125M fp32 payload 0.5 GB)
+MEMCPY_BYTES = 1 << 30
+MEMCPY_REPS = 3
+
+
+def native_phase(np) -> dict:
+    """The native library: built from the port's source (it must be: a
+    silent fallback fails the smoke), each helper checked against numpy or
+    zlib, and one ``MEMCPY_BYTES`` copy timed three ways, the median of
+    ``MEMCPY_REPS``: ``native.parallel_memcpy``, ``np.copyto`` and the shm
+    plane's thread-pool copy (its path without the library). Host
+    memory and cores only: the card takes no part."""
+    import zlib
+
+    from photon_tpu_torch import native
+    from photon_tpu_torch.shm import plane
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail(f"the native library did not build: {native.build_error}")
+    rec = {"library": str(native.library_path().relative_to(ROOT)),
+           "load_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(0)
+    rows = [rng.integers(0, 1 << 16, 2048, dtype=np.uint16) for _ in range(16)]
+    out = np.empty((16, 2048), np.int32)
+    native.gather_rows(rows, out)
+    data = rng.integers(0, 255, 1 << 20, dtype=np.uint8)
+    if not (np.array_equal(out, np.stack(rows).astype(np.int32))
+            and native.crc32(data) == zlib.crc32(data.tobytes())):
+        fail("native gather_rows or crc32 parts from numpy/zlib")
+    src = np.resize(np.arange(251, dtype=np.uint8), MEMCPY_BYTES)
+    dst = np.zeros_like(src)  # touched: page faults stay out of the timings
+    ways = {
+        "native_parallel_memcpy": lambda: native.parallel_memcpy(dst, src),
+        "np_copyto": lambda: np.copyto(dst, src),
+        "shm_thread_pool": lambda: plane._pool_copy(memoryview(dst), memoryview(src)),
+    }
+    for way, fn in ways.items():
+        times = []
+        for _ in range(MEMCPY_REPS):
+            dst[:: 1 << 20] = 0
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+            if not np.array_equal(dst[:: 4099], src[:: 4099]):
+                fail(f"{way} copied wrong bytes")
+        med = statistics.median(times)
+        rec[way] = {"s": times, "median_s": med, "gb_per_s": MEMCPY_BYTES / med / 1e9}
+    rec.update(bytes=MEMCPY_BYTES, host_cores=os.cpu_count(), threads=native._N_THREADS)
+    del src, dst
+    log("native " + json.dumps(rec))
+    return rec
+
+
+def _bf16_dtype_rule(name: str) -> str:
+    """The JAX tree's dtype for ``name`` under ``param_dtype: bfloat16``: a
+    norm's scale or bias fp32 (``FP32LayerNorm``/``FP32RMSNorm`` take no
+    ``param_dtype``), every other leaf bf16. An AdamW moment follows its
+    parameter (optax's ``mu_dtype=None``, one microbatch)."""
+    return "float32" if "/ln_" in "/" + name else "bfloat16"
+
+
+def _dtype_map_faults(params: dict, moments: dict) -> list[str]:
+    """Every parameter or moment whose dtype parts from
+    :func:`_bf16_dtype_rule` (``moments``: parameter name → its moments'
+    dtypes)."""
+    bad = [f"{n}: {d}" for n, d in params.items() if d != _bf16_dtype_rule(n)]
+    bad += [f"moment of {n}: {d}" for n, ds in moments.items() for d in ds
+            if d != _bf16_dtype_rule(n)]
+    return bad
+
+
+def bf16_dtype_map_gate(torch, trainer) -> dict:
+    """The dtype map of a bf16-parameter trainer after its steps, exact:
+    every parameter bf16 but the norm scales, every AdamW moment its
+    parameter's dtype. Checked first on the same map with one norm scale
+    made bf16, which must fail it (the planted fault)."""
+    from photon_tpu_torch.codec.params import flatten
+
+    name = lambda t: str(t.dtype).removeprefix("torch.")  # noqa: E731
+    params = {n: name(p) for n, p in flatten(trainer.state.params).items()}
+    moments = {n: [name(trainer.state.opt_state[k]) for k in trainer.tx.moment_names(n)]
+               for n in params}
+    norm = next(n for n in params if n.endswith("ln_f/scale"))
+    if not _dtype_map_faults(dict(params, **{norm: "bfloat16"}), moments):
+        fail("bf16 dtype map gate: a bf16 norm scale passes it")
+    bad = _dtype_map_faults(params, moments)
+    if bad:
+        fail(f"bf16 dtype map: {bad[:8]}")
+    counts = {}
+    for n, d in params.items():
+        counts[d] = counts.get(d, 0) + 1
+    return {"params_by_dtype": counts,
+            "fp32_params": sorted(n for n, d in params.items() if d == "float32"),
+            "moment_dtypes": sorted({d for ds in moments.values() for d in ds}),
+            "planted_bf16_norm_scale_fails": True}
 
 
 def d128_grad_gate(torch, fa, np):
@@ -7935,10 +8105,15 @@ def main() -> int:
     env = {"torch": torch.__version__, "cuda": torch.version.cuda,
            "device": torch.cuda.get_device_name(0),
            "capability": list(torch.cuda.get_device_capability(0)), "nvidia_smi": smi}
+    from photon_tpu_torch import native
+
     t0 = time.perf_counter()
     sources = ("ragged_paged_attention.cu", "flash_attention.cu")
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:  # one nvcc per source
+        built_native = pool.submit(native.available)  # and g++ for the host helpers
         list(pool.map(_build.build, sources))
+        if not built_native.result():
+            fail(f"the native library did not build: {native.build_error}")
     for src in sources:
         _build.load(src)
     env["build_s"] = time.perf_counter() - t0
@@ -7951,6 +8126,7 @@ def main() -> int:
     for name, rec in built.items():
         log("kernel_build " + json.dumps(dict(rec, kernel=name)))
 
+    native_rec = native_phase(np)
     kernel_records, main = kernel_phase(torch, rpa, alibi_slopes, np)
     flash_records, flash_main, flash_eval = flash_kernel_phase(torch, fa, alibi_slopes, np)
     t0 = time.perf_counter()
@@ -7977,8 +8153,14 @@ def main() -> int:
     entry["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    native_before = dict(native.calls)
     fed = federated_phase(torch, np)
     fed["phase_s"] = time.perf_counter() - t0
+    # the in-process rounds' shm puts and loaders went through the library
+    fed["native_calls"] = {k: native.calls[k] - native_before[k] for k in native.calls}
+    log("federated native calls " + json.dumps(fed["native_calls"]))
+    if not (fed["native_calls"]["parallel_memcpy"] and fed["native_calls"]["gather_rows"]):
+        fail(f"phase 5's shm puts or loaders skipped the native library: {fed['native_calls']}")
     # phase 18 (a), (e) and phase 19 in children of their own (their launch
     # counters and peaks) while phase 5b runs here
     coll_a_work = ROOT / ".chip_smoke" / "collective_a_child"
@@ -8140,7 +8322,7 @@ def main() -> int:
         "presets_phase_s": presets_s, "d128_grad_gate": d128, "moe_dispatch": moe_dispatch,
         "moe_engine": moe_engine, "adapters": adapters, "fleet": fleet, "interop": interop,
         "chaos": chaos_rec, "telemetry": tel, "autopilot": autopilot, "collective": collective,
-        "mesh": mesh,
+        "mesh": mesh, "native": native_rec,
         "kernels": kernels["kernels"],
         "profiler_pad_lost": profiler_pad_lost,
         "total_s": time.perf_counter() - t_all,

@@ -4,7 +4,7 @@ injection paths in PyTorch, with hand-written CUDA kernels.
 
 The package mirrors ``photon_tpu``'s module names (``adapters/``, ``chaos/``,
 ``config/``, ``checkpoint/``, ``codec/``, ``data/``, ``eval/``, ``metrics/``,
-``models/``, ``ops/``, ``optim/``, ``train/``, ``serve/``, ``shm/``,
+``models/``, ``native/``, ``ops/``, ``optim/``, ``train/``, ``serve/``, ``shm/``,
 ``strategy/``, ``federation/``, ``centralized.py``, ``federated.py``) so each module's
 counterpart is easy to find. It imports ``torch``, numpy, PyYAML (``config/`` reads the
 resolved YAML configs that ``photon_tpu`` writes) and the standard library

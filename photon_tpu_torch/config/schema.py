@@ -18,12 +18,15 @@ texts, as are the prefix-cache and hot-swap fields of
 
 :meth:`Config.validate` raises ``NotImplementedError`` for the features
 this package does not port yet, so such a config fails at start-up
-instead of running without them: a ``model.param_dtype`` other than
-``float32`` everywhere (the port keeps fp32 parameters); and for
-training (``validate(serving=False)``, the default) on a mesh of more
-than one device LoRA factors, adapters, ``optimizer.freeze_patterns``,
-the ``auto`` microbatch probe or the collective plane (ROADMAP Queue 1
-item 2b). Every mesh axis trains (``parallel/spmd.py``, the pipeline in
+instead of running without them: for training (``validate(serving=False)``,
+the default) on a mesh of more than one device LoRA factors, adapters,
+``optimizer.freeze_patterns``, the ``auto`` microbatch probe or the
+collective plane (ROADMAP Queue 1 item 2b). ``model.param_dtype`` is
+``float32`` or ``bfloat16`` (the JAX package's tree in either: norms stay
+fp32); with ``bfloat16`` the paths on which the JAX package cannot finish
+are refused with its failure named: a federated round of any driver
+(:meth:`Config.refuse_param_dtype_in_round`) and the pipeline over
+``pipe``. Every mesh axis trains (``parallel/spmd.py``, the pipeline in
 ``parallel/pipeline.py``), with the JAX package's rules for ``pipe`` and
 ``expert`` and their texts; ``attn_impl: ring`` and
 ``photon.mesh_autotune`` too; :func:`effective_model_config` is the JAX
@@ -43,6 +46,9 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import yaml
+
+#: the ``model.param_dtype`` values the port builds its tree in
+PARAM_DTYPES = ("float32", "bfloat16")
 
 
 @dataclass
@@ -630,17 +636,16 @@ class Config:
         if m.rope and m.d_head % 2:
             raise ValueError("rope needs an even d_head")
         _validate_lora(m)
-        if m.param_dtype != "float32":
-            # JAX builds every parameter in param_dtype; the port keeps fp32
-            # masters, so its parameter list would part from JAX's
+        if m.param_dtype not in PARAM_DTYPES:
             raise NotImplementedError(
-                f"model.param_dtype={m.param_dtype!r} is not ported to photon_tpu_torch "
-                "yet; set float32 or run with photon_tpu"
+                f"model.param_dtype={m.param_dtype!r} is not ported to photon_tpu_torch; "
+                f"set one of {PARAM_DTYPES}"
             )
         if m.attn_impl not in ("pallas", "xla", "ring"):
             raise ValueError(f"bad model.attn_impl {m.attn_impl!r}")
         if not serving:
             self._validate_training()
+            self._refuse_unfinished_param_dtype()
         srv = self.photon.serve
         if srv.n_slots < 1 or srv.block_size < 1:
             raise ValueError(
@@ -755,6 +760,51 @@ class Config:
         elif mesh.expert > 1:
             raise ValueError("mesh.expert > 1 requires model.mlp='moe'")
         self.refuse_unported_on_mesh(mesh.size)
+
+    def _refuse_unfinished_param_dtype(self) -> None:
+        """A ``model.param_dtype`` other than float32 on the training paths
+        the JAX package cannot finish with it: a federated round (the
+        collective plane, async rounds and adapter rounds are named by the
+        config; the other drivers call :meth:`refuse_param_dtype_in_round`)
+        and the pipeline over ``pipe``."""
+        if self.model.param_dtype == "float32":
+            return
+        ph = self.photon
+        for what, on in (("the collective plane", ph.comm_stack.collective),
+                         ("photon.async_rounds", ph.async_rounds.enabled),
+                         ("photon.adapters", ph.adapters.enabled)):
+            if on:
+                self.refuse_param_dtype_in_round(what)
+        self.refuse_param_dtype_on_pipe(self.mesh.pipe)
+
+    def refuse_param_dtype_on_pipe(self, pipe: int) -> None:
+        """Raise for a ``model.param_dtype`` other than float32 on a layout
+        with ``pipe > 1`` (the config's mesh, or the one the autotuner
+        picked): the JAX package's pipelined step aborts in XLA's compiler
+        with it."""
+        if pipe > 1 and self.model.param_dtype != "float32":
+            raise NotImplementedError(
+                f"model.param_dtype={self.model.param_dtype!r} with mesh.pipe > 1 is refused: "
+                "the JAX package's pipelined step aborts in XLA's compiler with it (a CHECK "
+                "failure in hlo_instruction.cc, 'Invalid binary instruction opcode copy')"
+            )
+
+    def refuse_param_dtype_in_round(self, what: str = "a federated round") -> None:
+        """Raise for a ``model.param_dtype`` other than float32 in a
+        federated round (``what`` names the round's runner): the JAX package cannot
+        finish one. Its strategy keeps the server's parameters in float32
+        (``photon_tpu/strategy/base.py:90``), so each client's
+        ``validate_arrays`` rejects the first broadcast and the server
+        stops (``photon_tpu/federation/server.py:310``)."""
+        if self.model.param_dtype == "float32":
+            return
+        dt = self.model.param_dtype
+        raise NotImplementedError(
+            f"model.param_dtype={dt!r} in {what} is refused: the JAX package cannot finish "
+            "such a round (its strategy keeps the server's parameters in float32, and every "
+            f"client rejects the first broadcast: 'expected .../{dt}, got .../float32'); "
+            "train centrally or set float32"
+        )
 
     def refuse_unported_on_mesh(self, size: int) -> None:
         """What the port does not run on a mesh of ``size`` devices yet

@@ -3,8 +3,9 @@
 The port of ``photon_tpu/data/shard_format.py``, byte-compatible with it:
 a dataset is a directory of fixed-length token-sample shards plus a JSON
 index, and a reader ``mmap``s a shard and slices batches with zero
-parsing. (The JAX package's optional C++ gather is not ported: numpy does
-the gather here.)
+parsing. A batch is gathered and widened to int32 in one pass by the
+native helper (``photon_tpu_torch.native.gather_rows``) where its library
+builds, and by numpy otherwise, as in the JAX package.
 
 Layout of ``shard_{i:05d}.pts``::
 
@@ -28,6 +29,8 @@ import zlib
 from dataclasses import dataclass
 
 import numpy as np
+
+from photon_tpu_torch import native
 
 _MAGIC = 0x50545331  # "PTS1"
 _VERSION = 1
@@ -189,12 +192,16 @@ class ShardedDataset:
         return self._load(shard_idx)[row].astype(np.int32)
 
     def batch(self, idxs: np.ndarray) -> np.ndarray:
-        """Gather ``[len(idxs), seq_len] int32`` (the loader's hot path)."""
+        """Gather ``[len(idxs), seq_len] int32`` (the loader's hot path),
+        through the native fused gather and widen where its library builds
+        (``photon_tpu_torch.native``; its numpy fallback otherwise)."""
         out = np.empty((len(idxs), self.seq_len), np.int32)
-        for j, i in enumerate(idxs):
+        rows = []
+        for i in idxs:
             i = int(i)
             if not 0 <= i < len(self):
                 raise IndexError(i)
             shard_idx = int(np.searchsorted(self.shard_offsets, i, side="right") - 1)
-            out[j] = self._load(shard_idx)[i - int(self.shard_offsets[shard_idx])]
+            rows.append(self._load(shard_idx)[i - int(self.shard_offsets[shard_idx])])
+        native.gather_rows(rows, out)
         return out

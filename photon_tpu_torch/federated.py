@@ -39,6 +39,7 @@ from photon_tpu_torch.metrics.history import History
 
 def build_app(cfg: Config, n_nodes: int = 1, multiprocess: bool = False,
               tcp_listen: str | None = None, device: str | None = None) -> ServerApp:
+    cfg.refuse_param_dtype_in_round()
     if cfg.photon.comm_stack.collective:
         # the collective plane is a different topology (multi-controller,
         # no server process): fail loudly instead of silently falling back

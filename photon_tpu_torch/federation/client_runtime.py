@@ -90,6 +90,7 @@ class ClientRuntime:
     def __init__(self, cfg: Config, transport: ParamTransport, node_id: str = "node0",
                  ckpt_mgr: ClientCheckpointManager | None = None,
                  device: str | None = None, mesh=None) -> None:
+        cfg.refuse_param_dtype_in_round()
         self.cfg = cfg
         self.transport = transport
         self.node_id = node_id

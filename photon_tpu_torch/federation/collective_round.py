@@ -178,6 +178,7 @@ class CollectiveFedRunner:
                  device: str | torch.device | None = None) -> None:
         if not cfg.photon.comm_stack.collective:
             raise ValueError("CollectiveFedRunner requires photon.comm_stack.collective=true")
+        cfg.refuse_param_dtype_in_round("the collective plane")
         if cfg.fl.n_clients_per_round != cfg.fl.n_total_clients:
             # the lockstep exchange is full participation by construction;
             # a sampled subset is the driver topology's feature

@@ -121,6 +121,7 @@ class ServerApp:
         history: History | None = None,
         initial_params: tuple[ParamsMetadata, list[np.ndarray]] | None = None,
     ) -> None:
+        cfg.refuse_param_dtype_in_round()
         self.cfg = cfg
         self.driver = driver
         self.transport = transport

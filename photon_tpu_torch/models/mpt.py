@@ -4,7 +4,8 @@ The port of ``photon_tpu/models/mpt.py``: the names and shapes of its
 parameter tree (:func:`param_shapes`), a seeded :func:`init_params`, and
 :class:`MPTModel`/:class:`MPTBlock`, the forward that training runs.
 Layout, as in the JAX package: flat ``/``-joined names, layers stacked on
-a leading ``[n_layers]`` axis, dense kernels ``[in, out]``, fp32 masters.
+a leading ``[n_layers]`` axis, dense kernels ``[in, out]``; leaves in
+``param_dtype`` but the norms, which stay fp32 (:func:`param_dtypes`).
 An MoE block (``mlp: moe``) holds ``router [D, E]``, ``moe_up [E, D, H]``,
 ``moe_down [E, H, D]`` (and ``moe_gate`` for SwiGLU experts) in place of
 the dense MLP, and returns its layer's aux loss beside its output. With
@@ -16,8 +17,9 @@ its projection adds ``(h @ A) @ B · lora_alpha / lora_rank``;
 :class:`MPTModel` is a module without parameters of its own: like
 ``MPTModel.apply`` it takes the parameter tree with the tokens, so the
 trainer, the optimizer and the checkpoint codec all work on the one tree.
-Each forward casts the masters to ``compute_dtype`` inside autograd (the
-gradients land in fp32 on the masters), unbinds the stacked layers once,
+Each forward casts the parameters to ``compute_dtype`` inside autograd (the
+gradients land in each parameter's own dtype; a bf16 parameter under bf16
+compute is read as it is), unbinds the stacked layers once,
 and loops over them; ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``). The layer math is ``models/decode.py``'s,
 shared with serving: norms in fp32 and cast back, dense products in the
@@ -107,11 +109,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """Random weights in the serving tree's names and shapes, from a
     seeded ``torch.Generator``: normal(0, std) for embeddings and dense
     kernels (the residual projections scaled by ``1/sqrt(2L)`` as in the
-    JAX init), ones for norm scales, zeros for biases. fp32, the JAX
-    package's default ``param_dtype`` (``Config.validate`` refuses any
-    other). LoRA factors, drawn after every base
-    tensor (so the base is the same with LoRA on or off): A from
-    normal(0, ``emb_init_std``), B zero, as in the JAX init."""
+    JAX init), ones for norm scales, zeros for biases. LoRA factors, drawn
+    after every base tensor (so the base is the same with LoRA on or off):
+    A from normal(0, ``emb_init_std``), B zero, as in the JAX init.
+
+    Dtypes follow the JAX tree (:func:`param_dtypes`): the norms' scales
+    and biases fp32, every other leaf ``cfg.param_dtype``. Each tensor is
+    drawn in fp32 and cast on its own, so the largest transient is one
+    tensor's fp32 draw (mpt-7b's stacked MLP kernel, 8.6 GB), and a bf16
+    tree is the fp32 tree of the same seed rounded to bf16."""
     from photon_tpu_torch.codec.params import unflatten
 
     device = torch.device(device)
@@ -119,19 +125,36 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     gen.manual_seed(seed)
     flat = {}
     shapes = param_shapes(cfg)
+    dtypes = param_dtypes(cfg)
     lora = [n for n in shapes if "_lora_" in n]
     for name, shape in [(n, s) for n, s in shapes.items() if n not in lora] + \
             [(n, shapes[n]) for n in lora]:
-        if name.endswith("_lora_b"):
-            flat[name] = torch.zeros(shape, device=device)
+        dt = dtypes[name]
+        if name.endswith("_lora_b") or name.endswith("/bias"):
+            flat[name] = torch.zeros(shape, dtype=dt, device=device)
         elif name.endswith("/scale"):
-            flat[name] = torch.ones(shape, device=device)
-        elif name.endswith("/bias"):
-            flat[name] = torch.zeros(shape, device=device)
+            flat[name] = torch.ones(shape, dtype=dt, device=device)
         else:
-            w = torch.randn(shape, generator=gen, device=device)
-            flat[name] = w.mul_(_init_std(cfg, name))
+            w = torch.randn(shape, generator=gen, device=device).mul_(_init_std(cfg, name))
+            flat[name] = w if dt == torch.float32 else w.to(dt)
+            del w
     return unflatten(dict(sorted(flat.items())))
+
+
+def is_norm_param(name: str) -> bool:
+    """A norm's ``scale`` or ``bias`` (``ln_1``, ``ln_2``, ``ln_f``): the
+    leaves the JAX package keeps in fp32 whatever ``param_dtype`` is (its
+    ``FP32LayerNorm``/``FP32RMSNorm`` take no ``param_dtype``)."""
+    return "/ln_" in "/" + name
+
+
+def param_dtypes(cfg: ModelConfig) -> dict[str, torch.dtype]:
+    """Flat name → dtype of the JAX tree for ``cfg``: the norms fp32,
+    every other leaf ``cfg.param_dtype``."""
+    from photon_tpu_torch.models.decode import torch_dtype
+
+    pd = torch_dtype(cfg.param_dtype)
+    return {n: torch.float32 if is_norm_param(n) else pd for n in param_shapes(cfg)}
 
 
 class MPTBlock(torch.nn.Module):

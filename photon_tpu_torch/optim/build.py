@@ -24,6 +24,20 @@ where ``{c}`` is ``1/`` after a clip and ``0/`` without one, and under
 .inner_state/`` and frozen parameters have no entries. Counters are int32
 scalars kept on the host (reading them never waits for the device); the
 moments live beside their parameters and are updated in place.
+
+Dtypes follow optax's. AdamW's moments start in their parameter's dtype
+(optax's ``mu_dtype=None``); a step whose gradient has a wider dtype
+(fp32 sums of several microbatches over bf16 parameters) promotes them,
+as JAX's type promotion does, and they stay promoted. Its arithmetic runs
+in the moment's dtype, each Python constant rounded to it first (JAX
+converts a weakly typed scalar to the array's dtype), and the bias
+corrections are cast to it after they are computed in fp32. ADOPT's
+moments are fp32 and its update is cast to the parameter's dtype. A
+parameter then takes ``p + u`` rounded to its own dtype (optax's
+``apply_updates``). The clip divides each gradient by the global norm cast
+to the gradient's dtype (optax's ``clip_by_global_norm``). Every pass goes
+piece by piece along the leading axis (:func:`pieces`), so no transient is
+larger than a piece, whatever a tensor's size.
 """
 
 from __future__ import annotations
@@ -60,12 +74,39 @@ def build_schedule(scfg: SchedulerConfig, base_lr: float) -> Schedule:
     return schedule
 
 
+#: elements of one piece of a tensor's elementwise passes
+PIECE_ELEMS = 1 << 26
+
+
+def pieces(t: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Views of ``t`` along its leading axis, each of at most
+    ``PIECE_ELEMS`` elements where the leading axis allows (``t`` itself
+    when it is that small)."""
+    if t.dim() == 0 or t.numel() <= PIECE_ELEMS:
+        return (t,)
+    rows = max(1, PIECE_ELEMS // (t.numel() // t.shape[0]))
+    return t.split(rows)
+
+
+def _sq_sum(t: torch.Tensor) -> torch.Tensor:
+    """Σ t² in fp32; a narrower tensor is widened one piece at a time."""
+    if t.dtype == torch.float32:
+        return t.square().sum()
+    return torch.stack([x.float().square().sum() for x in pieces(t)]).sum()
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over all elements, in fp32 (optax's
-    ``global_norm``), on the first tensor's device (the shards of a mesh
-    may lie on several)."""
-    sums = [t.float().square().sum() for t in tensors]
+    """``sqrt(sum of squares)`` over all elements, accumulated in fp32
+    (optax's ``global_norm``), on the first tensor's device (the shards of
+    a mesh may lie on several)."""
+    sums = [_sq_sum(t) for t in tensors]
     return torch.stack([s.to(sums[0].device) for s in sums]).sum().sqrt()
+
+
+def as_dtype(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``: what a Python constant becomes in JAX
+    beside an array of that dtype."""
+    return float(torch.tensor(x, dtype=dtype))
 
 
 def _count(n: int = 0) -> torch.Tensor:
@@ -98,12 +139,18 @@ class Optimizer:
         """State names of ``name``'s first and second moments."""
         return self._m + name, self._v + name
 
+    def moment_dtype(self, param_dtype: torch.dtype) -> torch.dtype:
+        """The dtype a fresh moment of a ``param_dtype`` parameter has:
+        AdamW's the parameter's, ADOPT's fp32."""
+        return param_dtype if self.cfg.name == "adamw" else torch.float32
+
     def init(self, params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         state = {c: _count() for c in self.counts}
         for name, p in params.items():
             if self.trainable(name):
                 for key in self.moment_names(name):
-                    state[key] = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                    state[key] = torch.zeros(p.shape, dtype=self.moment_dtype(p.dtype),
+                                             device=p.device)
         return dict(sorted(state.items()))
 
     @torch.no_grad()
@@ -112,16 +159,31 @@ class Optimizer:
         """One optimizer step: the trainable ``grads`` are clipped in place
         (by their global norm), then each trainable parameter gets its
         update added in place; frozen ones do not move. Returns ``state``,
-        its moments updated in place and its counters advanced."""
+        its moments updated in place (an AdamW moment narrower than its
+        gradient is replaced by a promoted one) and its counters
+        advanced."""
         train = {n: g for n, g in grads.items() if self.trainable(n)}
         if self.clip and train:
             norm = global_norm(train.values())
             for g in train.values():
                 n = norm.to(g.device)
-                torch.where(n < self.clip, g, g / n * self.clip, out=g)
-        m = {n: state[self._m + n] for n in train}
-        v = {n: state[self._v + n] for n in train}
+                for x in pieces(g):
+                    torch.where(n < self.clip, x, x / n.to(x.dtype) * self.clip, out=x)
         c = self.cfg
+        if c.name == "adamw":
+            for n, g in train.items():
+                for key in self.moment_names(n):
+                    wide = torch.promote_types(state[key].dtype, g.dtype)
+                    if state[key].dtype != wide:
+                        state[key] = state[key].to(wide)
+        # every pass piece by piece: the pieces are views, updated in place
+        piece_g, piece_m, piece_v, piece_p = {}, {}, {}, {}
+        for n, g in train.items():
+            for i, parts in enumerate(zip(*(pieces(t) for t in (
+                    g, state[self._m + n], state[self._v + n], params[n])))):
+                key = f"{n}#{i}"
+                piece_g[key], piece_m[key], piece_v[key], piece_p[key] = parts
+        train, m, v, params = piece_g, piece_m, piece_v, piece_p
         if c.name == "adopt":
             count = int(state[self.counts[0]])
             updates = adopt_update(train, m, v, params, count=count, lr=self.schedule(count),
@@ -139,22 +201,27 @@ class Optimizer:
 
 def _adamw_update(grads, mu, nu, params, *, count: int, lr: float, cfg: OptimizerConfig):
     """optax ``adamw``: ``scale_by_adam`` (bias-corrected at ``count + 1``),
-    ``add_decayed_weights``, then ``-lr``. ``mu``/``nu`` change in place.
-    The bias corrections are computed in fp32, as optax does: ``1 - b2^t``
-    at ``b2 = 0.9999`` differs from its float64 value by ~1.7e-4 relative.
-    Yields ``(name, update)`` one tensor at a time."""
+    ``add_decayed_weights``, then ``-lr``, in each moment's dtype, every
+    constant rounded to it. ``mu``/``nu`` change in place. The bias
+    corrections are computed in fp32, as optax does (``1 - b2^t`` at
+    ``b2 = 0.9999`` differs from its float64 value by ~1.7e-4 relative),
+    then cast to the moment's dtype. Yields ``(name, update)`` one tensor
+    at a time, in the moment's dtype (the caller adds it to the parameter
+    and rounds to the parameter's dtype)."""
     b1, b2 = cfg.betas
     t = np.float32(count + 1)
     bc1 = float(np.float32(1) - np.float32(b1) ** t)
     bc2 = float(np.float32(1) - np.float32(b2) ** t)
     for name, g in grads.items():
-        g = g.float()
-        mu[name].mul_(b1).add_(g, alpha=1.0 - b1)
-        nu[name].mul_(b2).addcmul_(g, g, value=1.0 - b2)
-        u = (mu[name] / bc1) / ((nu[name] / bc2).sqrt() + cfg.eps)
+        dt, p = mu[name].dtype, params[name]
+        g = g.to(dt)
+        mu[name].mul_(as_dtype(b1, dt)).add_(g, alpha=as_dtype(1.0 - b1, dt))
+        nu[name].mul_(as_dtype(b2, dt)).addcmul_(g, g, value=as_dtype(1.0 - b2, dt))
+        u = (mu[name] / as_dtype(bc1, dt)) / ((nu[name] / as_dtype(bc2, dt)).sqrt()
+                                              + as_dtype(cfg.eps, dt))
         if cfg.weight_decay:
-            u = u + cfg.weight_decay * params[name].float()
-        yield name, (u * -lr).to(params[name].dtype)
+            u = u + p * as_dtype(cfg.weight_decay, p.dtype)
+        yield name, u * as_dtype(-lr, u.dtype)
 
 
 def build_optimizer(ocfg: OptimizerConfig, scfg: SchedulerConfig) -> tuple[Optimizer, Schedule]:

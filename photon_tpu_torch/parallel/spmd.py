@@ -484,11 +484,12 @@ def fresh_opt_state(tx: Optimizer, params: dict[str, ShardedTensor], mesh: Mesh)
     """``tx.init``'s names and counters, each moment a :class:`ShardedTensor`
     of zeros laid out by ``state_shardings``."""
     shapes = {n: st.shape for n, st in params.items()}
-    names = {}
-    for n in params:
+    names, dtypes = {}, {}
+    for n, st in params.items():
         if tx.trainable(n):
             for key in tx.moment_names(n):
                 names[key] = shapes[n]
+                dtypes[key] = tx.moment_dtype(next(iter(st.shards.values())).dtype)
     specs = state_shardings(shapes, names, mesh)
     state = {c: torch.tensor(0, dtype=torch.int32) for c in tx.counts}
     for key, shape in names.items():
@@ -497,7 +498,7 @@ def fresh_opt_state(tx: Optimizer, params: dict[str, ShardedTensor], mesh: Mesh)
             if k not in st.shards:
                 region = shard_region(shape, st.spec, k, mesh)
                 st.shards[k] = torch.zeros([s.stop - s.start for s in region],
-                                           dtype=torch.float32, device=torch.device(d))
+                                           dtype=dtypes[key], device=torch.device(d))
         state[key] = st
     return dict(sorted(state.items()))
 
@@ -514,7 +515,8 @@ def _local(sl: tuple[slice, ...], origin: tuple[slice, ...]) -> tuple[slice, ...
 def _region_of(st: ShardedTensor, values: dict, region, dev) -> torch.Tensor:
     """The slice ``region`` of the whole tensor whose shards are
     ``values[key]`` (``st``'s layout), assembled on ``dev``."""
-    out = torch.empty([s.stop - s.start for s in region], dtype=torch.float32, device=dev)
+    dtype = next(iter(values.values())).dtype
+    out = torch.empty([s.stop - s.start for s in region], dtype=dtype, device=dev)
     for key in st.shards:
         src = st.region(key)
         inter = _intersect(src, region)
@@ -529,7 +531,7 @@ def apply_optimizer(tx: Optimizer, state: MeshTrainState, grads: dict) -> None:
     piece: its parameter and gradient regions (the parameter's own shard
     when the two layouts agree, else assembled from the overlapping shards
     and written back after), all on the moment shard's device."""
-    pieces_g, pieces_p, tmp = {}, {}, {}
+    pieces_g, pieces_p, tmp, moments = {}, {}, {}, {}
     writeback = []
     for name in sorted(state.params):
         p = state.params[name]
@@ -547,13 +549,16 @@ def apply_optimizer(tx: Optimizer, state: MeshTrainState, grads: dict) -> None:
                                              region, dev)
                 pieces_g[piece] = _region_of(p, grads[name], region, dev)
                 writeback.append((p, region, pieces_p[piece]))
-            tmp[tx.moment_names(piece)[0]] = m_shard
-            tmp[tx.moment_names(piece)[1]] = v.shards[key]
+            for st, state_key in zip((m, v), tx.moment_names(piece)):
+                tmp[state_key] = st.shards[key]
+                moments[state_key] = (st, key)
     for c in tx.counts:
         tmp[c] = state.opt_state[c]
     tmp = tx.apply(pieces_g, tmp, pieces_p)
     for c in tx.counts:
         state.opt_state[c] = tmp[c]
+    for state_key, (st, key) in moments.items():  # a promoted moment is a new tensor
+        st.shards[key] = tmp[state_key]
     for p, region, value in writeback:
         for key, t in p.shards.items():
             inter = _intersect(p.region(key), region)
@@ -608,7 +613,10 @@ def make_mesh_train_step(model: MeshModel, tx: Optimizer, n_microbatches: int = 
             loss = model.loss(state.params, mb, loss_chunk_tokens)
             grads = torch.autograd.grad(loss, [t for _, _, t in leaves])
             if grad_sum is None:
-                loss_sum, grad_sum = loss.detach().float(), [g.float() for g in grads]
+                # one microbatch: the gradients in their parameters' dtypes; more are
+                # summed in fp32 from zeros, as the JAX scan does
+                loss_sum = loss.detach().float()
+                grad_sum = list(grads) if n_microbatches == 1 else [g.float() for g in grads]
             else:
                 loss_sum += loss.detach()
                 for acc, g in zip(grad_sum, grads):

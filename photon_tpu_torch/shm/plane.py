@@ -9,9 +9,10 @@ a segment written by either package reads in the other:
 ``$PHOTON_SHM_DIR`` when set: a small ``/dev/shm`` cannot hold full-width
 payloads) mapped with ``mmap``. A writer fills a pid-suffixed temp file,
 sets the commit flag last and renames it into place, so a reader only ever
-maps a complete segment. Large copies fan out over a thread pool (numpy
-releases the GIL on memcpy); the JAX package's optional native memcpy is
-not ported.
+maps a complete segment. A large copy goes through the native
+multi-threaded memcpy (``photon_tpu_torch.native``) where its library
+builds, as the JAX package's does, and otherwise fans out over a thread
+pool (numpy releases the GIL on memcpy).
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from photon_tpu_torch.codec.params import ParamsMetadata
+from photon_tpu_torch import native
+from photon_tpu_torch.codec.params import ParamsMetadata, host_dtype
 
 _MAGIC = 0x50484F54  # "PHOT"
 _VERSION = 1
@@ -110,6 +112,16 @@ def _parallel_copy(dst: memoryview, src: memoryview) -> None:
     if n <= _COPY_CHUNK:
         dst[:n] = src
         return
+    if native.available():
+        native.parallel_memcpy(dst[:n], src)
+        return
+    _pool_copy(dst, src)
+
+
+def _pool_copy(dst: memoryview, src: memoryview) -> None:
+    """The copy without the native library: ``_COPY_CHUNK`` pieces on the
+    copy pool's threads."""
+    n = len(src)
     d = np.frombuffer(dst, np.uint8, count=n)
     s = np.frombuffer(src, np.uint8, count=n)
     pool = _copy_pool()
@@ -162,7 +174,7 @@ def read_params(name: str) -> tuple[ParamsMetadata, list[np.ndarray]]:
         arrays: list[np.ndarray] = []
         off = 0
         for shape, dtype, nbytes in zip(meta.shapes, meta.dtypes, meta.nbytes_each):
-            view = np.frombuffer(payload, dtype=np.dtype(dtype),
+            view = np.frombuffer(payload, dtype=host_dtype(dtype),
                                  count=int(np.prod(shape, dtype=np.int64)), offset=off)
             arrays.append(view.reshape(shape).copy())
             del view

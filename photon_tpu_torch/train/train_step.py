@@ -3,9 +3,10 @@ optimizer, and the causal-LM loss.
 
 The port of ``photon_tpu/train/train_step.py``. JAX traces one pure
 function; here the step runs eagerly and updates the parameters and the
-optimizer state in place (the JAX step returns new arrays). Gradients of
-the microbatches are summed in fp32 and divided by their count, as the
-JAX scan does.
+optimizer state in place (the JAX step returns new arrays). With one
+microbatch the gradients keep their parameters' dtypes (bf16 for a bf16
+leaf); with more they are summed in fp32 and divided by their count, as
+the JAX scan does.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ class TrainState:
     """Carried across steps (and, later, across federated rounds)."""
 
     step: int
-    params: dict  # the nested tree of fp32 masters (requires_grad leaves)
+    params: dict  # the nested parameter tree (requires_grad leaves)
     opt_state: dict  # flat, under optax's names
 
 
@@ -127,7 +128,10 @@ def make_train_step(model: MPTModel, tx: Optimizer, n_microbatches: int = 1,
             loss = loss_fn(state.params, mb)
             grads = torch.autograd.grad(loss, leaves)
             if grad_sum is None:
-                loss_sum, grad_sum = loss.detach().float(), [g.float() for g in grads]
+                # one microbatch: the gradients in their parameters' dtypes; more are
+                # summed in fp32 from zeros, as the JAX scan does
+                loss_sum = loss.detach().float()
+                grad_sum = list(grads) if n_microbatches == 1 else [g.float() for g in grads]
             else:
                 loss_sum += loss.detach()
                 for acc, g in zip(grad_sum, grads):

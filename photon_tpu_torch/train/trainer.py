@@ -1,11 +1,11 @@
 """Trainer: the persistent per-client training runtime.
 
 The port of ``photon_tpu/train/trainer.py``: one object owning the train
-step, the :class:`TrainState` (fp32 master parameters and the optimizer
-state under optax's names) and the host loop, with the parameter plane the
-federation layer calls at round boundaries (``get/set_parameters``,
-``get/set_opt_state_arrays``, ``get/set_momenta``, ``reset_optimizer``,
-``set_step``). It runs on ``cuda`` unless the caller asks for the CPU,
+step, the :class:`TrainState` (the parameters, each leaf in the JAX tree's
+dtype, and the optimizer state under optax's names) and the host loop,
+with the parameter plane the federation layer calls at round boundaries
+(``get/set_parameters``, ``get/set_opt_state_arrays``,
+``get/set_momenta``, ``reset_optimizer``, ``set_step``). It runs on ``cuda`` unless the caller asks for the CPU,
 where the attention kernels' plain versions run. ``device_microbatch_size:
 auto`` probes for the largest microbatch that trains (:meth:`Trainer.
 _probe_microbatch`).
@@ -42,7 +42,10 @@ from photon_tpu_torch.codec.params import (
     flatten,
     params_from_ndarrays,
     params_to_ndarrays,
+    refuse_npz_bf16,
+    tensors_to_ndarrays,
     to_numpy,
+    to_tensor,
 )
 from photon_tpu_torch.config.schema import Config, MeshConfig, effective_model_config
 from photon_tpu_torch.device import resolve_device
@@ -98,7 +101,7 @@ class Trainer:
             params = init_params(cfg.model, seed=cfg.seed if init_seed is None else init_seed,
                                  device=self.device)
         else:
-            params = _tree_map(lambda t: t.detach().to(self.device, torch.float32).clone(), params)
+            params = _tree_map(lambda t: t.detach().to(self.device).clone(), params)
 
         # batch rounding, as the JAX trainer does: the microbatch is per
         # data-parallel position, a step takes micro x dp_degree rows at a
@@ -190,6 +193,7 @@ class Trainer:
         self.layout_autotune = {"mesh": mesh_cfg, "search_s": time.monotonic() - t0,
                                 "est_step_s": best.est_step_s}
         cfg.refuse_unported_on_mesh(mesh_cfg.size)
+        cfg.refuse_param_dtype_on_pipe(mesh_cfg.pipe)
         return make_mesh(mesh_cfg, devices=devices)
 
     # ------------------------------------------------------------------
@@ -358,21 +362,25 @@ class Trainer:
         fresh host arrays that later steps do not overwrite (on a mesh,
         each gathered from its shards)."""
         if self.mesh is not None:
-            arrays = [to_numpy(st.to_full()) for st in self._flat_params().values()]
-            return ParamsMetadata.from_ndarrays(self._flat_params(), arrays), arrays
+            flat = self._flat_params()
+            return tensors_to_ndarrays(flat, (st.to_full() for st in flat.values()))
         return params_to_ndarrays(_tree_map(torch.Tensor.detach, self.state.params))
 
     def set_parameters(self, metadata: ParamsMetadata, arrays: list[np.ndarray]) -> None:
         """Copy a flat list into the parameters, in place (on a mesh, each
-        scattered to its shards)."""
+        scattered to its shards). A bf16 parameter takes only a bf16 leaf:
+        an npz's ``|V2`` one raises ``codec.params.Bf16NpzError``, as the
+        JAX package cannot load it either."""
         t0 = time.monotonic()
         if self.mesh is not None:
-            metadata.validate_arrays(arrays)
             flat = self._flat_params()
             if tuple(flat) != tuple(metadata.names):
                 raise ValueError("parameter name mismatch between the trainer and metadata")
-            for st, a in zip(flat.values(), arrays):
-                st.copy_from_full(torch.from_numpy(np.array(a)))
+            refuse_npz_bf16({n: next(iter(st.shards.values())).dtype
+                             for n, st in flat.items()}, arrays)
+            metadata.validate_arrays(arrays)
+            for st, a, d in zip(flat.values(), arrays, metadata.dtypes):
+                st.copy_from_full(to_tensor(a, d))
         else:
             new = flatten(params_from_ndarrays(self.state.params, metadata, arrays))
             with torch.no_grad():
@@ -380,45 +388,49 @@ class Trainer:
                     p.copy_(new[name])
         self._last_set_time = time.monotonic() - t0
 
-    def _state_array(self, t) -> np.ndarray:
-        return to_numpy(t.to_full() if isinstance(t, ShardedTensor) else t)
+    @staticmethod
+    def _whole(t) -> torch.Tensor:
+        return t.to_full() if isinstance(t, ShardedTensor) else t
 
     def get_opt_state_arrays(self) -> tuple[ParamsMetadata, list[np.ndarray]]:
-        """The optimizer state as (metadata, arrays) under optax's names;
-        fresh host arrays, as :meth:`get_parameters` returns."""
+        """The optimizer state as (metadata, arrays) under optax's names,
+        each in its own dtype; fresh host arrays, as :meth:`get_parameters`
+        returns."""
         names = sorted(self.state.opt_state)
-        arrays = [self._state_array(self.state.opt_state[n]) for n in names]
-        return ParamsMetadata.from_ndarrays(names, arrays), arrays
+        return tensors_to_ndarrays(names, (self._whole(self.state.opt_state[n]) for n in names))
 
     def set_opt_state_arrays(self, metadata: ParamsMetadata, arrays: list[np.ndarray]) -> None:
+        """Load an optimizer state; each entry takes the stored dtype (an
+        AdamW moment written after its fp32 promotion is fp32 again)."""
         state = self.state.opt_state
         if tuple(sorted(state)) != tuple(metadata.names):
             raise ValueError("optimizer state names do not match this optimizer's")
         metadata.validate_arrays(arrays)
         with torch.no_grad():
-            for name, a in zip(metadata.names, arrays):
-                old = state[name]
+            for name, a, d in zip(metadata.names, arrays, metadata.dtypes):
+                old, new = state[name], to_tensor(a, d, name)
                 if isinstance(old, ShardedTensor):
-                    old.copy_from_full(torch.from_numpy(np.array(a, np.float32)).reshape(
-                        old.shape))
+                    if any(t.dtype != new.dtype for t in old.shards.values()):
+                        old.shards = {k: t.to(new.dtype) for k, t in old.shards.items()}
+                    old.copy_from_full(new.reshape(old.shape))
                     continue
-                state[name] = torch.from_numpy(np.array(a, dtype=_np_dtype(old))).reshape(
-                    old.shape).to(old.device)
+                state[name] = new.reshape(old.shape).to(old.device)
 
     def get_momenta(self) -> tuple[list[np.ndarray], list[np.ndarray]]:
         """First and second moments in codec (sorted-name) order, as fresh
-        host arrays; frozen parameters report zeros."""
+        host arrays, each in its own dtype; frozen parameters report fp32
+        zeros."""
         m1, m2 = [], []
         for name, p in self._flat_params().items():
             for out, key in zip((m1, m2), self.tx.moment_names(name)):
                 t = self.state.opt_state.get(key)
                 out.append(np.zeros(tuple(p.shape), np.float32) if t is None
-                           else self._state_array(t))
+                           else to_numpy(self._whole(t)))
         return m1, m2
 
     def set_momenta(self, m1: list[np.ndarray], m2: list[np.ndarray]) -> None:
-        """Copy aggregated moments into the optimizer state; values for
-        frozen parameters are ignored."""
+        """Copy aggregated moments into the optimizer state (each cast to
+        its moment's dtype); values for frozen parameters are ignored."""
         names = list(self._flat_params())
         if len(m1) != len(names) or len(m2) != len(names):
             raise ValueError(f"expected {len(names)} moments each, got {len(m1)}/{len(m2)}")
@@ -449,7 +461,3 @@ class Trainer:
 
 def _tree_map(fn, tree: dict) -> dict:
     return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
-
-
-def _np_dtype(t: torch.Tensor) -> np.dtype:
-    return np.dtype(str(t.dtype).removeprefix("torch."))

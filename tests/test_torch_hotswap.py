@@ -469,7 +469,12 @@ def test_serve_cli_tracks_new_round(tmp_path):
         port = info["port"]
         params2 = _save_round(mgr, cfg, 2, seed=2)
         deadline = time.monotonic() + 60
-        while _get(port, "/healthz")["round"] != 2 and time.monotonic() < deadline:
+        # the watcher counts its swap when it wakes after the scheduler has
+        # applied it (within its 0.2 s wait), so both are polled for
+        while time.monotonic() < deadline:
+            h = _get(port, "/healthz")
+            if h["round"] == 2 and h["hotswap"]["swaps_applied"] == 1:
+                break
             time.sleep(0.05)
         h = _get(port, "/healthz")
         assert h["round"] == 2 and h["swaps"] == 1 and h["hotswap"]["swaps_applied"] == 1

@@ -530,7 +530,8 @@ def test_port_imports_no_jax_or_reference_package():
         "parallel/__init__", "parallel/collective_agg", "compression/quantize_torch",
         "federation/collective_round", "federation/async_round", "parallel/mesh",
         "parallel/context", "parallel/sharding", "parallel/spmd",
-        "ops/ring_attention", "parallel/pipeline", "parallel/autotune")} <= set(files)
+        "ops/ring_attention", "parallel/pipeline", "parallel/autotune",
+        "native/__init__")} <= set(files)
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -549,7 +550,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "photon_tpu_torch.federation.async_round, photon_tpu_torch.parallel.mesh, "
             "photon_tpu_torch.parallel.context, photon_tpu_torch.parallel.sharding, "
             "photon_tpu_torch.parallel.spmd, photon_tpu_torch.ops.ring_attention, "
-            "photon_tpu_torch.parallel.pipeline, photon_tpu_torch.parallel.autotune; "
+            "photon_tpu_torch.parallel.pipeline, photon_tpu_torch.parallel.autotune, "
+            "photon_tpu_torch.native; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'photon_tpu')))")
     out = subprocess.run([sys.executable, "-S", "-c", code], cwd=ROOT, capture_output=True,
@@ -681,10 +683,11 @@ def test_unported_features_refused(feature):
 
 
 def test_param_dtype_other_than_float32_refused():
-    """JAX builds every parameter in ``model.param_dtype``; the port keeps
-    fp32 parameters, so it refuses any other value (its parameter list
-    would part from JAX's). At float32 the two packages' parameter lists
-    carry the same dtypes."""
+    """JAX builds every parameter in ``model.param_dtype`` but the norms.
+    The port builds the same tree: at bfloat16 (serving and training
+    validate) and at float32 the two packages' parameter lists carry the
+    same names and dtypes. A ``param_dtype`` the port does not build
+    (float16) is refused."""
     from photon_tpu.codec.params import params_to_ndarrays
     from photon_tpu.models.mpt import init_params as jax_init
     from photon_tpu_torch.codec.params import params_to_ndarrays as port_to_ndarrays
@@ -692,17 +695,18 @@ def test_param_dtype_other_than_float32_refused():
     from photon_tpu_torch.models.mpt import init_params
 
     jcfg = _jax_cfg("mpt-wpe")
-    jcfg.model.param_dtype = "bfloat16"
-    jmeta, _ = params_to_ndarrays(jax_init(jcfg.validate().model, seed=0))
-    assert "bfloat16" in jmeta.dtypes
-    for serving in (False, True):
-        with pytest.raises(NotImplementedError, match="model.param_dtype='bfloat16'"):
+    for dtype in ("bfloat16", "float32"):
+        jcfg.model.param_dtype = dtype
+        jmeta, _ = params_to_ndarrays(jax_init(jcfg.validate().model, seed=0))
+        for serving in (False, True):
             Config.from_dict(jcfg.to_dict()).validate("cpu", serving=serving)
-    jcfg.model.param_dtype = "float32"
-    jmeta, _ = params_to_ndarrays(jax_init(jcfg.validate().model, seed=0))
-    pmeta, _ = port_to_ndarrays(init_params(_port_cfg(jcfg).model, seed=0))
-    assert pmeta.names == jmeta.names and pmeta.dtypes == jmeta.dtypes
-    assert set(pmeta.dtypes) == {"float32"}
+        pmeta, _ = port_to_ndarrays(init_params(_port_cfg(jcfg).model, seed=0))
+        assert pmeta.names == jmeta.names and pmeta.dtypes == jmeta.dtypes
+        assert (dtype in pmeta.dtypes) and set(pmeta.dtypes) <= {dtype, "float32"}
+    jcfg.model.param_dtype = "float16"
+    for serving in (False, True):
+        with pytest.raises(NotImplementedError, match="model.param_dtype='float16'"):
+            Config.from_dict(jcfg.to_dict()).validate("cpu", serving=serving)
 
 
 def test_config_reads_jax_yaml_and_presets(tmp_path):
