@@ -6,6 +6,10 @@ NVIDIA GPU.
 
 Phases (any failure exits non-zero):
 
+0. preflight: photon-lint (``python -m photon_tpu_torch.analysis``) over
+   ``photon_tpu_torch/`` against its baseline, beside the builds of phase
+   1 and read before anything runs on the card; a finding or a stale
+   baseline entry fails the smoke;
 1. environment: the card's name and power limit, torch/CUDA versions, and
    the build of every kernel from ``photon_tpu_torch/ops/csrc/`` (one
    nvcc per source, all started together, ``sm_90a``) and of the native
@@ -398,7 +402,15 @@ In a child of its own beside phase 5b (and 18 (a)):
     S=1024, H=12, D=64) at offsets 0 and 1024 against their plain
     versions, K1 timed beside its bound and SDPA (causal, unmasked).
     Recorded: step walls, tokens/s, peak memory, and for (a) the idle
-    share of a profiled step of each run.
+    share of a profiled step of each run. (g) an adapter fit at mpt-125m's
+    full width and depth (LoRA rank 8, alpha 16 on ``wqkv``, ``out_proj``,
+    ``up_proj``, ``down_proj``, the base frozen, AdamW with decay, ``auto``
+    microbatches), seq 2048, batch 8, ``fsdp=2 × tensor=2``: the steps and
+    the A/B gradients within the gate, tensor position 1 reading position
+    0's B columns over it, the base bit-frozen on both runs (AdamW's decay
+    reaching it must break that), each ``auto`` pick one JAX's rule allows,
+    launches exact; the probes' candidates and seconds and (g)'s idle share
+    recorded.
 
 To keep the whole smoke within 800 s with phases 14 and 15, three earlier
 paths run mpt-125m's width at 2 of its 12 layers: phase 4
@@ -482,6 +494,24 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def lint_preflight() -> dict:
+    """photon-lint over the port before any phase (``python -m
+    photon_tpu_torch.analysis``: ``photon_tpu_torch/`` against its
+    baseline, as a user runs it): a finding or a stale baseline entry fails
+    the smoke. Prints and returns the CLI's summary (files, findings,
+    baselined, suppressed, stale) and its seconds."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "photon_tpu_torch.analysis"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    rec = {"rc": out.returncode, "summary": out.stdout.strip().splitlines()[-1:],
+           "seconds": time.perf_counter() - t0}
+    log(f"lint preflight: {' '.join(rec['summary'])} ({rec['seconds']:.2f} s)")
+    if out.returncode != 0:
+        fail(f"photon-lint preflight exited {out.returncode}:\n{out.stdout[-3000:]}"
+             f"{out.stderr[-2000:]}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -3473,11 +3503,11 @@ def presets_phase(torch, fa):
     sound_probe = Trainer._probe_microbatch
     probes: list[dict] = []
 
-    def counted_probe(self, params):
+    def counted_probe(self, *args):
         before = dict(fa.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        micro = sound_probe(self, params)
+        micro = sound_probe(self, *args)
         probes.append({"microbatch": micro, "probe_s": time.perf_counter() - t0,
                        "launches": {k: fa.launches[k] - before[k] for k in before}})
         return micro
@@ -7445,7 +7475,9 @@ MESH_WAIT_S = 600.0
 #: (f), whose two Trainers take the same microbatches). (d) is the GPipe
 #: pipeline (remat on; the single-device run takes the stages' ``xla``
 #: attention), (e) the expert mesh, (f) the autotuned Trainer (no mesh,
-#: ``photon.mesh_autotune``).
+#: ``photon.mesh_autotune``), (g) an adapter fit (``photon.adapters``: LoRA
+#: on ``MESH_LORA_TARGETS``, the base frozen) with ``auto`` microbatches on
+#: both runs.
 MESH_LEGS = {
     "a": ("mpt-125m", None, 4096, {"sequence": 4}, 4, 4),
     "b": ("mpt-125m", 2, 2048, {"fsdp": 2, "tensor": 2}, 8, 4),
@@ -7453,7 +7485,14 @@ MESH_LEGS = {
     "d": ("mpt-125m", None, 2048, {"pipe": 4}, 8, 2),
     "e": ("mpt-125m-moe8", 2, 2048, {"expert": 4}, 8, 2),
     "f": ("mpt-125m", 2, 2048, {}, 8, 4),
+    "g": ("mpt-125m", None, 2048, {"fsdp": 2, "tensor": 2}, 8, "auto"),
 }
+#: (g)'s adapter: rank, alpha and targets (column- and row-parallel both)
+MESH_LORA = (8, 16.0)
+MESH_LORA_TARGETS = ("wqkv", "out_proj", "up_proj", "down_proj")
+#: (g)'s optimizer: AdamW with decoupled decay at a full learning rate from
+#: step 1 (an adapter fit's), so decay reaching a frozen leaf would move it
+MESH_LORA_OPT = {"name": "adamw", "lr": 1e-3, "weight_decay": 0.1}
 #: K1 at (a)'s ring chunks: [B, S_q = S_k, H, D] at offset 0 (the diagonal,
 #: causal) and at the chunk length (a chunk below it: every key visible)
 MESH_CHUNK = (4, 1024, 12, 64)
@@ -7462,7 +7501,10 @@ MESH_CHUNK = (4, 1024, 12, 64)
 def mesh_config(leg: str, meshed: bool):
     """Leg ``leg``'s config: the preset at full width, its depth cut for
     (b), (c), (e) and (f), seq and batch set, the mesh's axes when
-    ``meshed`` ((f): ``photon.mesh_autotune`` instead)."""
+    ``meshed`` ((f): ``photon.mesh_autotune`` instead); (g) an adapter fit
+    (:func:`photon_tpu_torch.adapters.configure_adapter_training`) under
+    ``MESH_LORA_OPT`` without warmup."""
+    from photon_tpu_torch.adapters import configure_adapter_training
     from photon_tpu_torch.config import load_preset
     from photon_tpu_torch.config.schema import MeshConfig
 
@@ -7473,8 +7515,16 @@ def mesh_config(leg: str, meshed: bool):
         cfg.model.n_layers = layers
     cfg.model.max_seq_len = seq
     cfg.train.global_batch_size = gbs
-    cfg.train.device_microbatch_size = micro if meshed or leg == "f" else gbs
+    cfg.train.device_microbatch_size = micro if meshed or leg in ("f", "g") else gbs
     cfg.mesh = MeshConfig(**axes) if meshed else MeshConfig()
+    if leg == "g":
+        ad = cfg.photon.adapters
+        ad.enabled, (ad.rank, ad.alpha), ad.targets = True, MESH_LORA, list(MESH_LORA_TARGETS)
+        ad.cohorts = {"a": [0]}
+        configure_adapter_training(cfg)
+        for key, value in MESH_LORA_OPT.items():
+            setattr(cfg.optimizer, key, value)
+        cfg.scheduler.t_warmup = 0
     if leg == "d":
         cfg.model.remat = True
         if not meshed:
@@ -7543,7 +7593,8 @@ def _planted(torch, leg: str, trainer, tokens) -> dict:
     (a) :func:`_diagonal_offset_fault`, (b) the tensor all-reduce keeping
     its first position's part alone, (c) RoPE positions restarting at 0 in
     every sequence chunk, (d) the last stage's tied head reading a detached
-    ``wte`` (the head's share of its gradient lost)."""
+    ``wte`` (the head's share of its gradient lost), (g) tensor position 1
+    of a column-parallel LoRA target reading position 0's columns of B."""
     from photon_tpu_torch.ops import ring_attention as ra
     from photon_tpu_torch.parallel import spmd
 
@@ -7552,6 +7603,8 @@ def _planted(torch, leg: str, trainer, tokens) -> dict:
         bad = _diagonal_offset_fault(ra)
     elif leg == "b":
         mod, name, bad = spmd, "_tensor_sum", lambda parts: parts[0]
+    elif leg == "g":
+        mod, name, bad = spmd, "_lora_b_cols", _lora_b_cols_fault(spmd._lora_b_cols)
     elif leg == "c":
         mod, name = spmd, "_global_positions"
         bad = lambda s, s_local, device: torch.arange(s_local, device=device)[None]  # noqa: E731
@@ -7565,6 +7618,66 @@ def _planted(torch, leg: str, trainer, tokens) -> dict:
         return _mesh_grads(torch, trainer, tokens)
     finally:
         setattr(mod, name, sound)
+
+
+def _lora_b_cols_fault(real):
+    """A planted fault for (g) on ``tensor 2``: the B columns of tensor
+    position 1 (an odd block of the slice's width: ``wqkv``'s ``[q | k |
+    v]`` slices and the MLP's hidden columns alike) taken from position 0's
+    block before it."""
+    def faulty(b, cols):
+        if cols.start is None or (cols.start // (cols.stop - cols.start)) % 2 == 0:
+            return real(b, cols)
+        w = cols.stop - cols.start
+        return real(b, slice(cols.start - w, cols.stop - w))
+
+    return faulty
+
+
+def _decay_on_frozen(real):
+    """A planted fault for (g): after the real meshed optimizer step,
+    AdamW's decoupled decay ``-lr · wd · p`` reaches the leaves the
+    optimizer freezes."""
+    def faulty(tx, state, grads):
+        real(tx, state, grads)
+        lr = tx.schedule(state.step)
+        for name, st in state.params.items():
+            if not tx.trainable(name):
+                for t in st.shards.values():
+                    t.data.add_(t.data * -(lr * tx.cfg.weight_decay))
+
+    return faulty
+
+
+def _lora_grads(torch, trainer, tokens):
+    """One batch's loss, grad norm and the gradients of the leaves that
+    take one (a LoRA fit's A/B) on a one-device trainer, in one
+    microbatch, the state untouched."""
+    from photon_tpu_torch.codec.params import flatten
+    from photon_tpu_torch.optim.build import global_norm
+    from photon_tpu_torch.train.train_step import make_loss_fn
+
+    flat = {n: p for n, p in flatten(trainer.state.params).items() if p.requires_grad}
+    loss = make_loss_fn(trainer.model, trainer.cfg.train.loss_chunk_tokens)(
+        trainer.state.params, tokens)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    return float(loss.detach()), float(global_norm(grads)), \
+        {n: g.float() for n, g in zip(flat, grads)}
+
+
+def _base_frozen(trainer, start: dict) -> bool:
+    """Every leaf the optimizer freezes bit-equal to ``start`` (its
+    host copy before the steps)."""
+    meta, now = trainer.get_parameters()
+    return all(a.tobytes() == start[n].tobytes() for n, a in zip(meta.names, now)
+               if n in start)
+
+
+def _probe_allowed(trainer, gbs: int, dp: int) -> bool:
+    """The ``auto`` pick is one JAX's rule allows: a power of 2 of at most
+    ``gbs // dp`` rows a position whose rows divide the batch."""
+    m = trainer.device_microbatch_size
+    return m >= 1 and m & (m - 1) == 0 and m <= gbs // dp and gbs % (m * dp) == 0
 
 
 def _kept_set(r) -> set:
@@ -7675,8 +7788,11 @@ def _mesh_leg(torch, fa, np, leg: str, device: str = "cuda", cfg_fn=mesh_config)
     gated in an fp32 ``xla`` run of the same leg (bf16 routing near-ties
     part the two runs' assignments); the kept sets are gated exactly
     (:func:`_expert_gates`), the per-position pool fault breaking them.
-    ``device="cpu"`` and a small ``cfg_fn`` rehearse it (no peaks, no
-    profiler)."""
+    (g): the A/B gradients (:func:`_lora_grads` one device's), the base
+    bit-frozen on both runs (AdamW's decay reaching it must break that),
+    the ``auto`` picks JAX's rule allows, the probes' candidates and
+    seconds. ``device="cpu"`` and a small ``cfg_fn`` rehearse it (no peaks,
+    no profiler)."""
     import copy
 
     from photon_tpu_torch.models.mpt import init_params
@@ -7701,6 +7817,16 @@ def _mesh_leg(torch, fa, np, leg: str, device: str = "cuda", cfg_fn=mesh_config)
                  "n_layers": mesh_cfg.model.n_layers, "seq": seq, "global_batch": gbs,
                  "n_micro": meshed._n_micro, "launch_rule_per_step": rule,
                  "single_device_launch_rule_per_step": one_rule, "steps": []}
+    if leg == "g":
+        dp = mesh.shape["data"] * mesh.shape["fsdp"] * mesh.shape["expert"]
+        rec["auto_probe"] = {tag: {"picked": t.device_microbatch_size,
+                                   "allowed": _probe_allowed(t, gbs, d), **t.auto_probe}
+                             for tag, t, d in (("mesh", meshed, dp), ("single", one, 1))}
+        if not all(r["allowed"] for r in rec["auto_probe"].values()):
+            fail(f"mesh leg g: an auto pick JAX's rule does not allow: {rec['auto_probe']}")
+        meta, start = one.get_parameters()
+        base0 = {n: a for n, a in zip(meta.names, start) if not one.tx.trainable(n)}
+        del start
     walls = {"single": [], "mesh": []}
     peaks = {}
     counted = {"single": dict.fromkeys(fa.launches, 0), "mesh": dict.fromkeys(fa.launches, 0)}
@@ -7728,7 +7854,8 @@ def _mesh_leg(torch, fa, np, leg: str, device: str = "cuda", cfg_fn=mesh_config)
     for i, batch in enumerate(batches):
         if i == 1:  # every parameter's gradient after step 1, and the fault
             tokens = torch.from_numpy(batch).to(device)
-            ref = _grads_of(torch, one_cfg, one.state.params, tokens)
+            ref = (_lora_grads(torch, one, tokens) if leg == "g"
+                   else _grads_of(torch, one_cfg, one.state.params, tokens))
             got = _mesh_grads(torch, meshed, tokens)
             rec["grads_after_step_1"] = _vs(got, ref)
             if leg == "e":
@@ -7750,7 +7877,9 @@ def _mesh_leg(torch, fa, np, leg: str, device: str = "cuda", cfg_fn=mesh_config)
                     "max_memory_allocated_gb": peaks[tag] / 1e9}
     steps_worst = max([s["loss_rel_diff"] for s in rec["steps"]]
                       + [s["grad_norm_rel_diff"] for s in rec["steps"]])
-    worst = steps_worst if leg == "e" else max(steps_worst, rec["grads_after_step_1"]["worst"])
+    # (e)'s and (g)'s gradients are gated in fp32 (_fp32_xla_grads, _fp32_lora_gates)
+    worst = steps_worst if leg in ("e", "g") else max(steps_worst,
+                                                      rec["grads_after_step_1"]["worst"])
     rec["worst"] = worst
     if not all(np.isfinite(v) for s in rec["steps"] for v in s["mesh"].values()):
         fail(f"mesh leg {leg}: metrics not finite: {rec['steps']}")
@@ -7767,18 +7896,25 @@ def _mesh_leg(torch, fa, np, leg: str, device: str = "cuda", cfg_fn=mesh_config)
     elif rec["planted_fault"]["worst"] <= TRAIN_GRAD_GATE:
         fail(f"mesh leg {leg}: the gate {TRAIN_GRAD_GATE} misses the planted fault (reading "
              f"{rec['planted_fault']['worst']:.3e})")
-    if leg in ("a", "d") and cuda:  # where the time goes, one more step of each under the profiler
+    if leg in ("a", "d", "g") and cuda:  # where the time goes, one more step of each under the profiler
         for tag, trainer in (("single", one), ("mesh", meshed)):
             rec[tag]["profiled_step"] = _profiled_step(
                 torch, lambda t=trainer: t.train_batch(batches[0]),
                 rec[tag]["step_s_median_after_first"])
-    if leg in ("b", "d"):
+    if leg == "g":  # after every step each trainer took, the profiled one included
+        rec["base_bit_frozen"] = {"mesh": _base_frozen(meshed, base0),
+                                  "single": _base_frozen(one, base0)}
+        if not all(rec["base_bit_frozen"].values()):
+            fail(f"mesh leg g: a frozen base leaf moved: {rec['base_bit_frozen']}")
+    if leg in ("b", "d", "g"):
         meta, got = meshed.get_parameters()
         _, want = one.get_parameters()
         rel = {n: _rel_l2(torch.from_numpy(g), torch.from_numpy(w))
                for n, g, w in zip(meta.names, got, want)}
         rec["params_after_steps_max_rel_l2"] = max(rel.values())
-        if rec["params_after_steps_max_rel_l2"] > TRAIN_GRAD_GATE:
+        if leg == "g":  # bf16, recorded: A/B are gated in fp32
+            rec["params_after_steps_rel_l2"] = {n: v for n, v in rel.items() if v}
+        elif rec["params_after_steps_max_rel_l2"] > TRAIN_GRAD_GATE:
             fail(f"mesh leg {leg}: parameters after the steps part by "
                  f"{rec['params_after_steps_max_rel_l2']:.3e}")
     if leg == "b":
@@ -7789,10 +7925,26 @@ def _mesh_leg(torch, fa, np, leg: str, device: str = "cuda", cfg_fn=mesh_config)
                                                   for a, b in zip(mutated, back))
         if not rec["set_get_round_trip_bit_equal"]:
             fail("mesh leg b: set_parameters -> get_parameters is not bit for bit")
+    if leg == "g":  # the planted decay on the frozen base, one more meshed step
+        from photon_tpu_torch.parallel import spmd
+
+        sound = spmd.apply_optimizer
+        spmd.apply_optimizer = _decay_on_frozen(sound)
+        try:
+            meshed.train_batch(batches[0])
+        finally:
+            spmd.apply_optimizer = sound
+        rec["planted_decay_base_bit_frozen"] = _base_frozen(meshed, base0)
+        if rec["planted_decay_base_bit_frozen"]:
+            fail("mesh leg g: the bit-frozen base gate misses AdamW's decay on a frozen leaf")
     del one, meshed
     if leg == "e":  # the per-parameter gradients, gated in fp32 through xla
         rec["fp32_xla"] = _fp32_xla_grads(torch, np, one_cfg, mesh_cfg, mesh, params, device,
                                           batches[1])
+    if leg == "g":  # the A/B gradients and factors, gated in fp32
+        rec["fp32"] = _fp32_lora_gates(torch, one_cfg, mesh_cfg, mesh, params, device, batches,
+                                       (rec["auto_probe"]["single"]["picked"],
+                                        rec["auto_probe"]["mesh"]["picked"]))
     del params
     if cuda:
         torch.cuda.empty_cache()
@@ -7823,6 +7975,67 @@ def _fp32_xla_grads(torch, np, one_cfg, mesh_cfg, mesh, params, device, batch) -
         fail(f"mesh leg e (fp32, xla): the meshed gradients part from one device's by "
              f"{out['worst']:.3e} > {TRAIN_GRAD_GATE}")
     return out
+
+
+def _fp32_lora_gates(torch, one_cfg, mesh_cfg, mesh, params, device, batches,
+                     micro: tuple[int, int]) -> dict:
+    """(g) in fp32 (the kernels' fp32 versions), where bf16's rounding does
+    not swamp the A gradients (with B one step from zero they read ~1e-2 of
+    B's gradient norm): the one-device and meshed Trainers at (g)'s
+    ``auto`` picks ``micro``, the same weights and batches. Gated at
+    ``TRAIN_GRAD_GATE``: each step's loss and grad norm, every A/B gradient
+    after step 1 and the factors after the steps; (g)'s planted fault over
+    it. Recorded at the same state after step 1: the A/B gradients of the
+    bf16 models (one device and the mesh) against one device's fp32 ones,
+    bf16's own floor beside the mesh's reading."""
+    import copy
+
+    from photon_tpu_torch.models.mpt import MPTModel
+    from photon_tpu_torch.parallel import spmd
+    from photon_tpu_torch.train.trainer import Trainer
+
+    cfgs = []
+    for c, m in zip((one_cfg, mesh_cfg), micro):
+        c = copy.deepcopy(c)
+        c.model.compute_dtype, c.train.device_microbatch_size = "float32", m
+        cfgs.append(c.validate())
+    one = Trainer(cfgs[0], params=params, device=device)
+    meshed = Trainer(cfgs[1], params=params, device=device, mesh=mesh)
+    rec: dict = {"steps": []}
+    for i, batch in enumerate(batches):
+        if i == 1:
+            tokens = torch.from_numpy(batch).to(device)
+            ref = _lora_grads(torch, one, tokens)
+            rec["grads_after_step_1"] = _vs(_mesh_grads(torch, meshed, tokens), ref)
+            rec["planted_fault"] = _vs(_planted(torch, "g", meshed, tokens), ref)
+            bf16 = [one.model, meshed.mesh_model]
+            one.model = MPTModel(one_cfg.model)  # the bf16 models over the same state
+            meshed.mesh_model = spmd.MeshModel(one_cfg.model, mesh)
+            rec["bf16_one_device_vs_fp32"] = _vs(_lora_grads(torch, one, tokens), ref)
+            rec["bf16_mesh_vs_fp32"] = _vs(_mesh_grads(torch, meshed, tokens), ref)
+            one.model, meshed.mesh_model = bf16
+            del tokens, ref
+        m1 = {k: float(v) for k, v in one.train_batch(batch).items()}
+        mm = {k: float(v) for k, v in meshed.train_batch(batch).items()}
+        rec["steps"].append({"loss_rel_diff": abs(mm["loss"] - m1["loss"]) / abs(m1["loss"]),
+                             "grad_norm_rel_diff": abs(mm["grad_norm"] - m1["grad_norm"])
+                             / abs(m1["grad_norm"])})
+    meta, got = meshed.get_parameters()
+    _, want = one.get_parameters()
+    rec["factors_after_steps_max_rel_l2"] = max(
+        _rel_l2(torch.from_numpy(g), torch.from_numpy(w))
+        for n, g, w in zip(meta.names, got, want) if "_lora_" in n)
+    del one, meshed
+    rec["worst"] = max([v for s in rec["steps"] for v in s.values()]
+                       + [rec["grads_after_step_1"]["worst"],
+                          rec["factors_after_steps_max_rel_l2"]])
+    if rec["worst"] > TRAIN_GRAD_GATE:
+        fail(f"mesh leg g (fp32): the meshed run parts from one device's by "
+             f"{rec['worst']:.3e} > {TRAIN_GRAD_GATE}")
+    if rec["planted_fault"]["worst"] <= TRAIN_GRAD_GATE:
+        fail(f"mesh leg g (fp32): the gate misses the planted fault (reading "
+             f"{rec['planted_fault']['worst']:.3e})")
+    return rec
 
 
 def _autotune_leg(torch, fa, np, device: str = "cuda", cfg_fn=mesh_config) -> dict:
@@ -7950,7 +8163,7 @@ def mesh_chunk_kernels(torch, fa) -> list[dict]:
 
 
 def mesh_phase(torch, fa, np) -> dict:
-    """Phase 19: legs (a)-(e) (:func:`_mesh_leg`), (f)
+    """Phase 19: legs (a)-(e) and (g) (:func:`_mesh_leg`), (f)
     (:func:`_autotune_leg`) and K1–K3 at (a)'s ring chunks
     (:func:`mesh_chunk_kernels`)."""
     t0 = time.perf_counter()
@@ -8109,9 +8322,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = ("ragged_paged_attention.cu", "flash_attention.cu")
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:  # one nvcc per source
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 2) as pool:  # one nvcc per source
+        lint = pool.submit(lint_preflight)  # photon-lint beside the builds, read first
         built_native = pool.submit(native.available)  # and g++ for the host helpers
-        list(pool.map(_build.build, sources))
+        builds = pool.map(_build.build, sources)
+        env["lint"] = lint.result()
+        list(builds)
         if not built_native.result():
             fail(f"the native library did not build: {native.build_error}")
     for src in sources:

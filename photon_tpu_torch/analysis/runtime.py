@@ -120,7 +120,8 @@ class _TrackedLock:
         self.site = site
 
     def acquire(self, *args, **kwargs):
-        got = self._inner.acquire(*args, **kwargs)
+        # the wrapper forwards its caller's acquire; the caller scopes it
+        got = self._inner.acquire(*args, **kwargs)  # photon-lint: ignore[concurrency/bare-acquire]
         rec = _LOCK_RECORDER
         if got and rec is not None:
             rec._note_acquire(self)
@@ -133,7 +134,7 @@ class _TrackedLock:
         self._inner.release()
 
     def __enter__(self) -> bool:
-        return self.acquire()
+        return self.acquire()  # photon-lint: ignore[concurrency/bare-acquire] -- `with` releases
 
     def __exit__(self, *exc) -> None:
         self.release()

@@ -16,12 +16,10 @@ a :class:`FleetConfig`, validated with the JAX package's ``ValueError``
 texts, as are the prefix-cache and hot-swap fields of
 :class:`ServeConfig`.
 
-:meth:`Config.validate` raises ``NotImplementedError`` for the features
-this package does not port yet, so such a config fails at start-up
-instead of running without them: for training (``validate(serving=False)``,
-the default) on a mesh of more than one device LoRA factors, adapters,
-``optimizer.freeze_patterns``, the ``auto`` microbatch probe or the
-collective plane (ROADMAP Queue 1 item 2b). ``model.param_dtype`` is
+:meth:`Config.validate` accepts what the JAX package's accepts and raises
+its texts where it refuses. LoRA factors, adapters,
+``optimizer.freeze_patterns``, the ``auto`` microbatch probe and the
+collective plane train on a mesh of any size. ``model.param_dtype`` is
 ``float32`` or ``bfloat16`` (the JAX package's tree in either: norms stay
 fp32); with ``bfloat16`` the paths on which the JAX package cannot finish
 are refused with its failure named: a federated round of any driver
@@ -713,8 +711,7 @@ class Config:
 
     def _validate_mesh(self) -> None:
         """The mesh checks of training: JAX's (the pipeline's and the expert
-        axis's, with its texts), plus what the port refuses on a mesh
-        (:meth:`refuse_unported_on_mesh`)."""
+        axis's), with its texts."""
         mesh, m = self.mesh, self.model
         if mesh.surplus_devices not in ("warn", "error", "ignore"):
             raise ValueError(
@@ -759,7 +756,6 @@ class Config:
                 )
         elif mesh.expert > 1:
             raise ValueError("mesh.expert > 1 requires model.mlp='moe'")
-        self.refuse_unported_on_mesh(mesh.size)
 
     def _refuse_unfinished_param_dtype(self) -> None:
         """A ``model.param_dtype`` other than float32 on the training paths
@@ -805,25 +801,6 @@ class Config:
             f"client rejects the first broadcast: 'expected .../{dt}, got .../float32'); "
             "train centrally or set float32"
         )
-
-    def refuse_unported_on_mesh(self, size: int) -> None:
-        """What the port does not run on a mesh of ``size`` devices yet
-        (ROADMAP Queue 1 item 2b): LoRA factors, adapters, frozen
-        parameters, the ``auto`` probe and the collective plane. The Trainer
-        asks again for the layout the autotuner picked."""
-        if size == 1:
-            return
-        for what, on in (("LoRA factors", self.model.lora_rank > 0),
-                         ("photon.adapters", self.photon.adapters.enabled),
-                         ("optimizer.freeze_patterns", bool(self.optimizer.freeze_patterns)),
-                         ("device_microbatch_size: auto",
-                          self.train.device_microbatch_size == "auto"),
-                         ("the collective plane", self.photon.comm_stack.collective)):
-            if on:
-                raise NotImplementedError(
-                    f"{what} on a mesh of {size} devices is not ported yet "
-                    "(ROADMAP Queue 1 item 2b)"
-                )
 
     def _validate_federation(self) -> None:
         fl, ph = self.fl, self.photon

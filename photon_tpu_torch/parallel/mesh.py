@@ -39,7 +39,9 @@ thread per position:
   collective inside the backward would deadlock.
 
 A mesh that spans processes (NCCL, one process per card) is not built
-here (ROADMAP Queue 1 item 2b).
+here: no path of the JAX package trains on one. Its only process gang,
+the collective runner (``jax.distributed.initialize``), pins each
+process's client Trainer to one local device.
 """
 
 from __future__ import annotations

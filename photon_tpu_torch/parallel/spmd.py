@@ -25,6 +25,12 @@ out by hand, for one process driving every position
   ``(r, t)`` group through ``ring_chunks`` (``ops/ring_attention.py``):
   the ring over its ``sequence`` positions, the flash kernels alone on
   one position, the dense chunks under ``xla``.
+- **LoRA.** The factors ``*_lora_a [L, d_in, r]`` and ``*_lora_b [L, r,
+  d_out]`` are replicated (no rule matches them, JAX's fallback) and cast
+  to the compute dtype. A column-parallel target adds ``(h @ A) @ B[:,
+  cols] · α/r`` on the columns its kernel takes; a row-parallel one
+  (``out_proj``, ``down_proj``) adds ``(a_t @ A[rows_t]) @ B · α/r`` to
+  its part before the tensor sum, so the parts sum to JAX's term.
 - **MoE, batch-global.** GSPMD routes the whole microbatch as one
   capacity pool, so the groups' router probabilities are put into the
   global ``[B, S]`` order and routed once (``ops/moe.py``'s ``route``:
@@ -51,7 +57,10 @@ out by hand, for one process driving every position
   its parameter and gradient, on its own device, through the optimizer's
   own ``apply`` (so clipping and the schedule are the single-device
   code's); ``grad_norm``, the clip and ``param_norm`` count each distinct
-  shard once.
+  shard once. A leaf the optimizer freezes has no moments, no update, no
+  weight decay and no share of the clip's norm (optax's
+  ``set_to_zero`` under ``multi_transform``); under LoRA its shards take
+  no gradient at all, as on one device.
 
 With ``cuda:0`` named at every position the card holds one copy of each
 shard and one gathered copy of a layer's weights a step; positions differ
@@ -119,8 +128,6 @@ class MeshModel:
     ``pipe = 1`` stage 0 is the whole mesh and every layer."""
 
     def __init__(self, cfg: ModelConfig, mesh: Mesh, stage: int = 0) -> None:
-        if cfg.lora_rank:
-            raise NotImplementedError("LoRA on a mesh is not ported yet (ROADMAP Queue 1 item 2b)")
         sh = mesh.shape
         self.cfg, self.mesh = cfg, mesh
         self.n_t, self.n_s, self.n_e = sh["tensor"], sh["sequence"], sh["expert"]
@@ -141,10 +148,12 @@ class MeshModel:
         self.first = self.home[0, 0]
         self.devices = list(dict.fromkeys(self.dev.values()))
         self.slopes = alibi_slopes(cfg.n_heads) if cfg.alibi else None
+        self.lora_scale = cfg.lora_alpha / cfg.lora_rank if cfg.lora_rank else 1.0
 
     # -- weights ---------------------------------------------------------
     def _cast(self, name: str) -> torch.dtype:
-        """Norms and the MoE router stay fp32 (as ``compute_params``)."""
+        """Norms and the MoE router stay fp32 (as ``compute_params``); the
+        LoRA factors take the compute dtype, as JAX's ``astype(h.dtype)``."""
         return torch.float32 if "/ln_" in "/" + name or name.endswith("router") else self.compute
 
     def _gather(self, params: dict, names: list[str], layer: int | None) -> dict:
@@ -173,11 +182,13 @@ class MeshModel:
         H, Hkv, Dh, n_t = cfg.n_heads, cfg.kv_heads, cfg.d_head, self.n_t
         hq = H // n_t
         lead = h.shape[:-1]
+        ha: dict = {}  # h @ A of each adapted projection, made once
 
         def proj(name, cols):
             y = h @ w[BLK + name + "/kernel"][:, cols]
             bias = w.get(BLK + name + "/bias")
-            return y if bias is None else y + bias[cols]
+            y = y if bias is None else y + bias[cols]
+            return self._lora_col(w, name, y, h, cols, ha)
 
         if BLK + "wqkv/kernel" in w:
             d_q = H * Dh
@@ -214,6 +225,33 @@ class MeshModel:
         impl = "xla" if self.cfg.attn_impl == "xla" else "pallas"
         return ring_chunks(qs, ks, vs, causal=True, impl=impl, slopes=slopes)
 
+    # -- LoRA ------------------------------------------------------------
+    def _lora_col(self, w: dict, name: str, y: torch.Tensor, h: torch.Tensor, cols: slice,
+                  ha: dict | None = None) -> torch.Tensor:
+        """A column-parallel projection ``y`` on columns ``cols`` with its
+        LoRA term: ``y + ((h @ A) @ B[:, cols]) · α/r`` (``y`` when
+        ``name`` is not adapted); ``ha`` caches ``h @ A`` by name across the
+        slices of one position."""
+        a = w.get(BLK + name + "_lora_a")
+        if a is None:
+            return y
+        ha = {} if ha is None else ha
+        if name not in ha:
+            ha[name] = h @ a
+        return y + (ha[name] @ _lora_b_cols(w[BLK + name + "_lora_b"], cols)) * self.lora_scale
+
+    def _lora_row(self, w: dict, name: str, y: torch.Tensor, a_t: torch.Tensor,
+                  rows: slice) -> torch.Tensor:
+        """A row-parallel projection's LoRA part at the position holding
+        the input columns ``rows``, added to its kernel part ``y``:
+        ``y + ((a_t @ A[rows]) @ B) · α/r`` (``y`` when ``name`` is not
+        adapted). The parts join the kernel's before the tensor sum, which
+        is linear, so they add up to ``(h @ A) @ B``."""
+        a = w.get(BLK + name + "_lora_a")
+        if a is None:
+            return y
+        return y + ((a_t @ a[rows]) @ w[BLK + name + "_lora_b"]) * self.lora_scale
+
     # -- the layer over every position -----------------------------------
     def _layer(self, params: dict, names: list[str], layer: int, *xs: torch.Tensor):
         """One layer over the stage's groups: ``(*outputs, MoE aux)`` (the
@@ -248,8 +286,9 @@ class MeshModel:
             for t in range(n_t):
                 w = W[self.dev[r, t, s]]
                 a = o[r, t, s].reshape(*o[r, t, s].shape[:2], hq * dh)
-                parts.append((a @ w[BLK + "out_proj/kernel"][_cols(t, hq * dh)])
-                             .to(self.home[r, s]))
+                rows = _cols(t, hq * dh)
+                y = self._lora_row(w, "out_proj", a @ w[BLK + "out_proj/kernel"][rows], a, rows)
+                parts.append(y.to(self.home[r, s]))
             y = _tensor_sum(parts)
             if BLK + "out_proj/bias" in home:
                 y = y + home[BLK + "out_proj/bias"]
@@ -282,16 +321,19 @@ class MeshModel:
                 w, hh = W[dev], h.to(dev)
 
                 def col(name, w=w, hh=hh, t=t):
-                    y = hh @ w[BLK + name + "/kernel"][:, _cols(t, hid)]
+                    cols = _cols(t, hid)
+                    y = hh @ w[BLK + name + "/kernel"][:, cols]
                     bias = w.get(BLK + name + "/bias")
-                    return y if bias is None else y + bias[_cols(t, hid)]
+                    y = y if bias is None else y + bias[cols]
+                    return self._lora_col(w, name, y, hh, cols)
 
                 if cfg.mlp == "swiglu":
                     a = F.silu(col("gate_proj")) * col("up_proj")
                 else:
                     a = F.gelu(col("up_proj"), approximate="tanh")
-                parts.append((a @ w[BLK + "down_proj/kernel"][_cols(t, hid)])
-                             .to(self.home[r, s]))
+                rows = _cols(t, hid)
+                y = self._lora_row(w, "down_proj", a @ w[BLK + "down_proj/kernel"][rows], a, rows)
+                parts.append(y.to(self.home[r, s]))
             y = _tensor_sum(parts)
             if BLK + "down_proj/bias" in home:
                 y = y + home[BLK + "down_proj/bias"]
@@ -430,6 +472,12 @@ def _cols(t: int, width: int) -> slice:
     return slice(t * width, (t + 1) * width)
 
 
+def _lora_b_cols(b: torch.Tensor, cols: slice) -> torch.Tensor:
+    """The columns ``cols`` of a LoRA B factor ``[r, d_out]``: the same
+    slice the position's kernel takes."""
+    return b[:, cols]
+
+
 def _global_order(parts: dict, n_r: int, n_s: int) -> torch.Tensor:
     """``{(r, s): [b_local, s_local, ...]}`` (on one device) as ``[B·S,
     ...]``, row-major over the global ``[B, S]``: row group ``r`` holds
@@ -469,14 +517,17 @@ def _layer_full(st: ShardedTensor, layer: int, dev: torch.device, dtype) -> torc
 # state and step
 # ---------------------------------------------------------------------------
 
-def init_mesh_state(tx: Optimizer, params: dict, mesh: Mesh) -> MeshTrainState:
+def init_mesh_state(tx: Optimizer, params: dict, mesh: Mesh,
+                    freeze_grads: bool = False) -> MeshTrainState:
     """A step-0 state: ``params`` (a flat dict or tree of whole tensors)
     sharded by the rule table, and the optimizer state's moments as zero
-    shards by ``state_shardings``."""
+    shards by ``state_shardings`` (none for a leaf the optimizer freezes).
+    ``freeze_grads`` (a LoRA fit): the frozen leaves' shards require no
+    gradient, so none is computed for them, as on one device."""
     sharded = shard_params(params, mesh)
-    for st in sharded.values():
+    for n, st in sharded.items():
         for t in st.shards.values():
-            t.requires_grad_(True)
+            t.requires_grad_(not freeze_grads or tx.trainable(n))
     return MeshTrainState(step=0, params=sharded, opt_state=fresh_opt_state(tx, sharded, mesh))
 
 
@@ -567,9 +618,11 @@ def apply_optimizer(tx: Optimizer, state: MeshTrainState, grads: dict) -> None:
 
 
 def leaves_of(params: dict) -> list[tuple[str, tuple, torch.Tensor]]:
-    """Every shard of the state's parameters: ``(name, key, shard)`` in
-    name and key order."""
-    return [(n, k, t) for n in sorted(params) for k, t in params[n].items()]
+    """Every shard of the state's parameters that takes a gradient (a LoRA
+    fit's frozen base takes none): ``(name, key, shard)`` in name and key
+    order."""
+    return [(n, k, t) for n in sorted(params) for k, t in params[n].items()
+            if t.requires_grad]
 
 
 def _by_name(leaves: list, grads) -> dict:
@@ -583,13 +636,14 @@ def finish_step(tx: Optimizer, state: MeshTrainState, leaves: list, loss: torch.
                 grads: list) -> tuple[MeshTrainState, dict]:
     """The step's tail after the gradients (one per shard of ``leaves``):
     ``grad_norm`` over each distinct shard once, the optimizer, the step
-    counter and ``param_norm``."""
+    counter and ``param_norm`` (over every parameter's shards)."""
     grad_norm = global_norm(grads)
     by_name = _by_name(leaves, grads)
     del grads
     apply_optimizer(tx, state, by_name)
     state.step += 1
-    param_norm = global_norm([t.detach() for _, _, t in leaves])
+    param_norm = global_norm([t.detach() for n in sorted(state.params)
+                              for _, t in state.params[n].items()])
     return state, {"loss": loss, "grad_norm": grad_norm, "param_norm": param_norm}
 
 
@@ -647,12 +701,13 @@ def mesh_gradients(model, params: dict, tokens: dict,
                    loss_chunk_tokens: int = 2048) -> tuple[torch.Tensor, dict]:
     """``(loss, {name: whole gradient})`` of one batch through ``model``'s
     ``loss`` (a :class:`MeshModel`, or a pipeline), the state untouched
-    (the gradients gathered to each parameter's first shard's device)."""
+    (the gradients gathered to each parameter's first shard's device; a
+    leaf that takes no gradient is left out)."""
     loss = model.loss(params, tokens, loss_chunk_tokens)
     leaves = leaves_of(params)
     by_name = _by_name(leaves, torch.autograd.grad(loss, [t for _, _, t in leaves]))
     out = {}
-    for n, st in params.items():
-        full = ShardedTensor(st.shape, st.spec, st.mesh, by_name[n])
-        out[n] = full.to_full()
+    for n, grads in by_name.items():
+        st = params[n]
+        out[n] = ShardedTensor(st.shape, st.spec, st.mesh, grads).to_full()
     return loss.detach(), out

@@ -466,15 +466,18 @@ class PagedEngine:
         n = len(prompt)
         if not self.fits(n, max_new):
             raise ValueError(f"request needs {n}+{max_new} tokens > slot capacity {self.s_cap}")
+        if cohort is not None and self.adapter_pool is None:
+            raise ValueError(f"request names cohort {cohort!r} but this server has no "
+                             "adapter plane (photon.adapters disabled)")
         apage: int | None = None
-        if cohort is not None:
-            if self.adapter_pool is None:
-                raise ValueError(f"request names cohort {cohort!r} but this server has no "
-                                 "adapter plane (photon.adapters disabled)")
-            apage = self.adapter_pool.acquire(cohort)
         ids: list[int] | None = None
         retained = False
         try:
+            if cohort is not None:
+                # a page pin the slot holds until its eviction (not a scoped
+                # lock): a failed admission releases it in the handler below
+                # photon-lint: ignore[concurrency/bare-acquire]
+                apage = self.adapter_pool.acquire(cohort)
             hit, fresh_needed, hashes = self._prefix_plan(prompt, n, max_new, cohort=cohort)
             if hit:
                 self.allocator.retain(hit)

@@ -90,11 +90,18 @@ class Trainer:
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         if self.mesh is not None:
             self.device = self.mesh.distinct_devices()[0]
-        # the mesh-driven attention fallback (sequence > 1: pallas → ring)
-        # is taken here; cfg.model stays the config of record
+        # the mesh-driven attention fallback (pipe > 1: pallas → xla; sequence
+        # > 1: pallas → ring) is taken here; cfg.model stays the config of
+        # record. JAX's rule reads the config's mesh (the tuned one under
+        # the autotuner), even where the trainer runs on one device (the
+        # collective runner's client); the mesh the trainer runs on then
+        # applies the same rule
         mesh_shape = self.mesh.shape if self.mesh is not None else dict.fromkeys(AXES, 1)
-        mcfg = effective_model_config(cfg.model, MeshConfig(**mesh_shape))
+        mesh_cfg = self.layout_autotune["mesh"] if self.layout_autotune else cfg.mesh
+        mcfg = effective_model_config(cfg.model, mesh_cfg)
+        mcfg = effective_model_config(mcfg, MeshConfig(**mesh_shape))
         self.model = MPTModel(mcfg)
+        lora = cfg.model.lora_rank > 0  # a LoRA fit computes no gradient for the frozen base
         self.tx, self.lr_schedule = build_optimizer(cfg.optimizer, cfg.scheduler)
         self._last_set_time = 0.0
         if params is None:
@@ -117,19 +124,20 @@ class Trainer:
                           f"{dp}; adapted to {adapted}", stacklevel=2)
             cfg.train.global_batch_size = adapted
         micro = cfg.train.device_microbatch_size
+        #: the ``auto`` probe's record: the candidates tried, each ``(micro,
+        #: "ok" | "oom")``, and its seconds (None without the probe)
+        self.auto_probe: dict | None = None
         if micro == "auto":
-            if self.mesh is not None:
-                raise NotImplementedError("device_microbatch_size 'auto' on a mesh is not "
-                                          "ported yet (ROADMAP Queue 1 item 2b)")
-            micro = self._probe_microbatch(params)
+            micro = self._probe_microbatch(params, dp)
         elif not isinstance(micro, int):
             raise ValueError(f"device_microbatch_size must be an int or 'auto', got {micro!r}")
-        clamped = min(micro, cfg.train.global_batch_size // dp)
-        if clamped != micro:
-            warnings.warn(f"device_microbatch_size {micro} exceeds the per-device batch "
-                          f"{cfg.train.global_batch_size // dp}; clamped to {clamped}",
-                          stacklevel=2)
-        micro = clamped
+        else:
+            clamped = min(micro, cfg.train.global_batch_size // dp)
+            if clamped != micro:
+                warnings.warn(f"device_microbatch_size {micro} exceeds the per-device batch "
+                              f"{cfg.train.global_batch_size // dp}; clamped to {clamped}",
+                              stacklevel=2)
+            micro = clamped
         self.device_microbatch_size = micro
         rows = micro * dp
         if cfg.train.global_batch_size % rows:
@@ -145,7 +153,7 @@ class Trainer:
         if self.mesh is not None and mesh_shape["pipe"] > 1:
             # the GPipe schedule over pipe; the state is the meshed one
             self.mesh_model = pipeline.Pipeline(mcfg, self.mesh, self._n_micro)
-            self.state = spmd.init_mesh_state(self.tx, params, self.mesh)
+            self.state = spmd.init_mesh_state(self.tx, params, self.mesh, lora)
             del params
             self._train_step = pipeline.make_pipeline_train_step(self.mesh_model, self.tx,
                                                                  loss_chunk_tokens=chunk)
@@ -153,14 +161,13 @@ class Trainer:
                                                                loss_chunk_tokens=chunk)
         elif self.mesh is not None:
             self.mesh_model = spmd.MeshModel(mcfg, self.mesh)
-            self.state = spmd.init_mesh_state(self.tx, params, self.mesh)
+            self.state = spmd.init_mesh_state(self.tx, params, self.mesh, lora)
             del params
             self._train_step = spmd.make_mesh_train_step(
                 self.mesh_model, self.tx, n_microbatches=self._n_micro, loss_chunk_tokens=chunk)
             self._eval_step = spmd.make_mesh_eval_step(self.mesh_model, loss_chunk_tokens=chunk)
         else:
-            # a LoRA fit computes no gradient for the frozen base
-            self.state = init_train_state(self.tx, params, cfg.model.lora_rank > 0)
+            self.state = init_train_state(self.tx, params, lora)
             self._train_step = make_train_step(self.model, self.tx, n_microbatches=self._n_micro,
                                                loss_chunk_tokens=chunk)
             self._eval_step = make_eval_step(self.model, loss_chunk_tokens=chunk)
@@ -192,7 +199,6 @@ class Trainer:
         mesh_cfg = dataclasses.replace(best.mesh, surplus_devices=cfg.mesh.surplus_devices)
         self.layout_autotune = {"mesh": mesh_cfg, "search_s": time.monotonic() - t0,
                                 "est_step_s": best.est_step_s}
-        cfg.refuse_unported_on_mesh(mesh_cfg.size)
         cfg.refuse_param_dtype_on_pipe(mesh_cfg.pipe)
         return make_mesh(mesh_cfg, devices=devices)
 
@@ -200,53 +206,85 @@ class Trainer:
     # auto microbatch probe
     # ------------------------------------------------------------------
 
-    def _probe_microbatch(self, params: dict) -> int:
-        """The largest power-of-2 microbatch that runs one real train step
-        without exhausting device memory: the JAX trainer's probe
-        (``device_train_microbatch_size: auto`` halving on a CUDA OOM in the
-        original photon, ``photon/clients/trainer_utils.py:972-978``).
+    def _probe_microbatch(self, params: dict, dp_degree: int = 1) -> int:
+        """The largest power-of-2 per-position microbatch that runs one real
+        train step without exhausting device memory: the JAX trainer's
+        probe (``device_train_microbatch_size: auto`` halving on a CUDA OOM
+        in the original photon, ``photon/clients/trainer_utils.py:972-978``).
 
-        Candidates start at the largest power of 2 <= ``global_batch_size``
-        (capped by ``train.auto_microbatch_cap``) and skip those that do not
-        divide the batch (on one device 1 always does: JAX's ``ValueError``
-        for none is a multi-device case). Each runs a step of zero tokens on
-        ``params`` with an optimizer state of its own, so its memory is the
-        real step's; ``params`` are restored from a host copy after each,
-        and the candidate's state, gradients and activations are freed (and
-        the allocator's cache emptied) before the next. A non-OOM error
-        propagates."""
+        Candidates start at the largest power of 2 <= ``global_batch_size //
+        dp_degree`` (capped by ``train.auto_microbatch_cap``); one is taken
+        only where ``candidate × dp_degree`` divides the batch, and JAX's
+        ``ValueError`` is raised when none does. Each runs a step of zero
+        tokens from ``params`` with a state of its own (on a mesh a fresh
+        :class:`~photon_tpu_torch.parallel.spmd.MeshTrainState` through
+        ``make_mesh_train_step``, the non-pipelined step, as JAX's probe),
+        so its memory is the real step's. On one device ``params`` are
+        restored from a host copy after each (on a mesh the state's shards
+        are copies). The candidate's state, gradients and activations are
+        freed, and the allocator's cache emptied, before the next; an OOM on
+        any position's device halves the candidate, another error
+        propagates. :attr:`auto_probe` records the candidates tried."""
         cfg = self.cfg
         gbs = cfg.train.global_batch_size
-        rows = gbs
+        rows = max(1, gbs // dp_degree)
         if cfg.train.auto_microbatch_cap:
             rows = min(rows, cfg.train.auto_microbatch_cap)
-        cand = 1 << (max(rows, 1).bit_length() - 1)  # largest pow2 <= rows
+        cand = 1 << (rows.bit_length() - 1)  # largest pow2 <= rows
+        lora = cfg.model.lora_rank > 0
         flat = flatten(params)
-        saved = {name: p.detach().to("cpu", copy=True) for name, p in flat.items()}
+        saved = None if self.mesh is not None else {
+            name: p.detach().to("cpu", copy=True) for name, p in flat.items()}
         tokens = torch.zeros((gbs, cfg.model.max_seq_len), dtype=torch.long,
                              device=self.device)
+        if self.mesh is not None:
+            tokens = {d: tokens.to(d) for d in self.mesh.distinct_devices()}
+        devices = self.mesh.distinct_devices() if self.mesh is not None else [self.device]
+        model = spmd.MeshModel(self.model.cfg, self.mesh) if self.mesh is not None else self.model
+        tried: list[tuple[int, str]] = []
+        t0 = time.monotonic()
         last_err = ""
         while cand >= 1:
-            if gbs % cand:
+            if gbs % (cand * dp_degree):
                 cand //= 2  # the microbatches must be equal
                 continue
+            n_micro = gbs // (cand * dp_degree)
             try:
-                step = make_train_step(self.model, self.tx, n_microbatches=gbs // cand,
-                                       loss_chunk_tokens=cfg.train.loss_chunk_tokens)
-                step(init_train_state(self.tx, params, cfg.model.lora_rank > 0), tokens)
+                if self.mesh is not None:
+                    step = spmd.make_mesh_train_step(
+                        model, self.tx, n_microbatches=n_micro,
+                        loss_chunk_tokens=cfg.train.loss_chunk_tokens)
+                    step(spmd.init_mesh_state(self.tx, params, self.mesh, lora), tokens)
+                else:
+                    step = make_train_step(model, self.tx, n_microbatches=n_micro,
+                                           loss_chunk_tokens=cfg.train.loss_chunk_tokens)
+                    step(init_train_state(self.tx, params, lora), tokens)
                 self._sync()
+                tried.append((cand, "ok"))
+                self.auto_probe = {"tried": tried, "seconds": time.monotonic() - t0}
                 return cand
             except Exception as e:  # noqa: BLE001 -- only an OOM is retried
                 if not is_oom(e):
                     raise
+                tried.append((cand, "oom"))
                 last_err = str(e)  # not the exception: its frames hold the activations
                 cand //= 2
             finally:
-                with torch.no_grad():
-                    for name, p in flat.items():
-                        p.copy_(saved[name])
-                if self.device.type == "cuda":
-                    torch.cuda.empty_cache()
+                if saved is not None:
+                    with torch.no_grad():
+                        for name, p in flat.items():
+                            p.copy_(saved[name])
+                for d in devices:
+                    if d.type == "cuda":
+                        with torch.cuda.device(d):
+                            torch.cuda.empty_cache()
+        self.auto_probe = {"tried": tried, "seconds": time.monotonic() - t0}
+        if not tried:
+            raise ValueError(
+                "auto microbatch: no power-of-2 per-device microbatch divides "
+                f"global_batch_size={gbs} over "
+                f"dp_degree={dp_degree}; set device_microbatch_size explicitly"
+            )
         # the allocation picture at the last OOM, left on disk (None on the
         # CPU); the text names it as the JAX trainer's does
         dump = dump_memory_profile(getattr(cfg.photon, "save_path", ".") or ".",

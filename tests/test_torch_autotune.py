@@ -248,8 +248,13 @@ def test_trainer_autotunes_mesh_when_enabled():
 
 def test_trainer_autotune_with_auto_microbatch():
     """An ``auto`` microbatch caps ``pipe`` at 1; on one device the probe
-    runs, and on a tuned mesh the probe is refused (ROADMAP Queue 1 item
-    2b)."""
+    runs, and on a tuned mesh it runs too, picking what JAX's probe picks
+    on that mesh: the largest power of 2 of at most the per-position
+    batch whose rows divide the batch."""
+    from photon_tpu.config.schema import Config as JaxConfig
+    from photon_tpu.config.schema import MeshConfig as JaxMeshConfig
+    from photon_tpu.train.trainer import Trainer as JaxTrainer
+    from photon_tpu_torch.parallel.mesh import AXES, make_mesh
     from photon_tpu_torch.train.trainer import Trainer
 
     cfg = _trainer_cfg("auto")
@@ -257,9 +262,19 @@ def test_trainer_autotune_with_auto_microbatch():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         one = Trainer(cfg, init_seed=0, device="cpu")
+        tuned = Trainer(cfg, init_seed=0, device="cpu", n_devices=8)
     assert one.mesh is None and one.device_microbatch_size >= 1
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        Trainer(cfg, init_seed=0, device="cpu", n_devices=8)
+    mesh_cfg = tuned.layout_autotune["mesh"]
+    assert tuned.mesh is not None and mesh_cfg.pipe == 1 and mesh_cfg.size == 8
+    jcfg = JaxConfig.from_dict(cfg.to_dict())
+    jcfg.photon.mesh_autotune = False
+    jcfg.mesh = JaxMeshConfig(**{a: getattr(mesh_cfg, a) for a in AXES})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jt = JaxTrainer(jcfg.validate(), init_seed=0)
+    assert dict(jt.mesh.shape) == make_mesh(mesh_cfg, devices=["cpu"] * 8).shape
+    assert tuned.device_microbatch_size == jt.device_microbatch_size
+    assert tuned.auto_probe["tried"][-1] == (tuned.device_microbatch_size, "ok")
 
 
 def test_autotune_probe_never_kills_collective_runner_config(tmp_path, monkeypatch):

@@ -7,7 +7,7 @@ mesh repeats the CPU): the axes, size and surplus policy
 shard shape against JAX's ``addressable_shards`` for the same device
 index, indivisible axes dropped, the optimizer-state specs (JAX's shape
 lookup, quirk included), ``effective_model_config``, and the
-combinations ``Config.validate()`` still refuses (ROADMAP Queue 1 item 2b).
+combinations ``Config.validate()`` accepts or refuses as JAX's does.
 """
 
 import warnings
@@ -243,12 +243,11 @@ def test_lifted_axes_and_ring_validate(axes):
 @pytest.mark.parametrize("what", ["pipe", "expert", "mesh_autotune", "moe", "lora",
                                   "freeze_patterns", "auto_micro", "adapters", "collective"])
 def test_refused_on_a_mesh(what):
-    """What the port does not run on a mesh yet is refused at
-    ``validate()``, naming ROADMAP Queue 1 item 2b: LoRA, adapters, frozen
-    parameters, the ``auto`` probe and the collective plane validate on one
-    device and are refused on a mesh. The pipeline, the expert mesh, the
-    autotuner and MoE on a mesh are ported: they validate as in JAX, and
-    only JAX's own rules refuse them (with its texts)."""
+    """On a mesh ``validate()`` refuses only what JAX's refuses, with its
+    texts. The pipeline, the expert mesh, the autotuner and MoE validate
+    as in JAX; LoRA, adapters, frozen parameters, the ``auto`` probe and
+    the collective plane validate on one device and on a mesh in both
+    packages, and ``auto`` under ``pipe`` raises JAX's text."""
     from photon_tpu.config.schema import Config as JaxConfig
 
     one, mesh = {}, {"mesh": {"data": 2}}
@@ -276,10 +275,17 @@ def test_refused_on_a_mesh(what):
            "collective": {"photon": {"comm_stack": {"collective": True, "shm": False}}},
            }[what]
     _cfg(**one).validate()
-    bad = {**one, **mesh}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2b"):
-        _cfg(**bad).validate()
-    _cfg(**bad).validate(serving=True)  # a server loads weights whatever trained them
+    meshed = {**one, **mesh}
+    JaxConfig.from_dict(_cfg(**meshed).to_dict()).validate()
+    _cfg(**meshed).validate()
+    _cfg(**meshed).validate(serving=True)  # a server loads weights whatever trained them
+    if what == "auto_micro":  # JAX's own refusal: the probe builds the non-pipelined step
+        piped = {**one, "mesh": {"pipe": 2}}
+        with pytest.raises(ValueError) as want:
+            JaxConfig.from_dict(_cfg(**piped).to_dict()).validate()
+        with pytest.raises(ValueError) as got:
+            _cfg(**piped).validate()
+        assert str(got.value) == str(want.value)
 
 
 def test_surplus_devices_value_checked():
@@ -287,7 +293,7 @@ def test_surplus_devices_value_checked():
         _cfg(mesh={"surplus_devices": "sometimes"}).validate()
 
 
-@pytest.mark.parametrize("leg", ["a", "b", "c", "d", "e", "f"])
+@pytest.mark.parametrize("leg", ["a", "b", "c", "d", "e", "f", "g"])
 def test_chip_smoke_mesh_leg_on_the_cpu(leg, monkeypatch):
     """Phase 19's leg through ``chip_smoke._mesh_leg`` (``_autotune_leg``
     for (f)) itself, at d64/d128 and seq 256 in fp32 on a mesh that
@@ -295,7 +301,9 @@ def test_chip_smoke_mesh_leg_on_the_cpu(leg, monkeypatch):
     the card): its launch rule holds exactly, the meshed run reads within
     the training gate and the leg's planted fault over it ((e): the kept
     sets equal one global route and the per-position pools break them;
-    (f): the tuner picks one device, bit for bit)."""
+    (f): the tuner picks one device, bit for bit; (g): the base bit-frozen
+    on both runs, the planted decay on it caught, the ``auto`` picks
+    allowed)."""
     from photon_tpu_torch.ops import flash_attention as fa
     from tests.test_torch_compression import _chip_smoke
 
@@ -345,3 +353,10 @@ def test_chip_smoke_mesh_leg_on_the_cpu(leg, monkeypatch):
     assert smoke.TRAIN_GRAD_GATE < rec["planted_fault"]["worst"]
     if leg == "b":
         assert rec["set_get_round_trip_bit_equal"]
+    if leg == "g":
+        assert rec["base_bit_frozen"] == {"mesh": True, "single": True}
+        assert rec["planted_decay_base_bit_frozen"] is False
+        assert all(p["allowed"] and p["tried"] for p in rec["auto_probe"].values())
+        assert rec["params_after_steps_max_rel_l2"] < smoke.TRAIN_GRAD_GATE
+        assert rec["fp32"]["worst"] < smoke.TRAIN_GRAD_GATE < rec["fp32"]["planted_fault"]["worst"]
+        assert rec["fp32"]["worst"] < smoke.TRAIN_GRAD_GATE < rec["fp32"]["planted_fault"]["worst"]

@@ -637,8 +637,8 @@ def test_unported_features_refused(feature):
     the features it runs validate when on, and an invalid value raises the
     JAX package's ValueError (the same text as JAX's). Adapters, their
     collective round loop, the fleet, the expert mesh and the mesh
-    autotuner run; adapters and the ``auto`` probe on a client's mesh are
-    refused (ROADMAP Queue 1 item 2b)."""
+    autotuner run, and so do adapters and the ``auto`` probe on a client's
+    mesh: they validate in both packages."""
     from photon_tpu_torch.config.schema import Config
 
     d = _jax_cfg("mpt-wpe").to_dict()
@@ -653,7 +653,7 @@ def test_unported_features_refused(feature):
         with pytest.raises(ValueError, match=text):
             Config.from_dict(d).validate("cpu")
         return
-    if feature == "moe":  # MoE and the expert mesh are ported; the auto probe on a mesh is not
+    if feature == "moe":  # MoE, the expert mesh and the auto probe on it are ported
         d["model"].update(mlp="moe", moe_num_experts=4)
         Config.from_dict(d).validate("cpu")
         d["mesh"]["expert"] = 2
@@ -675,11 +675,9 @@ def test_unported_features_refused(feature):
         d["photon"]["mesh_autotune"] = True  # the autotuner is ported
         JaxConfig.from_dict(d).validate()
         Config.from_dict(d).validate("cpu")
-        d["mesh"]["data"] = 2  # adapters on a client's mesh are not
-    else:
-        d["photon"]["serve"][feature]["enabled"] = True
-    with pytest.raises(NotImplementedError):
-        Config.from_dict(d).validate("cpu")
+        d["mesh"]["data"] = 2  # and adapters on a client's mesh
+    JaxConfig.from_dict(d).validate()
+    Config.from_dict(d).validate("cpu")
 
 
 def test_param_dtype_other_than_float32_refused():

@@ -452,16 +452,16 @@ def test_centralized_cli_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("feature", ["mesh", "ring", "auto_micro", "mesh_autotune", "lora"])
 def test_unported_training_features_refused(feature):
-    """What the port still does not train is refused with
-    NotImplementedError (ROADMAP Queue 1 item 2b: frozen parameters, the
-    ``auto`` probe and LoRA on a client's mesh); what it trains validates as
-    in JAX, and JAX's own refusals raise JAX's texts (``ring`` under
-    ``pipe``; the autotuner validates, and a Trainer whose tuned layout is
-    a mesh refuses the item-2b features)."""
+    """The port trains what JAX trains and refuses only what JAX refuses,
+    with JAX's texts: every mesh axis, frozen parameters on a mesh, ``ring``
+    alone or on a sequence mesh (refused under ``pipe``), the ``auto``
+    probe on an expert mesh (refused under ``pipe``), LoRA on the
+    collective plane and on a client's mesh, and a Trainer whose tuned
+    layout is a mesh training LoRA with its base frozen."""
     from photon_tpu_torch.config.schema import Config
 
     d = _jax_cfg("mpt-wpe").to_dict()
-    if feature == "mesh":  # every axis trains (pipe with one batch axis); frozen weights on it do not
+    if feature == "mesh":  # every axis trains (pipe with one batch axis); frozen weights on it too
         d["mesh"].update(data=2, fsdp=2, tensor=2, sequence=2)
         Config.from_dict(d).validate()
         d["mesh"].update(fsdp=1, sequence=1, pipe=2)
@@ -488,24 +488,39 @@ def test_unported_training_features_refused(feature):
         from photon_tpu_torch.train.trainer import Trainer
 
         d["model"].update(lora_rank=4, lora_targets=["wqkv"])
-        with pytest.raises(NotImplementedError, match="item 2b"):
-            Trainer(Config.from_dict(d).validate(), init_seed=0, device="cpu", n_devices=2)
+        d["optimizer"]["freeze_patterns"] = [r"^(?!.*_lora_)"]
+        t = Trainer(Config.from_dict(d).validate(), init_seed=0, device="cpu", n_devices=2)
+        assert t.mesh is not None and t.layout_autotune["mesh"].size == 2
+        meta, before = t.get_parameters()
+        for _ in range(2):  # the warmup's first step has lr 0
+            t.train_batch(_tokens(_jax_cfg("mpt-wpe"), 4))
+        moved = {n for n, x, y in zip(meta.names, before, t.get_parameters()[1])
+                 if not np.array_equal(x, y)}
+        assert moved == {"blocks/block/wqkv_lora_b"}  # B starts at zero: A's gradient is 0
         return
-    elif feature == "auto_micro":  # auto is ported; an expert mesh under it is not
+    elif feature == "auto_micro":  # auto runs on an expert mesh too; JAX refuses it under pipe
         d["train"]["device_microbatch_size"] = "auto"
         Config.from_dict(d).validate()
+        dense = d["model"]["mlp"]
         d["model"].update(mlp="moe", moe_num_experts=4)
         d["mesh"]["expert"] = 2
-    else:  # LoRA trains, on the collective plane too; a client's mesh does not
+    else:  # LoRA trains, on the collective plane and on a client's mesh
         d["model"].update(lora_rank=4, lora_targets=["wqkv"])
         Config.from_dict(d).validate()
         d["photon"]["comm_stack"]["collective"] = True
         Config.from_dict(d).validate()
         d["mesh"]["data"] = 2
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        Config.from_dict(d).validate()
-    if feature in ("mesh", "auto_micro"):
-        Config.from_dict(d).validate(serving=True)  # a server loads weights whatever trained them
+    JaxConfig.from_dict(d).validate()
+    Config.from_dict(d).validate()
+    Config.from_dict(d).validate(serving=True)  # a server loads weights whatever trained them
+    if feature == "auto_micro":
+        d["mesh"].update(expert=1, pipe=2)
+        d["model"]["mlp"] = dense
+        with pytest.raises(ValueError) as want:
+            JaxConfig.from_dict(d).validate()
+        with pytest.raises(ValueError) as got:
+            Config.from_dict(d).validate()
+        assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------
