@@ -18,9 +18,11 @@ Phases (any failure exits non-zero):
    and times a 1 GiB ``parallel_memcpy`` against ``np.copyto`` and the shm
    plane's thread pool); ptxas's registers,
    shared memory and spills per kernel, and the count of ``HGMMA``
-   (wgmma), ``UTMALDG`` (TMA loads) and ``LDGSTS`` (cp.async) in each
-   kernel's SASS (``cuobjdump``): the bf16 K1, K2 and K3 must each hold
-   ``HGMMA`` and ``UTMALDG``; ptxas's notes of wgmma it had to serialize;
+   (wgmma), ``UTMALDG`` (TMA loads), ``LDGSTS`` (cp.async) and ``HMMA``
+   (mma.sync) in each kernel's SASS (``cuobjdump``): the bf16 K1, K2 and
+   K3 must each hold ``HGMMA`` and ``UTMALDG``, K4's verify and chunk
+   kernels ``HMMA`` and ``LDGSTS``; ptxas's notes of wgmma it had to
+   serialize;
 2. kernels: each kernel against its plain PyTorch version on the card,
    fp32 and bf16, at the shapes the serving step (K4: decode, chunk and
    speculative verify) and the training step (K1 forward, K2 dQ, K3
@@ -28,8 +30,9 @@ Phases (any failure exits non-zero):
    plain version and one PyTorch library call, and the least time the
    card could take (bytes over 3.35 TB/s, flops over the peak for the
    dtype); K2, K3 and K4 give the same bits twice; K4's decode must run
-   as a split-K kernel and its merge (kernel names from
-   ``torch.profiler``); K2 + K3 together against SDPA's backward;
+   as a split-K kernel and its merge, its bf16 verify as the verify
+   kernel and the same merge (kernel names from ``torch.profiler``); K2 +
+   K3 together against SDPA's backward;
 3. training: full-width mpt-125m (random weights from seed 0, bf16
    compute, fp32 masters, ADOPT, chunked CE) in a ``Trainer`` on
    ``cuda``, global batch 32 in 2 microbatches of 16 at seq 2048: 4 steps
@@ -105,7 +108,7 @@ Phases (any failure exits non-zero):
    continuation) against 4 sequential steps, per (row, column) logits
    within the engine gate and greedy tokens equal on clear margins, at
    mpt-125m's shape and at llama-1b's attention shape (GQA 16/4, D=128, 2
-   layers: K4's chunk regime at B = 8); a wrapper that gives every query
+   layers), both through K4's verify regime; a wrapper that gives every query
    of a row the row's last position must break the gate. Then 16
    templated prompts (a 64-token block × 5 and a suffix each, 64 greedy
    tokens) through a speculative batcher (k = 4) and a plain one:
@@ -518,10 +521,13 @@ def lint_preflight() -> dict:
 # phase 1: what the build made
 # ---------------------------------------------------------------------------
 
-SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")  # wgmma, TMA loads, cp.async
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")  # wgmma, TMA loads, cp.async, mma.sync
 #: the bf16 flash kernels (K1, K2, K3), each of which must be built from
 #: wgmma and TMA loads
 WGMMA_KERNELS = ("fwd_wgmma_kernel", "bwd_dq_wgmma_kernel", "bwd_dkv_wgmma_kernel")
+#: K4's tensor-core kernels, each of which must be built from mma.sync and
+#: cp.async
+MMA_SYNC_KERNELS = ("rpa_verify_kernel", "rpa_chunk_kernel")
 
 
 def _demangle(names: list[str]) -> dict[str, str]:
@@ -568,6 +574,11 @@ def build_report(_build, sources) -> dict:
         if len(built) != 2 or any(not v.get("HGMMA") or not v.get("UTMALDG")
                                   for v in built.values()):
             fail(f"{kernel} is not built from HGMMA and UTMALDG at D=64 and 128: {built}")
+    for kernel in MMA_SYNC_KERNELS:
+        built = {k: v for k, v in report.items() if kernel in k}
+        if len(built) != 2 or any(not v.get("HMMA") or not v.get("LDGSTS")
+                                  for v in built.values()):
+            fail(f"{kernel} is not built from HMMA and LDGSTS at D=64 and 128: {built}")
     return report
 
 
@@ -681,6 +692,11 @@ def _bound(pos, n_ctx, bs, h, n_kv, d, elem):
     return kv_bytes + io_bytes, flops
 
 
+#: K4's cases whose bf16 calls take the verify regime (speculative verify,
+#: recycled blocks under a 4-token grid)
+K4_VERIFY_CASES = ("mpt125m_verify", "llama1b_verify", "recycled_shared_blocks")
+
+
 def kernel_phase(torch, rpa, alibi_slopes, np):
     """Kernel vs plain version at the serving step's shapes; returns the
     per-case records and the main-path (mpt-125m, bf16) entry."""
@@ -710,7 +726,7 @@ def kernel_phase(torch, rpa, alibi_slopes, np):
          np.array([[2047], [1900], [1500], [1100], [900], [512], [256], [31]]), False, False),
         ("llama1b_chunk", (22, 16, 4, 128), 1, 512,
          np.arange(512, 1024)[None, :], False, False),
-        # GQA 16/4 at n_spec 4: 16 rows a (slot, kv head), the bf16 chunk regime at B = 8
+        # GQA 16/4 at n_spec 4: 16 rows a (slot, kv head), the bf16 verify regime
         ("llama1b_verify", (22, 16, 4, 128), 8, 4,
          np.array([2043, 1900, 1500, 1100, 900, 512, 256, 31])[:, None] + np.arange(4),
          False, False),
@@ -757,6 +773,8 @@ def kernel_phase(torch, rpa, alibi_slopes, np):
             if not torch.isfinite(out).all() or rel > KERNEL_GATE[dname]:
                 fail(f"kernel {name} {dname}: rel L2 {rel:.3e} > {KERNEL_GATE[dname]}")
             regime = rpa.regime(t, h // n_kv, dtype)
+            if dtype == torch.bfloat16 and name in K4_VERIFY_CASES and regime != "verify":
+                fail(f"kernel {name} bf16 takes the {regime} regime, not verify")
             rec = {"case": name, "dtype": dname, "B": b, "T": t, "H": h, "H_kv": n_kv,
                    "Dh": d, "n_ctx": n_ctx, "block_size": bs, "rel_l2": rel,
                    "max_abs_err": max_abs, "gate": KERNEL_GATE[dname], "regime": regime,
@@ -766,6 +784,7 @@ def kernel_phase(torch, rpa, alibi_slopes, np):
                 fail(f"kernel {name} {dname}: two launches gave different bits")
             rec["same_bits_twice"] = True
             want = {"split": ("rpa_split_kernel", "rpa_combine_kernel"),
+                    "verify": ("rpa_verify_kernel", "rpa_combine_kernel"),
                     "chunk": ("rpa_chunk_kernel",)}[regime]
             for _ in range(PROFILER_READINGS):  # a missing name is read again
                 names = _kernel_names(torch, lambda: rpa.ragged_paged_attention(
@@ -2656,8 +2675,9 @@ def _verify_grid(torch, np, rpa, cfg, params, tag) -> dict:
     ``n_spec = 4`` on another, each row fed its own greedy continuation
     as drafts. Per (row, column) logits within ``ENGINE_LOGIT_GATE``,
     greedy tokens equal where the top-2 margin exceeds twice the largest
-    difference; K4 launched ``n_layers`` times for the verify and 4 ×
-    ``n_layers`` for the steps. Then the verify again with
+    difference; K4 launched ``n_layers`` times for the verify, all in its
+    bf16 verify regime, and 4 × ``n_layers`` for the steps. Then the verify
+    again with
     :func:`_last_position_per_row` patched in, which must read over the
     gate."""
     import copy
@@ -2698,13 +2718,17 @@ def _verify_grid(torch, np, rpa, cfg, params, tag) -> dict:
         feed.append(cur[:, 0])
     seq_launches = rpa.launches
     toks = np.stack(feed[:n_spec], axis=1).astype(np.int32)  # [last, t1, t2, t3]
+    regime = rpa.regime(n_spec, c.model.n_heads // c.model.kv_heads, eng.state.cache_k.dtype)
+    if regime != "verify":
+        fail(f"{tag} verify grid: a {eng.state.cache_k.dtype} pool takes the {regime} regime")
     rpa.launches = 0
+    rpa.regime_launches[regime] = 0
     grid = run(eng.state.clone(), toks, 0, n_spec).float()
     torch.cuda.synchronize()
-    grid_launches = rpa.launches
-    if seq_launches != n_spec * L or grid_launches != L:
-        fail(f"{tag} verify grid: K4 launched {grid_launches} (want {L}) and the steps "
-             f"{seq_launches} (want {n_spec * L})")
+    grid_launches, regime_launches = rpa.launches, rpa.regime_launches[regime]
+    if seq_launches != n_spec * L or grid_launches != L or regime_launches != L:
+        fail(f"{tag} verify grid: K4 launched {grid_launches} ({regime_launches} in the "
+             f"{regime} regime; want {L}) and the steps {seq_launches} (want {n_spec * L})")
     if not (torch.isfinite(grid).all() and grid.shape == (B, n_spec, vocab)):
         fail(f"{tag} verify grid: logits not finite or of shape {tuple(grid.shape)}")
     rels, clear, max_abs = [], 0, 0.0
@@ -2736,8 +2760,7 @@ def _verify_grid(torch, np, rpa, cfg, params, tag) -> dict:
              f"(largest reading {max(fault):.3e})")
     rec = {"shape": f"B={B} n_spec={n_spec} H={c.model.n_heads}/{c.model.kv_heads} "
                     f"Dh={c.model.d_head} L={L} n_ctx={n_ctx} {c.model.compute_dtype}",
-           "regime": rpa.regime(n_spec, c.model.n_heads // c.model.kv_heads,
-                                eng.state.cache_k.dtype),
+           "regime": regime, "launches_verify_regime": regime_launches,
            "worst_rel_l2": max(rels), "max_abs_logit_diff": max_abs,
            "rows_columns_clear": clear, "launches_verify": grid_launches,
            "launches_sequential": seq_launches, "planted_fault_rel_l2_max": max(fault),
@@ -2760,11 +2783,13 @@ def _batcher_pass(torch, rpa, eng, prompts, speculative=None, temperature=0.0) -
     reqs = [b.submit(p, SPEC_NEW, temperature=temperature, seed=i)
             for i, p in enumerate(prompts)]
     rpa.launches = 0
+    by_regime = dict(rpa.regime_launches)
     t0 = time.perf_counter()
     b.start()
     outs = [r.result(timeout=600) for r in reqs]
     wall = time.perf_counter() - t0
     launches = rpa.launches
+    by_regime = {k: rpa.regime_launches[k] - v for k, v in by_regime.items()}
     b.close()
     st = b.stats()
     want = eng.mc.n_layers * int(st["steps"] + st["chunk_steps"])
@@ -2774,8 +2799,8 @@ def _batcher_pass(torch, rpa, eng, prompts, speculative=None, temperature=0.0) -
         fail(f"batcher pass: lengths {[len(o) for o in outs]}, {eng.n_active} slots left")
     ttft = [r.ttft_s for r in reqs]
     return {"outs": outs, "wall_s": wall, "tokens_per_s": len(prompts) * SPEC_NEW / wall,
-            "launches": launches, "steps": st["steps"], "chunk_steps": st["chunk_steps"],
-            "mean_ttft_s": sum(ttft) / len(ttft),
+            "launches": launches, "launches_by_regime": by_regime, "steps": st["steps"],
+            "chunk_steps": st["chunk_steps"], "mean_ttft_s": sum(ttft) / len(ttft),
             "first_wave_mean_ttft_s": sum(ttft[: eng.n_slots]) / eng.n_slots,
             "spec": b.spec_stats()}
 
@@ -2805,7 +2830,7 @@ def spec_prefix_phase(torch, rpa, np, params, cfg, tie: float) -> dict:
     """Speculative decoding and the prefix cache at full width (mpt-125m,
     bf16, ``attention_impl="ragged"``): the verify grid against sequential
     steps at mpt-125m's shape and at llama-1b's attention shape (GQA 16/4,
-    D=128, 2 layers: the B = 8 chunk regime), each with its planted fault;
+    D=128, 2 layers), both through K4's verify regime, each with its planted fault;
     a speculative batcher (k = 4) against a plain one on 16 templated
     prompts; and the prefix cache over the same prompts served twice.
     ``tie``: twice the largest logit difference of two sound engines
@@ -2913,7 +2938,8 @@ def spec_prefix_phase(torch, rpa, np, params, cfg, tie: float) -> dict:
     rec["launches"] = {"verify_125m": rec["verify_125m"]["launches_verify"],
                        "speculative": spec["launches"], "plain": plain["launches"],
                        "sampled": plain_t["launches"] + spec_t["launches"],
-                       "prefix": cold["launches"] + warm["launches"]}
+                       "prefix": cold["launches"] + warm["launches"],
+                       "speculative_by_regime": spec["launches_by_regime"]}
     del eng, plain_eng
     torch.cuda.empty_cache()
     return rec
@@ -5752,7 +5778,8 @@ TEL_NEW = 32
 TEL_PROFILE_TICKS = 8
 TEL_PROFILE_PROMPTS = (100,) * 8
 #: K4's kernels, as a demangled profiler record names them
-TEL_K4_KERNELS = ("rpa_split_kernel", "rpa_combine_kernel", "rpa_chunk_kernel")
+TEL_K4_KERNELS = ("rpa_split_kernel", "rpa_combine_kernel", "rpa_verify_kernel",
+                  "rpa_chunk_kernel")
 TEL_WAIT_S = 600.0
 #: how often (a) scrapes the server's /metrics and /statusz
 TEL_SCRAPE_S = 0.25
@@ -8497,6 +8524,19 @@ def main() -> int:
         "telemetry_serve_launches": tel["serve"]["launches"],
         "autopilot_launches": autopilot["launches"],
         "autopilot_fleet_replica_launches": autopilot["fleet"]["launches"],
+        # the verify regime (rpa_verify_kernel + rpa_combine_kernel) at the
+        # speculative verify shapes, and its launches on the spec_prefix paths
+        "verify_regime": [{
+            "case": r["case"], "shape": f"B={r['B']} T={r['T']} H={r['H']}/{r['H_kv']} "
+                                        f"Dh={r['Dh']} n_ctx={r['n_ctx']} bs={r['block_size']} bf16",
+            "device_kernels": r["device_kernels"], "max_abs_err": r["max_abs_err"],
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        } for r in kernel_records if r["dtype"] == "bfloat16" and r["case"] in K4_VERIFY_CASES],
+        "verify_regime_launches": {
+            "verify_grid_125m": spec_prefix["verify_125m"]["launches_verify_regime"],
+            "verify_grid_llama1b": spec_prefix["verify_llama1b"]["launches_verify_regime"],
+            "speculative_batcher": spec_prefix["launches"]["speculative_by_regime"]["verify"]},
     }] + [{
         "name": name,
         "route": "cuda",

@@ -10,31 +10,54 @@
 // writes 0. Query head h reads kv head h / group; a (slot, kv head) serves its
 // group's rows t * group + g from one K/V tile.
 //
-// What bounds it: memory in decode (a call reads n_ctx * bs * H_kv * Dh * 2
-// bytes of K and V per slot for 4 flops per (query, key, head, dim)), and
-// operations for a long prompt chunk. Both regimes read only the needed K/V
-// bytes, straight from the pool: the block table is read inside the kernel
-// (no gathered copy), the pool is addressed through its strides and a layer
-// index (no per-layer copy), and the key walk stops at the largest query
-// position of the tile. K/V tiles of 64 keys (four 16-token pool blocks) are
-// gathered by 16-byte cp.async into a double-buffered ring in shared memory,
-// in their own dtype. The host picks the regime from shapes it knows
-// (T * group rows per (slot, kv head)), never from device data:
-//   * split-K (rpa_split_kernel + rpa_combine_kernel; decode, T * group < 16,
-//     and every fp32 call): grid (key split, row tile x kv head, slot), so a
-//     decode step's few long slots spread over the card; a CTA takes 4 rows
-//     (decode) or 16. Each of the 4 warps
-//     walks its own 16 keys of every tile with its own softmax state (lane
-//     = key x half of Dh for the scores, lane = Dh / 32 columns for P V);
-//     the warps merge in shared memory and the CTA writes fp32 partials
-//     (m in log2 units, l, acc). Splits that start past the slot's largest
-//     position write an empty partial (m = NEG_INF, l = 0). The combine
-//     kernel merges the partials in split order: no atomics, the same bits
-//     on every run.
-//   * chunk (rpa_chunk_kernel; bf16, T * group >= 16): 64-row q tiles, 4
-//     warps of 16 rows on mma.sync.m16n8k16 (bf16 in, fp32 accumulate),
-//     operands by ldmatrix (V through its transposing form), scores and P in
-//     registers, heaviest tiles launched first.
+// What bounds it: memory in decode and speculative verify (a call reads
+// n_ctx * bs * H_kv * Dh * 2 bytes of K and V per slot for 4 flops per
+// (query, key, head, dim)), and operations for a long prompt chunk. Every
+// regime reads only the needed K/V bytes, straight from the pool: the block
+// table is read inside the kernel (no gathered copy), the pool is addressed
+// through its strides and a layer index (no per-layer copy), and the key
+// walk stops at the largest query position of the tile. K/V tiles of 64 keys
+// (four 16-token pool blocks) are gathered by 16-byte cp.async into a ring in
+// shared memory, in their own dtype. The host picks the regime from shapes
+// it knows (T and the T * group rows per (slot, kv head)), never from device
+// data:
+//   * split-K (rpa_split_kernel + rpa_combine_kernel; T = 1, GQA decode
+//     included, and every fp32 call): grid (key split, row tile x kv
+//     head, slot), so a decode step's few long slots spread over the card; a
+//     CTA takes 4 rows (decode) or 16. Each of the 4 warps walks its own 16
+//     keys of every tile with its own softmax state on CUDA cores (lane = key
+//     x half of Dh for the scores, lane = Dh / 32 columns for P V); the warps
+//     merge in shared memory and the CTA writes fp32 partials (m in log2
+//     units, l, acc). Splits that start past the slot's largest position
+//     write an empty partial (m = NEG_INF, l = 0). The combine kernel merges
+//     the partials in split order: no atomics, the same bits on every run.
+//     Double-buffered ring.
+//   * verify (rpa_verify_kernel + rpa_combine_kernel; bf16, T > 1 and
+//     T * group <= 64: speculative verify, short prompt chunks): the split-K
+//     grid and partials with a 16-row q tile on tensor cores. Each warp
+//     computes S = Q K^T for its 16 keys of a tile with mma.sync.m16n8k16
+//     (bf16 in, fp32 accumulate; Q held as A fragments, loaded once by
+//     ldmatrix), masks and biases per (row, key), keeps its own online
+//     softmax in registers, and feeds P, packed to bf16, as the A fragment of
+//     P V with V through ldmatrix.trans. So the work per key no longer grows
+//     with the row count, as the CUDA-core scores and per-key shuffles of
+//     split-K did. mma.sync and not wgmma: wgmma takes 64-row tiles, and a
+//     verify has 8-16 rows a (slot, kv head), so three quarters or more of
+//     each tile would be padding; the call is bound by bytes, not by the
+//     tensor cores' rate. What Hopper gives here is more of the walk in
+//     flight: a ring of 4 stages at Dh 64 (76 KB, three CTAs an SM) and 3 at
+//     Dh 128 (109 KB, two an SM), so a 256-key split has its whole walk, or
+//     all but one tile, in flight at once. The stages are filled by cp.async
+//     gathers through the block table, not TMA: a tensor map's box would
+//     cover one 16-token pool block of one head (2-4 KB), so a tile needs
+//     four boxes and four table reads either way; without a swizzle the
+//     boxes land on unpadded rows whose ldmatrix reads conflict (a 128-byte
+//     swizzle cannot span Dh 128's 256-byte rows in one box); and the map
+//     would be encoded on the host for every call's pool view.
+//   * chunk (rpa_chunk_kernel; bf16, T * group > 64): 64-row q tiles, 4
+//     warps of 16 rows on mma.sync.m16n8k16, operands by ldmatrix (V through
+//     its transposing form), scores and P in registers, heaviest tiles
+//     launched first. Double-buffered ring.
 // Scores are kept in log2 units (scale * log2 e folded in), so each
 // probability is one exp2f.
 //
@@ -567,6 +590,237 @@ __global__ void __launch_bounds__(kThreads) rpa_chunk_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// verify on tensor cores (bf16; T > 1, T * group <= 64). grid (n_split,
+// ceil(T * group / 16) * H_kv, B), the split-K grid: one 16-row q tile a
+// CTA, warp w on keys 16w .. 16w + 15 of every 64-key tile with its own
+// online softmax, the warps merged into this split's partial, the partials
+// merged by rpa_combine_kernel. The fragment layouts are the chunk kernel's
+// at one 16-row tile: S (16 x 16) is two 8-key accumulator chunks, which
+// together are the A fragment of P V's one k-step.
+// ---------------------------------------------------------------------------
+constexpr int kVerifyRows = 16;
+
+// K/V ring stages: the deepest that keeps 3 CTAs an SM at Dh 64, 2 at 128
+template <int D>
+__host__ __device__ constexpr int verify_stages() {
+  return D == 64 ? 4 : 3;
+}
+
+template <int D>
+__host__ __device__ constexpr int verify_smem_bytes() {
+  return (kVerifyRows + verify_stages<D>() * 2 * kTileKeys) * (D + 8) * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) rpa_verify_kernel(const Params p) {
+  constexpr int kLd = D + 8;  // 16 bytes of padding: conflict-free ldmatrix rows
+  constexpr int kStages = verify_stages<D>();
+  constexpr int kStage = 2 * kTileKeys * kLd;
+  static_assert(kStages * kStage * 2 >= kWarps * kVerifyRows * (D + 2) * 4,
+                "the warps' merge must fit in the K/V ring");
+  extern __shared__ float4 smem4[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem4);  // [16][kLd]
+  bf16* kv = q_s + kVerifyRows * kLd;          // kStages x (K [64][kLd], V [64][kLd])
+  __shared__ int qpos_s[kVerifyRows];
+  __shared__ float slope_s[kVerifyRows];
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int split = blockIdx.x;
+  const int kh = blockIdx.y % p.H_kv, row0 = (blockIdx.y / p.H_kv) * kVerifyRows;
+  const int b = blockIdx.z;
+  const int group = p.H / p.H_kv;
+  const int n_all = p.T * group;
+  const int n_rows = min(kVerifyRows, n_all - row0);
+
+  if (tid < kVerifyRows) {
+    int qp = -1;  // padding rows see no key
+    float sl = 0.f;
+    if (tid < n_rows) {
+      const int r = row0 + tid;
+      qp = p.pos[(int64_t)b * p.pos_sb + (int64_t)(r / group) * p.pos_st];
+      if (p.slopes != nullptr) sl = p.slopes[kh * group + r % group] * kLog2e;
+    }
+    qpos_s[tid] = qp;
+    slope_s[tid] = sl;
+  }
+  __syncthreads();
+  int max_pos = -1;
+#pragma unroll
+  for (int r = 0; r < kVerifyRows; ++r) max_pos = max(max_pos, qpos_s[r]);
+  // keys past the tile's largest position are masked for every row
+  const int kv_end = min(p.n_ctx * p.bs, max_pos + 1);
+  const int lo = split * p.split_keys, hi = min(lo + p.split_keys, kv_end);
+  const int64_t prow = ((int64_t)b * p.H_kv + kh) * n_all + row0;  // partial row of r = 0
+
+  if (lo >= hi) {  // nothing to see in this split: an empty partial
+    for (int i = tid; i < n_rows * D; i += kThreads)
+      p.part_acc[((prow + i / D) * p.n_split + split) * D + i % D] = 0.f;
+    if (tid < n_rows) {
+      p.part_m[(prow + tid) * p.n_split + split] = kNegInf;
+      p.part_l[(prow + tid) * p.n_split + split] = 0.f;
+    }
+    return;
+  }
+
+  const bf16* q = static_cast<const bf16*>(p.q);
+  for (int i = tid; i < kVerifyRows * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    const int rr = row0 + r;
+    const bool valid = r < n_rows;
+    const bf16* src = valid ? q + (int64_t)b * p.q_sb + (int64_t)(rr / group) * p.q_st +
+                                  (int64_t)(kh * group + rr % group) * D + c
+                            : q;
+    cp_async16(q_s + r * kLd + c, src, valid);
+  }
+  const int64_t kv_base = (int64_t)p.layer * p.p_slayer + (int64_t)kh * p.p_shead;
+  const bf16* kp = static_cast<const bf16*>(p.k) + kv_base;
+  const bf16* vp = static_cast<const bf16*>(p.v) + kv_base;
+  const int* rows = p.rows + (int64_t)b * p.rows_sb;
+  const int n_tiles = (hi - lo + kTileKeys - 1) / kTileKeys;
+  // tiles 0 .. kStages - 2 in flight, one commit group each (q rides in the first)
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    bf16* dst = kv + st * kStage;
+    if (st < n_tiles)
+      load_kv_tile<bf16, D, kLd>(dst, dst + kTileKeys * kLd, kp, vp, rows, p, lo + st * kTileKeys,
+                                 hi);
+    cp_commit();
+  }
+
+  const int r0 = g, r1 = g + 8;  // this thread's rows of the tile
+  const int qp0 = qpos_s[r0], qp1 = qpos_s[r1];
+  const float sl0 = slope_s[r0], sl1 = slope_s[r1];
+  // the last key each row sees in this split: its position, or the split's end
+  const int last0 = min(qp0, hi - 1), last1 = min(qp1, hi - 1);
+  const float c2 = p.scale * kLog2e;
+  const bool alibi = p.slopes != nullptr;
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: this lane's matrix and row
+  float o[D / 8][4] = {};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  uint32_t qa[D / 16][4];
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int nx = i + kStages - 1;  // the tile whose loads go out now
+    if (nx < n_tiles) {
+      bf16* dst = kv + (nx % kStages) * kStage;
+      load_kv_tile<bf16, D, kLd>(dst, dst + kTileKeys * kLd, kp, vp, rows, p, lo + nx * kTileKeys,
+                                 hi);
+    }
+    cp_commit();
+    cp_wait<kStages - 1>();  // tile i (and q) have landed
+    __syncthreads();
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(qa[kk], q_s + ((mi & 1) * 8 + mr) * kLd + kk * 16 + (mi >> 1) * 8);
+    }
+    const bf16* ks = kv + (i % kStages) * kStage + w * 16 * kLd;  // this warp's 16 keys
+    const bf16* vs = ks + kTileKeys * kLd;
+    const int k0 = lo + i * kTileKeys + w * 16;
+
+    float s[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t bk[4];
+      ldsm_x4(bk, ks + ((mi >> 1) * 8 + mr) * kLd + kk * 16 + (mi & 1) * 8);
+      mma16816(s[0], qa[kk], bk[0], bk[1]);
+      mma16816(s[1], qa[kk], bk[2], bk[3]);
+    }
+    // one compare a score against the row's last visible key (no branch)
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, kpos = k0 + n * 8 + 2 * t + (e & 1);
+        float x = s[n][e] * c2;
+        if (alibi) x = fmaf(r ? sl1 : sl0, (float)(kpos - (r ? qp1 : qp0)), x);
+        x = kpos > (r ? last1 : last0) ? kNegInf : x;
+        s[n][e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    float alpha[2], m_use[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = exp2f(m[r] - m_new);
+      // a row with no visible key yet keeps m at NEG_INF and all its scores
+      // at NEG_INF: exp2 against 0 gives p = 0, as the TPU kernel forces
+      m_use[r] = m_new > 0.5f * kNegInf ? m_new : 0.f;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - m_use[e >> 1]);
+        sum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+    // P rounded to V's dtype (bf16) as the A fragment of the one k-step
+    const uint32_t pa[4] = {pack2(s[0][0], s[0][1]), pack2(s[0][2], s[0][3]),
+                            pack2(s[1][0], s[1][1]), pack2(s[1][2], s[1][3])};
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bv[4];
+      ldsm_x4_t(bv, vs + ((mi & 1) * 8 + mr) * kLd + dp * 16 + (mi >> 1) * 8);
+      mma16816(o[2 * dp], pa, bv[0], bv[1]);
+      mma16816(o[2 * dp + 1], pa, bv[2], bv[3]);
+    }
+    __syncthreads();  // the stage is free for the tile kStages on
+  }
+  cp_wait<0>();  // only empty groups are left; nothing writes the ring now
+
+  // merge the 4 warps' states (in the freed ring) into this split's partial
+  float* wm = reinterpret_cast<float*>(kv);
+  float* wl = wm + kWarps * kVerifyRows;
+  float* wacc = wl + kWarps * kVerifyRows;  // [kWarps][16][D]
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = g + 8 * half;
+    const float lr = quad_sum(l[half]);
+    if (t == 0) {
+      wm[w * kVerifyRows + r] = m[half];
+      wl[w * kVerifyRows + r] = lr;
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(wacc + (w * kVerifyRows + r) * D + n * 8 + 2 * t) =
+          make_float2(o[n][2 * half], o[n][2 * half + 1]);
+  }
+  __syncthreads();
+  for (int i = tid; i < n_rows * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    float mm = kNegInf;
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww) mm = fmaxf(mm, wm[ww * kVerifyRows + r]);
+    float ll = 0.f, aa = 0.f;
+    if (mm > 0.5f * kNegInf) {
+#pragma unroll
+      for (int ww = 0; ww < kWarps; ++ww) {
+        const float f = exp2f(wm[ww * kVerifyRows + r] - mm);
+        ll += wl[ww * kVerifyRows + r] * f;
+        aa += wacc[(ww * kVerifyRows + r) * D + d] * f;
+      }
+    }
+    const int64_t pr = (prow + r) * p.n_split + split;
+    p.part_acc[pr * D + d] = aa;
+    if (d == 0) {
+      p.part_m[pr] = mm;
+      p.part_l[pr] = ll;
+    }
+  }
+}
+
 template <typename T, int D, int kRows>
 int launch_split(const Params& p, cudaStream_t stream) {
   const int n_all = p.T * (p.H / p.H_kv);
@@ -599,13 +853,29 @@ int launch_chunk(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_verify(const Params& p, cudaStream_t stream) {
+  const int n_all = p.T * (p.H / p.H_kv);
+  const int smem = verify_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(rpa_verify_kernel<D>),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.n_split, ((n_all + kVerifyRows - 1) / kVerifyRows) * p.H_kv, p.B);
+  rpa_verify_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  rpa_combine_kernel<bf16, D><<<dim3(n_all, p.H_kv, p.B), D, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // mode: 0 = split-K (rpa_split_kernel then rpa_combine_kernel; needs the
-// part_* scratch), 1 = chunk on tensor cores (bf16 only). dtype: 0 =
-// float32, 1 = bfloat16. head_dim: 64 or 128. Strides are in elements.
+// part_* scratch), 1 = chunk on tensor cores (bf16 only), 2 = verify on
+// tensor cores (rpa_verify_kernel then rpa_combine_kernel; bf16 only, needs
+// the part_* scratch). dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or
+// 128. Strides are in elements.
 // Returns a cudaError_t (0 on success) from the launches.
 int photon_rpa_launch(int mode, int dtype, int head_dim,
                       const void* q, int64_t q_sb, int64_t q_st,
@@ -626,6 +896,11 @@ int photon_rpa_launch(int mode, int dtype, int head_dim,
   if (mode == 1) {
     if (dtype == 1 && head_dim == 64) return launch_chunk<64>(p, s);
     if (dtype == 1 && head_dim == 128) return launch_chunk<128>(p, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (mode == 2) {
+    if (dtype == 1 && head_dim == 64) return launch_verify<64>(p, s);
+    if (dtype == 1 && head_dim == 128) return launch_verify<128>(p, s);
     return (int)cudaErrorInvalidValue;
   }
   if (mode != 0) return (int)cudaErrorInvalidValue;

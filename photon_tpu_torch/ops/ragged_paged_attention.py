@@ -18,23 +18,34 @@ Shape contract (one transformer layer):
 
 Returns ``[B, T, H, Dh]`` in ``q``'s dtype; fp32 scores and accumulators.
 
-Decode is bound by memory: per slot and layer it reads ``n_ctx · bs ·
-H_kv · Dh · 2`` bytes of K and V (plus q and out) for 4 flops per (query,
-key, head, dim); a long prompt chunk is bound by operations. Both regimes
-(see the source) read only the blocks a tile's queries can see, straight
-from the pool through the table. The wrapper picks the regime from shapes
-the host knows, never from device data: ``T · group < 16`` rows per
-(slot, kv head), and every fp32 call, go to the split-K kernel on CUDA
-cores, whose per-split partials (:func:`split_plan` sets the splits from
-``n_ctx · bs``) a second kernel merges in split order; bf16 calls with
-``T · group >= 16`` go to the chunk kernel on tensor cores. A split and
-its merge count as one launch.
+Decode and speculative verify are bound by memory: per slot and layer a
+call reads ``n_ctx · bs · H_kv · Dh · 2`` bytes of K and V (plus q and out)
+for 4 flops per (query, key, head, dim); a long prompt chunk is bound by
+operations. Every regime (see the source) reads only the blocks a tile's
+queries can see, straight from the pool through the table. The wrapper
+picks the regime from shapes the host knows, never from device data
+(:func:`regime`):
+
+- ``"split"``: ``T = 1`` (decode, GQA decode included) and every fp32 call.
+  The split-K kernel on CUDA cores writes per-split partials
+  (:func:`split_plan` sets the splits from ``n_ctx · bs``), which a second
+  kernel merges in split order.
+- ``"verify"``: bf16 with ``T > 1`` and ``T · group <= VERIFY_MAX_ROWS``
+  (64) rows per (slot, kv head): speculative verify and short prompt
+  chunks. The split-K grid and partials, with a 16-row q tile on tensor
+  cores (``mma.sync``) and a K/V ring of 4 stages at Dh 64, 3 at Dh 128,
+  filled by ``cp.async``.
+- ``"chunk"``: bf16 with ``T · group > 64``: 64-row q tiles on tensor
+  cores, one CTA walking its whole key range.
+
+A split and its merge count as one launch.
 
 :func:`ragged_reference_attention` over :func:`live_view` is the plain
 version: one dense masked softmax over the gathered live blocks. The
 wrapper takes it for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises. :func:`split_partials` and :func:`combine_partials` write
-the split-K arithmetic out plainly, for the tests.
+the split-K arithmetic out plainly, :func:`verify_partials` the verify
+kernel's (per split, per warp's 16-key slices), for the tests.
 """
 
 from __future__ import annotations
@@ -46,17 +57,22 @@ import torch
 #: wrapper calls that launched the CUDA kernels (a split and its merge count
 #: once; the plain version does not count)
 launches = 0
+#: the same calls by regime
+regime_launches = {"split": 0, "verify": 0, "chunk": 0}
 
 NEG_INF = -1.0e30  # finite: masked scores never make inf - inf
 LOG2E = 1.4426950408889634
-#: keys of one split of the split-K regime (four 64-key tiles)
+#: keys of one split of the split-K and verify regimes (four 64-key tiles)
 SPLIT_KEYS = 256
-#: rows per (slot, kv head) from which bf16 calls take the tensor-core kernel
-CHUNK_MIN_ROWS = 16
+#: the most rows per (slot, kv head) a bf16 call with T > 1 takes the verify
+#: regime at; more go to the chunk kernel
+VERIFY_MAX_ROWS = 64
+#: keys of a K/V tile, and the warps that share it (16 keys each)
+TILE_KEYS, WARPS = 64, 4
 _SOURCE = "ragged_paged_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_MODES = {"split": 0, "chunk": 1}
+_MODES = {"split": 0, "chunk": 1, "verify": 2}
 
 
 def split_plan(n_keys: int) -> tuple[int, int]:
@@ -67,9 +83,12 @@ def split_plan(n_keys: int) -> tuple[int, int]:
 
 
 def regime(t: int, group: int, dtype: torch.dtype) -> str:
-    """Which kernel a call takes: ``"chunk"`` (tensor cores) for bf16 with
-    at least ``CHUNK_MIN_ROWS`` rows per (slot, kv head), else ``"split"``."""
-    return "chunk" if dtype == torch.bfloat16 and t * group >= CHUNK_MIN_ROWS else "split"
+    """Which kernel a call of ``t`` tokens takes: ``"split"`` for decode
+    (``t = 1``) and every fp32 call; for bf16, ``"verify"`` up to
+    ``VERIFY_MAX_ROWS`` rows per (slot, kv head) and ``"chunk"`` above."""
+    if dtype != torch.bfloat16 or t == 1:
+        return "split"
+    return "verify" if t * group <= VERIFY_MAX_ROWS else "chunk"
 
 
 def live_view(k_pool: torch.Tensor, v_pool: torch.Tensor, layer: int,
@@ -115,15 +134,10 @@ def ragged_reference_attention(q: torch.Tensor, kb: torch.Tensor,
     return out.reshape(b, t, h, d)
 
 
-def split_partials(q: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
-                   positions: torch.Tensor, split_keys: int, *,
-                   scale: float | None = None,
-                   slopes: torch.Tensor | None = None):
-    """The split-K kernel's partials, plainly: for each split ``s`` of the
-    key axis (keys ``s · split_keys`` onward), ``m`` (the split's largest
-    visible logit, in log2 units; NEG_INF if it sees none), ``l`` (the sum
-    of ``exp2(x - m)``) and ``acc`` (those probabilities in V's dtype times
-    V). ``m, l [B, T, H, n_split]``, ``acc [B, T, H, n_split, Dh]``, fp32."""
+def _log2_scores(q, kb, positions, scale, slopes) -> torch.Tensor:
+    """Scores in log2 units (scale · log2 e folded in, ALiBi as
+    ``-slope · log2 e · (q_pos - k_pos)``), NEG_INF where ``k_pos > q_pos``:
+    ``[B, T, H, S]`` fp32."""
     b, t, h, d = q.shape
     s, n_kv = kb.shape[1], kb.shape[2]
     group = h // n_kv
@@ -136,7 +150,20 @@ def split_partials(q: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
         dist = (positions[:, :, None] - k_pos).float()
         sl = slopes.float().reshape(n_kv, group) * LOG2E
         x = x - sl[None, None, :, :, None] * dist[:, :, None, None, :]
-    x = x.masked_fill(~valid[:, :, None, None, :], NEG_INF).reshape(b, t, h, s)
+    return x.masked_fill(~valid[:, :, None, None, :], NEG_INF).reshape(b, t, h, s)
+
+
+def split_partials(q: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
+                   positions: torch.Tensor, split_keys: int, *,
+                   scale: float | None = None,
+                   slopes: torch.Tensor | None = None):
+    """The split-K kernel's partials, plainly: for each split ``s`` of the
+    key axis (keys ``s · split_keys`` onward), ``m`` (the split's largest
+    visible logit, in log2 units; NEG_INF if it sees none), ``l`` (the sum
+    of ``exp2(x - m)``) and ``acc`` (those probabilities in V's dtype times
+    V). ``m, l [B, T, H, n_split]``, ``acc [B, T, H, n_split, Dh]``, fp32."""
+    x = _log2_scores(q, kb, positions, scale, slopes)
+    s, group = kb.shape[1], q.shape[2] // kb.shape[2]
     ms, ls, accs = [], [], []
     for lo in range(0, s, split_keys):
         xs = x[..., lo:lo + split_keys]
@@ -149,15 +176,63 @@ def split_partials(q: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
     return torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2)
 
 
+def verify_partials(q: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
+                    positions: torch.Tensor, split_keys: int, *,
+                    scale: float | None = None,
+                    slopes: torch.Tensor | None = None):
+    """The verify kernel's partials, plainly: each split of the key axis is
+    walked in ``TILE_KEYS``-key tiles, and warp ``w`` takes keys ``16w ..
+    16w + 15`` of every tile with its own online softmax state ``(m, l,
+    acc)`` (P rounded to V's dtype against the running max before P V);
+    the ``WARPS`` states merge in warp order into the split's partial. The
+    same ``(m, l, acc)`` layout as :func:`split_partials`, which
+    :func:`combine_partials` merges in split order."""
+    x = _log2_scores(q, kb, positions, scale, slopes)
+    s, group = kb.shape[1], q.shape[2] // kb.shape[2]
+    vh = vb.float().repeat_interleave(group, dim=2)  # [B, S, H, Dh]
+    wk = TILE_KEYS // WARPS
+    ms, ls, accs = [], [], []
+    for lo in range(0, s, split_keys):
+        hi = min(lo + split_keys, s)
+        warps = []
+        for w in range(WARPS):
+            m = x.new_full(x.shape[:-1], NEG_INF)
+            l = x.new_zeros(x.shape[:-1])
+            acc = x.new_zeros(*x.shape[:-1], vb.shape[-1])
+            for k0 in range(lo + w * wk, hi, TILE_KEYS):
+                xs = x[..., k0:min(k0 + wk, hi)]
+                m_new = torch.maximum(m, xs.amax(-1))
+                alpha = torch.exp2(m - m_new)
+                m_use = torch.where(m_new > NEG_INF / 2, m_new, torch.zeros_like(m_new))
+                p = torch.exp2(xs - m_use[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bths,bshd->bthd", p.to(vb.dtype).float(), vh[:, k0:k0 + xs.shape[-1]])
+                m = m_new
+            warps.append((m, l, acc))
+        wm, wl, wacc = zip(*warps)
+        m, l, acc = _merge(torch.stack(wm, -1), torch.stack(wl, -1), torch.stack(wacc, -2))
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    return torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2)
+
+
+def _merge(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor):
+    """Online-softmax states over the last axis of ``m, l [..., n]`` and
+    ``acc [..., n, Dh]`` merged in order: the largest ``m`` (NEG_INF if
+    none saw a key), and ``l``, ``acc`` rescaled to it and summed."""
+    mm = m.amax(-1, keepdim=True)
+    f = torch.where(mm > NEG_INF / 2, torch.exp2(m - mm), torch.zeros_like(m))
+    return mm[..., 0], (l * f).sum(-1), (acc * f[..., None]).sum(-2)
+
+
 def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
     """The combine kernel, plainly: merge ``(m, l, acc)`` over the split
     axis (m in log2 units); a row that saw no key gives 0. ``m, l [..., n]``,
     ``acc [..., n, Dh]`` → ``[..., Dh]`` fp32."""
-    mm = m.amax(-1, keepdim=True)
-    live = mm > NEG_INF / 2
-    f = torch.where(live, torch.exp2(m - mm), torch.zeros_like(m))
-    ll = (l * f).sum(-1, keepdim=True)
-    aa = (acc * f[..., None]).sum(-2)
+    _, ll, aa = _merge(m, l, acc)
+    ll = ll[..., None]
     return torch.where(ll == 0, torch.zeros_like(aa), aa / torch.where(ll == 0, 1.0, ll))
 
 
@@ -252,7 +327,7 @@ def _launch(q, k_pool, v_pool, layer, rows, positions, scale, slopes):
     mode = regime(t, h // n_kv, q.dtype)
     n_split, split_keys = split_plan(n_ctx * bs)
     part_m = part_l = part_acc = None
-    if mode == "split":  # fp32 scratch for the partials, merged by the second kernel
+    if mode != "chunk":  # fp32 scratch for the partials, merged by the second kernel
         rows_all = t * (h // n_kv)
         part_m = torch.empty((b, n_kv, rows_all, n_split), dtype=torch.float32, device=q.device)
         part_l = torch.empty_like(part_m)
@@ -276,4 +351,5 @@ def _launch(q, k_pool, v_pool, layer, rows, positions, scale, slopes):
         msg = lib.photon_rpa_error_string(err).decode()
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: {msg} ({err})")
     launches += 1
+    regime_launches[mode] += 1
     return out

@@ -56,12 +56,12 @@ KERNEL_GATES = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     dict(b=8, t=1, h=12, n_kv=12, dh=64, alibi=False),   # mpt-125m decode
     dict(b=1, t=512, h=12, n_kv=12, dh=64, alibi=False),  # mpt-125m chunk
     dict(b=8, t=1, h=16, n_kv=4, dh=128, alibi=False),   # llama-1b decode
-    dict(b=1, t=64, h=12, n_kv=12, dh=64, alibi=True),   # ALiBi chunk
+    dict(b=1, t=64, h=12, n_kv=12, dh=64, alibi=True),   # ALiBi, 64 rows: bf16 verify
     # speculative verify: each row's [last, drafts] at consecutive
     # positions, rows at different depths; every key past a query's own
     # position holds data (a later draft's), which only a per-query mask hides
-    dict(b=8, t=8, h=12, n_kv=12, dh=64, alibi=False, verify=True),  # mpt-125m, split
-    dict(b=8, t=4, h=16, n_kv=4, dh=128, alibi=False, verify=True),  # llama-1b, bf16 chunk
+    dict(b=8, t=8, h=12, n_kv=12, dh=64, alibi=False, verify=True),  # mpt-125m
+    dict(b=8, t=4, h=16, n_kv=4, dh=128, alibi=False, verify=True),  # llama-1b
 ])
 def test_kernel_matches_plain(cuda, dtype, shape):
     c = _case(21, b=shape["b"], t=shape["t"], h=shape["h"], n_kv=shape["n_kv"],
@@ -151,10 +151,12 @@ def test_split_decode_slot_with_no_visible_key(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 512], ids=["split_decode", "chunk"])
+@pytest.mark.parametrize("t", [1, 8, 512], ids=["split_decode", "verify", "chunk"])
 def test_kernel_gives_the_same_bits_twice(cuda, t):
     if t == 1:
         q, kp, vp, rows, pos = _engine_decode(41, torch.bfloat16, cuda, [2047, 900, 300, 1])
+    elif t == 8:
+        q, kp, vp, rows, pos = _engine_verify(41, cuda, [2039, 900, 300, 1])
     else:
         c = _case(43, b=1, t=t, h=12, n_kv=12, dh=64, bs=16, nb=129, n_ctx=128)
         c["pos"] = np.arange(1024, 1024 + t, dtype=np.int32)[None]
@@ -196,3 +198,69 @@ def test_prefix_hit_chunk_shares_blocks(cuda, dtype):
     torch.cuda.synchronize()
     ref = rpa.ragged_reference_attention(q, *rpa.live_view(kp, vp, 1, rows), pos)
     assert _rel(out.float().cpu(), ref.float().cpu()) <= KERNEL_GATES[dtype]
+
+
+def _engine_verify(seed, dev, depths, *, t=8, h=12, n_kv=12, dh=64, n_layers=2,
+                   shared=False):
+    """A bf16 verify grid at the engine's full width (n_ctx = 128 blocks of
+    16): row ``i``'s ``t`` queries at ``depths[i] + 0 .. t - 1``, distinct
+    blocks per slot (or, ``shared``, ids drawn from 8 blocks that every
+    slot maps, as recycled and prefix-shared blocks are), the trash block
+    past each slot's end."""
+    rng = np.random.default_rng(seed)
+    b, bs, n_ctx = len(depths), 16, 128
+    nb = b * n_ctx + 1
+    pos_np = (np.array(depths)[:, None] + np.arange(t)).astype(np.int32)
+    rows = np.full((b, n_ctx), nb - 1, np.int32)
+    perm = rng.permutation(nb - 1)
+    for i in range(b):
+        need = min(n_ctx, max(int(pos_np[i].max()), 0) // bs + 1)
+        rows[i, :need] = rng.integers(0, 8, need) if shared else perm[i * n_ctx: i * n_ctx + need]
+
+    def r(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            dev, torch.bfloat16)
+
+    q = r(b, t, h, dh)
+    kp, vp = r(nb, n_layers, bs, n_kv, dh), r(nb, n_layers, bs, n_kv, dh)
+    return q, kp, vp, torch.from_numpy(rows).to(dev), torch.from_numpy(pos_np).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(t=8, heads=(12, 12, 64)),                # mpt-125m verify, n_spec 8
+    dict(t=4, heads=(16, 4, 128)),                # llama-1b verify: 16 rows a (slot, kv head)
+    dict(t=16, heads=(16, 4, 128)),               # T * group = 64: four row tiles
+    dict(t=64, heads=(12, 12, 64)),               # T * group = 64 at one row a token
+    dict(t=8, heads=(12, 12, 64), alibi=True),
+    dict(t=4, heads=(12, 12, 64), shared=True),   # recycled / shared blocks
+], ids=["mpt125m", "llama1b", "gqa_64_rows", "mha_64_rows", "alibi", "shared_blocks"])
+def test_verify_regime_matches_plain(cuda, case):
+    h, n_kv, dh = case["heads"]
+    t = case["t"]
+    depths = [2047 - t, 1800, 1536, 1200, 1024, 700, 130, 0]
+    q, kp, vp, rows, pos = _engine_verify(59, cuda, depths, t=t, h=h, n_kv=n_kv, dh=dh,
+                                          shared=case.get("shared", False))
+    slopes = alibi_slopes(h, cuda) if case.get("alibi") else None
+    assert rpa.regime(t, h // n_kv, torch.bfloat16) == "verify"
+    before, verify_before = rpa.launches, rpa.regime_launches["verify"]
+    out = rpa.ragged_paged_attention(q, kp, vp, 1, rows, pos, slopes=slopes)
+    torch.cuda.synchronize()
+    assert rpa.launches == before + 1  # the splits and their merge count once
+    assert rpa.regime_launches["verify"] == verify_before + 1
+    ref = rpa.ragged_reference_attention(q, *rpa.live_view(kp, vp, 1, rows), pos, slopes=slopes)
+    assert _rel(out.float().cpu(), ref.float().cpu()) <= KERNEL_GATES[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_verify_regime_row_that_sees_no_key(cuda):
+    """A slot whose queries sit at -1 (nothing to see) and a padding
+    column at position 0 beside live rows: the first writes 0."""
+    q, kp, vp, rows, pos = _engine_verify(73, cuda, [1500, 0, 40, 2030])
+    pos[1] = -1
+    pos[2, 5:] = 0
+    out = rpa.ragged_paged_attention(q, kp, vp, 0, rows, pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and bool((out[1] == 0).all())
+    ref = rpa.ragged_reference_attention(q, *rpa.live_view(kp, vp, 0, rows), pos)
+    assert _rel(out.float().cpu(), ref.float().cpu()) <= KERNEL_GATES[torch.bfloat16]

@@ -40,6 +40,13 @@ def _case(seed, *, b, t, h, n_kv, dh=8, bs=4, nb=17, n_ctx=8):
     )
 
 
+def _jax_kernel(c, alibi):
+    jslopes = jax_alibi_slopes(c["q"].shape[2]) if alibi else None
+    return np.asarray(jax_rpa(jnp.asarray(c["q"]), jnp.asarray(c["kp"][:, 0]),
+                              jnp.asarray(c["vp"][:, 0]), jnp.asarray(c["rows"]),
+                              jnp.asarray(c["pos"]), slopes=jslopes, interpret=True))
+
+
 def _split_vs_unsplit(c, split_keys, alibi):
     q, kp, vp = (torch.from_numpy(c[k]) for k in ("q", "kp", "vp"))
     rows, pos = torch.from_numpy(c["rows"]), torch.from_numpy(c["pos"])
@@ -48,11 +55,7 @@ def _split_vs_unsplit(c, split_keys, alibi):
     m, l, acc = rpa.split_partials(q, kb, vb, pos, split_keys, slopes=slopes)
     merged = rpa.combine_partials(m, l, acc).numpy()
     plain = rpa.ragged_reference_attention(q, kb, vb, pos, slopes=slopes).numpy()
-    jslopes = jax_alibi_slopes(q.shape[2]) if alibi else None
-    kern = np.asarray(jax_rpa(jnp.asarray(c["q"]), jnp.asarray(c["kp"][:, 0]),
-                              jnp.asarray(c["vp"][:, 0]), jnp.asarray(c["rows"]),
-                              jnp.asarray(c["pos"]), slopes=jslopes, interpret=True))
-    return merged, plain, kern, m
+    return merged, plain, _jax_kernel(c, alibi), m
 
 
 @pytest.mark.parametrize("split_keys", [4, 8, 12, 32])
@@ -104,9 +107,86 @@ def test_split_plan(n_ctx, bs, want):
 @pytest.mark.parametrize("t,group,dtype,want", [
     (1, 1, torch.bfloat16, "split"),    # mpt-125m decode
     (1, 4, torch.bfloat16, "split"),    # llama-1b decode (GQA 16/4)
-    (4, 4, torch.bfloat16, "chunk"),
+    (4, 4, torch.bfloat16, "verify"),   # llama-1b verify: 16 rows a (slot, kv head)
     (512, 1, torch.bfloat16, "chunk"),  # a prompt chunk
     (512, 1, torch.float32, "split"),   # fp32 stays on CUDA cores
+    (8, 1, torch.bfloat16, "verify"),   # mpt-125m verify at n_spec 8
+    (64, 1, torch.bfloat16, "verify"),  # the most rows the verify regime takes
+    (65, 1, torch.bfloat16, "chunk"),
+    (17, 4, torch.bfloat16, "chunk"),
+    (8, 1, torch.float32, "split"),
 ])
 def test_regime_is_chosen_from_shapes(t, group, dtype, want):
     assert rpa.regime(t, group, dtype) == want
+
+
+def _verify_case(seed, *, t, group, n_kv=2, b=2, n_ctx=24):
+    """A verify grid at the engine's block size: each row's ``t`` queries
+    at consecutive positions from its own depth (keys past a query's own
+    position hold data, a later draft's), 16-token blocks, 384 keys."""
+    c = _case(seed, b=b, t=t, h=n_kv * group, n_kv=n_kv, bs=16, nb=2 * n_ctx + 1, n_ctx=n_ctx)
+    depth = np.random.default_rng(seed + 1).integers(0, n_ctx * 16 - t, b)
+    c["pos"] = (depth[:, None] + np.arange(t)).astype(np.int32)
+    return c
+
+
+def _verify_vs_plain(c, split_keys, alibi):
+    q, kp, vp = (torch.from_numpy(c[k]) for k in ("q", "kp", "vp"))
+    rows, pos = torch.from_numpy(c["rows"]), torch.from_numpy(c["pos"])
+    slopes = alibi_slopes(q.shape[2]) if alibi else None
+    kb, vb = rpa.live_view(kp, vp, 0, rows)
+    m, l, acc = rpa.verify_partials(q, kb, vb, pos, split_keys, slopes=slopes)
+    merged = rpa.combine_partials(m, l, acc).numpy()
+    plain = rpa.ragged_reference_attention(q, kb, vb, pos, slopes=slopes).numpy()
+    return merged, plain, _jax_kernel(c, alibi), m
+
+
+@pytest.mark.parametrize("split_keys", [64, 128, rpa.SPLIT_KEYS])
+@pytest.mark.parametrize("kind", [
+    "t8_group1",    # mpt-125m verify (n_spec 8)
+    "t4_group4",    # llama-1b verify (GQA 16/4, n_spec 4)
+    "t16_group4",   # T * group = 64: four 16-row tiles
+    "alibi",
+])
+def test_verify_partials_match_unsplit_and_jax(split_keys, kind):
+    t, group = {"t8_group1": (8, 1), "t4_group4": (4, 4), "t16_group4": (16, 4),
+                "alibi": (8, 2)}[kind]
+    c = _verify_case(61, t=t, group=group)
+    assert rpa.regime(t, group, torch.bfloat16) == "verify"
+    merged, plain, kern, m = _verify_vs_plain(c, split_keys, kind == "alibi")
+    assert m.shape[-1] == -(-24 * 16 // split_keys)
+    assert _rel(merged, plain) < RAGGED_KERNEL_EPS
+    assert _rel(merged, kern) < RAGGED_KERNEL_EPS
+
+
+def test_verify_partials_padding_columns_and_unseeing_row():
+    """Padding columns at position 0 (a row with fewer drafts than the
+    bucket) see key 0 alone; a row at position -1 sees no key and merges
+    to 0; splits past a slot's largest position are empty."""
+    c = _verify_case(67, t=8, group=2, b=3)
+    c["pos"][0, 5:] = 0
+    c["pos"][1, :] = -1
+    c["pos"][2] = np.arange(100, 108)
+    merged, plain, kern, m = _verify_vs_plain(c, 128, alibi=False)
+    m = m.numpy()
+    assert (m[1] == rpa.NEG_INF).all()
+    assert (m[2, :, :, 1:] == rpa.NEG_INF).all()  # keys 128 on: past every position
+    assert np.all(merged[1] == 0.0) and np.all(np.isfinite(merged))
+    assert _rel(merged, plain) < RAGGED_KERNEL_EPS
+    assert _rel(merged, kern) < RAGGED_KERNEL_EPS
+
+
+def test_verify_warp_states_merge_in_warp_order():
+    """One split, one tile: each warp's 16 keys give that warp's softmax
+    alone, and the merged partial equals the split-K partial of the same
+    keys (the two regimes' partials merge alike)."""
+    c = _verify_case(71, t=4, group=1, n_ctx=4)
+    c["pos"][:] = 63
+    q, kp, vp = (torch.from_numpy(c[k]) for k in ("q", "kp", "vp"))
+    rows, pos = torch.from_numpy(c["rows"]), torch.from_numpy(c["pos"])
+    kb, vb = rpa.live_view(kp, vp, 0, rows)
+    mv, lv, av = rpa.verify_partials(q, kb, vb, pos, 64)
+    ms, ls, as_ = rpa.split_partials(q, kb, vb, pos, 64)
+    assert mv.shape == ms.shape == (2, 4, 2, 1)
+    assert torch.equal(mv, ms)  # the largest logit is one value either way
+    assert _rel(lv, ls) < RAGGED_KERNEL_EPS and _rel(av, as_) < RAGGED_KERNEL_EPS
